@@ -1,0 +1,77 @@
+"""Carry weights and replay state over from the JAX package.
+
+Inputs are plain numpy: a flax param tree as ``jax.tree.map(np.asarray,
+params)`` and a ``ReplayState`` whose leaves were turned into numpy the
+same way. Nothing here imports JAX.
+
+Layout changes: conv kernels HWIO -> OIHW; Dense kernels (in, out) ->
+(out, in); the LSTM's ``recurrent_kernel`` (H, 4H) and ``bias`` (4H,) keep
+their layout and gate order i, f, g, o. The torso Dense rows stay in flax's
+(h, w, c) flatten order, because the port flattens the last conv output
+from its NHWC view (models/network.py ConvTorso).
+"""
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _dense(out: dict, prefix: str, p: Mapping) -> None:
+    out[f"{prefix}.weight"] = _t(p["kernel"]).T.contiguous()
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax R2D2Network param tree -> the port's ``state_dict``."""
+    p = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    torso = p["torso"]
+    conv_names = sorted((k for k in torso if k.startswith("Conv_")),
+                        key=lambda k: int(k.split("_")[1]))
+    for i, name in enumerate(conv_names):
+        out[f"torso.convs.{i}.weight"] = _t(
+            torso[name]["kernel"]).permute(3, 2, 0, 1).contiguous()
+        out[f"torso.convs.{i}.bias"] = _t(torso[name]["bias"])
+    _dense(out, "torso.dense", torso["Dense_0"])
+    lstm = p["lstm"]
+    _dense(out, "lstm.input_proj", lstm["input_proj"])
+    out["lstm.recurrent_kernel"] = _t(lstm["recurrent_kernel"])
+    out["lstm.bias"] = _t(lstm["bias"])
+    for name, sub in p["head"].items():
+        _dense(out, f"head.{name}", sub)
+    return out
+
+
+def replay_state_from_jax(state, spec, device) -> "ReplayState":
+    """A JAX ``ReplayState`` with numpy leaves -> the port's ReplayState
+    on ``device``. ``spec`` is the port's ReplaySpec; its storage layout
+    (padded or not) must match the JAX state's."""
+    from r2d2_tpu_torch.replay.structs import ReplayState
+
+    def t(x):       # a copy: the port updates its state in place
+        return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+    obs = t(state.obs)
+    expected = (spec.stored_frame_height, spec.stored_frame_width)
+    if tuple(obs.shape[2:]) != expected:
+        raise ValueError(f"JAX obs ring frames are {tuple(obs.shape[2:])}, "
+                         f"the port's spec stores {expected}")
+    lane = getattr(state, "lane", None)
+    return ReplayState(
+        tree=t(state.tree), obs=obs, last_action=t(state.last_action),
+        hidden=t(state.hidden), action=t(state.action),
+        reward=t(state.reward), gamma=t(state.gamma),
+        burn_in_steps=t(state.burn_in_steps),
+        learning_steps=t(state.learning_steps),
+        forward_steps=t(state.forward_steps), seq_start=t(state.seq_start),
+        weight_version=t(state.weight_version),
+        block_ptr=int(np.asarray(state.block_ptr)),
+        lane=(t(lane) if lane is not None
+              else torch.full((spec.num_blocks,), -1, dtype=torch.int32,
+                              device=device)))

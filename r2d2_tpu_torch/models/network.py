@@ -1,0 +1,223 @@
+"""The recurrent dueling Q-network: conv torso -> hoisted-input LSTM ->
+dueling head, the PyTorch counterpart of the JAX package's
+models/network.py.
+
+Compute-dtype policy mirrors flax's ``dtype=``: parameters stay f32, inputs
+and weights are cast to the compute dtype at each layer, Q and the packed
+hidden come back in f32, and under bf16 the LSTM carry is bf16 as in the
+JAX scan.
+
+Layout: the decoded observation (B, T, H, W, K) viewed as (B*T, H, W, K)
+and permuted to (B*T, K, H, W) is a channels_last NCHW tensor, which
+``F.conv2d`` takes with no copy. The last conv output is flattened from its
+NHWC view — flax's (h, w, c) order — so a converted flax Dense kernel needs
+no row permutation (models/convert.py relies on this).
+"""
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from r2d2_tpu_torch.config import NetworkConfig, check_network, resolve_bf16
+
+
+def pack_hidden(carry: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """(c, h) -> (..., 2, hidden) with packed[0] = h, packed[1] = c."""
+    c, h = carry
+    return torch.stack([h, c], dim=-2)
+
+
+def unpack_hidden(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return packed[..., 1, :], packed[..., 0, :]
+
+
+def initial_hidden(batch_size: int, hidden_dim: int,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros((batch_size, 2, hidden_dim), dtype=dtype, device=device)
+
+
+def _linear(x, layer: nn.Linear, dtype):
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class ConvTorso(nn.Module):
+    """Nature-DQN feature extractor: (N, H, W, K) -> (N, cnn_out_dim)."""
+
+    def __init__(self, frame_stack: int, frame_hw: Tuple[int, int],
+                 cnn_out_dim: int, conv_layers):
+        super().__init__()
+        convs, channels = [], frame_stack
+        h, w = frame_hw
+        for features, kernel, stride in conv_layers:
+            convs.append(nn.Conv2d(channels, features, kernel, stride))
+            channels = features
+            h, w = (h - kernel) // stride + 1, (w - kernel) // stride + 1
+        self.convs = nn.ModuleList(convs)
+        self.dense = nn.Linear(h * w * channels, cnn_out_dim)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)                 # channels_last NCHW view
+        for conv in self.convs:
+            x = F.relu(F.conv2d(x.to(dtype), conv.weight.to(dtype),
+                                conv.bias.to(dtype), conv.stride))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # (h, w, c)
+        return _linear(x, self.dense, dtype)
+
+
+def lstm_cell_step(xp, c, h, w_rec, bias):
+    """One LSTM step given the hoisted input projection ``xp`` = x_t @ Wi.
+    Gate order i, f, g, o."""
+    gates = xp + h @ w_rec + bias
+    i, f, g, o = gates.chunk(4, dim=-1)
+    new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    new_h = torch.sigmoid(o) * torch.tanh(new_c)
+    return new_c, new_h
+
+
+class HoistedLSTM(nn.Module):
+    """LSTM over (B, T, D) with the input projection computed for the whole
+    window as one matmul before the time loop; the loop keeps only the
+    (B, H) x (H, 4H) recurrent matmul."""
+
+    def __init__(self, input_dim: int, features: int):
+        super().__init__()
+        self.input_proj = nn.Linear(input_dim, 4 * features, bias=False)
+        self.recurrent_kernel = nn.Parameter(torch.empty(features, 4 * features))
+        self.bias = nn.Parameter(torch.zeros(4 * features))
+
+    def forward(self, carry, xs: torch.Tensor, dtype: torch.dtype):
+        x_proj = _linear(xs, self.input_proj, dtype)          # (B, T, 4H)
+        w_rec = self.recurrent_kernel.to(dtype)
+        bias = self.bias.to(dtype)
+        c, h = carry
+        outputs = []
+        for t in range(xs.shape[1]):
+            c, h = lstm_cell_step(x_proj[:, t], c, h, w_rec, bias)
+            outputs.append(h)
+        return (c, h), torch.stack(outputs, dim=1)            # (B, T, H)
+
+
+class DuelingHead(nn.Module):
+    """q = v + a - mean(a), or a alone without dueling; Q in f32."""
+
+    def __init__(self, hidden_dim: int, action_dim: int, use_dueling: bool):
+        super().__init__()
+        self.use_dueling = use_dueling
+        self.adv_hidden = nn.Linear(hidden_dim, hidden_dim)
+        self.adv_out = nn.Linear(hidden_dim, action_dim)
+        if use_dueling:
+            self.val_hidden = nn.Linear(hidden_dim, hidden_dim)
+            self.val_out = nn.Linear(hidden_dim, 1)
+
+    def forward(self, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        adv = _linear(F.relu(_linear(h, self.adv_hidden, dtype)),
+                      self.adv_out, dtype)
+        if not self.use_dueling:
+            return adv.float()
+        val = _linear(F.relu(_linear(h, self.val_hidden, dtype)),
+                      self.val_out, dtype)
+        return (val + adv - adv.mean(dim=-1, keepdim=True)).float()
+
+
+class R2D2Network(nn.Module):
+    """Unroll T steps from a packed hidden state; T=1 is the actor's step,
+    T=seq_len the learner's sequence pass."""
+
+    def __init__(self, action_dim: int, config: NetworkConfig,
+                 frame_stack: int, frame_height: int, frame_width: int):
+        super().__init__()
+        self.action_dim = action_dim
+        self.config = config
+        self.compute_dtype = torch.bfloat16 if config.bf16 else torch.float32
+        self.torso = ConvTorso(frame_stack, (frame_height, frame_width),
+                               config.cnn_out_dim, config.conv_layers)
+        self.lstm = HoistedLSTM(config.cnn_out_dim + action_dim,
+                                config.hidden_dim)
+        self.head = DuelingHead(config.hidden_dim, action_dim,
+                                config.use_dueling)
+
+    def forward(self, obs_seq: torch.Tensor, last_action_seq: torch.Tensor,
+                hidden: torch.Tensor):
+        """obs_seq (B, T, H, W, K) in [0, 1]; last_action_seq (B, T, A)
+        one-hot; hidden (B, 2, hidden_dim) packed. Returns Q (B, T, A) f32
+        and the final packed hidden in f32."""
+        dtype = self.compute_dtype
+        batch, seq = obs_seq.shape[:2]
+        latent = self.torso(obs_seq.reshape(batch * seq, *obs_seq.shape[2:]),
+                            dtype).reshape(batch, seq, -1)
+        rnn_in = torch.cat([latent, last_action_seq.to(dtype)], dim=-1)
+        carry, outputs = self.lstm(unpack_hidden(hidden.to(dtype)), rnn_in,
+                                   dtype)
+        q = self.head(outputs.reshape(batch * seq, -1), dtype)
+        return q.reshape(batch, seq, -1), pack_hidden(carry).float()
+
+
+def _lecun_normal_(weight: torch.Tensor, fan_in: int, gen: torch.Generator):
+    """flax's default kernel init: truncated normal, variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
+def init_params_(module: R2D2Network, seed: int) -> R2D2Network:
+    """Initialize like the flax module: lecun-normal kernels, zero biases,
+    per-gate orthogonal recurrent kernel. Drawn on the CPU from one
+    ``torch.Generator``, so a seed gives the same weights on every device."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in module.modules():
+            if isinstance(layer, (nn.Conv2d, nn.Linear)):
+                fan_in = layer.weight[0].numel()
+                w = torch.empty(layer.weight.shape)
+                _lecun_normal_(w, fan_in, gen)
+                layer.weight.copy_(w)
+                if layer.bias is not None:
+                    layer.bias.zero_()
+        lstm = module.lstm
+        hidden = lstm.recurrent_kernel.shape[0]
+        blocks = [nn.init.orthogonal_(torch.empty(hidden, hidden), generator=gen)
+                  for _ in range(4)]
+        lstm.recurrent_kernel.copy_(torch.cat(blocks, dim=1))
+        lstm.bias.zero_()
+    return module
+
+
+class NetworkApply:
+    """Binding of a network spec to a device: resolves the bf16 tri-state
+    for that device, validates the conv pyramid against the frame size,
+    and builds initialized modules."""
+
+    def __init__(self, action_dim: int, config: NetworkConfig,
+                 frame_stack: int, frame_height: int, frame_width: int,
+                 device: torch.device):
+        check_network(config)
+        self.device = torch.device(device)
+        self.config = dataclasses.replace(
+            config, bf16=resolve_bf16(config.bf16, self.device))
+        self.action_dim = action_dim
+        self.obs_hw = (frame_height, frame_width, frame_stack)
+        h, w = frame_height, frame_width
+        for i, (_, kernel, stride) in enumerate(config.conv_layers):
+            h, w = (h - kernel) // stride + 1, (w - kernel) // stride + 1
+            if h < 1 or w < 1:
+                raise ValueError(
+                    f"conv layer {i} (kernel {kernel}, stride {stride}) "
+                    f"shrinks the {frame_height}x{frame_width} frame to "
+                    f"{h}x{w}; use smaller network.conv_layers")
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.config.bf16 else torch.float32
+
+    def build(self) -> R2D2Network:
+        h, w, s = self.obs_hw
+        return R2D2Network(self.action_dim, self.config, s, h, w).to(self.device)
+
+    def init(self, seed: int) -> R2D2Network:
+        h, w, s = self.obs_hw
+        module = R2D2Network(self.action_dim, self.config, s, h, w)
+        return init_params_(module, seed).to(self.device)

@@ -1,0 +1,179 @@
+"""The learner's replay data path: window gather and uint8 frame decode.
+
+Two hand-written CUDA kernels (``csrc/replay_kernels.cu``) with their plain
+PyTorch versions beside them:
+
+* ``gather_windows_cuda`` — out[i] = ring[block_idx[i], start[i]:start[i]+W];
+  replaces the TPU kernels ``gather_rows_pallas`` and
+  ``gather_rows_exact_pallas`` (r2d2_tpu/ops/pallas_kernels.py);
+* ``stack_frames_cuda`` — out[b,t,h,w,k] = obs[b,t+k,h,w] / 255 in the compute
+  dtype; replaces ``stack_frames_pallas`` (same file).
+
+Both are bound by bytes; the source file says what each design does about
+it. The dispatch functions ``gather_rows`` and ``stack_frames`` take the
+plain version only for a tensor on the CPU; a CUDA tensor launches the
+kernel or raises. ``LAUNCHES`` counts kernel launches (plain calls do not
+count), so a run can show that its main path went through the kernels.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from r2d2_tpu_torch.ops.indexing import frame_stack_indices
+
+LAUNCHES = {"gather_windows": 0, "stack_frames": 0}
+
+_INV255 = 1.0 / 255.0
+_SIGNATURES = {
+    "gather_windows": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
+    + [ctypes.c_int, ctypes.c_void_p],
+    "stack_frames": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_int64] * 8 + [ctypes.c_void_p],
+}
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from r2d2_tpu_torch.ops import _build
+        lib = _build.load("replay_kernels")
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# window gather
+
+
+def gather_windows_plain(ring: torch.Tensor, block_idx: torch.Tensor,
+                         start: torch.Tensor, window: int) -> torch.Tensor:
+    """Plain version: ring (N, R, Hs, Ws) uint8 -> (B, window, Hs, Ws).
+    Off-contract indices follow lax.dynamic_slice / jnp indexing in the JAX
+    reference: a negative index counts from the end, then clamps."""
+    num_rows, row_len = ring.shape[:2]
+    bi, st = block_idx.long(), start.long()
+    bi = torch.where(bi < 0, bi + num_rows, bi).clamp(0, num_rows - 1)
+    st = torch.where(st < 0, st + row_len, st).clamp(0, row_len - window)
+    t = st[:, None] + torch.arange(window, device=ring.device)[None, :]
+    return ring[bi[:, None], t]
+
+
+def gather_windows_cuda(ring: torch.Tensor, block_idx: torch.Tensor,
+                        start: torch.Tensor, window: int) -> torch.Tensor:
+    """CUDA kernel launch (see csrc/replay_kernels.cu gather_windows)."""
+    if not (ring.is_cuda and ring.dtype == torch.uint8 and ring.dim() == 4):
+        raise ValueError("gather_windows takes a 4-D uint8 CUDA ring")
+    if not ring.is_contiguous() or ring.data_ptr() % 16:
+        raise ValueError("gather_windows needs a contiguous, 16-byte "
+                         "aligned ring")
+    num_rows, row_len, height, width = ring.shape
+    if not 0 < window <= row_len:
+        raise ValueError(f"window {window} does not fit rows of {row_len}")
+    block_idx = block_idx.to(ring.device, torch.int32).contiguous()
+    start = start.to(ring.device, torch.int32).contiguous()
+    batch = block_idx.shape[0]
+    out = torch.empty((batch, window, height, width), dtype=torch.uint8,
+                      device=ring.device)
+    if batch == 0:
+        return out
+    frame_bytes = height * width
+    _check(_library().gather_windows(
+        ring.data_ptr(), block_idx.data_ptr(), start.data_ptr(),
+        out.data_ptr(), batch, num_rows, row_len, frame_bytes, window,
+        int(frame_bytes % 16 == 0), _stream(ring.device)), "gather_windows")
+    LAUNCHES["gather_windows"] += 1
+    return out
+
+
+def gather_rows(ring: torch.Tensor, block_idx: torch.Tensor,
+                start: torch.Tensor, window: int) -> torch.Tensor:
+    """Dispatch: the kernel for a CUDA ring, the plain version for a CPU
+    one. Works on unpadded and tile-padded storage alike."""
+    if ring.device.type == "cpu":
+        return gather_windows_plain(ring, block_idx, start, window)
+    return gather_windows_cuda(ring, block_idx, start, window)
+
+
+# ---------------------------------------------------------------------------
+# frame decode
+
+
+def stack_frames_plain(obs: torch.Tensor, seq_window: int, frame_stack: int,
+                       out_dtype: torch.dtype = torch.float32,
+                       out_height: Optional[int] = None,
+                       out_width: Optional[int] = None) -> torch.Tensor:
+    """Plain version: obs (B, >=T+K-1, Hs, Ws) uint8 -> (B, T, H, W, K).
+    Scales by f32(1/255) in f32 and rounds once into ``out_dtype`` — the
+    kernel's arithmetic, so the two agree exactly (the JAX reference
+    divides by 255, which may differ by one f32 ulp)."""
+    out_height = obs.shape[2] if out_height is None else out_height
+    out_width = obs.shape[3] if out_width is None else out_width
+    fsi = frame_stack_indices(seq_window, frame_stack, device=obs.device)
+    stacked = obs[:, :, :out_height, :out_width][:, fsi]    # (B,T,K,H,W)
+    out = stacked.permute(0, 1, 3, 4, 2).float() * _INV255
+    return out.to(out_dtype).contiguous()
+
+
+def stack_frames_cuda(obs: torch.Tensor, seq_window: int, frame_stack: int,
+                      out_dtype: torch.dtype = torch.float32,
+                      out_height: Optional[int] = None,
+                      out_width: Optional[int] = None) -> torch.Tensor:
+    """CUDA kernel launch (see csrc/replay_kernels.cu stack_frames)."""
+    if not (obs.is_cuda and obs.dtype == torch.uint8 and obs.dim() == 4):
+        raise ValueError("stack_frames takes a 4-D uint8 CUDA tensor")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"stack_frames emits float32 or bfloat16, not "
+                         f"{out_dtype}")
+    obs = obs.contiguous()
+    batch, row_len, stored_h, stored_w = obs.shape
+    out_height = stored_h if out_height is None else out_height
+    out_width = stored_w if out_width is None else out_width
+    if row_len < seq_window + frame_stack - 1:
+        raise ValueError(f"rows of {row_len} frames are shorter than the "
+                         f"{seq_window}+{frame_stack}-1 window")
+    if out_height > stored_h or out_width > stored_w:
+        raise ValueError("out_height/out_width exceed the stored frame")
+    out = torch.empty((batch, seq_window, out_height, out_width, frame_stack),
+                      dtype=out_dtype, device=obs.device)
+    if out.numel() == 0:
+        return out
+    _check(_library().stack_frames(
+        obs.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        batch, seq_window, frame_stack, row_len, stored_h, stored_w,
+        out_height, out_width, _stream(obs.device)), "stack_frames")
+    LAUNCHES["stack_frames"] += 1
+    return out
+
+
+def stack_frames(obs: torch.Tensor, seq_window: int, frame_stack: int,
+                 out_dtype: torch.dtype = torch.float32,
+                 out_height: Optional[int] = None,
+                 out_width: Optional[int] = None) -> torch.Tensor:
+    """Dispatch: the kernel for a CUDA tensor, the plain version for a CPU
+    one. The optim.pallas_decode_layout values "planar" and "nhwc" both
+    land here: the output is (B, T, H, W, K) either way."""
+    if obs.device.type == "cpu":
+        return stack_frames_plain(obs, seq_window, frame_stack, out_dtype,
+                                  out_height, out_width)
+    return stack_frames_cuda(obs, seq_window, frame_stack, out_dtype,
+                               out_height, out_width)

@@ -1,0 +1,84 @@
+"""The port's trainer entry point on the CPU, its device rule, and its
+isolation from JAX and from the JAX package."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from r2d2_tpu_torch.cli import train
+from r2d2_tpu_torch.utils.device import resolve_device
+
+pytestmark = pytest.mark.torch_port
+
+REPO = Path(__file__).resolve().parent.parent
+TINY_ARGS = [
+    "--env.game_name=Fake", "--env.frame_height=24", "--env.frame_width=24",
+    "--env.frame_stack=2", "--network.hidden_dim=16",
+    "--network.cnn_out_dim=32", "--network.conv_layers=8,4,2;16,3,1",
+    "--sequence.burn_in_steps=4", "--sequence.learning_steps=5",
+    "--sequence.forward_steps=3", "--replay.capacity=800",
+    "--replay.block_length=20", "--replay.batch_size=8",
+    "--replay.learning_starts=100", "--replay.max_env_steps_per_train_step=2",
+    "--optim.lr=1e-3"]
+
+
+def test_cli_train_on_cpu_is_reproducible():
+    """N learner steps at the tiny shape; the same seed gives the same
+    losses twice."""
+    args = TINY_ARGS + ["--device=cpu", "--max-steps=4", "--seed=3"]
+    a = train.main(args)
+    b = train.main(args)
+    assert a["steps"] == 4 and a["device"] == "cpu"
+    assert len(a["losses"]) == 4 and np.all(np.isfinite(a["losses"]))
+    assert a["losses"] == b["losses"]
+    assert a["env_steps"] >= 100
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(TINY_ARGS + ["--max-steps=1"])
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_port_imports_nothing_of_jax():
+    """Every module of r2d2_tpu_torch, cli.train and chip_smoke imported in
+    a fresh interpreter: no jax*, flax*, optax* or r2d2_tpu module loads."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import r2d2_tpu_torch\n"
+        "for m in pkgutil.walk_packages(r2d2_tpu_torch.__path__, "
+        "'r2d2_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import r2d2_tpu_torch.cli.train, chip_smoke\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'r2d2_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert 'r2d2_tpu_torch.replay.device_replay' in sys.modules\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a card chip_smoke.py exits nonzero and prints no result; in
+    a directory holding nothing else of the repo it fails too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120,
+                          env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
