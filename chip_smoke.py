@@ -5,24 +5,34 @@
 
 Phases, each of which asserts or raises (any failure exits nonzero):
   1. versions, device name and power limit;
-  2. build the CUDA kernels from the sources in this checkout;
-  3. every kernel against its plain PyTorch version at the reference shape
-     (exact), with CUDA-event times of kernel, plain version and the
-     PyTorch library call, and the bandwidth bound;
-  4. a small learner step on the card against the same step on the CPU,
-     then the learner step at the reference shape (B=128, T=40+10+5,
-     84x84x4, cnn 1024, LSTM 512, dueling, bf16) over a replay filled by
-     replay_add_many (capacity cut from 500,000 to 100,000 steps);
+  2. build the CUDA kernels from the sources in this checkout, one nvcc per
+     source, all started together; print what ptxas reports per kernel;
+  3. every kernel against its plain PyTorch version: the replay kernels at
+     the reference shape (exact), the LSTM scan kernels at ragged small
+     shapes and at the reference shape (T=55, B=128, H=512) in f32 and
+     bf16 (tolerances at LSTM_TOL); CUDA-event times of kernel, plain
+     version and the PyTorch library call, and the bound; cuDNN's nn.LSTM
+     timed beside the port's LSTM layer as a yardstick;
+  4. a small f32 learner step on the card against the same step on the
+     CPU, on the default path and with network.pallas_lstm="on" and double
+     DQN; then the learner step at the reference shape (B=128,
+     T=40+10+5, 84x84x4, cnn 1024, LSTM 512, dueling, bf16) over a replay
+     filled by replay_add_many (capacity cut from 500,000 to 100,000
+     steps), on the default path, with double DQN, and with the fused LSTM
+     scan and double DQN, timed in turns;
   5. the trainer through its entry point, r2d2_tpu_torch.cli.train, at the
-     same widths for a few learner steps; the kernel launch counts of this
-     run go into the ``kernels`` line.
+     same widths for a few learner steps, on the default path and with
+     --network.pallas_lstm=on --network.use_double=true; the kernel launch
+     counts of these runs go into the ``kernels`` line.
 
 The last line is {"ok": true, "device": {...}}. ``--profile`` adds a
-torch.profiler breakdown of three reference-shape steps.
+torch.profiler breakdown of three reference-shape steps of each path.
 """
 
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -30,8 +40,33 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+# H100 SXM dense peaks by input type: bf16 on the tensor cores, f32 off them
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 REF_CAPACITY = 100_000             # down from 500,000 to fit the smoke's time
-KERNEL_SOURCE = "r2d2_tpu_torch/csrc/replay_kernels.cu"
+KERNEL_SOURCES = {"replay_kernels": "r2d2_tpu_torch/csrc/replay_kernels.cu",
+                  "lstm_kernels": "r2d2_tpu_torch/csrc/lstm_kernels.cu"}
+REPLACES = {
+    "gather_windows": "r2d2_tpu/ops/pallas_kernels.py:325; "
+                      "r2d2_tpu/ops/pallas_kernels.py:372",
+    "stack_frames": "r2d2_tpu/ops/pallas_kernels.py:194",
+    "lstm_fwd": "r2d2_tpu/ops/pallas_lstm.py:194",
+    "lstm_fwd_lean": "r2d2_tpu/ops/pallas_lstm.py:194",
+    "lstm_bwd": "r2d2_tpu/ops/pallas_lstm.py:307",
+}
+# LSTM kernels vs plain versions, (atol, rtol) on outputs compared in f32.
+# Not exact: the products sum in another order. f32: that order alone,
+# grown over 55 steps. bf16: an f32 difference that flips a rounding of a
+# bf16 output is one bf16 ulp, < 2e-2 below magnitude 2.5 and 2^-7 relative
+# above it.
+LSTM_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
+# dWh sums T*B products per entry: max error / max |reference|
+DWH_REL = {"float32": 1e-3, "bfloat16": 2e-2}
+LSTM_REF_SHAPE = (55, 128, 512)                          # T, B, H
+# ragged edges: H not a multiple of a block's 4 units, rows too narrow for
+# 16-byte loads (the one-element path), B across the forward's 64-row and
+# the backward's 32-row tiles
+LSTM_SMALL_SHAPES = ((4, 3, 17), (5, 8, 18), (6, 70, 16), (3, 130, 24))
+FUSED_ARGS = ["--network.pallas_lstm=on", "--network.use_double=true"]
 
 
 def check(cond, what="") -> None:
@@ -47,6 +82,19 @@ def _import_port():
     if Path(r2d2_tpu_torch.__file__).resolve().parent.parent != here:
         raise SystemExit("r2d2_tpu_torch is not beside chip_smoke.py")
     return r2d2_tpu_torch
+
+
+def _reset_counts() -> None:
+    from r2d2_tpu_torch.ops import lstm_kernels as lk
+    from r2d2_tpu_torch.ops import replay_kernels as rk
+    rk.reset_launch_counts()
+    lk.reset_launch_counts()
+
+
+def _counts() -> dict:
+    from r2d2_tpu_torch.ops import lstm_kernels as lk
+    from r2d2_tpu_torch.ops import replay_kernels as rk
+    return {**rk.LAUNCHES, **lk.LAUNCHES}
 
 
 def cuda_ms(fn, runs: int = 30, warmup: int = 3) -> float:
@@ -76,16 +124,56 @@ def phase_versions():
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
 
+def _ptxas_lines(report: str):
+    """One line per kernel from ``nvcc -Xptxas -v``: registers, stack,
+    spills, static shared memory."""
+    demangle = shutil.which("c++filt")
+    lines, name, props = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, props = m.group(1), ""
+            if demangle:
+                name = subprocess.run([demangle, name], capture_output=True,
+                                      text=True, check=True).stdout.strip()
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            props = (f"stack {m.group(1)} B, spill stores {m.group(2)} B, "
+                     f"spill loads {m.group(3)} B")
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"{name}: {m.group(1)} registers, {props}, static "
+                         f"smem {smem.group(1) if smem else 0} B")
+            name = None
+    return lines
+
+
 def phase_build():
+    """Every source at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
     from r2d2_tpu_torch.ops import _build
-    t0 = time.perf_counter()
-    _build.build("replay_kernels", force=True)
-    print(f"build: replay_kernels.cu {time.perf_counter() - t0:.2f} s",
-          flush=True)
+
+    def timed(name):
+        t0 = time.perf_counter()
+        _build.build(name, force=True)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        seconds = dict(zip(KERNEL_SOURCES, pool.map(timed, KERNEL_SOURCES)))
+    for name, s in seconds.items():
+        print(f"build: {name}.cu {s:.2f} s", flush=True)
+        lines = _ptxas_lines(_build.PTXAS_REPORT[name])
+        check(lines, f"no ptxas report for {name}")
+        for line in lines:
+            print(f"ptxas {name}: {line}", flush=True)
 
 
-def phase_kernels(dev):
-    """Kernel vs plain version at the reference shape, exact."""
+def replay_kernel_checks(dev):
+    """Replay kernels vs plain versions at the reference shape, exact."""
     import torch
     from r2d2_tpu_torch.ops import replay_kernels as rk
 
@@ -127,7 +215,8 @@ def phase_kernels(dev):
         plain_ms=cuda_ms(lambda: rk.gather_windows_plain(ring, block_idx,
                                                          start, window)),
         library_ms=cuda_ms(lambda: ring[bi, tidx]),
-        bound_ms=2 * batch * window * h * w / HBM_BYTES_PER_S * 1e3)
+        bound_ms=2 * batch * window * h * w / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
     obs, obs_padded = gathered["unpadded"], gathered["padded"]
     del rings, ring
 
@@ -149,11 +238,202 @@ def phase_kernels(dev):
         plain_ms=cuda_ms(lambda: rk.stack_frames_plain(obs, t, k,
                                                        torch.bfloat16)),
         library_ms=None,
-        bound_ms=(obs.numel() + out_bytes) / HBM_BYTES_PER_S * 1e3)
+        bound_ms=(obs.numel() + out_bytes) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
+    return results
+
+
+def _lstm_inputs(dev, shape, dtype, seed):
+    """xpb, wh, c0, h0 and the cotangents dhseq, dc_fin, dh_fin."""
+    import torch
+    steps, batch, hidden = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*dims, scale=1.0):
+        return (torch.randn(dims, generator=g, device=dev) * scale).to(dtype)
+
+    return (randn(steps, batch, 4 * hidden),
+            randn(hidden, 4 * hidden, scale=hidden ** -0.5),
+            randn(batch, hidden, scale=0.5), randn(batch, hidden, scale=0.5),
+            randn(steps, batch, hidden), randn(batch, hidden),
+            randn(batch, hidden))
+
+
+def _max_err(name, got, want, dtype_name) -> float:
+    """Max |got - want| in f32; raises past LSTM_TOL."""
+    atol, rtol = LSTM_TOL[dtype_name]
+    got, want = got.float(), want.float()
+    check(got.shape == want.shape, f"{name} shape {tuple(got.shape)}")
+    err = (got - want).abs()
+    check(bool(got.isfinite().all()), f"{name} not finite")
+    check(bool((err <= atol + rtol * want.abs()).all()),
+          f"{name} ({dtype_name}): max err {err.max().item():.3e}")
+    return err.max().item()
+
+
+def lstm_check(dev, shape, dtype):
+    """The three LSTM kernels against their plain versions on one input.
+    The backward takes the kernel forward's residuals on both sides, so it
+    is compared alone. Returns the max error per kernel."""
+    import torch
+    from r2d2_tpu_torch.ops import lstm_kernels as lk
+    dname = str(dtype).removeprefix("torch.")
+    xpb, wh, c0, h0, dhseq, dcfin, dhfin = _lstm_inputs(dev, shape, dtype, 7)
+    got = lk.lstm_fwd_cuda(xpb, wh, c0, h0, save_residuals=True)
+    want = lk.lstm_fwd_plain(xpb, wh, c0, h0, save_residuals=True)
+    errs = {"lstm_fwd": max(_max_err(f"lstm_fwd {n}", a, b, dname)
+                            for n, a, b in zip(("hseq", "cseq", "acts"),
+                                               got, want))}
+    lean_h, lean_c = lk.lstm_fwd_cuda(xpb, wh, c0, h0, save_residuals=False)
+    check(torch.equal(lean_h, got[0]) and torch.equal(lean_c, got[1][-1]),
+          f"lean forward differs from the residual forward at {shape}")
+    errs["lstm_fwd_lean"] = max(
+        _max_err("lstm_fwd_lean hseq", lean_h, want[0], dname),
+        _max_err("lstm_fwd_lean c_fin", lean_c, want[1][-1], dname))
+    hseq, cseq, acts = got
+    bgot = lk.lstm_bwd_cuda(wh, c0, h0, hseq, cseq, acts, dhseq, dcfin,
+                            dhfin)
+    bwant = lk.lstm_bwd_plain(wh, c0, h0, hseq, cseq, acts, dhseq, dcfin,
+                              dhfin)
+    torch.cuda.synchronize()
+    check(bgot[0].dtype == dtype and bgot[1].dtype == torch.float32,
+          "lstm_bwd output types")
+    errs["lstm_bwd"] = max(_max_err(f"lstm_bwd {n}", a, b, dname)
+                           for n, a, b in zip(("dxpb", "dc0", "dh0"),
+                                              (bgot[0], bgot[2], bgot[3]),
+                                              (bwant[0], bwant[2], bwant[3])))
+    dwh_err = (bgot[1] - bwant[1]).abs().max().item()
+    dwh_rel = dwh_err / bwant[1].abs().max().item()
+    check(bool(bgot[1].isfinite().all()) and dwh_rel <= DWH_REL[dname],
+          f"lstm_bwd dWh ({dname}) at {shape}: relative err {dwh_rel:.3e}")
+    errs["lstm_bwd"] = max(errs["lstm_bwd"], dwh_err)
+    print(f"lstm kernels {dname} T,B,H={shape}: max err fwd "
+          f"{errs['lstm_fwd']:.3e}, lean {errs['lstm_fwd_lean']:.3e} (equal "
+          f"to the residual forward), bwd {errs['lstm_bwd']:.3e}, dWh "
+          f"relative {dwh_rel:.3e}", flush=True)
+    return errs
+
+
+def lstm_bounds(shape, dtype_name):
+    """(bound_ms, bound_by) per LSTM kernel: the larger of the bytes each
+    input read once and each output written once over the memory rate, and
+    the two recurrent products' operations (the backward's are two) over
+    the peak rate of the input type."""
+    steps, batch, hidden = shape
+    e = 4 if dtype_name == "float32" else 2
+    gates, seq, carry = steps * batch * 4 * hidden, steps * batch * hidden, \
+        batch * hidden
+    wh = hidden * 4 * hidden
+    product = 2 * steps * batch * hidden * 4 * hidden
+    work = {
+        "lstm_fwd": ((gates + wh + 2 * carry + 2 * seq + gates) * e, product),
+        "lstm_fwd_lean": ((gates + wh + 2 * carry + seq + carry) * e,
+                          product),
+        # dhseq, acts, cseq, hseq, Wh, c0, h0, dc_fin, dh_fin in; dxpb in
+        # the storage type, dWh, dc0 and dh0 in f32 out
+        "lstm_bwd": ((3 * seq + gates + wh + 4 * carry + gates) * e
+                     + (wh + 2 * carry) * 4, 2 * product),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def lstm_kernel_checks(dev):
+    """LSTM kernels vs plain versions (ragged small shapes, then the
+    reference shape, f32 and bf16) and their times in bf16, the main
+    path's type; f32 times printed beside."""
+    import torch
+    from r2d2_tpu_torch.ops import lstm_kernels as lk
+    errs = {"lstm_fwd": 0.0, "lstm_fwd_lean": 0.0, "lstm_bwd": 0.0}
+    for shape in (*LSTM_SMALL_SHAPES, LSTM_REF_SHAPE):
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, err in lstm_check(dev, shape, dtype).items():
+                errs[name] = max(errs[name], err)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        xpb, wh, c0, h0, dhseq, dcfin, dhfin = _lstm_inputs(
+            dev, LSTM_REF_SHAPE, dtype, 7)
+        hseq, cseq, acts = lk.lstm_fwd_cuda(xpb, wh, c0, h0)
+        bwd_args = (wh, c0, h0, hseq, cseq, acts, dhseq, dcfin, dhfin)
+        times = {
+            "lstm_fwd": (lambda: lk.lstm_fwd_cuda(xpb, wh, c0, h0),
+                         lambda: lk.lstm_fwd_plain(xpb, wh, c0, h0)),
+            "lstm_fwd_lean": (
+                lambda: lk.lstm_fwd_cuda(xpb, wh, c0, h0, False),
+                lambda: lk.lstm_fwd_plain(xpb, wh, c0, h0, False)),
+            "lstm_bwd": (lambda: lk.lstm_bwd_cuda(*bwd_args),
+                         lambda: lk.lstm_bwd_plain(*bwd_args)),
+        }
+        bounds = lstm_bounds(LSTM_REF_SHAPE, dname)
+        for name, (kernel, plain) in times.items():
+            r = dict(max_abs_err=errs[name], ms=cuda_ms(kernel),
+                     plain_ms=cuda_ms(plain, runs=10), library_ms=None,
+                     bound_ms=bounds[name][0], bound_by=bounds[name][1])
+            print(f"{name} {dname} T,B,H={LSTM_REF_SHAPE}: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})",
+                  flush=True)
+            if dtype == torch.bfloat16:
+                results[name] = r
+    return results
+
+
+def lstm_layer_yardstick(dev):
+    """cuDNN's nn.LSTM against the port's LSTM layer (input projection by
+    torch.matmul + the fused scan kernels), forward + backward, bf16, at
+    the learner's widths. A yardstick only: the port never calls cuDNN's
+    LSTM, and no single PyTorch call computes the scan alone."""
+    import torch
+    from r2d2_tpu_torch.ops.lstm_kernels import lstm_scan
+    batch, steps, dim, hidden = 128, 55, 1042, 512
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def param(*dims, scale):
+        return (torch.randn(dims, generator=g, device=dev) * scale).to(
+            torch.bfloat16).requires_grad_(True)
+
+    x = param(batch, steps, dim, scale=1.0)
+    wi = param(dim, 4 * hidden, scale=dim ** -0.5)
+    wh = param(hidden, 4 * hidden, scale=hidden ** -0.5)
+    bias = param(4 * hidden, scale=0.1)
+    zeros = torch.zeros(batch, hidden, device=dev, dtype=torch.bfloat16)
+    dout = torch.randn(batch, steps, hidden, generator=g, device=dev).to(
+        torch.bfloat16)
+
+    def port():
+        xpb = (x @ wi + bias).transpose(0, 1).contiguous()
+        hseq, _ = lstm_scan(xpb, wh, zeros, zeros)
+        torch.autograd.backward(hseq.transpose(0, 1), dout)
+
+    cudnn = torch.nn.LSTM(dim, hidden, batch_first=True).to(dev,
+                                                            torch.bfloat16)
+    cudnn.flatten_parameters()
+
+    def library():
+        out, _ = cudnn(x, (zeros[None], zeros[None]))
+        torch.autograd.backward(out, dout)
+
+    port_ms, cudnn_ms = cuda_ms(port, runs=20), cuda_ms(library, runs=20)
+    print(f"LSTM layer forward+backward (B={batch}, T={steps}, D={dim}, "
+          f"H={hidden}, bf16), yardstick: port (matmul + lstm_fwd + "
+          f"lstm_bwd) {port_ms:.4f} ms, cuDNN nn.LSTM {cudnn_ms:.4f} ms",
+          flush=True)
+
+
+def phase_kernels(dev):
+    results = replay_kernel_checks(dev)
+    results.update(lstm_kernel_checks(dev))
     for name, r in results.items():
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']} ms, bound "
-              f"{r['bound_ms'] * 1e3:.1f} us", flush=True)
+              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})", flush=True)
+    lstm_layer_yardstick(dev)
     return results
 
 
@@ -170,34 +450,37 @@ def _tiny_config():
         "replay.batch_size": 8, "optim.lr": 1e-3})
 
 
-def _filled_learner_parts(cfg, device, action_dim, blocks, seed=0):
-    from r2d2_tpu_torch.learner.train_step import (create_train_state,
-                                                   make_learner_step)
-    from r2d2_tpu_torch.models.network import NetworkApply
+def _filled_replay(cfg, device, blocks):
     from r2d2_tpu_torch.replay.device_replay import (replay_add_many,
                                                      replay_init)
     from r2d2_tpu_torch.replay.structs import ReplaySpec, stack_blocks
-    net = NetworkApply(action_dim, cfg.network, cfg.env.frame_stack,
-                       cfg.env.frame_height, cfg.env.frame_width, device)
     spec = ReplaySpec.from_config(cfg, device)
     rs = replay_init(spec, device)
     for i in range(0, len(blocks), 25):
         replay_add_many(spec, rs, stack_blocks(blocks[i:i + 25]))
+    return spec, rs
+
+
+def _learner(cfg, device, spec, action_dim, seed=0):
+    from r2d2_tpu_torch.learner.train_step import (create_train_state,
+                                                   make_learner_step)
+    from r2d2_tpu_torch.models.network import NetworkApply
+    net = NetworkApply(action_dim, cfg.network, cfg.env.frame_stack,
+                       cfg.env.frame_height, cfg.env.frame_width, device)
     ts = create_train_state(net, cfg.optim, seed, cfg.network.use_double)
-    return ts, rs, make_learner_step(net, spec, cfg.optim,
-                                     cfg.network.use_double), spec
+    return ts, make_learner_step(net, spec, cfg.optim, cfg.network.use_double)
 
 
-def phase_small_step_vs_cpu(dev):
+def phase_small_step_vs_cpu(dev, overrides, label):
     """Two f32 learner steps at a small shape: card (kernels) vs CPU (plain
     versions) on the same replay, weights and jitter. Tolerance: rtol 1e-4
-    on the loss and the tree (different conv/matmul algorithms sum in other
-    orders; TF32 is off)."""
+    on the loss and the tree (different conv/matmul algorithms and the LSTM
+    kernels sum in other orders; TF32 is off)."""
     import numpy as np
     import torch
     from r2d2_tpu_torch.replay.structs import ReplaySpec
     from r2d2_tpu_torch.replay.synthetic import make_synthetic_block
-    cfg = _tiny_config()
+    cfg = _tiny_config().replace(**overrides)
     spec = ReplaySpec.from_config(cfg, torch.device("cpu"))
     rng = np.random.default_rng(1)
     blocks = [make_synthetic_block(spec, rng) for _ in range(spec.num_blocks)]
@@ -205,95 +488,164 @@ def phase_small_step_vs_cpu(dev):
                           generator=torch.Generator().manual_seed(3))
     runs = {}
     for device in (torch.device("cpu"), dev):
-        ts, rs, step, _ = _filled_learner_parts(cfg, device, 18, blocks)
+        spec, rs = _filled_replay(cfg, device, blocks)
+        ts, step = _learner(cfg, device, spec, 18)
+        _reset_counts()
         losses = []
         for u in uniforms:
             ts, rs, m = step(ts, rs, u.to(device))
             losses.append(float(m["loss"]))
-        runs[device.type] = (losses, rs.tree.cpu())
+        runs[device.type] = (losses, rs.tree.cpu(), _counts())
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
     np.testing.assert_allclose(runs["cuda"][1], runs["cpu"][1], rtol=1e-4,
                                atol=1e-6)
-    print(f"small learner step, card vs CPU: losses {runs['cuda'][0]} vs "
-          f"{runs['cpu'][0]}", flush=True)
+    check(not any(runs["cpu"][2].values()), f"CPU launched {runs['cpu'][2]}")
+    fused = overrides.get("network.pallas_lstm") == "on"
+    double = overrides.get("network.use_double", False)
+    steps = len(uniforms)
+    want = {"gather_windows": steps, "stack_frames": steps,
+            "lstm_fwd": steps if fused else 0,
+            "lstm_fwd_lean": steps if fused and double else 0,
+            "lstm_bwd": steps if fused else 0}
+    check(runs["cuda"][2] == want, f"{label}: launches {runs['cuda'][2]}")
+    print(f"small learner step ({label}), card vs CPU: losses "
+          f"{runs['cuda'][0]} vs {runs['cpu'][0]}, launches "
+          f"{runs['cuda'][2]}", flush=True)
+
+
+REF_PATHS = {   # label: overrides of the reference configuration
+    "default": {},
+    "double": {"network.use_double": True},
+    "fused_double": {"network.use_double": True,
+                     "network.pallas_lstm": "on"},
+}
+
+
+def _profile(step, ts, rs) -> float:
+    """torch.profiler over 3 steps: prints the top ops by device time and
+    returns the device's busy ms per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        for _ in range(3):
+            ts, rs, _ = step(ts, rs)
+        torch.cuda.synchronize()
+    events = p.key_averages()
+    print(events.table(sort_by="self_cuda_time_total", row_limit=20),
+          flush=True)
+    # the device's own events only (operator rows repeat their kernels)
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 3e3
 
 
 def phase_reference_step(dev, profile: bool):
+    """The three REF_PATHS over one filled replay, each timed in two
+    windows of 10 steps, in turns (a b c c b a)."""
     import numpy as np
     import torch
     from r2d2_tpu_torch.config import Config
-    from r2d2_tpu_torch.ops import replay_kernels as rk
     from r2d2_tpu_torch.replay.structs import ReplaySpec
     from r2d2_tpu_torch.replay.synthetic import make_synthetic_block
 
-    cfg = Config().replace(**{"replay.capacity": REF_CAPACITY})
-    spec = ReplaySpec.from_config(cfg, dev)
+    base = Config().replace(**{"replay.capacity": REF_CAPACITY})
+    spec = ReplaySpec.from_config(base, dev)
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     blocks = [make_synthetic_block(spec, rng) for _ in range(spec.num_blocks)]
-    ts, rs, step, spec = _filled_learner_parts(cfg, dev, 18, blocks)
+    spec, rs = _filled_replay(base, dev, blocks)
     del blocks
     torch.cuda.synchronize()
-    check(ts.params.compute_dtype == torch.bfloat16, "bf16 on CUDA")
     print(f"reference replay: {spec.num_blocks} blocks, capacity "
           f"{REF_CAPACITY} steps (cut from 500,000), ring "
           f"{spec.device_ring_bytes / 1e9:.2f} GB, filled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for _ in range(3):
-        ts, rs, m = step(ts, rs)
+    learners = {}
+    for label, overrides in REF_PATHS.items():
+        ts, step = _learner(base.replace(**overrides), dev, spec, 18)
+        check(ts.params.compute_dtype == torch.bfloat16, "bf16 on CUDA")
+        check(ts.params.lstm.fused == ("network.pallas_lstm" in overrides),
+              f"{label}: LSTM path")
+        for _ in range(3):
+            ts, rs, m = step(ts, rs)
+        learners[label] = [ts, step]
     torch.cuda.synchronize()
-    rk.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
-    steps, losses = 20, []
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        ts, rs, m = step(ts, rs)
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    losses = [float(x) for x in losses]
-    check(all(math.isfinite(x) for x in losses), losses)
-    check(rk.LAUNCHES["gather_windows"] == steps, rk.LAUNCHES)
-    # one decode per step feeds every unroll of the step
-    check(rk.LAUNCHES["stack_frames"] == steps, rk.LAUNCHES)
-    ms = dt / steps * 1e3
-    out = {"step_ms": ms, "seq_updates_per_s": spec.batch_size * steps / dt,
-           "steps": steps, "peak_mem_gb":
-           torch.cuda.max_memory_allocated(dev) / 1e9,
-           "loss_first": losses[0], "loss_last": losses[-1]}
-    print("reference learner step: " + json.dumps(out), flush=True)
-    if profile:
-        from torch.profiler import ProfilerActivity, profile as prof
+
+    window, out = 10, {label: {"step_ms": [], "losses": [], "peak_mem_gb": 0.0}
+                       for label in REF_PATHS}
+    order = list(REF_PATHS) + list(reversed(REF_PATHS))
+    for label in order:
+        ts, step = learners[label]
+        overrides = REF_PATHS[label]
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(window):
+            ts, rs, m = step(ts, rs)
+            losses.append(m["loss"])
         torch.cuda.synchronize()
-        with prof(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as p:
-            for _ in range(3):
-                ts, rs, m = step(ts, rs)
-            torch.cuda.synchronize()
-        print(p.key_averages().table(sort_by="cuda_time_total",
-                                     row_limit=25), flush=True)
+        dt = time.perf_counter() - t0
+        launches = _counts()
+        fused = "network.pallas_lstm" in overrides
+        want = {"gather_windows": window, "stack_frames": window,
+                "lstm_fwd": window if fused else 0,
+                "lstm_fwd_lean": window if fused else 0,
+                "lstm_bwd": window if fused else 0}
+        # one decode per step feeds every unroll of the step
+        check(launches == want, f"{label}: launches {launches}")
+        r = out[label]
+        r["step_ms"].append(dt / window * 1e3)
+        r["losses"] += [float(x) for x in losses]
+        r["peak_mem_gb"] = max(r["peak_mem_gb"],
+                               torch.cuda.max_memory_allocated(dev) / 1e9)
+        learners[label][0] = ts
+    for label, r in out.items():
+        losses = r.pop("losses")
+        check(all(math.isfinite(x) for x in losses), f"{label}: {losses}")
+        r.update(steps=len(losses), loss_first=losses[0],
+                 loss_last=losses[-1],
+                 seq_updates_per_s=[spec.batch_size * 1e3 / ms
+                                    for ms in r["step_ms"]])
+        print(f"reference learner step {label}: " + json.dumps(r),
+              flush=True)
+    if profile:
+        # busy time under the profiler against the unprofiled step time
+        # (the profiler slows the host, not the device)
+        for label, (ts, step) in learners.items():
+            busy = _profile(step, ts, rs)
+            step_ms = statistics.mean(out[label]["step_ms"])
+            print(f"profile {label}: device busy {busy:.3f} ms/step, idle "
+                  f"share {max(0.0, 1 - busy / step_ms):.3f} of the timed "
+                  f"{step_ms:.3f} ms/step", flush=True)
     return out
 
 
-def phase_cli(dev):
+def phase_cli(dev, extra, label):
     import torch
     from r2d2_tpu_torch.cli import train
-    from r2d2_tpu_torch.ops import replay_kernels as rk
     steps = 5
-    rk.reset_launch_counts()
+    _reset_counts()
     summary = train.main([
         "--env.game_name=Fake", "--replay.capacity=20000",
         "--replay.learning_starts=400",
-        "--replay.max_env_steps_per_train_step=4", f"--max-steps={steps}"])
+        "--replay.max_env_steps_per_train_step=4", f"--max-steps={steps}",
+        *extra])
     torch.cuda.synchronize()
-    launches = dict(rk.LAUNCHES)
+    launches = _counts()
     check(summary["steps"] == steps
           and summary["device"].startswith("cuda"), summary["device"])
     check(all(math.isfinite(x) for x in summary["losses"]), summary)
-    check(launches["gather_windows"] == steps, launches)
-    check(launches["stack_frames"] == steps, launches)
-    print(f"cli.train on the card: {steps} steps, launches {launches}",
-          flush=True)
+    fused = "--network.pallas_lstm=on" in extra
+    want = {"gather_windows": steps, "stack_frames": steps,
+            "lstm_fwd": steps if fused else 0,
+            "lstm_fwd_lean": steps if fused else 0,
+            "lstm_bwd": steps if fused else 0}
+    check(launches == want, f"cli.train {label}: launches {launches}")
+    print(f"cli.train on the card ({label}): {steps} steps, launches "
+          f"{launches}", flush=True)
     return launches
 
 
@@ -310,17 +662,23 @@ def main(argv) -> int:
     phase_versions()
     phase_build()
     timings = phase_kernels(dev)
-    phase_small_step_vs_cpu(dev)
+    phase_small_step_vs_cpu(dev, {}, "default")
+    phase_small_step_vs_cpu(dev, {"network.pallas_lstm": "on",
+                                  "network.use_double": True},
+                            "pallas_lstm on, double DQN")
     phase_reference_step(dev, "--profile" in argv)
-    launches = phase_cli(dev)
+    launches = phase_cli(dev, [], "default")
+    launches.update({name: n for name, n in
+                     phase_cli(dev, FUSED_ARGS, "pallas_lstm on, double DQN")
+                     .items() if name.startswith("lstm")})
 
-    replaces = {"gather_windows": "r2d2_tpu/ops/pallas_kernels.py:372",
-                "stack_frames": "r2d2_tpu/ops/pallas_kernels.py:194"}
-    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                    replaces=replaces[name], launches=launches[name],
+    source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
+                                   else "replay_kernels"] for name in timings}
+    kernels = [dict(name=name, route="cuda", source=source[name],
+                    replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by="bytes", library_ms=r["library_ms"])
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
                for name, r in timings.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,13 @@ runs on, never for a TPU:
   kernel and a CPU tensor through the plain PyTorch version, so "auto" is
   the only setting valid on both; "on" on the CPU and "off" on CUDA raise.
 * ``network.bf16``: "auto" = bf16 on CUDA, f32 on the CPU.
+* ``network.pallas_lstm`` picks a path, not a route: "on" runs the LSTM
+  time scan (T > 1) as one fused scan (``ops/lstm_kernels.py``: the kernels
+  on CUDA, their plain versions on the CPU), "off" (the default) the Python
+  scan. "auto" = off on every device until a measurement of the port picks
+  a winner; the JAX package's "auto" means "iff TPU", which is off here
+  too. Its TPU grid and debug knobs (``pallas_lstm_block``,
+  ``pallas_lstm_interpret``) have no meaning on the card and are refused.
 * ``replay.pallas_exact_gather``: the 84x84 -> 96x128 storage pad that
   Mosaic's tile rule needed. A CUDA copy does not need it, so "auto" = off
   on every device; "on" still gives the padded layout.
@@ -50,7 +57,7 @@ class NetworkConfig:
     bf16: str = "auto"
     # the port builds the standard first-conv layout only ("off")
     space_to_depth: str = "off"
-    # the fused LSTM kernels are not ported yet: "on" raises
+    # fused LSTM scan (ops/lstm_kernels.py) instead of the Python scan
     pallas_lstm: str = "off"
 
 
@@ -176,15 +183,17 @@ def check_kernel_setting(setting, device, field_name: str) -> None:
             "version is; use 'auto'")
 
 
+def resolve_pallas_lstm(setting) -> bool:
+    """"on" = the fused scan; "off" and "auto" = the Python scan."""
+    return bool(_parse_setting(setting, "network.pallas_lstm"))
+
+
 def check_network(network: NetworkConfig) -> None:
     """Refuse network settings whose code path the port does not have yet."""
     if _parse_setting(network.space_to_depth,
                       "network.space_to_depth") is not False:
         raise ValueError("network.space_to_depth must be 'off' in the port")
-    if _parse_setting(network.pallas_lstm, "network.pallas_lstm"):
-        raise NotImplementedError(
-            "network.pallas_lstm='on': the fused LSTM kernels are not "
-            "ported yet (ROADMAP.md, kernel queue)")
+    resolve_pallas_lstm(network.pallas_lstm)
 
 
 def check_decode_layout(optim: OptimConfig) -> None:

@@ -5,7 +5,9 @@ models/network.py.
 Compute-dtype policy mirrors flax's ``dtype=``: parameters stay f32, inputs
 and weights are cast to the compute dtype at each layer, Q and the packed
 hidden come back in f32, and under bf16 the LSTM carry is bf16 as in the
-JAX scan.
+JAX scan. With ``network.pallas_lstm="on"`` the learner's unrolls (T > 1)
+run the fused scan of ``ops/lstm_kernels.py`` instead, whose carries are
+f32 (the JAX package's Pallas path does the same).
 
 Layout: the decoded observation (B, T, H, W, K) viewed as (B*T, H, W, K)
 and permuted to (B*T, K, H, W) is a channels_last NCHW tensor, which
@@ -22,7 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from r2d2_tpu_torch.config import NetworkConfig, check_network, resolve_bf16
+from r2d2_tpu_torch.config import (NetworkConfig, check_network,
+                                   resolve_bf16, resolve_pallas_lstm)
+from r2d2_tpu_torch.ops.lstm_kernels import lstm_scan
 
 
 def pack_hidden(carry: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
@@ -82,10 +86,12 @@ def lstm_cell_step(xp, c, h, w_rec, bias):
 class HoistedLSTM(nn.Module):
     """LSTM over (B, T, D) with the input projection computed for the whole
     window as one matmul before the time loop; the loop keeps only the
-    (B, H) x (H, 4H) recurrent matmul."""
+    (B, H) x (H, 4H) recurrent matmul. ``fused``: a window of T > 1 runs as
+    one fused scan (the actor's T=1 step stays on the loop)."""
 
-    def __init__(self, input_dim: int, features: int):
+    def __init__(self, input_dim: int, features: int, fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.input_proj = nn.Linear(input_dim, 4 * features, bias=False)
         self.recurrent_kernel = nn.Parameter(torch.empty(features, 4 * features))
         self.bias = nn.Parameter(torch.zeros(4 * features))
@@ -95,6 +101,10 @@ class HoistedLSTM(nn.Module):
         w_rec = self.recurrent_kernel.to(dtype)
         bias = self.bias.to(dtype)
         c, h = carry
+        if self.fused and xs.shape[1] > 1:
+            xpb = (x_proj + bias).transpose(0, 1).contiguous()   # (T, B, 4H)
+            hseq, (c, h) = lstm_scan(xpb, w_rec, c, h)
+            return (c, h), hseq.transpose(0, 1)
         outputs = []
         for t in range(xs.shape[1]):
             c, h = lstm_cell_step(x_proj[:, t], c, h, w_rec, bias)
@@ -137,7 +147,8 @@ class R2D2Network(nn.Module):
         self.torso = ConvTorso(frame_stack, (frame_height, frame_width),
                                config.cnn_out_dim, config.conv_layers)
         self.lstm = HoistedLSTM(config.cnn_out_dim + action_dim,
-                                config.hidden_dim)
+                                config.hidden_dim,
+                                resolve_pallas_lstm(config.pallas_lstm))
         self.head = DuelingHead(config.hidden_dim, action_dim,
                                 config.use_dueling)
 
@@ -187,9 +198,9 @@ def init_params_(module: R2D2Network, seed: int) -> R2D2Network:
 
 
 class NetworkApply:
-    """Binding of a network spec to a device: resolves the bf16 tri-state
-    for that device, validates the conv pyramid against the frame size,
-    and builds initialized modules."""
+    """Binding of a network spec to a device: resolves the bf16 and
+    pallas_lstm tri-states for that device, validates the conv pyramid
+    against the frame size, and builds initialized modules."""
 
     def __init__(self, action_dim: int, config: NetworkConfig,
                  frame_stack: int, frame_height: int, frame_width: int,
@@ -197,7 +208,8 @@ class NetworkApply:
         check_network(config)
         self.device = torch.device(device)
         self.config = dataclasses.replace(
-            config, bf16=resolve_bf16(config.bf16, self.device))
+            config, bf16=resolve_bf16(config.bf16, self.device),
+            pallas_lstm=resolve_pallas_lstm(config.pallas_lstm))
         self.action_dim = action_dim
         self.obs_hw = (frame_height, frame_width, frame_stack)
         h, w = frame_height, frame_width

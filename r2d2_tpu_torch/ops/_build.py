@@ -3,7 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library with
 a plain C interface under ``build/`` at the repository root, keyed by a hash
 of the source so an edit rebuilds, and loads with ``ctypes``. A source that
-does not build raises; nothing falls back.
+does not build raises; nothing falls back. What ptxas reports about each
+kernel of a source built in this process (registers, shared memory,
+spills; ``-Xptxas -v``) is kept in ``PTXAS_REPORT``.
 """
 
 import ctypes
@@ -18,10 +20,11 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+PTXAS_REPORT: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -55,6 +58,7 @@ def build(name: str, force: bool = False) -> Path:
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    PTXAS_REPORT[name] = proc.stderr
     os.replace(tmp, lib)
     return lib
 

@@ -102,9 +102,13 @@ def test_init_matches_flax_scheme():
 
 
 def test_bf16_policy_resolves_per_device():
+    """bf16 "auto" is f32 on the CPU; pallas_lstm "on" builds the fused
+    scan and "auto" resolves off on every device."""
     cfg = NetworkConfig(**{**TINY, "bf16": "auto"})
     assert NetworkApply(A, cfg, STACK, HW, HW, "cpu").compute_dtype == \
         torch.float32
-    with pytest.raises(NotImplementedError):
-        NetworkApply(A, NetworkConfig(**{**TINY, "pallas_lstm": "on"}),
-                     STACK, HW, HW, "cpu")
+    for setting, fused in (("on", True), ("auto", False)):
+        net = NetworkApply(A, NetworkConfig(**{**TINY, "pallas_lstm": setting}),
+                           STACK, HW, HW, "cpu")
+        assert net.config.pallas_lstm is fused
+        assert net.build().lstm.fused is fused

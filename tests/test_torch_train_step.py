@@ -1,7 +1,9 @@
 """The port's learner step against the JAX package's ``make_learner_step``
 on the same carried-over replay state, weights and sampling jitter (f32,
 the JAX plain path ``pallas_*="off"``, which the JAX tests hold equal to its
-kernel path), and the optimizer pieces against optax."""
+kernel path; and with ``network.pallas_lstm="on"`` on both sides, the JAX
+fused LSTM kernels in interpret mode), and the optimizer pieces against
+optax."""
 
 import jax
 import jax.numpy as jnp
@@ -39,15 +41,17 @@ def _flat(params):
     return params_from_flax(jax.tree_util.tree_map(np.asarray, params))
 
 
-def _jax_run(use_double):
+def _jax_run(use_double, pallas_lstm="off"):
     """STEPS JAX learner steps; per step: the jitter drawn, the loss, the
     params and the tree after it."""
     jspec, spec = specs(num_blocks=10, batch_size=8)
     blocks = synthetic_blocks(spec, 10, seed=5)
     jstate = jax_filled(jspec, blocks)
     start = to_numpy_state(jstate)
-    jnet = JNetworkApply(A, JNetworkConfig(use_double=use_double, **TINY),
-                         spec.frame_stack, spec.frame_height, spec.frame_width)
+    jnet = JNetworkApply(A, JNetworkConfig(
+        use_double=use_double, pallas_lstm=pallas_lstm,
+        pallas_lstm_interpret=pallas_lstm == "on", **TINY),
+        spec.frame_stack, spec.frame_height, spec.frame_width)
     optim = JOptimConfig(pallas_obs_decode="off", **OPTIM)
     ts = j_create(jax.random.PRNGKey(0), jnet, optim)
     init_params = _flat(ts.params)
@@ -71,16 +75,38 @@ def jax_runs():
     return {d: _jax_run(d) for d in (False, True)}
 
 
+@pytest.fixture(scope="module")
+def jax_fused_runs():
+    return {d: _jax_run(d, pallas_lstm="on") for d in (False, True)}
+
+
 @pytest.mark.parametrize("steps", [1, STEPS])
 @pytest.mark.parametrize("use_double", [False, True])
 def test_learner_step_matches_jax(jax_runs, use_double, steps):
     """Loss rtol 1e-5 per step, params after Adam atol 1e-5, priorities
     written into the tree rtol 1e-5; with double DQN the hard target sync
     at step 2 is checked too."""
-    spec, start, init_params, trace = jax_runs[use_double]
-    net = NetworkApply(A, NetworkConfig(use_double=use_double, **TINY),
+    _check_steps(jax_runs[use_double], use_double, steps, "off")
+
+
+@pytest.mark.parametrize("steps", [1, STEPS])
+@pytest.mark.parametrize("use_double", [False, True])
+def test_learner_step_fused_lstm_matches_jax(jax_fused_runs, use_double,
+                                             steps):
+    """network.pallas_lstm="on" on both sides: the port's fused scan (its
+    plain versions on the CPU; the lean forward on the double-DQN target
+    unroll) against the JAX step through the Pallas LSTM kernels in
+    interpret mode, at the same tolerances."""
+    _check_steps(jax_fused_runs[use_double], use_double, steps, "on")
+
+
+def _check_steps(run, use_double, steps, pallas_lstm):
+    spec, start, init_params, trace = run
+    net = NetworkApply(A, NetworkConfig(use_double=use_double,
+                                        pallas_lstm=pallas_lstm, **TINY),
                        spec.frame_stack, spec.frame_height, spec.frame_width,
                        "cpu")
+    assert net.build().lstm.fused is (pallas_lstm == "on")
     optim = OptimConfig(**OPTIM)
     online = net.build()
     online.load_state_dict(init_params)
