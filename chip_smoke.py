@@ -6,7 +6,8 @@
 Phases, each of which asserts or raises (any failure exits nonzero):
   1. versions, device name and power limit;
   2. build the CUDA kernels from the sources in this checkout, one nvcc per
-     source, all started together; print what ptxas reports per kernel;
+     source, all started together; print what ptxas reports per kernel and
+     its tensor-core (HMMA) instruction count in the SASS;
   3. every kernel against its plain PyTorch version: the replay kernels at
      the reference shape (exact), the LSTM scan kernels at ragged small
      shapes and at the reference shape (T=55, B=128, H=512) in f32 and
@@ -62,10 +63,14 @@ LSTM_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
 # dWh sums T*B products per entry: max error / max |reference|
 DWH_REL = {"float32": 1e-3, "bfloat16": 2e-2}
 LSTM_REF_SHAPE = (55, 128, 512)                          # T, B, H
-# ragged edges: H not a multiple of a block's 4 units, rows too narrow for
-# 16-byte loads (the one-element path), B across the forward's 64-row and
-# the backward's 32-row tiles
-LSTM_SMALL_SHAPES = ((4, 3, 17), (5, 8, 18), (6, 70, 16), (3, 130, 24))
+# ragged edges: H not a multiple of the forward's 4-unit or the backward's
+# unit groups (f32 16, bf16 32: H=17, H=40), rows too narrow for 16-byte
+# loads (the one-element path, k padded to 16 in shared memory), B across
+# the forward's 64-row and the backward's tiles (f32 32 rows, bf16 16:
+# B=33 is one row past a tile), and B=256 at H=512, where a backward block
+# walks two batch tiles (T kept small for the plain version)
+LSTM_SMALL_SHAPES = ((4, 3, 17), (5, 8, 18), (6, 70, 16), (3, 130, 24),
+                     (4, 33, 17), (4, 33, 40), (3, 256, 512))
 FUSED_ARGS = ["--network.pallas_lstm=on", "--network.use_double=true"]
 
 
@@ -127,15 +132,11 @@ def phase_versions():
 def _ptxas_lines(report: str):
     """One line per kernel from ``nvcc -Xptxas -v``: registers, stack,
     spills, static shared memory."""
-    demangle = shutil.which("c++filt")
     lines, name, props = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name, props = m.group(1), ""
-            if demangle:
-                name = subprocess.run([demangle, name], capture_output=True,
-                                      text=True, check=True).stdout.strip()
+            name, props = _demangle(m.group(1)), ""
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -150,6 +151,36 @@ def _ptxas_lines(report: str):
                          f"smem {smem.group(1) if smem else 0} B")
             name = None
     return lines
+
+
+def _demangle(name: str) -> str:
+    tool = shutil.which("c++filt")
+    if not tool:
+        return name
+    return subprocess.run([tool, name], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def _tensor_core_counts(lib_path) -> dict:
+    """Tensor-core instructions (HMMA) per kernel in a built library's SASS
+    (cuobjdump beside nvcc), or {} where cuobjdump is missing or fails."""
+    from r2d2_tpu_torch.ops import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    proc = subprocess.run([str(tool), "--dump-sass", str(lib_path)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        return {}
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _demangle(m.group(1))
+            counts[name] = 0
+        elif name is not None and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    return counts
 
 
 def phase_build():
@@ -170,6 +201,11 @@ def phase_build():
         check(lines, f"no ptxas report for {name}")
         for line in lines:
             print(f"ptxas {name}: {line}", flush=True)
+        counts = _tensor_core_counts(_build.build(name))
+        if not counts:
+            print(f"sass {name}: not read (no cuobjdump output)", flush=True)
+        for kernel, n in counts.items():
+            print(f"sass {name}: {kernel}: {n} HMMA", flush=True)
 
 
 def replay_kernel_checks(dev):

@@ -22,29 +22,29 @@
 // What bounds it: the serial chain. At the reference shape (T=55, B=128,
 // H=512) the whole scan is 14.8 GFLOP forward and 29.5 backward, ~38-87 MB
 // of traffic: 15-30 us of roofline in bf16, but every step waits for the
-// previous one's full h (forward) or gate grads (backward), so 55 grid-wide
-// dependencies set the floor. Inside a step, every block reads the whole
-// h_{t-1} (forward, and backward for dWh) or dxpb[t] (backward, for dh)
-// through L2 (16 and 64 MB a step across the grid at the reference shape)
-// and does its share of the products as f32 FMAs; those two, not device
-// memory, set the time of a step.
+// previous one's h (forward) or gate grads (backward), so 55 dependencies
+// between blocks set the floor, and the time of a step is what sits on it:
+// the rows a block must pull through L2 and its share of the products.
 //
-// Design: ONE persistent launch per scan direction, the counterpart of
-// "Wh resident, carries never in HBM". Block q owns hidden units
-// [4q, 4q+4) (H/4 = 128 blocks at H=512, one per SM, launched cooperatively
-// so all are co-resident) and keeps in shared memory, for the whole scan,
-// its slice of Wh and its f32 carries. A step reads the other blocks'
-// h_{t-1} (forward) or gate grads (backward) from L2 and ends in a
-// grid-wide barrier on a global counter (no -rdc needed). The forward's h
-// exchange is hseq itself: hseq[t-1] is exactly the cd(h) the product
-// consumes. Against the load latency: rows are read as 16-byte chunks where
-// the row width allows, several loads are in flight per thread before any
-// is used, h rows are staged in shared memory in a bank-conflict-free
-// order, and the backward's dWh update, which needs only the block's own
-// gate grads, runs between arriving at the barrier and waiting on it. The
-// products are plain f32 FMAs on operands converted to f32 (the tensor
-// cores, and cluster multicast of the rows every block reads, are work for
-// a later kernel).
+// Forward: ONE persistent launch, the counterpart of "Wh resident, carries
+// never in HBM". Block q owns hidden units [4q, 4q+4) (H/4 = 128 blocks at
+// H=512, one per SM, launched cooperatively so all are co-resident) and
+// keeps in shared memory, for the whole scan, its slice of Wh and its f32
+// carries. A step reads every block's h_{t-1} from L2 (hseq itself: it is
+// exactly the cd(h) the product consumes; 16 MB a step across the grid),
+// stages it in shared memory in a bank-conflict-free order, runs the
+// product as f32 FMAs and ends in a grid-wide barrier on a global counter
+// (no -rdc needed).
+//
+// Backward: ONE persistent launch as well, but the chain holds only what
+// the next step needs. dWh, which no step needs, is one tensor-core product
+// over all T*B rows after the scan. A step of batch row b needs only row b
+// of dxpb[t], so a block owns a tile of rows x a group of units (bf16 16 x
+// 32, f32 32 x 16) and waits only on the blocks of its batch tiles (one
+// counter each): per step it reads its rows of dxpb[t] (8 MB across the
+// grid in bf16, not 64) into a per-warp cp.async ring and runs dh on the
+// tensor cores in bf16 (mma.sync m16n8k16, operands by ldmatrix; f32 keeps
+// FMAs).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o liblstm_kernels.so lstm_kernels.cu
@@ -56,14 +56,11 @@
 namespace {
 
 constexpr int kUnits = 4;                    // hidden units a block owns
-constexpr int kCols = 4 * kUnits;            // its gate columns (16)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileB = kThreads / kUnits;    // batch rows per forward tile
 constexpr int kSplitK = kWarps / (kTileB / 32);  // forward k parts (4)
 constexpr int kStage = 8;      // chunk loads in flight per thread, h staging
-constexpr int kRowsB = 8;      // rows per warp pass of the backward's dh
-constexpr int kTileC = 32;     // h_prev rows per tile of the backward's dWh
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -320,21 +317,383 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Backward, t = T-1 .. 0. Shared memory: the block's rows of Wh as float4
-// over its units [4H][kUnits]; its dWh columns in f32 [kCols][H]; this
-// step's gate grads of its columns [B][kCols]; the dh and dc carries
-// [B][kUnits] each; a tile of h_prev [kTileC][H + 1]. Per step:
-//   A. thread (r, uu) turns dh/dc into the pre-activation gate grads of its
-//      rows, writes them to dxpb[t] (storage type) and keeps them, read back
-//      through that type, in shared memory; the block arrives at the
-//      barrier;
-//   C. thread k: dWh[k, own cols] += sum_b cd(h_prev[b, k]) dxpb[t][b, col]
-//      over tiles of h_prev staged in shared memory (own gate grads only,
-//      so before the wait);
-//   wait: all of dxpb[t] is written;
-//   B. warp w, 8 rows at a time: dh[b, own units] = dxpb[t][b, :] .
-//      Wh[own units, :] (lanes stride the 4H columns, then a shuffle sum).
+// Backward, t = T-1 .. 0, then dWh.
+//
+// Partition (BwdTile<T>: bf16 16 rows x 32 units, f32 32 x 16): block
+// (slot, group) = blockIdx.x / groups, blockIdx.x % groups owns hidden units
+// [units group, units (group + 1)) of the batch tiles (``rows`` rows each)
+// slot, slot + slots, ...: a step of batch row b needs only row b of
+// dxpb[t], so the blocks of one slot wait only on each other, on their own
+// barrier counter (counter ``slot``; counter ``slots`` is the grid's, for
+// dWh). ``slots`` is chosen by the wrapper so that the grid is resident.
+// Shared memory (BwdSmem): the block's Wh rows [units][4H padded to 16, +
+// one 16-byte chunk]; per warp a ring of dx slices [rows][16 k, + a chunk];
+// partial dh per warp [rows][units] f32; the dh and dc carries per tile
+// [rows][units] f32. Per step:
+//   A. thread (row, unit) turns dh/dc into the pre-activation gate grads of
+//      its rows, writes them to dxpb[t] (storage type); the block arrives at
+//      its slot's barrier;
+//   wait: the slot's rows of dxpb[t] are written;
+//   B. dh[rows, units] = cd(dxpb[t][rows, :]) . Wh[units, :]^T, the
+//      4H of k split over the warps, each streaming 16-wide slices through
+//      its ring by cp.async.cg; bf16 on the tensor cores (mma.sync
+//      m16n8k16, operands by ldmatrix), f32 as FMAs; the warps' partials are
+//      summed through shared memory in a fixed order.
 // Step t-1 writes other rows of dxpb, so one barrier per step is enough.
+// After the last step a grid barrier, then dWh = sum over rows (t, b) of
+// cd(h_prev)[row, :]^T cd(dxpb)[row, :], h_prev = [h0; hseq[:-1]]: one
+// product of (T B) rows, (128 x 128 output tile, half of the rows) items
+// walked by the blocks, rows streamed 32 at a time through a 4-deep ring
+// (both operands with the rows as the reduction dimension:
+// ldmatrix.trans); each half adds its sum to the zeroed dWh.
+
+constexpr int kBwdPairs = 512;   // (row, unit) pairs a block owns per tile
+constexpr int kDhK = 16;         // k of one staged dx slice
+constexpr int kTail = 128;       // dWh output tile kTail x kTail
+constexpr int kTailK = 32;       // rows (t, b) per staged dWh slice
+constexpr int kTailStages = 4;
+
+// Batch rows of a tile and hidden units of a group. bf16: 16 x 32, so a
+// block reads 16 rows of dxpb[t] a step (its Wh rows are 128 KB at H=512);
+// f32: 32 x 16 (f32 Wh rows of 32 units would not fit).
+template <typename T>
+struct BwdTile {
+  static constexpr int rows = sizeof(T) == 2 ? 16 : 32;
+  static constexpr int units = kBwdPairs / rows;
+};
+
+// dx slices in flight per warp (shared memory sets the f32 depth)
+template <typename T>
+__host__ __device__ constexpr int dh_stages() {
+  return sizeof(T) == 2 ? 8 : 3;
+}
+
+// Byte offsets into the backward's dynamic shared memory; ``end`` is its
+// size (the wrapper's bwd_geometry computes the same number).
+template <typename T>
+struct BwdSmem {
+  int64_t w, ring, red, dh, dc, end;
+  __host__ __device__ BwdSmem(int hidden, int tiles) {
+    constexpr int64_t n = 16 / sizeof(T), e = sizeof(T);
+    const int64_t kp = (4LL * hidden + kDhK - 1) / kDhK * kDhK;
+    const int64_t rows = BwdTile<T>::rows, pairs = kBwdPairs;
+    w = 0;
+    ring = w + BwdTile<T>::units * (kp + n) * e;
+    red = ring + (int64_t)kWarps * dh_stages<T>() * rows * (kDhK + n) * e;
+    dh = red + kWarps * pairs * 4;
+    dc = dh + tiles * pairs * 4;
+    const int64_t steps_end = dc + tiles * pairs * 4;
+    const int64_t tail_end =
+        (int64_t)kTailStages * kTailK * 2 * (kTail + n) * e;
+    end = steps_end > tail_end ? steps_end : tail_end;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One 16-byte chunk of a row (16 / sizeof(T) values) into shared memory:
+// the first ``count`` values from ``src`` through L2, the rest zero. kVec:
+// cp.async.cg (count is 0 or the whole chunk; src-size 0 zero-fills), else
+// element by element.
+template <typename T, bool kVec>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, int count) {
+  if constexpr (kVec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(count > 0 ? 16 : 0));
+  } else {
+    constexpr int n = 16 / sizeof(T);
+#pragma unroll
+    for (int e = 0; e < n; ++e) {
+      dst[e] = e < count ? ldcg_raw(src + e) : from_f<T>(0.f);
+    }
+  }
+}
+
+// Bring the line of ``p`` into L1 (data no block writes during the launch).
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a . b on the tensor cores: 16x16 bf16 A (row), 16x8 bf16 B (col),
+// f32 sums.
+// ``c`` points at four accumulators (indexed at compile time, so they stay
+// in registers).
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// This warp's share of dh[rows, units] = cd(dx[rows b0.., :]) .
+// W[units, :]^T (BwdTile<T>), where dx is dxpb[t] (batch, gdim) and w_s the
+// block's Wh rows [units][wstride]: k slices warp, warp + kWarps, ... of 16
+// each, staged through ``ring`` (dh_stages slices, all but one in flight).
+// The partial sums go to red [rows][units]. bf16: one 16-row m tile x four
+// 8-unit n tiles per slice on the tensor cores; f32: lane = row, FMAs.
+template <typename T, bool kVec>
+__device__ __forceinline__ void dh_partial(const T* dx, int b0, int batch,
+                                           int gdim, int ksteps,
+                                           const T* w_s, int wstride,
+                                           T* ring, float* red) {
+  constexpr int rows = BwdTile<T>::rows, units = BwdTile<T>::units;
+  constexpr int n = 16 / sizeof(T), per_row = kDhK / n;
+  constexpr int sstride = kDhK + n, stages = dh_stages<T>();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int mine = (ksteps - warp + kWarps - 1) / kWarps;
+  auto load = [&](int i) {
+    if (i < mine) {
+      const int k0 = (warp + i * kWarps) * kDhK;
+      T* slot = ring + (i % stages) * rows * sstride;
+#pragma unroll
+      for (int q = 0; q < rows * per_row / 32; ++q) {
+        const int c = q * 32 + lane, r = c / per_row;
+        const int col = (c % per_row) * n, b = b0 + r, k = k0 + col;
+        const int count = b < batch ? max(0, min(n, gdim - k)) : 0;
+        copy_chunk<T, kVec>(slot + r * sstride + col,
+                            count > 0 ? dx + (int64_t)b * gdim + k : dx,
+                            count);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[16];   // bf16: [4 n tiles][4]; f32: one per unit
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < stages - 1; ++i) load(i);
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<stages - 2>();
+    __syncwarp();                 // slice i landed; slice i-1 is consumed
+    load(i + stages - 1);
+    const T* a = ring + (i % stages) * rows * sstride;
+    const int k0 = (warp + i * kWarps) * kDhK;
+    if constexpr (sizeof(T) == 2) {
+      const int r8 = lane % 8, j = lane / 8;
+      uint32_t af[4], bf[2][4];
+      ldsm_x4(af, a + (r8 + (j % 2) * 8) * sstride + (j / 2) * 8);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        ldsm_x4(bf[p], w_s + (p * 16 + r8 + (j / 2) * 8) * wstride + k0 +
+                           (j % 2) * 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        mma_bf16(acc + nt * 4, af, bf[nt / 2][(nt % 2) * 2],
+                 bf[nt / 2][(nt % 2) * 2 + 1]);
+      }
+    } else {
+      const float* row = reinterpret_cast<const float*>(a) + lane * sstride;
+      const float* w = reinterpret_cast<const float*>(w_s) + k0;
+#pragma unroll
+      for (int kk = 0; kk < kDhK; kk += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(row + kk);
+#pragma unroll
+        for (int uu = 0; uu < units; ++uu) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(w + uu * wstride + kk);
+          acc[uu] = fmaf(x.x, v.x, acc[uu]);
+          acc[uu] = fmaf(x.y, v.y, acc[uu]);
+          acc[uu] = fmaf(x.z, v.z, acc[uu]);
+          acc[uu] = fmaf(x.w, v.w, acc[uu]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if constexpr (sizeof(T) == 2) {
+    // accumulator nt: rows lane/4 (+8), units nt*8 + 2(lane%4) (+1)
+    const int g = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float* c = acc + nt * 4;
+      float* o = red + g * units + nt * 8 + 2 * q;
+      o[0] = c[0];
+      o[1] = c[1];
+      o[8 * units] = c[2];
+      o[8 * units + 1] = c[3];
+    }
+  } else {
+    float4* o = reinterpret_cast<float4*>(red + lane * units);
+#pragma unroll
+    for (int q = 0; q < units / 4; ++q) {
+      o[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                         acc[4 * q + 3]);
+    }
+  }
+}
+
+// One half of dWh[m0 + 128, n0 + 128]: the sum over rows (t, b) in
+// [r0, r1) of cd(h_prev)[row, m] cd(dxpb)[row, n], with h_prev row =
+// h0[row] for row < batch, else hseq[row - batch], added to dwh (zeroed;
+// the other half of the rows adds the other term, and a sum of two terms
+// onto zero does not depend on their order). Rows are staged kTailK at a
+// time through a ring of kTailStages in ``smem``. bf16: warp (wm, wn) of
+// 2 x 4 owns 64 x 32 of the tile as 4 x 4 mma tiles; f32: thread (tm, tn)
+// of 16 x 16 owns 8 x 8 outputs as FMAs.
+template <typename T, bool kVec>
+__device__ void dwh_tile(const T* hseq, const T* h0, const T* dxpb,
+                         float* dwh, int r0, int r1, int batch, int hidden,
+                         int m0, int n0, T* smem) {
+  constexpr int n = 16 / sizeof(T), s = kTail + n;   // staged row stride
+  constexpr int per_row = kTail / n, half = kTailK * per_row;
+  T* ring_a = smem;
+  T* ring_b = smem + kTailStages * kTailK * s;
+  const int gdim = 4 * hidden, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int slices = (r1 - r0 + kTailK - 1) / kTailK;
+  auto load = [&](int i) {
+    if (i < slices) {
+      T* da = ring_a + (i % kTailStages) * kTailK * s;
+      T* db = ring_b + (i % kTailStages) * kTailK * s;
+      for (int c = tid; c < 2 * half; c += kThreads) {
+        const int cc = c % half, r = cc / per_row, col = (cc % per_row) * n;
+        const int row = r0 + i * kTailK + r;
+        if (c < half) {
+          const int m = m0 + col;
+          const int count = row < r1 ? max(0, min(n, hidden - m)) : 0;
+          const T* src = count == 0 ? h0
+                         : row < batch
+                             ? h0 + (int64_t)row * hidden + m
+                             : hseq + (int64_t)(row - batch) * hidden + m;
+          copy_chunk<T, kVec>(da + r * s + col, src, count);
+        } else {
+          const int nn = n0 + col;
+          const int count = row < r1 ? max(0, min(n, gdim - nn)) : 0;
+          copy_chunk<T, kVec>(
+              db + r * s + col,
+              count > 0 ? dxpb + (int64_t)row * gdim + nn : dxpb, count);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[64];   // bf16: [4 m tiles][4 n tiles][4]; f32: [8 m][8 n]
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTailStages - 1; ++i) load(i);
+  for (int i = 0; i < slices; ++i) {
+    cp_async_wait<kTailStages - 2>();
+    __syncthreads();              // slice i landed; slice i-1 is consumed
+    load(i + kTailStages - 1);
+    const T* a = ring_a + (i % kTailStages) * kTailK * s;
+    const T* b = ring_b + (i % kTailStages) * kTailK * s;
+    if constexpr (sizeof(T) == 2) {
+      const int wm = warp / 4, wn = warp % 4, r8 = lane % 8, j = lane / 8;
+#pragma unroll
+      for (int ks = 0; ks < kTailK / 16; ++ks) {
+        uint32_t af[4][4], bfr[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          ldsm_x4_trans(af[mt], a + (ks * 16 + r8 + (j / 2) * 8) * s +
+                                    wm * 64 + mt * 16 + (j % 2) * 8);
+        }
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          ldsm_x4_trans(bfr[p], b + (ks * 16 + r8 + (j % 2) * 8) * s +
+                                    wn * 32 + p * 16 + (j / 2) * 8);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            mma_bf16(acc + (mt * 4 + nt) * 4, af[mt],
+                     bfr[nt / 2][(nt % 2) * 2],
+                     bfr[nt / 2][(nt % 2) * 2 + 1]);
+          }
+        }
+      }
+    } else {
+      // rows (tid / 16) * 4 and 64 + that, columns likewise with tid % 16:
+      // the float4 reads of 8 lanes cover 128 contiguous bytes
+      const float* af = reinterpret_cast<const float*>(a) + (tid / 16) * 4;
+      const float* bf = reinterpret_cast<const float*>(b) + (tid % 16) * 4;
+#pragma unroll 2
+      for (int kk = 0; kk < kTailK; ++kk) {
+        const float4 x0 = *reinterpret_cast<const float4*>(af + kk * s);
+        const float4 x1 = *reinterpret_cast<const float4*>(af + kk * s + 64);
+        const float4 y0 = *reinterpret_cast<const float4*>(bf + kk * s);
+        const float4 y1 = *reinterpret_cast<const float4*>(bf + kk * s + 64);
+        const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const float ys[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            acc[p * 8 + q] = fmaf(xs[p], ys[q], acc[p * 8 + q]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                // the ring is refilled by the next tile
+  if constexpr (sizeof(T) == 2) {
+    const int wm = warp / 4, wn = warp % 4, g = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* c = acc + (mt * 4 + nt) * 4;
+        const int nn = n0 + wn * 32 + nt * 8 + 2 * q;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wm * 64 + mt * 16 + g + 8 * h;
+          if (m >= hidden) continue;
+          float* o = dwh + (int64_t)m * gdim + nn;
+          if (nn < gdim) atomicAdd(o, c[2 * h]);
+          if (nn + 1 < gdim) atomicAdd(o + 1, c[2 * h + 1]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int m = m0 + p / 4 * 64 + (tid / 16) * 4 + p % 4;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int nn = n0 + q / 4 * 64 + (tid % 16) * 4 + q % 4;
+        if (m < hidden && nn < gdim) {
+          atomicAdd(dwh + (int64_t)m * gdim + nn, acc[p * 8 + q]);
+        }
+      }
+    }
+  }
+}
 
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -345,46 +704,57 @@ __global__ void __launch_bounds__(kThreads)
                     const T* __restrict__ dhfin, T* dxpb,
                     float* __restrict__ dwh, float* __restrict__ dc0,
                     float* __restrict__ dh0, unsigned int* barrier,
-                    int steps, int batch, int hidden) {
-  using V = Chunk<T, kVec>;
+                    int steps, int batch, int hidden, int slots) {
+  constexpr int n = 16 / sizeof(T);
+  constexpr int rows = BwdTile<T>::rows, units = BwdTile<T>::units;
+  constexpr int kPairs = kBwdPairs;   // per tile; kPairs % units == 0
   extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
   const int gdim = 4 * hidden;
+  const int kp = (gdim + kDhK - 1) / kDhK * kDhK, wstride = kp + n;
   const int64_t plane = (int64_t)batch * hidden;
-  float4* wr_s = smem4;
-  float* dwh_s = reinterpret_cast<float*>(wr_s + gdim);
-  float* dx_s = dwh_s + (size_t)kCols * hidden;
-  float* dh_s = dx_s + (size_t)batch * kCols;
-  float* dc_s = dh_s + (size_t)batch * kUnits;
-  float* hc_s = dc_s + (size_t)batch * kUnits;
-  const float4* dx_s4 = reinterpret_cast<const float4*>(dx_s);
-  const int u0 = blockIdx.x * kUnits;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int groups = gridDim.x / slots;
+  const int slot = blockIdx.x / groups, u0 = blockIdx.x % groups * units;
+  const int tiles = ((batch + rows - 1) / rows + slots - 1) / slots;
+  const BwdSmem<T> lay(hidden, tiles);
+  T* w_s = reinterpret_cast<T*>(smem + lay.w);
+  float* red_s = reinterpret_cast<float*>(smem + lay.red);
+  float* dh_s = reinterpret_cast<float*>(smem + lay.dh);
+  float* dc_s = reinterpret_cast<float*>(smem + lay.dc);
+  const int tid = threadIdx.x, warp = tid / 32;
+  T* ring = reinterpret_cast<T*>(smem + lay.ring) +
+            warp * dh_stages<T>() * rows * (kDhK + n);
 
-  float* wr_f = reinterpret_cast<float*>(wr_s);
-  for (int idx = tid; idx < kUnits * gdim; idx += kThreads) {
-    const int uu = idx / gdim, j = idx - uu * gdim, u = u0 + uu;
-    wr_f[j * kUnits + uu] = u < hidden ? to_f(wh[(int64_t)u * gdim + j]) : 0.f;
+  // the own Wh rows, k padded with zeros
+  for (int c = tid; c < units * wstride / n; c += kThreads) {
+    const int uu = c / (wstride / n), k = (c % (wstride / n)) * n;
+    const int count = u0 + uu < hidden ? max(0, min(n, gdim - k)) : 0;
+    copy_chunk<T, kVec>(w_s + uu * wstride + k,
+                        count > 0 ? wh + (int64_t)(u0 + uu) * gdim + k : wh,
+                        count);
   }
-  for (int idx = tid; idx < kCols * hidden; idx += kThreads) dwh_s[idx] = 0.f;
-  for (int idx = tid; idx < batch * kUnits; idx += kThreads) {
-    const int b = idx / kUnits, u = u0 + idx % kUnits;
+  cp_async_commit();
+  // pair idx of the block: tile j = idx / kPairs, its pair p = idx % kPairs
+  // at batch row (slot + j slots) rows + p / units, unit u0 + p % units
+  auto row_of = [&](int idx) {
+    return (slot + idx / kPairs * slots) * rows + idx % kPairs / units;
+  };
+  auto unit_of = [&](int idx) { return u0 + idx % units; };
+  for (int idx = tid; idx < tiles * kPairs; idx += kThreads) {
+    const int b = row_of(idx), u = unit_of(idx);
+    const bool own = b < batch && u < hidden;
     const int64_t o = (int64_t)b * hidden + u;
-    dh_s[idx] = u < hidden ? to_f(dhfin[o]) : 0.f;
-    dc_s[idx] = u < hidden ? to_f(dcfin[o]) : 0.f;
+    dh_s[idx] = own ? to_f(dhfin[o]) : 0.f;
+    dc_s[idx] = own ? to_f(dcfin[o]) : 0.f;
   }
+  cp_async_wait<0>();
   __syncthreads();
 
-  const int uu = tid % kUnits, r = tid / kUnits, u = u0 + uu;
-  const int chunks = gdim / V::n;
-  const int passes = (batch + kRowsB - 1) / kRowsB;
   for (int t = steps - 1; t >= 0; --t) {
-    // A. gate grads of the own units
-    for (int b = r; b < batch; b += kTileB) {
-      float* dxo = dx_s + b * kCols + uu;
-      if (u >= hidden) {
-        dxo[0] = dxo[kUnits] = dxo[2 * kUnits] = dxo[3 * kUnits] = 0.f;
-        continue;
-      }
+    // A. gate grads of the own (row, unit) pairs
+    for (int idx = tid; idx < tiles * kPairs; idx += kThreads) {
+      const int b = row_of(idx), u = unit_of(idx);
+      if (b >= batch || u >= hidden) continue;
       const int64_t row = (int64_t)t * batch + b;
       const int64_t o = row * hidden + u;
       const T* a = acts + row * gdim + u;
@@ -392,131 +762,83 @@ __global__ void __launch_bounds__(kThreads)
       const float gg = to_f(a[2 * hidden]), og = to_f(a[3 * hidden]);
       const float c_prev =
           t > 0 ? to_f(cseq[o - plane]) : to_f(c0[(int64_t)b * hidden + u]);
-      const int s = b * kUnits + uu;
-      const float dh_total = to_f(dhseq[o]) + dh_s[s];
+      const float dh_total = to_f(dhseq[o]) + dh_s[idx];
       const float tc = tanhf(to_f(cseq[o]));
       const float d_o = dh_total * tc;
-      const float dc = dc_s[s] + dh_total * og * (1.0f - tc * tc);
+      const float dc = dc_s[idx] + dh_total * og * (1.0f - tc * tc);
       const float di = dc * gg, dg = dc * ig, df = dc * c_prev;
-      const T xi = from_f<T>(di * ig * (1.0f - ig));
-      const T xf = from_f<T>(df * fg * (1.0f - fg));
-      const T xg = from_f<T>(dg * (1.0f - gg * gg));
-      const T xo = from_f<T>(d_o * og * (1.0f - og));
       T* dx = dxpb + row * gdim + u;
-      dx[0] = xi;
-      dx[hidden] = xf;
-      dx[2 * hidden] = xg;
-      dx[3 * hidden] = xo;
-      dxo[0] = to_f(xi);
-      dxo[kUnits] = to_f(xf);
-      dxo[2 * kUnits] = to_f(xg);
-      dxo[3 * kUnits] = to_f(xo);
-      dc_s[s] = dc * fg;
+      dx[0] = from_f<T>(di * ig * (1.0f - ig));
+      dx[hidden] = from_f<T>(df * fg * (1.0f - fg));
+      dx[2 * hidden] = from_f<T>(dg * (1.0f - gg * gg));
+      dx[3 * hidden] = from_f<T>(d_o * og * (1.0f - og));
+      dc_s[idx] = dc * fg;
     }
-    const unsigned int target = (unsigned int)(steps - t) * gridDim.x;
-    grid_arrive(barrier);
-
-    // C. dWh columns of the own units, while the other blocks arrive
-    const T* hprev = t > 0 ? hseq + (t - 1) * plane : h0;
-    for (int b0 = 0; b0 < batch; b0 += kTileC) {
-      const int rows = min(kTileC, batch - b0);
-      if (b0 > 0) __syncthreads();   // the previous tile's readers are done
-      stage_rows<T, kVec>(hprev + (int64_t)b0 * hidden, rows, hidden, hc_s);
-      __syncthreads();
-      for (int k = tid; k < hidden; k += kThreads) {
-        float acc[kCols];
-#pragma unroll
-        for (int lc = 0; lc < kCols; ++lc) acc[lc] = dwh_s[lc * hidden + k];
-#pragma unroll 4
-        for (int i = 0; i < rows; ++i) {
-          const float hv = hc_s[i * (hidden + 1) + k];
-          const float4* d = dx_s4 + (b0 + i) * (kCols / 4);
-#pragma unroll
-          for (int q = 0; q < kCols / 4; ++q) {
-            const float4 x = d[q];
-            acc[4 * q] = fmaf(hv, x.x, acc[4 * q]);
-            acc[4 * q + 1] = fmaf(hv, x.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(hv, x.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(hv, x.w, acc[4 * q + 3]);
-          }
-        }
-#pragma unroll
-        for (int lc = 0; lc < kCols; ++lc) dwh_s[lc * hidden + k] = acc[lc];
-      }
+    grid_arrive(barrier + slot);
+    // step t-1's inputs of the own pairs into L1 while the slot arrives
+    for (int idx = tid; t > 0 && idx < tiles * kPairs; idx += kThreads) {
+      const int b = row_of(idx), u = unit_of(idx);
+      if (b >= batch || u >= hidden) continue;
+      const int64_t row = (int64_t)(t - 1) * batch + b;
+      const int64_t o = row * hidden + u;
+      const T* a = acts + row * gdim + u;
+      prefetch_l1(a);
+      prefetch_l1(a + hidden);
+      prefetch_l1(a + 2 * hidden);
+      prefetch_l1(a + 3 * hidden);
+      prefetch_l1(cseq + o);
+      prefetch_l1(dhseq + o);
+      prefetch_l1(t > 1 ? cseq + (o - plane) : c0 + (int64_t)b * hidden + u);
     }
-    grid_wait(barrier, target);
+    grid_wait(barrier + slot, (unsigned int)(steps - t) * groups);
 
-    // B. dh for the own units from every block's gate grads
+    // B. dh of the own pairs from the slot's rows of dxpb[t]
     const T* dxt = dxpb + (int64_t)t * batch * gdim;
-    for (int p = warp; p < passes; p += kWarps) {
-      const int b0 = p * kRowsB;
-      float acc[kRowsB][kUnits];
+    for (int j = 0; j < tiles; ++j) {
+      const int b0 = (slot + j * slots) * rows;
+      if (b0 >= batch) break;
+      dh_partial<T, kVec>(dxt, b0, batch, gdim, kp / kDhK, w_s, wstride, ring,
+                          red_s + warp * kPairs);
+      __syncthreads();
+      for (int p = tid; p < kPairs; p += kThreads) {
+        float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < kRowsB; ++i) {
-#pragma unroll
-        for (int q = 0; q < kUnits; ++q) acc[i][q] = 0.f;
+        for (int w = 0; w < kWarps; ++w) s += red_s[w * kPairs + p];
+        dh_s[j * kPairs + p] = s;
       }
-      for (int g = lane; g < chunks; g += 32) {
-        V x[kRowsB];
-#pragma unroll
-        for (int i = 0; i < kRowsB; ++i) {
-          if (b0 + i < batch) {
-            x[i].load_cg(dxt + (int64_t)(b0 + i) * gdim + g * V::n);
-          } else {
-            x[i].zero();
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < V::n; ++e) {
-          const float4 w = wr_s[g * V::n + e];
-#pragma unroll
-          for (int i = 0; i < kRowsB; ++i) {
-            const float xv = x[i].get(e);
-            acc[i][0] = fmaf(xv, w.x, acc[i][0]);
-            acc[i][1] = fmaf(xv, w.y, acc[i][1]);
-            acc[i][2] = fmaf(xv, w.z, acc[i][2]);
-            acc[i][3] = fmaf(xv, w.w, acc[i][3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsB; ++i) {
-#pragma unroll
-        for (int q = 0; q < kUnits; ++q) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            acc[i][q] += __shfl_xor_sync(0xffffffffu, acc[i][q], off);
-          }
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < kRowsB; ++i) {
-          if (b0 + i < batch) {
-#pragma unroll
-            for (int q = 0; q < kUnits; ++q) {
-              dh_s[(b0 + i) * kUnits + q] = acc[i][q];
-            }
-          }
-        }
-      }
+      __syncthreads();     // red_s is rewritten by the next tile
     }
-    __syncthreads();       // dx_s and dh_s are rewritten by the next step
-  }
+  }  // next step
 
-  for (int idx = tid; idx < batch * kUnits; idx += kThreads) {
-    const int b = idx / kUnits, u = u0 + idx % kUnits;
-    if (u < hidden) {
+  for (int idx = tid; idx < tiles * kPairs; idx += kThreads) {
+    const int b = row_of(idx), u = unit_of(idx);
+    if (b < batch && u < hidden) {
       dh0[(int64_t)b * hidden + u] = dh_s[idx];
       dc0[(int64_t)b * hidden + u] = dc_s[idx];
     }
   }
-  for (int idx = tid; idx < kCols * hidden; idx += kThreads) {
-    const int lc = idx / hidden, k = idx - lc * hidden;
-    const int u = u0 + lc % kUnits;
-    if (u < hidden) dwh[(int64_t)k * gdim + (lc / kUnits) * hidden + u] =
-        dwh_s[idx];
+
+  // dWh: zeroed, then, once every block's dxpb is written, each tile the
+  // sum of its two halves of the rows
+  const int64_t dwh_size = (int64_t)hidden * gdim;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + tid; i < dwh_size;
+       i += (int64_t)gridDim.x * kThreads) {
+    dwh[i] = 0.f;
   }
+  grid_arrive(barrier + slots);
+  grid_wait(barrier + slots, gridDim.x);
+  const int rows_all = steps * batch;
+  const int mid =
+      min(rows_all, (rows_all / 2 + kTailK - 1) / kTailK * kTailK);
+  const int mtiles = (hidden + kTail - 1) / kTail;
+  const int ntiles = (gdim + kTail - 1) / kTail;
+  for (int w = blockIdx.x; w < 2 * mtiles * ntiles; w += gridDim.x) {
+    const int tile = w / 2;
+    dwh_tile<T, kVec>(hseq, h0, dxpb, dwh, w % 2 ? mid : 0,
+                      w % 2 ? rows_all : mid, batch, hidden,
+                      tile / ntiles * kTail, tile % ntiles * kTail,
+                      reinterpret_cast<T*>(smem));
+  }  // dWh tiles
 }
 
 // Launch ``blocks`` co-resident blocks or return an error: the barrier would
@@ -586,7 +908,7 @@ int bwd(const void* dhseq, const void* acts, const void* cseq,
         const void* hseq, const void* wh, const void* c0, const void* h0,
         const void* dcfin, const void* dhfin, void* dxpb, void* dwh,
         void* dc0, void* dh0, void* barrier, int steps, int batch,
-        int hidden, void* stream) {
+        int hidden, int slots, int smem, void* stream) {
   const T* p_dhseq = static_cast<const T*>(dhseq);
   const T* p_acts = static_cast<const T*>(acts);
   const T* p_cseq = static_cast<const T*>(cseq);
@@ -603,16 +925,20 @@ int bwd(const void* dhseq, const void* acts, const void* cseq,
   unsigned int* bar = static_cast<unsigned int*>(barrier);
   void* args[] = {&p_dhseq, &p_acts, &p_cseq, &p_hseq, &p_wh,  &p_c0,
                   &p_h0,    &p_dcfin, &p_dhfin, &p_dxpb, &p_dwh, &p_dc0,
-                  &p_dh0,   &bar,    &steps,  &batch,  &hidden};
-  const int blocks = (hidden + kUnits - 1) / kUnits;
-  const size_t smem = (size_t)4 * hidden * sizeof(float4) +
-                      (size_t)kCols * hidden * sizeof(float) +
-                      (size_t)batch * kCols * sizeof(float) +
-                      (size_t)2 * batch * kUnits * sizeof(float) +
-                      (size_t)kTileC * (hidden + 1) * sizeof(float);
-  // h and dxpb rows as 16-byte chunks where the row width allows
-  const bool vec = (hidden * sizeof(T)) % 16 == 0 && aligned16(h0) &&
-                   aligned16(hseq) && aligned16(dxpb);
+                  &p_dh0,   &bar,    &steps,  &batch,  &hidden, &slots};
+  // the wrapper's geometry (ops/lstm_kernels.py bwd_geometry) must be this
+  // source's: ``slots`` batch-tile groups of whole tiles, and their bytes
+  constexpr int rows = BwdTile<T>::rows, units = BwdTile<T>::units;
+  const int ntiles = (batch + rows - 1) / rows;
+  if (slots < 1 || slots > ntiles) return (int)cudaErrorInvalidValue;
+  const int tiles = (ntiles + slots - 1) / slots;
+  if ((int64_t)smem != BwdSmem<T>(hidden, tiles).end) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = slots * ((hidden + units - 1) / units);
+  // rows of Wh, h0, hseq and dxpb as 16-byte chunks where the width allows
+  const bool vec = (hidden * sizeof(T)) % 16 == 0 && aligned16(wh) &&
+                   aligned16(h0) && aligned16(hseq) && aligned16(dxpb);
   return vec ? launch_cooperative(lstm_bwd_kernel<T, true>, blocks, smem,
                                   args, stream)
              : launch_cooperative(lstm_bwd_kernel<T, false>, blocks, smem,
@@ -640,13 +966,14 @@ extern "C" int lstm_bwd(const void* dhseq, const void* acts, const void* cseq,
                         const void* h0, const void* dcfin, const void* dhfin,
                         void* dxpb, void* dwh, void* dc0, void* dh0,
                         void* barrier, int steps, int batch, int hidden,
-                        int bf16, void* stream) {
+                        int slots, int smem, int bf16, void* stream) {
   if (steps < 1 || batch < 1 || hidden < 1) return (int)cudaErrorInvalidValue;
   if (bf16) {
     return bwd<__nv_bfloat16>(dhseq, acts, cseq, hseq, wh, c0, h0, dcfin,
                               dhfin, dxpb, dwh, dc0, dh0, barrier, steps,
-                              batch, hidden, stream);
+                              batch, hidden, slots, smem, stream);
   }
   return bwd<float>(dhseq, acts, cseq, hseq, wh, c0, h0, dcfin, dhfin, dxpb,
-                    dwh, dc0, dh0, barrier, steps, batch, hidden, stream);
+                    dwh, dc0, dh0, barrier, steps, batch, hidden, slots,
+                    smem, stream);
 }

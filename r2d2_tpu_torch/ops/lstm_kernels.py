@@ -22,11 +22,13 @@ carries bf16.
 residual forward, then the backward kernel), otherwise the lean forward,
 as the JAX custom_vjp's primal does. A CUDA tensor launches the kernel or
 raises; only CPU tensors take the plain versions. ``LAUNCHES`` counts
-kernel launches (plain calls do not count).
+kernel launches (plain calls do not count). ``bwd_geometry`` is the
+backward kernel's grid and shared memory for a shape, which the wrapper
+passes to it.
 """
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -36,10 +38,68 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _SIGNATURES = {
     "lstm_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
-    "lstm_bwd": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+    "lstm_bwd": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 _lib = None
+
+# The backward's partition and shared memory, as csrc/lstm_kernels.cu
+# (BwdSmem and the constants above it) lays them out.
+# (rows of a batch tile, units of a group, dx slices in flight per warp)
+BWD_TILE = {torch.bfloat16: (16, 32, 8), torch.float32: (32, 16, 3)}
+_BWD_WARPS, _BWD_DH_K = 8, 16       # warps of a block, k of a dx slice
+_BWD_TAIL = (128, 32, 4)            # dWh tile side; rows per slice; slices
+SMEM_LIMIT = 232_448                # dynamic shared memory of a block, H100
+
+
+class BwdGeometry(NamedTuple):
+    """Block ``slot * groups + group`` of the backward owns hidden units
+    ``[units * group, units * group + units)`` of the batch tiles (``rows``
+    rows each) ``slot, slot + slots, ...``, at most ``tiles_per_block`` of
+    them; the blocks of a slot share barrier counter ``slot``, and counter
+    ``slots`` is the whole grid's (``counters`` in all)."""
+    rows: int
+    units: int
+    groups: int
+    slots: int
+    tiles_per_block: int
+    blocks: int
+    smem: int
+    counters: int
+
+
+def bwd_geometry(batch: int, hidden: int, dtype: torch.dtype,
+                 sms: int) -> BwdGeometry:
+    """The backward kernel's grid for a (batch, hidden) problem on a card
+    with ``sms`` multiprocessors: as many batch-tile slots as the grid can
+    hold at one block per multiprocessor, every block resident (the
+    barriers need it). Raises if Wh rows, carries and staging do not fit a
+    block's shared memory or the unit groups outnumber the multiprocessors."""
+    if dtype not in BWD_TILE:
+        raise ValueError(f"lstm_bwd takes float32 or bfloat16, not {dtype}")
+    esize = torch.empty((), dtype=dtype).element_size()
+    chunk = 16 // esize                      # values per 16-byte chunk
+    rows, units, stages = BWD_TILE[dtype]
+    tiles = -(-batch // rows)
+    groups = -(-hidden // units)
+    if groups > sms:
+        raise ValueError(f"lstm_bwd: H={hidden} needs {groups} unit groups, "
+                         f"more than the card's {sms} multiprocessors")
+    slots = min(tiles, sms // groups)
+    per_block = -(-tiles // slots)
+    kp = -(-4 * hidden // _BWD_DH_K) * _BWD_DH_K
+    pairs = rows * units
+    steps_bytes = (units * (kp + chunk) * esize
+                   + _BWD_WARPS * stages * rows * (_BWD_DH_K + chunk) * esize
+                   + _BWD_WARPS * pairs * 4 + 2 * per_block * pairs * 4)
+    tile, tk, tail_stages = _BWD_TAIL
+    tail_bytes = tail_stages * tk * 2 * (tile + chunk) * esize
+    smem = max(steps_bytes, tail_bytes)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"lstm_bwd: B={batch}, H={hidden} in {dtype} needs "
+                         f"{smem} bytes of shared memory, above {SMEM_LIMIT}")
+    return BwdGeometry(rows, units, groups, slots, per_block,
+                       slots * groups, smem, slots + 1)
 
 
 def reset_launch_counts() -> None:
@@ -219,13 +279,15 @@ def lstm_bwd_cuda(wh, c0, h0, hseq, cseq, acts, dhseq, dcfin, dhfin):
     dwh = torch.empty((hidden, 4 * hidden), dtype=torch.float32, device=dev)
     dc0 = torch.empty((batch, hidden), dtype=torch.float32, device=dev)
     dh0 = torch.empty_like(dc0)
-    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    geo = bwd_geometry(batch, hidden, dtype, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    barrier = torch.zeros(geo.counters, dtype=torch.int32, device=dev)
     _raise_on(_library().lstm_bwd(
         dhseq.data_ptr(), acts.data_ptr(), cseq.data_ptr(), hseq.data_ptr(),
         wh.data_ptr(), c0.data_ptr(), h0.data_ptr(), dcfin.data_ptr(),
         dhfin.data_ptr(), dxpb.data_ptr(), dwh.data_ptr(), dc0.data_ptr(),
-        dh0.data_ptr(), barrier.data_ptr(), steps, batch, hidden,
-        int(dtype == torch.bfloat16),
+        dh0.data_ptr(), barrier.data_ptr(), steps, batch, hidden, geo.slots,
+        geo.smem, int(dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream), "lstm_bwd")
     LAUNCHES["lstm_bwd"] += 1
     return dxpb, dwh, dc0, dh0

@@ -9,8 +9,13 @@ each time step and sums the spans, runs the residual forward, the lean
 forward and the backward once in bf16 and in f32, and prints one JSON line
 per kernel with the mean and max over blocks of each phase, in us per time
 step. Forward phases: staging h_{t-1} into shared memory, the product, the
-gate epilogue, the grid barrier. Backward phases: gate grads + arriving at
-the barrier, the dWh update, the wait, the dh product. The kernels that
+gate epilogue, the grid barrier. Backward phases, per time step: gate
+grads + arriving at the batch-tile group's barrier, the wait (with the grid
+barrier before dWh), the dh product; and the dWh product after the scan,
+timed once and divided by T like the rest. Beside the phases, each
+kernel's device time per launch, built from the unmodified source, over 20
+launches back to back between two CUDA events (``device_ms``: no host gap
+between launches, unlike one launch timed alone). The kernels that
 the port runs are built from the unmodified source; this copy is built
 beside them under ``build/`` and is used by nothing else. Needs a CUDA
 card.
@@ -27,8 +32,9 @@ SAVE = ("  if (threadIdx.x == 0) for (int i = 0; i < 4; ++i) "
         "g_phase[blockIdx.x][i] = ph[i];\n")
 START = "  unsigned long long ph[4] = {0, 0, 0, 0}, tp = now_ns();\n"
 PHASES = {"fwd": ("stage", "product", "epilogue", "barrier"),
-          "bwd": ("gate_grads_arrive", "dwh", "wait", "dh")}
+          "bwd": ("gate_grads_arrive", "wait", "dh", "dwh_tail")}
 MAX_BLOCKS = 4096
+BACK_TO_BACK = 20
 
 # (anchor in csrc/lstm_kernels.cu, text that replaces it)
 EDITS = (
@@ -55,13 +61,15 @@ EDITS = (
     # backward
     ("  for (int t = steps - 1; t >= 0; --t) {\n",
      START + "  for (int t = steps - 1; t >= 0; --t) {\n"),
-    ("    grid_arrive(barrier);\n\n",
-     "    grid_arrive(barrier);\n" + STAMP.format(i=0) + "\n"),
-    ("    grid_wait(barrier, target);\n\n",
-     STAMP.format(i=1) + "    grid_wait(barrier, target);\n"
-     + STAMP.format(i=2) + "\n"),
-    ("next step\n  }\n",
-     "next step\n" + STAMP.format(i=3) + "  }\n" + SAVE),
+    ("    grid_arrive(barrier + slot);\n",
+     "    grid_arrive(barrier + slot);\n" + STAMP.format(i=0)),
+    ("(steps - t) * groups);\n",
+     "(steps - t) * groups);\n" + STAMP.format(i=1)),
+    ("  }  // next step\n", STAMP.format(i=2) + "  }  // next step\n"),
+    ("  grid_wait(barrier + slots, gridDim.x);\n",
+     "  grid_wait(barrier + slots, gridDim.x);\n" + STAMP.format(i=1)),
+    ("  }  // dWh tiles\n}\n",
+     "  }  // dWh tiles\n" + STAMP.format(i=3) + SAVE + "}\n"),
 )
 
 
@@ -112,18 +120,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("lstm_phases: no CUDA device", file=sys.stderr)
         return 2
-    blocks = -(-args.hidden // 4)
-    if blocks > MAX_BLOCKS:
-        raise SystemExit(f"--hidden above {4 * MAX_BLOCKS}")
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if -(-args.hidden // 4) > MAX_BLOCKS:
+        raise SystemExit(f"--hidden above {4 * MAX_BLOCKS}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    lib, kept = _library(), lk._lib
+    lib, kept, port = _library(), lk._lib, lk._library()
     g = torch.Generator(device=dev).manual_seed(7)
     steps, batch, hidden = args.steps, args.batch, args.hidden
     try:
-        lk._lib = lib
         for dtype in (torch.bfloat16, torch.float32):
             def randn(*dims, scale=1.0):
                 return (torch.randn(dims, generator=g, device=dev)
@@ -141,16 +148,31 @@ def main(argv=None) -> int:
                     "lstm_bwd": lambda: lk.lstm_bwd_cuda(wh, c0, h0, *res,
                                                          *cts)}
             for name, run in runs.items():
+                lk._lib = port
+                run()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(BACK_TO_BACK):
+                    run()
+                end.record()
+                end.synchronize()
+                device_ms = start.elapsed_time(end) / BACK_TO_BACK
+                lk._lib = lib
                 run()
                 torch.cuda.synchronize()
                 buf = np.zeros((MAX_BLOCKS, 4), dtype=np.uint64)
                 if lib.read_phases(buf.ctypes.data) != 0:
                     raise RuntimeError("reading the phase clocks failed")
+                kind = "bwd" if name == "lstm_bwd" else "fwd"
+                blocks = (lk.bwd_geometry(batch, hidden, dtype, sms).blocks
+                          if kind == "bwd" else -(-hidden // 4))
                 us = buf[:blocks].astype(np.float64) / 1e3 / steps
-                keys = PHASES["bwd" if name == "lstm_bwd" else "fwd"]
+                keys = PHASES[kind]
                 print(json.dumps({
                     "kernel": name, "dtype": str(dtype).split(".")[-1],
                     "T_B_H": [steps, batch, hidden], "card": smi,
+                    "device_ms": round(device_ms, 4),
                     "us_per_step_mean": dict(zip(keys, us.mean(0).round(3)
                                                  .tolist())),
                     "us_per_step_max": dict(zip(keys, us.max(0).round(3)
