@@ -7,7 +7,8 @@ Phases, each of which asserts or raises (any failure exits nonzero):
   1. versions, device name and power limit;
   2. build the CUDA kernels from the sources in this checkout, one nvcc per
      source, all started together; print what ptxas reports per kernel and
-     its tensor-core (HMMA) instruction count in the SASS;
+     its tensor-core (HMMA) instruction count in the SASS (the bf16
+     forward must have some, and no forward may spill);
   3. every kernel against its plain PyTorch version: the replay kernels at
      the reference shape (exact), the LSTM scan kernels at ragged small
      shapes and at the reference shape (T=55, B=128, H=512) in f32 and
@@ -63,14 +64,19 @@ LSTM_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
 # dWh sums T*B products per entry: max error / max |reference|
 DWH_REL = {"float32": 1e-3, "bfloat16": 2e-2}
 LSTM_REF_SHAPE = (55, 128, 512)                          # T, B, H
-# ragged edges: H not a multiple of the forward's 4-unit or the backward's
-# unit groups (f32 16, bf16 32: H=17, H=40), rows too narrow for 16-byte
-# loads (the one-element path, k padded to 16 in shared memory), B across
-# the forward's 64-row and the backward's tiles (f32 32 rows, bf16 16:
-# B=33 is one row past a tile), and B=256 at H=512, where a backward block
-# walks two batch tiles (T kept small for the plain version)
+# ragged edges of the two kernels' shared partition (batch tiles of f32 32
+# rows, bf16 16; unit groups of f32 16, bf16 32): H not a multiple of a
+# group (H=17, 18, 24, 40), rows too narrow for 16-byte loads (the element
+# path; k padded to 16 in shared memory), B one row past a tile (B=33) or
+# with a partial last tile (B=3, 70, 130), B=256 at H=512, where a block
+# walks two batch tiles, B=300 at H=512, where a slot's last walked tile
+# lies past the batch (bf16 19 tiles over 8 slots, f32 10 over 4), and
+# H=544, past the 512 k whose bf16 Wh operands the forward keeps in
+# registers (the largest H whose f32 forward fits); T kept small for the
+# plain version
 LSTM_SMALL_SHAPES = ((4, 3, 17), (5, 8, 18), (6, 70, 16), (3, 130, 24),
-                     (4, 33, 17), (4, 33, 40), (3, 256, 512))
+                     (4, 33, 17), (4, 33, 40), (3, 256, 512), (2, 300, 512),
+                     (2, 24, 544))
 FUSED_ARGS = ["--network.pallas_lstm=on", "--network.use_double=true"]
 
 
@@ -206,6 +212,14 @@ def phase_build():
             print(f"sass {name}: not read (no cuobjdump output)", flush=True)
         for kernel, n in counts.items():
             print(f"sass {name}: {kernel}: {n} HMMA", flush=True)
+        # the forward's bf16 product runs on the tensor cores, and no
+        # forward instantiation spills
+        for kernel, n in counts.items():
+            if "lstm_fwd_kernel<__nv_bfloat16" in kernel:
+                check(n > 0, f"no HMMA in {kernel}")
+        for line in lines:
+            if "lstm_fwd_kernel" in line:
+                check("spill stores 0 B, spill loads 0 B" in line, line)
 
 
 def replay_kernel_checks(dev):

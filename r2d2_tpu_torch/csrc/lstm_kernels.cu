@@ -24,27 +24,37 @@
 // of traffic: 15-30 us of roofline in bf16, but every step waits for the
 // previous one's h (forward) or gate grads (backward), so 55 dependencies
 // between blocks set the floor, and the time of a step is what sits on it:
-// the rows a block must pull through L2 and its share of the products.
+// the wait, the rows a block must pull through L2 and its share of the
+// products.
 //
-// Forward: ONE persistent launch, the counterpart of "Wh resident, carries
-// never in HBM". Block q owns hidden units [4q, 4q+4) (H/4 = 128 blocks at
-// H=512, one per SM, launched cooperatively so all are co-resident) and
-// keeps in shared memory, for the whole scan, its slice of Wh and its f32
-// carries. A step reads every block's h_{t-1} from L2 (hseq itself: it is
-// exactly the cd(h) the product consumes; 16 MB a step across the grid),
-// stages it in shared memory in a bank-conflict-free order, runs the
-// product as f32 FMAs and ends in a grid-wide barrier on a global counter
-// (no -rdc needed).
+// Both kernels are ONE persistent cooperative launch (every block resident,
+// one per SM) on the same partition (ScanTile<T>: bf16 16 rows x 32 units,
+// f32 32 x 16): block slot * groups + group owns hidden units [units group,
+// units (group + 1)) of the batch tiles slot, slot + slots, ... A step of
+// batch row b needs only row b of the previous step's plane, so the blocks
+// of one slot wait only on each other, on their own barrier counter (an
+// atomic arrive and a volatile spin on a global counter, no -rdc needed).
 //
-// Backward: ONE persistent launch as well, but the chain holds only what
-// the next step needs. dWh, which no step needs, is one tensor-core product
-// over all T*B rows after the scan. A step of batch row b needs only row b
-// of dxpb[t], so a block owns a tile of rows x a group of units (bf16 16 x
-// 32, f32 32 x 16) and waits only on the blocks of its batch tiles (one
-// counter each): per step it reads its rows of dxpb[t] (8 MB across the
-// grid in bf16, not 64) into a per-warp cp.async ring and runs dh on the
-// tensor cores in bf16 (mma.sync m16n8k16, operands by ldmatrix; f32 keeps
-// FMAs).
+// Forward, the counterpart of "Wh resident, carries never in HBM": a block
+// keeps in shared memory, for the whole scan, its Wh columns (4 gates x its
+// units, all H rows of k; 130 KB bf16 at H=512) and its f32 c carries. Per
+// step it stages only its tile's rows of h_{t-1} (hseq[t-1] as stored, which
+// is exactly the cd(h) the product consumes; 2 MB across the grid in bf16)
+// by cp.async.cg, runs the product on the tensor cores in bf16 (mma.sync
+// m16n8k16, operands by ldmatrix, the columns laid out so that a lane's
+// accumulators hold the four gates of one unit: gate math and carries stay
+// in registers; f32 keeps FMAs), stores h_t, arrives, and only then stores
+// the residuals and loads the next step's xpb values. What bounds it now is
+// latency on the chain, not work: on an H100 SXM (700 W) a bf16 step at the
+// reference shape takes ~5 us, of which ~1 the wait, ~1 the L2 round trip
+// of the staging, ~0.7 the product and ~1.7-2.2 the gate math, the h_t
+// stores and the fence before arriving.
+//
+// Backward: the chain holds only what the next step needs. dWh, which no
+// step needs, is one tensor-core product over all T*B rows after the scan.
+// Per step a block reads its rows of dxpb[t] (8 MB across the grid in bf16)
+// into a per-warp cp.async ring and runs dh on the tensor cores in bf16
+// (f32 keeps FMAs).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o liblstm_kernels.so lstm_kernels.cu
@@ -55,12 +65,10 @@
 
 namespace {
 
-constexpr int kUnits = 4;                    // hidden units a block owns
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileB = kThreads / kUnits;    // batch rows per forward tile
-constexpr int kSplitK = kWarps / (kTileB / 32);  // forward k parts (4)
-constexpr int kStage = 8;      // chunk loads in flight per thread, h staging
+constexpr int kTilePairs = 512;  // (row, unit) pairs a block owns per tile
+constexpr int kPadK = 16;        // the forward's k padded to the mma's depth
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -86,47 +94,13 @@ __device__ __forceinline__ __nv_bfloat16 ldcg_raw(const __nv_bfloat16* p) {
       __ldcg(reinterpret_cast<const unsigned short*>(p)));
 }
 
-// Consecutive values of a row read as one access through L2: 16 bytes
-// (kVec; the row width and the base must allow it) or one element.
-// get(e) gives element e in f32; held raw until then, so that a thread can
-// have several loads in flight before it uses the first.
-template <typename T, bool kVec>
-struct Chunk;
-
-template <typename T>
-struct Chunk<T, false> {
-  static constexpr int n = 1;
-  T v;
-  __device__ __forceinline__ void load_cg(const T* p) { v = ldcg_raw(p); }
-  __device__ __forceinline__ void zero() { v = from_f<T>(0.f); }
-  __device__ __forceinline__ float get(int) const { return to_f(v); }
-};
-
-template <typename T>
-struct Chunk<T, true> {
-  static constexpr int n = 16 / sizeof(T);
-  uint4 v;
-  __device__ __forceinline__ void load_cg(const T* p) {
-    v = __ldcg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ void zero() { v = make_uint4(0u, 0u, 0u, 0u); }
-  __device__ __forceinline__ float get(int e) const {
-    constexpr int per_word = 4 / sizeof(T);
-    const int i = e / per_word;
-    const unsigned int w = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-    if (per_word == 1) return __uint_as_float(w);
-    // bfloat16 is the high half of a float32: widen by a shift
-    return __uint_as_float((e % 2 ? w >> 16 : w & 0xffffu) << 16);
-  }
-};
-
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// Grid-wide barrier, split so that a block can do local work between
-// arriving and waiting. All blocks arrive once per barrier; ``target`` =
-// blocks x barriers so far. The counter only grows (the wrapper zeroes it
+// Barrier on a global counter, split so that a block can do local work
+// between arriving and waiting. The blocks that share a counter arrive once
+// per barrier; ``target`` = those blocks x barriers so far. The counter only grows (the wrapper zeroes it
 // per launch), so no sense flag is needed. Every thread fences its own
 // stores before the block arrives; the spin reads through a volatile
 // pointer.
@@ -147,246 +121,15 @@ __device__ __forceinline__ void grid_wait(unsigned int* counter,
   __syncthreads();
 }
 
-// Copy ``rows`` rows of a (., hidden) plane (written by other blocks) into
-// shared memory as f32 rows of stride hidden + 1. A warp reads 8 rows x 4
-// consecutive chunks at a time: the loads are whole 32-byte sectors, and
-// the stores of a warp fall in 32 different banks.
-template <typename T, bool kVec>
-__device__ __forceinline__ void stage_rows(const T* src, int rows, int hidden,
-                                           float* dst) {
-  using V = Chunk<T, kVec>;
-  const int per_row = hidden / V::n;
-  const int col_groups = (per_row + 3) / 4;
-  const int groups = ((rows + 7) / 8) * col_groups;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int g0 = warp; g0 < groups; g0 += kWarps * kStage) {
-    V v[kStage];
-    int off[kStage];
-#pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int g = g0 + i * kWarps;
-      const int rr = (g / col_groups) * 8 + lane / 4;
-      const int c = (g % col_groups) * 4 + lane % 4;
-      off[i] = -1;
-      if (g < groups && rr < rows && c < per_row) {
-        v[i].load_cg(src + (int64_t)rr * hidden + c * V::n);
-        off[i] = rr * (hidden + 1) + c * V::n;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      if (off[i] >= 0) {
-#pragma unroll
-        for (int e = 0; e < V::n; ++e) dst[off[i] + e] = v[i].get(e);
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Forward. Shared memory: Wh slice as float4 (i, f, g, o) per (k, unit)
-// [H][kUnits]; partial products [kSplitK][kTileB][kUnits] float4; a tile
-// of h_{t-1} [kTileB][H + 1] (the +1 keeps the 32 rows a warp reads in
-// different banks); the c carry [B][kUnits].
-// Product: warp w sums k over part w % kSplitK of H for the rows
-// (w / kSplitK) * 32 + lane of the tile and all 16 gate columns: the Wh
-// row of a k is one broadcast read for the whole warp, and a lane does 16
-// FMAs for each h value it reads. Epilogue: thread (r, uu) adds the
-// kSplitK partials of row b0 + r, unit u0 + uu and computes its four gates.
-
-template <typename T, bool kVec, bool kResiduals>
-__global__ void __launch_bounds__(kThreads)
-    lstm_fwd_kernel(const T* __restrict__ xpb, const T* __restrict__ wh,
-                    const T* __restrict__ c0, const T* __restrict__ h0,
-                    T* hseq, T* __restrict__ cseq, T* __restrict__ acts,
-                    T* __restrict__ cfin, unsigned int* barrier, int steps,
-                    int batch, int hidden) {
-  extern __shared__ float4 smem4[];
-  float4* w_s = smem4;
-  float4* part_s = w_s + (size_t)hidden * kUnits;
-  float* h_s = reinterpret_cast<float*>(part_s + kSplitK * kTileB * kUnits);
-  float* c_s = h_s + (size_t)kTileB * (hidden + 1);
-  const int64_t gdim = 4LL * hidden;
-  const int64_t plane = (int64_t)batch * hidden;
-  const int u0 = blockIdx.x * kUnits;
-  const int tid = threadIdx.x;
-
-  for (int idx = tid; idx < hidden * kUnits; idx += kThreads) {
-    const int k = idx / kUnits, u = u0 + idx % kUnits;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (u < hidden) {
-      const T* row = wh + k * gdim + u;
-      v = make_float4(to_f(row[0]), to_f(row[hidden]), to_f(row[2 * hidden]),
-                      to_f(row[3 * hidden]));
-    }
-    w_s[idx] = v;
-  }
-  for (int idx = tid; idx < batch * kUnits; idx += kThreads) {
-    const int b = idx / kUnits, u = u0 + idx % kUnits;
-    c_s[idx] = u < hidden ? to_f(c0[(int64_t)b * hidden + u]) : 0.f;
-  }
-
-  const int uu = tid % kUnits, r = tid / kUnits, u = u0 + uu;
-  const int hstride = hidden + 1;
-  const int part = (tid / 32) % kSplitK;
-  const int rp = (tid / 32) / kSplitK * 32 + tid % 32;
-  const int kspan = (hidden + kSplitK - 1) / kSplitK;
-  const int k_lo = part * kspan, k_hi = min(hidden, k_lo + kspan);
-  for (int t = 0; t < steps; ++t) {
-    const T* hprev = t == 0 ? h0 : hseq + (t - 1) * plane;
-    for (int b0 = 0; b0 < batch; b0 += kTileB) {
-      const int rows = min(kTileB, batch - b0);
-      const bool active = r < rows && u < hidden;
-      const int b = b0 + r;
-      const int64_t row = (int64_t)t * batch + b;
-      // this step's input projection, loaded ahead of the product
-      float xi = 0.f, xf = 0.f, xg = 0.f, xo = 0.f;
-      if (active) {
-        const T* xp = xpb + row * gdim + u;
-        xi = to_f(xp[0]);
-        xf = to_f(xp[hidden]);
-        xg = to_f(xp[2 * hidden]);
-        xo = to_f(xp[3 * hidden]);
-      }
-      __syncthreads();               // the previous tile's readers are done
-      stage_rows<T, kVec>(hprev + (int64_t)b0 * hidden, rows, hidden, h_s);
-      __syncthreads();
-      if (rp < rows) {
-        const float* hrow = h_s + rp * hstride;
-        float4 acc[kUnits];
-#pragma unroll
-        for (int q = 0; q < kUnits; ++q) {
-          acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll 4
-        for (int k = k_lo; k < k_hi; ++k) {
-          const float hv = hrow[k];
-          const float4* w = w_s + k * kUnits;
-#pragma unroll
-          for (int q = 0; q < kUnits; ++q) {
-            const float4 wq = w[q];
-            acc[q].x = fmaf(hv, wq.x, acc[q].x);
-            acc[q].y = fmaf(hv, wq.y, acc[q].y);
-            acc[q].z = fmaf(hv, wq.z, acc[q].z);
-            acc[q].w = fmaf(hv, wq.w, acc[q].w);
-          }
-        }
-        float4* dst = part_s + (part * kTileB + rp) * kUnits;
-#pragma unroll
-        for (int q = 0; q < kUnits; ++q) dst[q] = acc[q];
-      }
-      __syncthreads();
-      if (active) {
-        float4 s = part_s[r * kUnits + uu];
-#pragma unroll
-        for (int p = 1; p < kSplitK; ++p) {
-          const float4 v = part_s[(p * kTileB + r) * kUnits + uu];
-          s.x += v.x;
-          s.y += v.y;
-          s.z += v.z;
-          s.w += v.w;
-        }
-        const float gi = sigmoid(xi + s.x);
-        const float gf = sigmoid(xf + s.y);
-        const float gg = tanhf(xg + s.z);
-        const float go = sigmoid(xo + s.w);
-        float* cc = c_s + b * kUnits + uu;
-        const float c = gf * *cc + gi * gg;
-        const float h = go * tanhf(c);
-        *cc = c;
-        const int64_t o = row * hidden + u;
-        hseq[o] = from_f<T>(h);
-        if (kResiduals) {
-          cseq[o] = from_f<T>(c);
-          T* a = acts + row * gdim + u;
-          a[0] = from_f<T>(gi);
-          a[hidden] = from_f<T>(gf);
-          a[2 * hidden] = from_f<T>(gg);
-          a[3 * hidden] = from_f<T>(go);
-        } else if (t == steps - 1) {
-          cfin[(int64_t)b * hidden + u] = from_f<T>(c);
-        }
-      }
-    }
-    if (t + 1 < steps) {
-      const unsigned int target = (unsigned int)(t + 1) * gridDim.x;
-      grid_arrive(barrier);
-      grid_wait(barrier, target);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward, t = T-1 .. 0, then dWh.
-//
-// Partition (BwdTile<T>: bf16 16 rows x 32 units, f32 32 x 16): block
-// (slot, group) = blockIdx.x / groups, blockIdx.x % groups owns hidden units
-// [units group, units (group + 1)) of the batch tiles (``rows`` rows each)
-// slot, slot + slots, ...: a step of batch row b needs only row b of
-// dxpb[t], so the blocks of one slot wait only on each other, on their own
-// barrier counter (counter ``slot``; counter ``slots`` is the grid's, for
-// dWh). ``slots`` is chosen by the wrapper so that the grid is resident.
-// Shared memory (BwdSmem): the block's Wh rows [units][4H padded to 16, +
-// one 16-byte chunk]; per warp a ring of dx slices [rows][16 k, + a chunk];
-// partial dh per warp [rows][units] f32; the dh and dc carries per tile
-// [rows][units] f32. Per step:
-//   A. thread (row, unit) turns dh/dc into the pre-activation gate grads of
-//      its rows, writes them to dxpb[t] (storage type); the block arrives at
-//      its slot's barrier;
-//   wait: the slot's rows of dxpb[t] are written;
-//   B. dh[rows, units] = cd(dxpb[t][rows, :]) . Wh[units, :]^T, the
-//      4H of k split over the warps, each streaming 16-wide slices through
-//      its ring by cp.async.cg; bf16 on the tensor cores (mma.sync
-//      m16n8k16, operands by ldmatrix), f32 as FMAs; the warps' partials are
-//      summed through shared memory in a fixed order.
-// Step t-1 writes other rows of dxpb, so one barrier per step is enough.
-// After the last step a grid barrier, then dWh = sum over rows (t, b) of
-// cd(h_prev)[row, :]^T cd(dxpb)[row, :], h_prev = [h0; hseq[:-1]]: one
-// product of (T B) rows, (128 x 128 output tile, half of the rows) items
-// walked by the blocks, rows streamed 32 at a time through a 4-deep ring
-// (both operands with the rows as the reduction dimension:
-// ldmatrix.trans); each half adds its sum to the zeroed dWh.
-
-constexpr int kBwdPairs = 512;   // (row, unit) pairs a block owns per tile
-constexpr int kDhK = 16;         // k of one staged dx slice
-constexpr int kTail = 128;       // dWh output tile kTail x kTail
-constexpr int kTailK = 32;       // rows (t, b) per staged dWh slice
-constexpr int kTailStages = 4;
-
-// Batch rows of a tile and hidden units of a group. bf16: 16 x 32, so a
-// block reads 16 rows of dxpb[t] a step (its Wh rows are 128 KB at H=512);
-// f32: 32 x 16 (f32 Wh rows of 32 units would not fit).
+// The partition of both kernels: batch rows of a tile and hidden units of a
+// group. bf16: 16 x 32, so a block reads 16 rows of h (forward) or dxpb[t]
+// (backward) a step and its share of Wh is 128 KB at H=512; f32: 32 x 16
+// (f32 Wh of 32 units would not fit).
 template <typename T>
-struct BwdTile {
+struct ScanTile {
   static constexpr int rows = sizeof(T) == 2 ? 16 : 32;
-  static constexpr int units = kBwdPairs / rows;
-};
-
-// dx slices in flight per warp (shared memory sets the f32 depth)
-template <typename T>
-__host__ __device__ constexpr int dh_stages() {
-  return sizeof(T) == 2 ? 8 : 3;
-}
-
-// Byte offsets into the backward's dynamic shared memory; ``end`` is its
-// size (the wrapper's bwd_geometry computes the same number).
-template <typename T>
-struct BwdSmem {
-  int64_t w, ring, red, dh, dc, end;
-  __host__ __device__ BwdSmem(int hidden, int tiles) {
-    constexpr int64_t n = 16 / sizeof(T), e = sizeof(T);
-    const int64_t kp = (4LL * hidden + kDhK - 1) / kDhK * kDhK;
-    const int64_t rows = BwdTile<T>::rows, pairs = kBwdPairs;
-    w = 0;
-    ring = w + BwdTile<T>::units * (kp + n) * e;
-    red = ring + (int64_t)kWarps * dh_stages<T>() * rows * (kDhK + n) * e;
-    dh = red + kWarps * pairs * 4;
-    dc = dh + tiles * pairs * 4;
-    const int64_t steps_end = dc + tiles * pairs * 4;
-    const int64_t tail_end =
-        (int64_t)kTailStages * kTailK * 2 * (kTail + n) * e;
-    end = steps_end > tail_end ? steps_end : tail_end;
-  }
+  static constexpr int units = kTilePairs / rows;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -456,8 +199,499 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---------------------------------------------------------------------------
+// Forward, t = 0 .. T-1.
+//
+// Block (slot, group) = blockIdx.x / groups, blockIdx.x % groups (the
+// partition above). Shared memory (FwdSmem): the block's Wh share, 4 gates
+// x its units, all H rows of k padded to 16 (fwd_w_index: bf16 [column][k
+// + one 16-byte chunk] in the column order of fwd_column, f32 [gate][k / 4]
+// [unit][4]); one staged tile of h_{t-1} [rows][k + a chunk]; the c
+// carries [tiles][2 pairs x kThreads] f32; f32 only, the two k halves'
+// partial sums exchanged [8][kThreads]; the first tile's xpb values of a
+// step [4 gates][rows][units]. A thread owns two (row, unit) pairs
+// of each tile (fwd_row, fwd_pair_unit). Per step:
+//   wait: the slot's blocks have written hseq[t-1] (not at t = 0: h0);
+//   per tile: its rows of h_{t-1} staged, the product, the gate math, h_t
+//     stored;
+//   arrive at the slot's counter; then, off the chain, the last tile's
+//   residuals (cseq, acts) and the next step's xpb values of the own pairs:
+//   the first tile's into shared memory by cp.async (they land by the next
+//   staging's wait), the others' into L1.
+// hseq[t] is a plane of its own that no later step writes, so one counter
+// per slot and one staging buffer are enough. The lean variant writes c_fin
+// from its own carries after the last step.
+//
+// bf16 product: warp w owns 16 columns = units 4w .. 4w+3 x 4 gates, n tile
+// 2w holding their (i, f) pairs and n tile 2w+1 their (g, o) pairs, so that
+// a lane's accumulators hold the four gates of one unit for rows lane/4 and
+// lane/4 + 8: gate math and carries need no exchange. The B operands of the
+// first kRegSlices 16-slices of k stay in registers for the whole scan (a
+// step reads only the h rows from shared memory); k in two accumulator
+// chains of alternate slices. f32 product: FMAs, thread (k half, row
+// quad, unit) computing 4 rows x the unit's 4 gates over its half of k
+// (the Wh reads of a warp are 16 consecutive 16-byte chunks, its h reads two
+// broadcasts); the halves then swap the two rows the other owns.
+
+constexpr int kRegSlices = 32;   // bf16 16-slices of k whose B is in registers
+
+// bf16: the column of (unit, gate) in the block's Wh share (the interleaved
+// order described above).
+__host__ __device__ constexpr int fwd_column(int unit, int gate) {
+  return unit / 4 * 16 + gate / 2 * 8 + unit % 4 * 2 + gate % 2;
+}
+
+// Where value k of (unit, gate) of the block's Wh share lies in w_s: bf16
+// [fwd_column][stride], f32 [gate][k / 4][unit][4].
+template <typename T>
+__device__ __forceinline__ int fwd_w_index(int unit, int gate, int k, int kp,
+                                           int stride) {
+  if constexpr (sizeof(T) == 2) {
+    return fwd_column(unit, gate) * stride + k;
+  } else {
+    return ((gate * (kp / 4) + k / 4) * 16 + unit) * 4 + k % 4;
+  }
+}
+
+// Value e of a 16-byte chunk held raw.
+template <typename T>
+__device__ __forceinline__ T chunk_value(const uint4& v, int e) {
+  const int i = e * (int)sizeof(T) / 4;
+  const unsigned int w = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(w);
+  } else {
+    return __ushort_as_bfloat16(
+        static_cast<unsigned short>(e % 2 ? w >> 16 : w & 0xffffu));
+  }
+}
+
+// Pair p (0 or 1) of thread ``tid`` in a tile: its row and its unit within
+// the group. bf16: the accumulator rows lane/4 and lane/4 + 8 of unit
+// 4 warp + lane % 4; f32: rows (tid % 128) / 16 + 8 (2 (tid / 128) + p)
+// of unit tid % 16.
+template <typename T>
+__device__ __forceinline__ int fwd_row(int tid, int p) {
+  return sizeof(T) == 2 ? tid % 32 / 4 + 8 * p
+                        : tid % 128 / 16 + 8 * (2 * (tid / 128) + p);
+}
+template <typename T>
+__device__ __forceinline__ int fwd_pair_unit(int tid, int) {
+  return sizeof(T) == 2 ? tid / 32 * 4 + tid % 4 : tid % 16;
+}
+
+// Byte offsets into the forward's dynamic shared memory; ``end`` is its
+// size (the wrapper's fwd_geometry computes the same number).
+template <typename T>
+struct FwdSmem {
+  int64_t w, h, c, red, x, end;
+  __host__ __device__ FwdSmem(int hidden, int tiles) {
+    constexpr int64_t n = 16 / sizeof(T), e = sizeof(T);
+    const int64_t kp = (hidden + kPadK - 1) / kPadK * kPadK;
+    constexpr int64_t cols = 4 * ScanTile<T>::units;
+    w = 0;
+    h = w + cols * (sizeof(T) == 2 ? kp + n : kp) * e;
+    c = h + (int64_t)ScanTile<T>::rows * (kp + n) * e;
+    red = c + (int64_t)tiles * kTilePairs * 4;
+    x = red + (sizeof(T) == 2 ? 0 : 8LL * kThreads * 4);
+    end = x + 4LL * kTilePairs * e;
+  }
+};
+
+// Rows b0 .. b0 + rows of a (batch, hidden) plane that other blocks wrote,
+// as stored, into h_s [rows][stride] through L2: k padded with zeros to kp,
+// rows past the batch zero. Returns once every thread's copies landed.
+template <typename T, bool kVec>
+__device__ __forceinline__ void stage_tile(const T* src, int b0, int batch,
+                                           int hidden, int kp, T* h_s,
+                                           int stride) {
+  constexpr int n = 16 / sizeof(T), rows = ScanTile<T>::rows;
+  const int per_row = kp / n;
+  for (int c = threadIdx.x; c < rows * per_row; c += kThreads) {
+    const int r = c / per_row, k = c % per_row * n, b = b0 + r;
+    const int count = b < batch ? max(0, min(n, hidden - k)) : 0;
+    copy_chunk<T, kVec>(h_s + r * stride + k,
+                        count > 0 ? src + (int64_t)b * hidden + k : src,
+                        count);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// pre[p][gate] = cd(h_s rows) . the Wh share for the thread's two pairs,
+// summed in f32 (the header above says how). ``wreg``: bf16, the warp's B
+// operands of the first kRegSlices slices; ``red``: f32, the exchange.
+template <typename T, int R>
+__device__ __forceinline__ void fwd_product(const T* h_s, const T* w_s,
+                                            int stride, int kp,
+                                            const uint32_t (&wreg)[R][4],
+                                            float* red, float (&pre)[2][4]) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if constexpr (sizeof(T) == 2) {
+    const int r8 = lane % 8, j = lane / 8;
+    const T* a = h_s + (r8 + j % 2 * 8) * stride + j / 2 * 8;
+    float acc[2][8];   // [chain][n tile * 4 + accumulator]
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[0][i] = acc[1][i] = 0.f;
+    auto slice = [&](float* c, int s, const uint32_t (&bf)[4]) {
+      uint32_t af[4];
+      ldsm_x4(af, a + s * kPadK);
+      mma_bf16(c, af, bf[0], bf[1]);
+      mma_bf16(c + 4, af, bf[2], bf[3]);
+    };
+    const int slices = kp / kPadK;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      if (s < slices) slice(acc[s % 2], s, wreg[s]);
+    }
+    // slices past the registers: their B from shared memory
+    const T* b = w_s + (warp * 16 + r8 + j / 2 * 8) * stride + j % 2 * 8;
+    for (int s = R; s < slices; s += 2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b + s * kPadK);
+      slice(acc[0], s, bf);
+      if (s + 1 < slices) {
+        ldsm_x4(bf, b + (s + 1) * kPadK);
+        slice(acc[1], s + 1, bf);
+      }
+    }
+    // n tile 0: rows g, g+8 x (i, f); n tile 1: the same rows x (g, o)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      pre[p][0] = acc[0][2 * p] + acc[1][2 * p];
+      pre[p][1] = acc[0][2 * p + 1] + acc[1][2 * p + 1];
+      pre[p][2] = acc[0][4 + 2 * p] + acc[1][4 + 2 * p];
+      pre[p][3] = acc[0][5 + 2 * p] + acc[1][5 + 2 * p];
+    }
+  } else {
+    const int half = tid / 128, uu = tid % 16, rq = tid % 128 / 16;
+    const int kh = kp / 2, k0 = half * kh;
+    const float* h = reinterpret_cast<const float*>(h_s) + rq * stride;
+    const float* w = reinterpret_cast<const float*>(w_s) + uu * 4;
+    float acc[4][4];   // [row rq + 8 i][gate]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) acc[i][g] = 0.f;
+    }
+#pragma unroll 2
+    for (int k = k0; k < k0 + kh; k += 4) {
+      float4 x[4], v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = *reinterpret_cast<const float4*>(h + 8 * i * stride + k);
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        v[g] = *reinterpret_cast<const float4*>(w + (g * (kp / 4) + k / 4) *
+                                                        64);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          acc[i][g] = fmaf(x[i].x, v[g].x, acc[i][g]);
+          acc[i][g] = fmaf(x[i].y, v[g].y, acc[i][g]);
+          acc[i][g] = fmaf(x[i].z, v[g].z, acc[i][g]);
+          acc[i][g] = fmaf(x[i].w, v[g].w, acc[i][g]);
+        }
+      }
+    }
+    // this thread keeps rows i = 2 half + p; thread tid ^ 128, the other
+    // half of k for the same (row quad, unit), keeps the other two
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        red[(p * 4 + g) * kThreads + (tid ^ 128)] =
+            half ? acc[p][g] : acc[2 + p][g];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        pre[p][g] = (half ? acc[2 + p][g] : acc[p][g]) +
+                    red[(p * 4 + g) * kThreads + tid];
+      }
+    }
+  }
+}
+
+// One block per SM: without the 1, ptxas would squeeze the f32 variants
+// into 128 registers (room for a second block that shared memory forbids)
+// and spill.
+template <typename T, bool kVec, bool kResiduals>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_fwd_kernel(const T* __restrict__ xpb, const T* __restrict__ wh,
+                    const T* __restrict__ c0, const T* __restrict__ h0,
+                    T* hseq, T* __restrict__ cseq, T* __restrict__ acts,
+                    T* __restrict__ cfin, unsigned int* barrier, int steps,
+                    int batch, int hidden, int slots) {
+  constexpr int rows = ScanTile<T>::rows, units = ScanTile<T>::units;
+  constexpr int cols = 4 * units;
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  const int gdim = 4 * hidden;
+  const int kp = (hidden + kPadK - 1) / kPadK * kPadK;
+  const int stride = kp + 16 / (int)sizeof(T);
+  const int64_t plane = (int64_t)batch * hidden;
+  const int groups = gridDim.x / slots;
+  const int slot = blockIdx.x / groups, u0 = blockIdx.x % groups * units;
+  const int ntiles = (batch + rows - 1) / rows;
+  // the block's tiles that lie inside the batch (its last may not)
+  const int mine = (ntiles - slot + slots - 1) / slots;
+  const FwdSmem<T> lay(hidden, (ntiles + slots - 1) / slots);
+  T* w_s = reinterpret_cast<T*>(smem + lay.w);
+  T* h_s = reinterpret_cast<T*>(smem + lay.h);
+  float* c_s = reinterpret_cast<float*>(smem + lay.c);
+  float* red_s = reinterpret_cast<float*>(smem + lay.red);
+  T* x_s = reinterpret_cast<T*>(smem + lay.x);
+  const int tid = threadIdx.x;
+
+  // the own Wh share, k padded with zeros. kVec: chunks of n units of one
+  // gate at one k, one 16-byte load each, eight in flight per thread
+  constexpr int n = 16 / sizeof(T), per_k = cols / n;
+  if constexpr (kVec) {
+    for (int q0 = tid; q0 < kp * per_k; q0 += 8 * kThreads) {
+      uint4 v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int q = q0 + i * kThreads, k = q / per_k;
+        const int gate = q % per_k / (units / n), uu = q % (units / n) * n;
+        v[i] = make_uint4(0u, 0u, 0u, 0u);
+        if (q < kp * per_k && k < hidden && u0 + uu < hidden) {
+          v[i] = __ldg(reinterpret_cast<const uint4*>(
+              wh + (int64_t)k * gdim + gate * hidden + u0 + uu));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int q = q0 + i * kThreads, k = q / per_k;
+        const int gate = q % per_k / (units / n), uu = q % (units / n) * n;
+        if (q >= kp * per_k) break;
+#pragma unroll
+        for (int e = 0; e < n; ++e) {
+          w_s[fwd_w_index<T>(uu + e, gate, k, kp, stride)] =
+              chunk_value<T>(v[i], e);
+        }
+      }
+    }
+  } else {
+    for (int idx = tid; idx < cols * kp; idx += kThreads) {
+      const int uu = idx % units, gate = idx / units % 4, k = idx / cols;
+      const int u = u0 + uu;
+      w_s[fwd_w_index<T>(uu, gate, k, kp, stride)] =
+          k < hidden && u < hidden ? wh[(int64_t)k * gdim + gate * hidden + u]
+                                   : from_f<T>(0.f);
+    }
+  }
+  int prow[2], pu[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    prow[p] = fwd_row<T>(tid, p);
+    pu[p] = u0 + fwd_pair_unit<T>(tid, p);
+  }
+  // pair p of tile j: row (slot + j slots) rows + prow[p], unit pu[p]; its c
+  // carry is c_s[(j kThreads + tid) 2 + p]
+  auto row_of = [&](int j, int p) {
+    return (slot + j * slots) * rows + prow[p];
+  };
+  for (int j = 0; j < mine; ++j) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int b = row_of(j, p);
+      c_s[(j * kThreads + tid) * 2 + p] =
+          b < batch && pu[p] < hidden
+              ? to_f(c0[(int64_t)b * hidden + pu[p]])
+              : 0.f;
+    }
+  }
+  __syncthreads();
+  // bf16: the warp's B operands of the first kRegSlices slices of k
+  uint32_t wreg[sizeof(T) == 2 ? kRegSlices : 1][4];
+  if constexpr (sizeof(T) == 2) {
+    const int lane = tid % 32, r8 = lane % 8, j = lane / 8;
+    const T* b = w_s + (tid / 32 * 16 + r8 + j / 2 * 8) * stride + j % 2 * 8;
+#pragma unroll
+    for (int s = 0; s < kRegSlices; ++s) {
+      if (s * kPadK < kp) ldsm_x4(wreg[s], b + s * kPadK);
+    }
+  }
+
+  // cseq and acts of one pair: v = (i, f, g, o, c)
+  auto residuals = [&](int64_t row, int u, const float* v) {
+    cseq[row * hidden + u] = from_f<T>(v[4]);
+    T* a = acts + row * gdim + u;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) a[g * hidden] = from_f<T>(v[g]);
+  };
+  // the xpb values of tile j's pairs at step t
+  auto load_x = [&](int t, int j, float (&x)[2][4]) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int b = row_of(j, p);
+      const T* xp = xpb + ((int64_t)t * batch + b) * gdim + pu[p];
+      const bool own = b < batch && pu[p] < hidden;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) x[p][g] = own ? to_f(xp[g * hidden]) : 0.f;
+    }
+  };
+  // the first tile's xpb values at step t into x_s [gate][rows][units],
+  // 16-byte chunks; they land by the next cp_async_wait
+  auto stage_x = [&](int t) {
+    constexpr int per_row = units / n;
+    const int b0 = slot * rows;
+    for (int c = tid; c < 4 * rows * per_row; c += kThreads) {
+      const int g = c / (rows * per_row), r = c / per_row % rows;
+      const int uu = c % per_row * n, b = b0 + r;
+      const int count = b < batch ? max(0, min(n, hidden - u0 - uu)) : 0;
+      const T* src = xpb + ((int64_t)t * batch + b) * gdim + g * hidden + u0 + uu;
+      copy_chunk<T, kVec>(x_s + (g * rows + r) * units + uu,
+                          count > 0 ? src : xpb, count);
+    }
+    cp_async_commit();
+  };
+  float keep[2][5];   // the last tile's gates and c, stored after arriving
+  stage_x(0);
+  for (int t = 0; t < steps; ++t) {
+    if (t > 0) {
+      grid_wait(barrier + slot, (unsigned int)t * groups);
+    }
+    const T* hprev = t == 0 ? h0 : hseq + (int64_t)(t - 1) * plane;
+    for (int j = 0; j < mine; ++j) {
+      const int b0 = (slot + j * slots) * rows;
+      float x[2][4];
+      if (j > 0) load_x(t, j, x);
+      stage_tile<T, kVec>(hprev, b0, batch, hidden, kp, h_s, stride);
+      float pre[2][4];
+      fwd_product<T>(h_s, w_s, stride, kp, wreg, red_s, pre);
+      if (j + 1 < mine) __syncthreads();   // h_s is restaged for tile j + 1
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int b = row_of(j, p);
+        if (b >= batch || pu[p] >= hidden) continue;
+        if (j == 0) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            x[p][g] = to_f(x_s[(g * rows + prow[p]) * units + pu[p] - u0]);
+          }
+        }
+        float* v = keep[p];
+        v[0] = sigmoid(x[p][0] + pre[p][0]);
+        v[1] = sigmoid(x[p][1] + pre[p][1]);
+        v[2] = tanhf(x[p][2] + pre[p][2]);
+        v[3] = sigmoid(x[p][3] + pre[p][3]);
+        float* cc = c_s + (j * kThreads + tid) * 2 + p;
+        v[4] = v[1] * *cc + v[0] * v[2];
+        *cc = v[4];
+        const int64_t row = (int64_t)t * batch + b;
+        hseq[row * hidden + pu[p]] = from_f<T>(v[3] * tanhf(v[4]));
+        if (kResiduals && j + 1 < mine) residuals(row, pu[p], v);
+      }
+    }
+    if (t + 1 < steps) grid_arrive(barrier + slot);
+    // off the chain
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int b = row_of(mine - 1, p);
+      if (kResiduals && b < batch && pu[p] < hidden) {
+        residuals((int64_t)t * batch + b, pu[p], keep[p]);
+      }
+    }
+    if (t + 1 < steps) stage_x(t + 1);
+    for (int j = 1; t + 1 < steps && j < mine; ++j) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int b = row_of(j, p);
+        if (b >= batch || pu[p] >= hidden) continue;
+        const T* xp = xpb + ((int64_t)(t + 1) * batch + b) * gdim + pu[p];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) prefetch_l1(xp + g * hidden);
+      }
+    }
+  }  // next forward step
+  if (!kResiduals) {
+    for (int j = 0; j < mine; ++j) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int b = row_of(j, p);
+        if (b < batch && pu[p] < hidden) {
+          cfin[(int64_t)b * hidden + pu[p]] =
+              from_f<T>(c_s[(j * kThreads + tid) * 2 + p]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, t = T-1 .. 0, then dWh.
+//
+// Partition (ScanTile<T>: bf16 16 rows x 32 units, f32 32 x 16): block
+// (slot, group) = blockIdx.x / groups, blockIdx.x % groups owns hidden units
+// [units group, units (group + 1)) of the batch tiles (``rows`` rows each)
+// slot, slot + slots, ...: a step of batch row b needs only row b of
+// dxpb[t], so the blocks of one slot wait only on each other, on their own
+// barrier counter (counter ``slot``; counter ``slots`` is the grid's, for
+// dWh). ``slots`` is chosen by the wrapper so that the grid is resident.
+// Shared memory (BwdSmem): the block's Wh rows [units][4H padded to 16, +
+// one 16-byte chunk]; per warp a ring of dx slices [rows][16 k, + a chunk];
+// partial dh per warp [rows][units] f32; the dh and dc carries per tile
+// [rows][units] f32. Per step:
+//   A. thread (row, unit) turns dh/dc into the pre-activation gate grads of
+//      its rows, writes them to dxpb[t] (storage type); the block arrives at
+//      its slot's barrier;
+//   wait: the slot's rows of dxpb[t] are written;
+//   B. dh[rows, units] = cd(dxpb[t][rows, :]) . Wh[units, :]^T, the
+//      4H of k split over the warps, each streaming 16-wide slices through
+//      its ring by cp.async.cg; bf16 on the tensor cores (mma.sync
+//      m16n8k16, operands by ldmatrix), f32 as FMAs; the warps' partials are
+//      summed through shared memory in a fixed order.
+// Step t-1 writes other rows of dxpb, so one barrier per step is enough.
+// After the last step a grid barrier, then dWh = sum over rows (t, b) of
+// cd(h_prev)[row, :]^T cd(dxpb)[row, :], h_prev = [h0; hseq[:-1]]: one
+// product of (T B) rows, (128 x 128 output tile, half of the rows) items
+// walked by the blocks, rows streamed 32 at a time through a 4-deep ring
+// (both operands with the rows as the reduction dimension:
+// ldmatrix.trans); each half adds its sum to the zeroed dWh.
+
+constexpr int kDhK = 16;         // k of one staged dx slice
+constexpr int kTail = 128;       // dWh output tile kTail x kTail
+constexpr int kTailK = 32;       // rows (t, b) per staged dWh slice
+constexpr int kTailStages = 4;
+
+// dx slices in flight per warp (shared memory sets the f32 depth)
+template <typename T>
+__host__ __device__ constexpr int dh_stages() {
+  return sizeof(T) == 2 ? 8 : 3;
+}
+
+// Byte offsets into the backward's dynamic shared memory; ``end`` is its
+// size (the wrapper's bwd_geometry computes the same number).
+template <typename T>
+struct BwdSmem {
+  int64_t w, ring, red, dh, dc, end;
+  __host__ __device__ BwdSmem(int hidden, int tiles) {
+    constexpr int64_t n = 16 / sizeof(T), e = sizeof(T);
+    const int64_t kp = (4LL * hidden + kDhK - 1) / kDhK * kDhK;
+    const int64_t rows = ScanTile<T>::rows, pairs = kTilePairs;
+    w = 0;
+    ring = w + ScanTile<T>::units * (kp + n) * e;
+    red = ring + (int64_t)kWarps * dh_stages<T>() * rows * (kDhK + n) * e;
+    dh = red + kWarps * pairs * 4;
+    dc = dh + tiles * pairs * 4;
+    const int64_t steps_end = dc + tiles * pairs * 4;
+    const int64_t tail_end =
+        (int64_t)kTailStages * kTailK * 2 * (kTail + n) * e;
+    end = steps_end > tail_end ? steps_end : tail_end;
+  }
+};
+
 // This warp's share of dh[rows, units] = cd(dx[rows b0.., :]) .
-// W[units, :]^T (BwdTile<T>), where dx is dxpb[t] (batch, gdim) and w_s the
+// W[units, :]^T (ScanTile<T>), where dx is dxpb[t] (batch, gdim) and w_s the
 // block's Wh rows [units][wstride]: k slices warp, warp + kWarps, ... of 16
 // each, staged through ``ring`` (dh_stages slices, all but one in flight).
 // The partial sums go to red [rows][units]. bf16: one 16-row m tile x four
@@ -467,7 +701,7 @@ __device__ __forceinline__ void dh_partial(const T* dx, int b0, int batch,
                                            int gdim, int ksteps,
                                            const T* w_s, int wstride,
                                            T* ring, float* red) {
-  constexpr int rows = BwdTile<T>::rows, units = BwdTile<T>::units;
+  constexpr int rows = ScanTile<T>::rows, units = ScanTile<T>::units;
   constexpr int n = 16 / sizeof(T), per_row = kDhK / n;
   constexpr int sstride = kDhK + n, stages = dh_stages<T>();
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -706,8 +940,8 @@ __global__ void __launch_bounds__(kThreads)
                     float* __restrict__ dh0, unsigned int* barrier,
                     int steps, int batch, int hidden, int slots) {
   constexpr int n = 16 / sizeof(T);
-  constexpr int rows = BwdTile<T>::rows, units = BwdTile<T>::units;
-  constexpr int kPairs = kBwdPairs;   // per tile; kPairs % units == 0
+  constexpr int rows = ScanTile<T>::rows, units = ScanTile<T>::units;
+  constexpr int kPairs = kTilePairs;   // per tile; kPairs % units == 0
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
   const int gdim = 4 * hidden;
@@ -871,7 +1105,8 @@ bool aligned16(const void* p) {
 template <typename T>
 int fwd(const void* xpb, const void* wh, const void* c0, const void* h0,
         void* hseq, void* cseq, void* acts, void* cfin, void* barrier,
-        int steps, int batch, int hidden, int residuals, void* stream) {
+        int steps, int batch, int hidden, int slots, int smem, int residuals,
+        void* stream) {
   const T* x = static_cast<const T*>(xpb);
   const T* w = static_cast<const T*>(wh);
   const T* c = static_cast<const T*>(c0);
@@ -881,16 +1116,21 @@ int fwd(const void* xpb, const void* wh, const void* c0, const void* h0,
   T* as = static_cast<T*>(acts);
   T* cf = static_cast<T*>(cfin);
   unsigned int* bar = static_cast<unsigned int*>(barrier);
-  void* args[] = {&x, &w, &c, &h, &hs, &cs, &as, &cf, &bar,
-                  &steps, &batch, &hidden};
-  const int blocks = (hidden + kUnits - 1) / kUnits;
-  const size_t smem = (size_t)hidden * kUnits * sizeof(float4) +
-                      (size_t)kSplitK * kTileB * kUnits * sizeof(float4) +
-                      (size_t)kTileB * (hidden + 1) * sizeof(float) +
-                      (size_t)batch * kUnits * sizeof(float);
-  // h rows (h0, hseq) as 16-byte chunks where the row width allows
-  const bool vec = (hidden * sizeof(T)) % 16 == 0 && aligned16(h0) &&
-                   aligned16(hseq);
+  void* args[] = {&x,  &w,  &c,   &h,     &hs,     &cs,     &as,
+                  &cf, &bar, &steps, &batch, &hidden, &slots};
+  // the wrapper's geometry (ops/lstm_kernels.py fwd_geometry) must be this
+  // source's: ``slots`` batch-tile groups of whole tiles, and their bytes
+  constexpr int rows = ScanTile<T>::rows, units = ScanTile<T>::units;
+  const int ntiles = (batch + rows - 1) / rows;
+  if (slots < 1 || slots > ntiles) return (int)cudaErrorInvalidValue;
+  const int tiles = (ntiles + slots - 1) / slots;
+  if ((int64_t)smem != FwdSmem<T>(hidden, tiles).end) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = slots * ((hidden + units - 1) / units);
+  // rows of xpb, Wh, h0 and hseq as 16-byte chunks where the width allows
+  const bool vec = (hidden * sizeof(T)) % 16 == 0 && aligned16(xpb) &&
+                   aligned16(wh) && aligned16(h0) && aligned16(hseq);
   if (residuals) {
     return vec ? launch_cooperative(lstm_fwd_kernel<T, true, true>, blocks,
                                     smem, args, stream)
@@ -928,7 +1168,7 @@ int bwd(const void* dhseq, const void* acts, const void* cseq,
                   &p_dh0,   &bar,    &steps,  &batch,  &hidden, &slots};
   // the wrapper's geometry (ops/lstm_kernels.py bwd_geometry) must be this
   // source's: ``slots`` batch-tile groups of whole tiles, and their bytes
-  constexpr int rows = BwdTile<T>::rows, units = BwdTile<T>::units;
+  constexpr int rows = ScanTile<T>::rows, units = ScanTile<T>::units;
   const int ntiles = (batch + rows - 1) / rows;
   if (slots < 1 || slots > ntiles) return (int)cudaErrorInvalidValue;
   const int tiles = (ntiles + slots - 1) / slots;
@@ -950,15 +1190,16 @@ int bwd(const void* dhseq, const void* acts, const void* cseq,
 extern "C" int lstm_fwd(const void* xpb, const void* wh, const void* c0,
                         const void* h0, void* hseq, void* cseq, void* acts,
                         void* cfin, void* barrier, int steps, int batch,
-                        int hidden, int bf16, int residuals, void* stream) {
+                        int hidden, int slots, int smem, int bf16,
+                        int residuals, void* stream) {
   if (steps < 1 || batch < 1 || hidden < 1) return (int)cudaErrorInvalidValue;
   if (bf16) {
     return fwd<__nv_bfloat16>(xpb, wh, c0, h0, hseq, cseq, acts, cfin,
-                              barrier, steps, batch, hidden, residuals,
-                              stream);
+                              barrier, steps, batch, hidden, slots, smem,
+                              residuals, stream);
   }
   return fwd<float>(xpb, wh, c0, h0, hseq, cseq, acts, cfin, barrier, steps,
-                    batch, hidden, residuals, stream);
+                    batch, hidden, slots, smem, residuals, stream);
 }
 
 extern "C" int lstm_bwd(const void* dhseq, const void* acts, const void* cseq,

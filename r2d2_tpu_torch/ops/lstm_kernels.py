@@ -22,9 +22,9 @@ carries bf16.
 residual forward, then the backward kernel), otherwise the lean forward,
 as the JAX custom_vjp's primal does. A CUDA tensor launches the kernel or
 raises; only CPU tensors take the plain versions. ``LAUNCHES`` counts
-kernel launches (plain calls do not count). ``bwd_geometry`` is the
-backward kernel's grid and shared memory for a shape, which the wrapper
-passes to it.
+kernel launches (plain calls do not count). ``fwd_geometry`` and
+``bwd_geometry`` are the kernels' grids and shared memory for a shape,
+which the wrappers pass to them.
 """
 
 import ctypes
@@ -36,28 +36,30 @@ LAUNCHES = {"lstm_fwd": 0, "lstm_fwd_lean": 0, "lstm_bwd": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _SIGNATURES = {
-    "lstm_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    "lstm_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
     "lstm_bwd": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 _lib = None
 
-# The backward's partition and shared memory, as csrc/lstm_kernels.cu
-# (BwdSmem and the constants above it) lays them out.
-# (rows of a batch tile, units of a group, dx slices in flight per warp)
-BWD_TILE = {torch.bfloat16: (16, 32, 8), torch.float32: (32, 16, 3)}
+# The kernels' partition and shared memory, as csrc/lstm_kernels.cu
+# (ScanTile, FwdSmem, BwdSmem and the constants above them) lays them out.
+# (rows of a batch tile, units of a group), the same for both kernels
+SCAN_TILE = {torch.bfloat16: (16, 32), torch.float32: (32, 16)}
+BWD_STAGES = {torch.bfloat16: 8, torch.float32: 3}   # dx slices per warp
+_FWD_K = 16                         # the forward's k padded to a multiple
 _BWD_WARPS, _BWD_DH_K = 8, 16       # warps of a block, k of a dx slice
 _BWD_TAIL = (128, 32, 4)            # dWh tile side; rows per slice; slices
 SMEM_LIMIT = 232_448                # dynamic shared memory of a block, H100
 
 
-class BwdGeometry(NamedTuple):
-    """Block ``slot * groups + group`` of the backward owns hidden units
-    ``[units * group, units * group + units)`` of the batch tiles (``rows``
-    rows each) ``slot, slot + slots, ...``, at most ``tiles_per_block`` of
-    them; the blocks of a slot share barrier counter ``slot``, and counter
-    ``slots`` is the whole grid's (``counters`` in all)."""
+class ScanGeometry(NamedTuple):
+    """Block ``slot * groups + group`` owns hidden units ``[units * group,
+    units * group + units)`` of the batch tiles (``rows`` rows each)
+    ``slot, slot + slots, ...``, at most ``tiles_per_block`` of them; the
+    blocks of a slot share barrier counter ``slot`` (``counters`` in all:
+    the backward adds one for the whole grid)."""
     rows: int
     units: int
     groups: int
@@ -68,25 +70,63 @@ class BwdGeometry(NamedTuple):
     counters: int
 
 
-def bwd_geometry(batch: int, hidden: int, dtype: torch.dtype,
-                 sms: int) -> BwdGeometry:
-    """The backward kernel's grid for a (batch, hidden) problem on a card
-    with ``sms`` multiprocessors: as many batch-tile slots as the grid can
-    hold at one block per multiprocessor, every block resident (the
-    barriers need it). Raises if Wh rows, carries and staging do not fit a
-    block's shared memory or the unit groups outnumber the multiprocessors."""
-    if dtype not in BWD_TILE:
-        raise ValueError(f"lstm_bwd takes float32 or bfloat16, not {dtype}")
+def _partition(name: str, batch: int, hidden: int, dtype: torch.dtype,
+               sms: int):
+    """(element bytes, values per 16-byte chunk, rows, units, groups, slots,
+    tiles per block): as many batch-tile slots as the grid can hold at one
+    block per multiprocessor, every block resident (the barriers need
+    it)."""
+    if dtype not in SCAN_TILE:
+        raise ValueError(f"{name} takes float32 or bfloat16, not {dtype}")
     esize = torch.empty((), dtype=dtype).element_size()
-    chunk = 16 // esize                      # values per 16-byte chunk
-    rows, units, stages = BWD_TILE[dtype]
+    rows, units = SCAN_TILE[dtype]
     tiles = -(-batch // rows)
     groups = -(-hidden // units)
     if groups > sms:
-        raise ValueError(f"lstm_bwd: H={hidden} needs {groups} unit groups, "
+        raise ValueError(f"{name}: H={hidden} needs {groups} unit groups, "
                          f"more than the card's {sms} multiprocessors")
     slots = min(tiles, sms // groups)
-    per_block = -(-tiles // slots)
+    return esize, 16 // esize, rows, units, groups, slots, -(-tiles // slots)
+
+
+def _fits(name: str, batch: int, hidden: int, dtype: torch.dtype,
+          smem: int) -> None:
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: B={batch}, H={hidden} in {dtype} needs "
+                         f"{smem} bytes of shared memory, above {SMEM_LIMIT}")
+
+
+def fwd_geometry(batch: int, hidden: int, dtype: torch.dtype,
+                 sms: int) -> ScanGeometry:
+    """The forward kernel's grid for a (batch, hidden) problem on a card
+    with ``sms`` multiprocessors. Shared memory: the block's Wh share (4 x
+    units columns of H padded to 16, bf16 + a 16-byte chunk), one staged
+    tile of h rows (H padded to 16, + a chunk), the f32 c carries of its
+    tiles, f32 only the exchange of the two k halves' partial sums (8 x
+    256 f32), and a tile's xpb values of a step (4 x rows x units). Raises
+    where that does not fit a block or the unit groups outnumber the
+    multiprocessors."""
+    esize, chunk, rows, units, groups, slots, per_block = _partition(
+        "lstm_fwd", batch, hidden, dtype, sms)
+    kp = -(-hidden // _FWD_K) * _FWD_K
+    bf16 = dtype == torch.bfloat16
+    smem = (4 * units * (kp + chunk if bf16 else kp) * esize
+            + rows * (kp + chunk) * esize + per_block * rows * units * 4
+            + (0 if bf16 else 8 * 256 * 4) + 4 * rows * units * esize)
+    _fits("lstm_fwd", batch, hidden, dtype, smem)
+    return ScanGeometry(rows, units, groups, slots, per_block,
+                        slots * groups, smem, slots)
+
+
+def bwd_geometry(batch: int, hidden: int, dtype: torch.dtype,
+                 sms: int) -> ScanGeometry:
+    """The backward kernel's grid for a (batch, hidden) problem on a card
+    with ``sms`` multiprocessors. Raises if Wh rows, carries and staging do
+    not fit a block's shared memory or the unit groups outnumber the
+    multiprocessors."""
+    esize, chunk, rows, units, groups, slots, per_block = _partition(
+        "lstm_bwd", batch, hidden, dtype, sms)
+    stages = BWD_STAGES[dtype]
     kp = -(-4 * hidden // _BWD_DH_K) * _BWD_DH_K
     pairs = rows * units
     steps_bytes = (units * (kp + chunk) * esize
@@ -95,11 +135,9 @@ def bwd_geometry(batch: int, hidden: int, dtype: torch.dtype,
     tile, tk, tail_stages = _BWD_TAIL
     tail_bytes = tail_stages * tk * 2 * (tile + chunk) * esize
     smem = max(steps_bytes, tail_bytes)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"lstm_bwd: B={batch}, H={hidden} in {dtype} needs "
-                         f"{smem} bytes of shared memory, above {SMEM_LIMIT}")
-    return BwdGeometry(rows, units, groups, slots, per_block,
-                       slots * groups, smem, slots + 1)
+    _fits("lstm_bwd", batch, hidden, dtype, smem)
+    return ScanGeometry(rows, units, groups, slots, per_block,
+                        slots * groups, smem, slots + 1)
 
 
 def reset_launch_counts() -> None:
@@ -242,7 +280,9 @@ def lstm_fwd_cuda(xpb: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
     steps, batch, hidden = _shapes(xpb, wh, c0, h0)
     dev, dtype = xpb.device, xpb.dtype
     hseq = torch.empty((steps, batch, hidden), dtype=dtype, device=dev)
-    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    geo = fwd_geometry(batch, hidden, dtype, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    barrier = torch.zeros(geo.counters, dtype=torch.int32, device=dev)
     if save_residuals:
         cseq = torch.empty_like(hseq)
         acts = torch.empty_like(xpb)
@@ -253,7 +293,8 @@ def lstm_fwd_cuda(xpb: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
     _raise_on(_library().lstm_fwd(
         xpb.data_ptr(), wh.data_ptr(), c0.data_ptr(), h0.data_ptr(),
         hseq.data_ptr(), *ptrs, barrier.data_ptr(), steps, batch, hidden,
-        int(dtype == torch.bfloat16), int(save_residuals),
+        geo.slots, geo.smem, int(dtype == torch.bfloat16),
+        int(save_residuals),
         torch.cuda.current_stream(dev).cuda_stream), "lstm_fwd")
     if save_residuals:
         LAUNCHES["lstm_fwd"] += 1

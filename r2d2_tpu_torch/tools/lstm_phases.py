@@ -8,8 +8,9 @@ reads the device's ns clock (``%globaltimer``) at the phase boundaries of
 each time step and sums the spans, runs the residual forward, the lean
 forward and the backward once in bf16 and in f32, and prints one JSON line
 per kernel with the mean and max over blocks of each phase, in us per time
-step. Forward phases: staging h_{t-1} into shared memory, the product, the
-gate epilogue, the grid barrier. Backward phases, per time step: gate
+step. Forward phases: the wait at the batch-tile slot's barrier, staging
+the tile's rows of h_{t-1} into shared memory, the product, then the gate
+math, the stores of h_t, the arrive and the residual stores. Backward phases, per time step: gate
 grads + arriving at the batch-tile group's barrier, the wait (with the grid
 barrier before dWh), the dh product; and the dWh product after the scan,
 timed once and divided by T like the rest. Beside the phases, each
@@ -31,7 +32,7 @@ STAMP = "{{ unsigned long long x_ = now_ns(); ph[{i}] += x_ - tp; tp = x_; }}\n"
 SAVE = ("  if (threadIdx.x == 0) for (int i = 0; i < 4; ++i) "
         "g_phase[blockIdx.x][i] = ph[i];\n")
 START = "  unsigned long long ph[4] = {0, 0, 0, 0}, tp = now_ns();\n"
-PHASES = {"fwd": ("stage", "product", "epilogue", "barrier"),
+PHASES = {"fwd": ("wait", "stage", "product", "epilogue_stores_arrive"),
           "bwd": ("gate_grads_arrive", "wait", "dh", "dwh_tail")}
 MAX_BLOCKS = 4096
 BACK_TO_BACK = 20
@@ -44,20 +45,20 @@ EDITS = (
      "  unsigned long long t;\n"
      "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
      "  return t;\n}\nnamespace {\n"),
-    # forward
-    ("  for (int t = 0; t < steps; ++t) {\n    const T* hprev = t == 0 ? h0",
-     START + "  for (int t = 0; t < steps; ++t) {\n"
-     "    const T* hprev = t == 0 ? h0"),
-    ("rows, hidden, h_s);\n      __syncthreads();\n",
-     "rows, hidden, h_s);\n      __syncthreads();\n" + STAMP.format(i=0)),
-    ("      __syncthreads();\n      if (active) {\n",
-     "      __syncthreads();\n" + STAMP.format(i=1)
-     + "      if (active) {\n"),
-    ("    if (t + 1 < steps) {\n",
-     STAMP.format(i=2) + "    if (t + 1 < steps) {\n"),
-    ("      grid_wait(barrier, target);\n    }\n  }\n}\n",
-     "      grid_wait(barrier, target);\n    }\n" + STAMP.format(i=3)
-     + "  }\n" + SAVE + "}\n"),
+    # forward: wait, stage h_{t-1} rows, product, then the gate math, the
+    # stores and the arrive to the end of the step (per tile where a block
+    # walks several: a tile's epilogue then counts into the next one's stage)
+    ("  for (int t = 0; t < steps; ++t) {\n    if (t > 0) {\n",
+     START + "  for (int t = 0; t < steps; ++t) {\n    if (t > 0) {\n"),
+    ("(unsigned int)t * groups);\n    }\n",
+     "(unsigned int)t * groups);\n    }\n" + STAMP.format(i=0)),
+    ("h_s, stride);\n      float pre[2][4];\n",
+     "h_s, stride);\n" + STAMP.format(i=1) + "      float pre[2][4];\n"),
+    ("      fwd_product<T>(h_s, w_s, stride, kp, wreg, red_s, pre);\n",
+     "      fwd_product<T>(h_s, w_s, stride, kp, wreg, red_s, pre);\n"
+     + STAMP.format(i=2)),
+    ("  }  // next forward step\n",
+     STAMP.format(i=3) + "  }  // next forward step\n" + SAVE),
     # backward
     ("  for (int t = steps - 1; t >= 0; --t) {\n",
      START + "  for (int t = steps - 1; t >= 0; --t) {\n"),
@@ -122,8 +123,11 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if -(-args.hidden // 4) > MAX_BLOCKS:
-        raise SystemExit(f"--hidden above {4 * MAX_BLOCKS}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for geometry in (lk.fwd_geometry, lk.bwd_geometry):
+            if geometry(args.batch, args.hidden, dtype,
+                        sms).blocks > MAX_BLOCKS:
+                raise SystemExit(f"more than {MAX_BLOCKS} blocks")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -165,8 +169,9 @@ def main(argv=None) -> int:
                 if lib.read_phases(buf.ctypes.data) != 0:
                     raise RuntimeError("reading the phase clocks failed")
                 kind = "bwd" if name == "lstm_bwd" else "fwd"
-                blocks = (lk.bwd_geometry(batch, hidden, dtype, sms).blocks
-                          if kind == "bwd" else -(-hidden // 4))
+                geometry = (lk.bwd_geometry if kind == "bwd"
+                            else lk.fwd_geometry)
+                blocks = geometry(batch, hidden, dtype, sms).blocks
                 us = buf[:blocks].astype(np.float64) / 1e3 / steps
                 keys = PHASES[kind]
                 print(json.dumps({

@@ -299,17 +299,23 @@ def test_pallas_lstm_setting():
 def test_phase_probe_instruments_the_kernel_source():
     """tools/lstm_phases.py puts its clocks at anchors of
     csrc/lstm_kernels.cu: every anchor is found once (the forward's 4
-    spans; the backward's 3 per step, the grid barrier before dWh and the
-    dWh tail; a start and one store per kernel), and a source without one
-    raises instead of timing the wrong span."""
+    spans: the wait at the slot's barrier, the staging of h_{t-1} rows, the
+    product, and the gate math + stores + arrive; the backward's 3 per step,
+    the grid barrier before dWh and the dWh tail; a start and one store per
+    kernel; 1 + 5 + 6 anchors in all), and a source without one raises
+    instead of timing the wrong span."""
     from r2d2_tpu_torch.tools.lstm_phases import EDITS, instrumented_source
     source = (Path(lk.__file__).resolve().parent.parent / "csrc"
               / "lstm_kernels.cu").read_text()
     out = instrumented_source(source)
+    assert len(EDITS) == 1 + 5 + 6
     assert out.count("ph[") - out.count("ph[4]") == 4 + 5 + 2
     assert out.count("tp = now_ns();") == 2
     assert out.count("g_phase[blockIdx.x][i] = ph[i]") == 2
     assert "read_phases" in out
+    for anchor, _ in EDITS[1:6]:
+        with pytest.raises(ValueError, match="anchor"):
+            instrumented_source(source.replace(anchor, ""))
     with pytest.raises(ValueError, match="anchor"):
         instrumented_source(source.replace(EDITS[-1][0], ""))
 

@@ -97,7 +97,7 @@ def test_bwd_geometry_owns_every_pair_once(batch, dtype):
     grid's."""
     for hidden in (16, 17, 24, 512):
         geo = lk.bwd_geometry(batch, hidden, dtype, SMS)
-        assert (geo.rows, geo.units) == lk.BWD_TILE[dtype][:2]
+        assert (geo.rows, geo.units) == lk.SCAN_TILE[dtype]
         assert geo.blocks == geo.slots * geo.groups <= SMS
         assert geo.smem <= lk.SMEM_LIMIT == 232_448
         assert geo.counters == geo.slots + 1
