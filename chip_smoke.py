@@ -10,11 +10,15 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      its tensor-core (HMMA) instruction count in the SASS (the bf16
      forward must have some, and no forward may spill);
   3. every kernel against its plain PyTorch version: the replay kernels at
-     the reference shape (exact), the LSTM scan kernels at ragged small
-     shapes and at the reference shape (T=55, B=128, H=512) in f32 and
-     bf16 (tolerances at LSTM_TOL); CUDA-event times of kernel, plain
-     version and the PyTorch library call, and the bound; cuDNN's nn.LSTM
-     timed beside the port's LSTM layer as a yardstick;
+     the reference shape (exact; the decode in both output layouts,
+     standard and 2x2 space-to-depth, on unpadded and padded storage, and
+     its any-shape kernel at shapes its fast one does not tile), the LSTM
+     scan kernels at ragged small shapes and at the reference shape (T=55,
+     B=128, H=512) in f32 and bf16 (tolerances at LSTM_TOL); CUDA-event
+     times of kernel, plain version and the PyTorch library call, and the
+     bound; cuDNN's nn.LSTM timed beside the port's LSTM layer as a
+     yardstick; then the first conv timed in each input layout it could
+     take (r2d2_tpu_torch/tools/conv_layouts.py);
   4. a small f32 learner step on the card against the same step on the
      CPU, on the default path and with network.pallas_lstm="on" and double
      DQN; then the learner step at the reference shape (B=128,
@@ -27,8 +31,10 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      --network.pallas_lstm=on --network.use_double=true; the kernel launch
      counts of these runs go into the ``kernels`` line.
 
+TF32 is off throughout, as in training (utils/device.configure_numerics).
 The last line is {"ok": true, "device": {...}}. ``--profile`` adds a
-torch.profiler breakdown of three reference-shape steps of each path.
+torch.profiler breakdown of three reference-shape steps of each path and
+names any kernel of the first conv's 4-channel fallback it finds.
 """
 
 import json
@@ -78,6 +84,10 @@ LSTM_SMALL_SHAPES = ((4, 3, 17), (5, 8, 18), (6, 70, 16), (3, 130, 24),
                      (4, 33, 17), (4, 33, 40), (3, 256, 512), (2, 300, 512),
                      (2, 24, 544))
 FUSED_ARGS = ["--network.pallas_lstm=on", "--network.use_double=true"]
+# cuDNN kernels of a 4-channel first conv's fallback (a layout conversion,
+# an f32 implicit GEMM)
+FALLBACK_KERNELS = re.compile(r"nhwcToNchw|nchwToNhwc|nhwc2nchw|nchw2nhwc"
+                              r"|f32f32_f32f32", re.IGNORECASE)
 
 
 def check(cond, what="") -> None:
@@ -272,24 +282,58 @@ def replay_kernel_checks(dev):
 
     errs = []
     for dtype in (torch.float32, torch.bfloat16):
-        for label, src in (("unpadded", obs), ("padded", obs_padded)):
-            got = rk.stack_frames_cuda(src, t, k, dtype, h, w)
-            want = rk.stack_frames_plain(src, t, k, dtype, h, w)
-            torch.cuda.synchronize()
-            check(got.shape == (batch, t, h, w, k) and got.dtype == dtype,
-                  f"stack_frames {dtype} shape {tuple(got.shape)}")
-            check(torch.equal(got, want), f"stack_frames {dtype} {label}")
-            errs.append((got.float() - want.float()).abs().max().item())
-            print(f"stack_frames {dtype} {label}: exact", flush=True)
+        for s2d, layout in ((False, "standard"), (True, "space-to-depth")):
+            shape = ((batch, t, h // 2, w // 2, 4 * k) if s2d
+                     else (batch, t, h, w, k))
+            for label, src in (("unpadded", obs), ("padded", obs_padded)):
+                got = rk.stack_frames_cuda(src, t, k, dtype, h, w, s2d)
+                want = rk.stack_frames_plain(src, t, k, dtype, h, w, s2d)
+                torch.cuda.synchronize()
+                check(got.shape == shape and got.dtype == dtype,
+                      f"stack_frames {layout} {dtype} shape "
+                      f"{tuple(got.shape)}")
+                check(torch.equal(got, want),
+                      f"stack_frames {layout} {dtype} {label}")
+                errs.append((got.float() - want.float()).abs().max().item())
+                print(f"stack_frames {layout} {dtype} {label}: exact",
+                      flush=True)
+    # shapes the kernel's 16-byte pieces do not tile (K=3, an odd width, a
+    # misaligned view) take its any-shape kernel: exact all the same
+    misaligned = obs[:5].flatten()[1:1 + 4 * window * h * w].view(
+        4, window, h, w)
+    odd_cases = [(obs[:4], 3, h, w, s2d, dtype)
+                 for s2d in (False, True)
+                 for dtype in (torch.float32, torch.bfloat16)]
+    odd_cases += [(obs[:4], k, h, w - 1, False, torch.bfloat16),
+                  (misaligned, k, h, w, True, torch.bfloat16)]
+    for src, kk, hh, ww, s2d, dtype in odd_cases:
+        got = rk.stack_frames_cuda(src, t, kk, dtype, hh, ww, s2d)
+        want = rk.stack_frames_plain(src, t, kk, dtype, hh, ww, s2d)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"stack_frames K={kk} {hh}x{ww} "
+              f"space_to_depth={s2d} {dtype}")
+    print(f"stack_frames any-shape kernel ({len(odd_cases)} cases): exact",
+          flush=True)
     out_bytes = batch * t * h * w * k * 2
+    bound_ms = (obs.numel() + out_bytes) / HBM_BYTES_PER_S * 1e3
+    # the main path decodes into the space-to-depth layout in bf16
     results["stack_frames"] = dict(
         max_abs_err=float(max(errs)),
-        ms=cuda_ms(lambda: rk.stack_frames_cuda(obs, t, k, torch.bfloat16)),
+        ms=cuda_ms(lambda: rk.stack_frames_cuda(obs, t, k, torch.bfloat16,
+                                                h, w, True)),
         plain_ms=cuda_ms(lambda: rk.stack_frames_plain(obs, t, k,
-                                                       torch.bfloat16)),
-        library_ms=None,
-        bound_ms=(obs.numel() + out_bytes) / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes")
+                                                       torch.bfloat16, h, w,
+                                                       True)),
+        library_ms=None, bound_ms=bound_ms, bound_by="bytes")
+    for dtype in (torch.bfloat16, torch.float32):
+        for s2d, layout in ((False, "standard"), (True, "space-to-depth")):
+            ms = cuda_ms(lambda: rk.stack_frames_cuda(obs, t, k, dtype, h, w,
+                                                      s2d))
+            bound = (obs.numel() + out_bytes // 2 * dtype.itemsize) \
+                / HBM_BYTES_PER_S * 1e3
+            print(f"stack_frames {layout} {dtype}: kernel {ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({100 * bound / ms:.1f}% of it)",
+                  flush=True)
     return results
 
 
@@ -476,6 +520,16 @@ def lstm_layer_yardstick(dev):
           flush=True)
 
 
+def phase_conv_layouts(dev):
+    """The first conv in each input layout it could take, bf16 and f32,
+    forward + weight gradient at the reference frames
+    (r2d2_tpu_torch/tools/conv_layouts.py)."""
+    from r2d2_tpu_torch.tools import conv_layouts
+    err = conv_layouts.check_layouts_agree(dev)
+    conv_layouts.print_results(conv_layouts.measure(dev))
+    print(f"conv layouts agree to {err:.3e} (f32)", flush=True)
+
+
 def phase_kernels(dev):
     results = replay_kernel_checks(dev)
     results.update(lstm_kernel_checks(dev))
@@ -586,6 +640,12 @@ def _profile(step, ts, rs) -> float:
     events = p.key_averages()
     print(events.table(sort_by="self_cuda_time_total", row_limit=20),
           flush=True)
+    # what cuDNN did with a 4-channel first conv: a layout conversion and
+    # an f32 implicit GEMM
+    fallback = [f"{e.key[:100]} {e.self_device_time_total / 3e3:.3f} ms"
+                for e in events if e.device_type == DeviceType.CUDA
+                and FALLBACK_KERNELS.search(e.key)]
+    print(f"first-conv fallback kernels: {fallback or 'none'}", flush=True)
     # the device's own events only (operator rows repeat their kernels)
     return sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CUDA) / 3e3
@@ -705,13 +765,14 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     _import_port()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from r2d2_tpu_torch.utils.device import configure_numerics
+    configure_numerics()
     dev = torch.device("cuda", 0)
 
     phase_versions()
     phase_build()
     timings = phase_kernels(dev)
+    phase_conv_layouts(dev)
     phase_small_step_vs_cpu(dev, {}, "default")
     phase_small_step_vs_cpu(dev, {"network.pallas_lstm": "on",
                                   "network.use_double": True},

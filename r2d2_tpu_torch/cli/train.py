@@ -22,7 +22,9 @@ import sys
 def main(argv=None) -> dict:
     from r2d2_tpu_torch.config import Config, parse_overrides
     from r2d2_tpu_torch.tools.sync_train import sync_train
+    from r2d2_tpu_torch.utils.device import configure_numerics
 
+    configure_numerics()
     argv = list(sys.argv[1:] if argv is None else argv)
     flags = {"max-steps": None, "device": None, "seed": "0",
              "collect-eps": "0.4"}

@@ -20,6 +20,9 @@ runs on, never for a TPU:
   a winner; the JAX package's "auto" means "iff TPU", which is off here
   too. Its TPU grid and debug knobs (``pallas_lstm_block``,
   ``pallas_lstm_interpret``) have no meaning on the card and are refused.
+* ``network.space_to_depth``: "on"/"off" only, as in the JAX package: it
+  picks the first conv's parameter layout. Which input the conv runs on is
+  not a setting (models/network.py ``input_layout``).
 * ``replay.pallas_exact_gather``: the 84x84 -> 96x128 storage pad that
   Mosaic's tile rule needed. A CUDA copy does not need it, so "auto" = off
   on every device; "on" still gives the padded layout.
@@ -55,7 +58,10 @@ class NetworkConfig:
     conv_layers: Tuple[Tuple[int, int, int], ...] = (
         (32, 8, 4), (64, 4, 2), (64, 3, 1))
     bf16: str = "auto"
-    # the port builds the standard first-conv layout only ("off")
+    # "on": the first conv's parameters are held in the 2x2 space-to-depth
+    # layout; "off": the standard layout. The conv runs on the
+    # space-to-depth input either way where the shapes allow it
+    # (models/network.py input_layout)
     space_to_depth: str = "off"
     # fused LSTM scan (ops/lstm_kernels.py) instead of the Python scan
     pallas_lstm: str = "off"
@@ -98,7 +104,7 @@ class OptimConfig:
     priority_eta: float = 0.9
     pallas_obs_decode: str = "auto"
     # "planar" and "nhwc" give the same tensor here: the CUDA decode
-    # writes the (B, T, H, W, K) contract directly
+    # writes the layout the network's first conv takes directly
     pallas_decode_layout: str = "planar"
 
 
@@ -188,11 +194,21 @@ def resolve_pallas_lstm(setting) -> bool:
     return bool(_parse_setting(setting, "network.pallas_lstm"))
 
 
+def resolve_space_to_depth(setting) -> bool:
+    """"on"/"off" only: the setting changes the parameter layout, so it
+    must resolve the same on every device (as in the JAX package)."""
+    value = _parse_setting(setting, "network.space_to_depth")
+    if value is None:
+        raise ValueError(
+            "network.space_to_depth must be 'on' or 'off' ('auto' is not "
+            "allowed: the setting changes the parameter layout, so it must "
+            "resolve identically on every host)")
+    return value
+
+
 def check_network(network: NetworkConfig) -> None:
-    """Refuse network settings whose code path the port does not have yet."""
-    if _parse_setting(network.space_to_depth,
-                      "network.space_to_depth") is not False:
-        raise ValueError("network.space_to_depth must be 'off' in the port")
+    """Refuse network settings the port cannot resolve."""
+    resolve_space_to_depth(network.space_to_depth)
     resolve_pallas_lstm(network.pallas_lstm)
 
 

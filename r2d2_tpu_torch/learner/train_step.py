@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from r2d2_tpu_torch.config import (OptimConfig, check_decode_layout,
                                    check_kernel_setting)
-from r2d2_tpu_torch.models.network import NetworkApply, R2D2Network
+from r2d2_tpu_torch.models.network import (SPACE_TO_DEPTH, NetworkApply,
+                                           R2D2Network)
 from r2d2_tpu_torch.ops.indexing import (learning_step_mask,
                                          online_q_positions,
                                          target_q_positions)
@@ -75,14 +76,17 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 
 def _decode_inputs(net: NetworkApply, spec: ReplaySpec, batch: SampleBatch
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Storage -> network inputs: uint8 frame rows -> stacked obs
-    (B, T, H, W, K) in the compute dtype (the decode kernel on CUDA; it
-    strips any storage pad), last-action indices -> one-hot, where -1 (no
-    action) becomes a zero row as jax.nn.one_hot gives."""
+    """Storage -> network inputs: uint8 frame rows -> stacked obs in the
+    compute dtype and the layout the network's first conv takes
+    (``net.input_layout``: (B, T, H, W, K) or (B, T, H/2, W/2, 4K); the
+    decode kernel on CUDA, which strips any storage pad), last-action
+    indices -> one-hot, where -1 (no action) becomes a zero row as
+    jax.nn.one_hot gives."""
     stacked = stack_frames(batch.obs, spec.seq_window, spec.frame_stack,
                            out_dtype=net.compute_dtype,
                            out_height=spec.frame_height,
-                           out_width=spec.frame_width)
+                           out_width=spec.frame_width,
+                           space_to_depth=net.input_layout == SPACE_TO_DEPTH)
     la = batch.last_action.long()
     one_hot = F.one_hot(la.clamp(min=0), net.action_dim).float()
     return stacked, one_hot * (la >= 0).unsqueeze(-1).float()
@@ -99,7 +103,8 @@ def make_loss_fn(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
     def loss_fn(online: R2D2Network, target: R2D2Network,
                 batch: SampleBatch):
         stacked, last_action = _decode_inputs(net, spec, batch)
-        q_online, _ = online(stacked, last_action, batch.hidden)
+        q_online, _ = online(stacked, last_action, batch.hidden,
+                             net.input_layout)
         tpos = target_q_positions(batch.burn_in_steps, batch.learning_steps,
                                   batch.forward_steps, spec.learning,
                                   spec.forward)
@@ -114,7 +119,8 @@ def make_loss_fn(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
         with torch.no_grad():
             q_online_tn = at(q_online.detach(), tpos)
             if use_double:
-                q_target_all, _ = target(stacked, last_action, batch.hidden)
+                q_target_all, _ = target(stacked, last_action,
+                                         batch.hidden, net.input_layout)
                 a_star = q_online_tn.argmax(dim=-1, keepdim=True)
                 q_next = torch.gather(at(q_target_all, tpos), 2,
                                       a_star)[:, :, 0]

@@ -6,7 +6,9 @@ same way. Nothing here imports JAX.
 
 Layout changes: conv kernels HWIO -> OIHW; Dense kernels (in, out) ->
 (out, in); the LSTM's ``recurrent_kernel`` (H, 4H) and ``bias`` (4H,) keep
-their layout and gate order i, f, g, o. The torso Dense rows stay in flax's
+their layout and gate order i, f, g, o. Under ``network.space_to_depth=
+"on"`` the first conv's flax kernel is (k, k, 4C, O) with input channel
+(dh*2 + dw)*C + c, the port's order too, so it converts the same way. The torso Dense rows stay in flax's
 (h, w, c) flatten order, because the port flattens the last conv output
 from its NHWC view (models/network.py ConvTorso).
 """

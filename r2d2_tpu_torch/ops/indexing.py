@@ -13,6 +13,14 @@ def frame_stack_indices(seq_len: int, frame_stack: int,
     return t + j
 
 
+def space_to_depth_2x2(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) -> (N, H/2, W/2, 4C); channel index (dh*2 + dw)*C + c
+    (the JAX package's models/network.py space_to_depth_2x2)."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // 2, 2, w // 2, 2, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
+
+
 def online_q_positions(burn_in_steps: torch.Tensor,
                        learning_max: int) -> torch.Tensor:
     """(B, learning_max): learning step j sits at burn_in + j."""

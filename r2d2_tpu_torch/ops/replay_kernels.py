@@ -7,7 +7,9 @@ PyTorch versions beside them:
   replaces the TPU kernels ``gather_rows_pallas`` and
   ``gather_rows_exact_pallas`` (r2d2_tpu/ops/pallas_kernels.py);
 * ``stack_frames_cuda`` — out[b,t,h,w,k] = obs[b,t+k,h,w] / 255 in the compute
-  dtype; replaces ``stack_frames_pallas`` (same file).
+  dtype, or the same frames in the 2x2 space-to-depth layout the first conv
+  takes (``space_to_depth=True``); replaces ``stack_frames_pallas`` (same
+  file).
 
 Both are bound by bytes; the source file says what each design does about
 it. The dispatch functions ``gather_rows`` and ``stack_frames`` take the
@@ -21,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from r2d2_tpu_torch.ops.indexing import frame_stack_indices
+from r2d2_tpu_torch.ops.indexing import (frame_stack_indices,
+                                         space_to_depth_2x2)
 
 LAUNCHES = {"gather_windows": 0, "stack_frames": 0}
 
@@ -29,8 +32,8 @@ _INV255 = 1.0 / 255.0
 _SIGNATURES = {
     "gather_windows": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
     + [ctypes.c_int, ctypes.c_void_p],
-    "stack_frames": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_int64] * 8 + [ctypes.c_void_p],
+    "stack_frames": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_int] + [ctypes.c_int64] * 8 + [ctypes.c_void_p],
 }
 _lib = None
 
@@ -121,23 +124,30 @@ def gather_rows(ring: torch.Tensor, block_idx: torch.Tensor,
 def stack_frames_plain(obs: torch.Tensor, seq_window: int, frame_stack: int,
                        out_dtype: torch.dtype = torch.float32,
                        out_height: Optional[int] = None,
-                       out_width: Optional[int] = None) -> torch.Tensor:
-    """Plain version: obs (B, >=T+K-1, Hs, Ws) uint8 -> (B, T, H, W, K).
-    Scales by f32(1/255) in f32 and rounds once into ``out_dtype`` — the
-    kernel's arithmetic, so the two agree exactly (the JAX reference
-    divides by 255, which may differ by one f32 ulp)."""
+                       out_width: Optional[int] = None,
+                       space_to_depth: bool = False) -> torch.Tensor:
+    """Plain version: obs (B, >=T+K-1, Hs, Ws) uint8 -> (B, T, H, W, K), or
+    with ``space_to_depth`` (B, T, H/2, W/2, 4K), ``space_to_depth_2x2`` of
+    each (b, t). Scales by f32(1/255) in f32 and rounds once into
+    ``out_dtype`` — the kernel's arithmetic, so the two agree exactly (the
+    JAX reference divides by 255, which may differ by one f32 ulp)."""
     out_height = obs.shape[2] if out_height is None else out_height
     out_width = obs.shape[3] if out_width is None else out_width
     fsi = frame_stack_indices(seq_window, frame_stack, device=obs.device)
     stacked = obs[:, :, :out_height, :out_width][:, fsi]    # (B,T,K,H,W)
-    out = stacked.permute(0, 1, 3, 4, 2).float() * _INV255
-    return out.to(out_dtype).contiguous()
+    out = (stacked.permute(0, 1, 3, 4, 2).float() * _INV255).to(out_dtype)
+    if space_to_depth:
+        batch = out.shape[0]
+        out = space_to_depth_2x2(out.flatten(0, 1)).unflatten(
+            0, (batch, seq_window))
+    return out.contiguous()
 
 
 def stack_frames_cuda(obs: torch.Tensor, seq_window: int, frame_stack: int,
                       out_dtype: torch.dtype = torch.float32,
                       out_height: Optional[int] = None,
-                      out_width: Optional[int] = None) -> torch.Tensor:
+                      out_width: Optional[int] = None,
+                      space_to_depth: bool = False) -> torch.Tensor:
     """CUDA kernel launch (see csrc/replay_kernels.cu stack_frames)."""
     if not (obs.is_cuda and obs.dtype == torch.uint8 and obs.dim() == 4):
         raise ValueError("stack_frames takes a 4-D uint8 CUDA tensor")
@@ -153,14 +163,24 @@ def stack_frames_cuda(obs: torch.Tensor, seq_window: int, frame_stack: int,
                          f"{seq_window}+{frame_stack}-1 window")
     if out_height > stored_h or out_width > stored_w:
         raise ValueError("out_height/out_width exceed the stored frame")
-    out = torch.empty((batch, seq_window, out_height, out_width, frame_stack),
-                      dtype=out_dtype, device=obs.device)
+    if frame_stack < 1:
+        raise ValueError(f"frame_stack must be >= 1, got {frame_stack}")
+    if space_to_depth:
+        if out_height % 2 or out_width % 2:
+            raise ValueError("the space-to-depth layout needs an even frame, "
+                             f"got {out_height}x{out_width}")
+        shape = (batch, seq_window, out_height // 2, out_width // 2,
+                 4 * frame_stack)
+    else:
+        shape = (batch, seq_window, out_height, out_width, frame_stack)
+    out = torch.empty(shape, dtype=out_dtype, device=obs.device)
     if out.numel() == 0:
         return out
     _check(_library().stack_frames(
         obs.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        batch, seq_window, frame_stack, row_len, stored_h, stored_w,
-        out_height, out_width, _stream(obs.device)), "stack_frames")
+        int(space_to_depth), batch, seq_window, frame_stack, row_len,
+        stored_h, stored_w, out_height, out_width, _stream(obs.device)),
+        "stack_frames")
     LAUNCHES["stack_frames"] += 1
     return out
 
@@ -168,12 +188,14 @@ def stack_frames_cuda(obs: torch.Tensor, seq_window: int, frame_stack: int,
 def stack_frames(obs: torch.Tensor, seq_window: int, frame_stack: int,
                  out_dtype: torch.dtype = torch.float32,
                  out_height: Optional[int] = None,
-                 out_width: Optional[int] = None) -> torch.Tensor:
+                 out_width: Optional[int] = None,
+                 space_to_depth: bool = False) -> torch.Tensor:
     """Dispatch: the kernel for a CUDA tensor, the plain version for a CPU
     one. The optim.pallas_decode_layout values "planar" and "nhwc" both
-    land here: the output is (B, T, H, W, K) either way."""
+    land here: the output is (B, T, H, W, K) either way, or the
+    space-to-depth layout the network asks for."""
     if obs.device.type == "cpu":
         return stack_frames_plain(obs, seq_window, frame_stack, out_dtype,
-                                  out_height, out_width)
+                                  out_height, out_width, space_to_depth)
     return stack_frames_cuda(obs, seq_window, frame_stack, out_dtype,
-                               out_height, out_width)
+                             out_height, out_width, space_to_depth)

@@ -14,10 +14,12 @@ from r2d2_tpu_torch.learner.train_step import (create_train_state,
 from r2d2_tpu_torch.models.network import NetworkApply
 from r2d2_tpu_torch.replay.device_replay import replay_add, replay_init
 from r2d2_tpu_torch.replay.structs import Block, ReplaySpec, RingAccountant
+from r2d2_tpu_torch.utils.device import configure_numerics
 
 
 class Learner:
     def __init__(self, cfg: Config, net: NetworkApply, seed: int = 0):
+        configure_numerics()
         self.cfg = cfg
         self.net = net
         self.device = net.device

@@ -15,8 +15,9 @@ def sync_train(cfg: Config, train_steps: int, collect_eps: float,
     from r2d2_tpu_torch.envs.fake import FakeR2D2Env
     from r2d2_tpu_torch.models.network import NetworkApply
     from r2d2_tpu_torch.runtime.learner_loop import Learner
-    from r2d2_tpu_torch.utils.device import resolve_device
+    from r2d2_tpu_torch.utils.device import configure_numerics, resolve_device
 
+    configure_numerics()
     device = resolve_device(device)
     ratio = int(cfg.replay.max_env_steps_per_train_step)
     if ratio < 1:

@@ -82,3 +82,29 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_entry_points_turn_tf32_off():
+    """f32 means f32: cli.train and Learner construction each turn both
+    TF32 flags off (utils/device.configure_numerics), whatever they were."""
+    from r2d2_tpu_torch.config import Config, parse_overrides
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.runtime.learner_loop import Learner
+
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        train.main(TINY_ARGS + ["--device=cpu", "--max-steps=1"])
+        assert [f.allow_tf32 for f in flags] == [False, False]
+        for f in flags:
+            f.allow_tf32 = True
+        cfg = parse_overrides(Config(), TINY_ARGS)
+        net = NetworkApply(6, cfg.network, cfg.env.frame_stack,
+                           cfg.env.frame_height, cfg.env.frame_width, "cpu")
+        Learner(cfg, net)
+        assert [f.allow_tf32 for f in flags] == [False, False]
+    finally:
+        for f, value in zip(flags, saved):
+            f.allow_tf32 = value

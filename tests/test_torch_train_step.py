@@ -190,5 +190,8 @@ def test_decode_one_hot_of_null_action_is_zero():
     stacked, one_hot = _decode_inputs(net, spec, Batch)
     want = np.asarray(jax.nn.one_hot(np.asarray(Batch.last_action), 4))
     np.testing.assert_array_equal(one_hot.numpy(), want)
-    assert stacked.shape == (2, spec.seq_window, spec.frame_height,
-                             spec.frame_width, spec.frame_stack)
+    # the tiny network's (8, 4, 2) first conv on 24x24 frames takes the
+    # space-to-depth input, and the decode emits it
+    assert net.input_layout == "space_to_depth"
+    assert stacked.shape == (2, spec.seq_window, spec.frame_height // 2,
+                             spec.frame_width // 2, 4 * spec.frame_stack)
