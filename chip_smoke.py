@@ -10,15 +10,21 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      its tensor-core (HMMA) instruction count in the SASS (the bf16
      forward must have some, and no forward may spill);
   3. every kernel against its plain PyTorch version: the replay kernels at
-     the reference shape (exact; the decode in both output layouts,
+     the reference shape (exact; the gather on unpadded and padded
+     storage for random and off-contract indices in int32 and int64,
+     batch 1, window 1, a partial last chunk, and an 83x83 frame, which
+     takes its byte-wide kernel; the decode in both output layouts,
      standard and 2x2 space-to-depth, on unpadded and padded storage, and
      its any-shape kernel at shapes its fast one does not tile), the LSTM
      scan kernels at ragged small shapes and at the reference shape (T=55,
      B=128, H=512) in f32 and bf16 (tolerances at LSTM_TOL); CUDA-event
-     times of kernel, plain version and the PyTorch library call, and the
-     bound; cuDNN's nn.LSTM timed beside the port's LSTM layer as a
-     yardstick; then the first conv timed in each input layout it could
-     take (r2d2_tpu_torch/tools/conv_layouts.py);
+     times of kernel (timed alone, ``ms``, and back to back, ``b2b_ms``:
+     20 launches enqueued behind a spin kernel, the gather on a fresh draw
+     of indices each launch; the decode also right after a gather), plain
+     version and the PyTorch library call, and the bound; cuDNN's nn.LSTM
+     timed beside the port's LSTM layer as a yardstick; then the first
+     conv timed in each input layout it could take
+     (r2d2_tpu_torch/tools/conv_layouts.py);
   4. a small f32 learner step on the card against the same step on the
      CPU, on the default path and with network.pallas_lstm="on" and double
      DQN; then the learner step at the reference shape (B=128,
@@ -27,14 +33,18 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      steps), on the default path, with double DQN, and with the fused LSTM
      scan and double DQN, timed in turns;
   5. the trainer through its entry point, r2d2_tpu_torch.cli.train, at the
-     same widths for a few learner steps, on the default path and with
-     --network.pallas_lstm=on --network.use_double=true; the kernel launch
-     counts of these runs go into the ``kernels`` line.
+     same widths for a few learner steps, on the default path, with
+     --network.pallas_lstm=on --network.use_double=true, and on padded
+     storage (--replay.pallas_exact_gather=on, the exact-read gather's);
+     the kernel launch counts of these runs go into the ``kernels`` line
+     (the gather's two rows: unpadded and padded storage).
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
 The last line is {"ok": true, "device": {...}}. ``--profile`` adds a
-torch.profiler breakdown of three reference-shape steps of each path and
-names any kernel of the first conv's 4-channel fallback it finds.
+torch.profiler breakdown of three reference-shape steps of each path,
+names any kernel of the first conv's 4-channel fallback it finds, and
+checks that no copy kernel (an index cast) runs right before the
+gather.
 """
 
 import json
@@ -53,9 +63,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 REF_CAPACITY = 100_000             # down from 500,000 to fit the smoke's time
 KERNEL_SOURCES = {"replay_kernels": "r2d2_tpu_torch/csrc/replay_kernels.cu",
                   "lstm_kernels": "r2d2_tpu_torch/csrc/lstm_kernels.cu"}
+# the gather is one kernel; its rows: unpadded storage (the row gather's,
+# K1) and tile-padded storage (the exact-read gather's, K2)
 REPLACES = {
-    "gather_windows": "r2d2_tpu/ops/pallas_kernels.py:325; "
-                      "r2d2_tpu/ops/pallas_kernels.py:372",
+    "gather_windows": "r2d2_tpu/ops/pallas_kernels.py:325",
+    "gather_windows_padded": "r2d2_tpu/ops/pallas_kernels.py:372",
     "stack_frames": "r2d2_tpu/ops/pallas_kernels.py:194",
     "lstm_fwd": "r2d2_tpu/ops/pallas_lstm.py:194",
     "lstm_fwd_lean": "r2d2_tpu/ops/pallas_lstm.py:194",
@@ -84,6 +96,9 @@ LSTM_SMALL_SHAPES = ((4, 3, 17), (5, 8, 18), (6, 70, 16), (3, 130, 24),
                      (4, 33, 17), (4, 33, 40), (3, 256, 512), (2, 300, 512),
                      (2, 24, 544))
 FUSED_ARGS = ["--network.pallas_lstm=on", "--network.use_double=true"]
+PADDED_ARGS = ["--replay.pallas_exact_gather=on"]    # 84x84 stored as 96x128
+BACK_TO_BACK = 20                  # launches enqueued ahead of the card
+SPIN_CYCLES = 20_000_000           # ~10 ms: longer than enqueuing them
 # cuDNN kernels of a 4-channel first conv's fallback (a layout conversion,
 # an f32 implicit GEMM)
 FALLBACK_KERNELS = re.compile(r"nhwcToNchw|nchwToNhwc|nhwc2nchw|nchw2nhwc"
@@ -119,7 +134,9 @@ def _counts() -> dict:
 
 
 def cuda_ms(fn, runs: int = 30, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+    """Median milliseconds of ``fn`` timed alone on the current stream (CUDA
+    events; the host's time between the events counts where the card
+    waits for it)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -132,6 +149,27 @@ def cuda_ms(fn, runs: int = 30, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def b2b_ms(fn, launches: int = BACK_TO_BACK, repeats: int = 5) -> float:
+    """Milliseconds per launch back to back: a spin kernel holds the card
+    while the host enqueues ``fn(0) .. fn(launches - 1)``, one event pair
+    around them, divided by ``launches``; the median of ``repeats``."""
+    import torch
+    fn(0)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(launches):
+            fn(i)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -232,52 +270,152 @@ def phase_build():
                 check("spill stores 0 B, spill loads 0 B" in line, line)
 
 
+def _ops_run_by(fn) -> set:
+    """The names of the PyTorch operators that ``fn()`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        fn()
+    return {e.key for e in p.key_averages()}
+
+
+def gather_checks(dev, rings, window):
+    """gather_windows against its plain version, exact: random and
+    off-contract indices in int32 and int64, batch 1, window 1, both, a
+    window whose bytes leave a partial last chunk of the kernel's plan, and
+    an 83x83 frame (not a multiple of 16 bytes: the byte-wide kernel).
+    Returns the max difference."""
+    import torch
+    from r2d2_tpu_torch.ops import replay_kernels as rk
+    g = torch.Generator(device=dev).manual_seed(1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def draw(n, row_len, batch, win):
+        return (torch.randint(0, n, (batch,), generator=g, device=dev),
+                torch.randint(0, row_len - win + 1, (batch,), generator=g,
+                              device=dev))
+
+    ring83 = torch.randint(0, 256, (40, 96, 83, 83), generator=g,
+                           device=dev, dtype=torch.uint8)
+    errs = []
+    for label, ring in {**rings, "83x83": ring83}.items():
+        n, row_len, hs, ws = ring.shape
+        # a window whose bytes the plan's chunk does not divide
+        partial = next(w for w in range(window - 1, 0, -1)
+                       if (w * hs * ws) % rk.gather_plan(
+                           128, w, hs * ws, sms).chunk)
+        odd = (torch.tensor([-1, 3, n + 5, 0, -n - 9], device=dev),
+               torch.tensor([-30, row_len, 5, -1000, 2], device=dev))
+        cases = [("random", *draw(n, row_len, 128, window), window),
+                 ("off-contract", *odd, window),
+                 ("batch 1", *draw(n, row_len, 1, window), window),
+                 ("window 1", *draw(n, row_len, 128, 1), 1),
+                 ("batch 1, window 1", *draw(n, row_len, 1, 1), 1),
+                 (f"window {partial}, partial last chunk",
+                  *draw(n, row_len, 128, partial), partial)]
+        for case, bi64, st64, win in cases:
+            for dtypes in ((torch.int32, torch.int32),
+                           (torch.int64, torch.int32),
+                           (torch.int64, torch.int64)):
+                bi, st = bi64.to(dtypes[0]), st64.to(dtypes[1])
+                got = rk.gather_windows_cuda(ring, bi, st, win)
+                want = rk.gather_windows_plain(ring, bi, st, win)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"gather_windows {label} {case} {dtypes} differs")
+                errs.append((got.int() - want.int()).abs().max().item())
+        print(f"gather_windows {label} {tuple(ring.shape)}: exact in "
+              f"{len(cases)} cases x 3 index dtypes", flush=True)
+    return float(max(errs))
+
+
+def gather_timings(dev, ring, window, max_abs_err):
+    """gather_windows at the reference shape with int64 block indices, as
+    the sampler gives them: timed alone, back to back on a fresh draw of
+    indices each launch, its plain version, and the faster of two PyTorch
+    calls that compute the same (advanced indexing; index_select over a
+    strided view of the ring)."""
+    import torch
+    from r2d2_tpu_torch.ops import replay_kernels as rk
+    g = torch.Generator(device=dev).manual_seed(2)
+    n, row_len, hs, ws = ring.shape
+    frame = hs * ws
+    draws = [(torch.randint(0, n, (128,), generator=g, device=dev),
+              torch.randint(0, row_len - window + 1, (128,), generator=g,
+                            device=dev, dtype=torch.int32))
+             for _ in range(BACK_TO_BACK)]
+    block_idx, start = draws[0]
+    check(not {"aten::to", "aten::_to_copy", "aten::copy_"}
+          & _ops_run_by(lambda: rk.gather_rows(ring, block_idx, start,
+                                               window)),
+          "gather_rows casts its int64 indices")
+    tidx = start.long()[:, None] + torch.arange(window, device=dev)[None, :]
+    bi = block_idx[:, None]
+    windows = ring.view(-1).as_strided((n * row_len - window + 1,
+                                        window * frame), (frame, 1))
+    rows = block_idx * row_len + start
+    want = rk.gather_windows_plain(ring, block_idx, start, window)
+    check(torch.equal(ring[bi, tidx], want)
+          and torch.equal(torch.index_select(windows, 0, rows).view(
+              want.shape), want), "library calls differ from the plain one")
+    library = {"ring[bi, t]": cuda_ms(lambda: ring[bi, tidx]),
+               "index_select": cuda_ms(
+                   lambda: torch.index_select(windows, 0, rows))}
+    r = dict(max_abs_err=max_abs_err,
+             ms=cuda_ms(lambda: rk.gather_windows_cuda(ring, block_idx,
+                                                       start, window)),
+             b2b_ms=b2b_ms(lambda i: rk.gather_windows_cuda(
+                 ring, *draws[i], window)),
+             plain_ms=cuda_ms(lambda: rk.gather_windows_plain(
+                 ring, block_idx, start, window)),
+             library_ms=min(library.values()),
+             bound_ms=2 * 128 * window * frame / HBM_BYTES_PER_S * 1e3,
+             bound_by="bytes")
+    print(f"gather_windows {tuple(ring.shape)}: alone {r['ms']:.4f} ms, "
+          f"back to back {r['b2b_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+          f"ms ({100 * r['bound_ms'] / r['b2b_ms']:.1f}% of it back to "
+          f"back), library " + ", ".join(f"{k} {v:.4f} ms"
+                                         for k, v in library.items()),
+          flush=True)
+    check(r["b2b_ms"] < r["library_ms"],
+          "gather_windows is slower than a PyTorch call")
+    return r, draws
+
+
 def replay_kernel_checks(dev):
-    """Replay kernels vs plain versions at the reference shape, exact."""
+    """Replay kernels vs plain versions at the reference shape, exact, and
+    their times."""
     import torch
     from r2d2_tpu_torch.ops import replay_kernels as rk
 
     g = torch.Generator(device=dev).manual_seed(0)
     n, row_len, h, w, batch, t, k = 250, 448, 84, 84, 128, 55, 4
     window = t + k - 1
-    block_idx = torch.randint(0, n, (batch,), generator=g, device=dev,
-                              dtype=torch.int32)
-    start = torch.randint(0, row_len - window + 1, (batch,), generator=g,
-                          device=dev, dtype=torch.int32)
-    tidx = start.long()[:, None] + torch.arange(window, device=dev)[None, :]
-    results = {}
-
     rings = {label: torch.randint(0, 256, (n, row_len, hs, ws), generator=g,
                                   device=dev, dtype=torch.uint8)
              for label, (hs, ws) in (("unpadded", (h, w)),
                                      ("padded", (96, 128)))}
-    gathered, errs = {}, []
-    # off-contract indices too: negative ones count from the end, then clamp
-    odd_idx = torch.tensor([-1, 3, n + 5, 0], dtype=torch.int32, device=dev)
-    odd_start = torch.tensor([-30, row_len, 5, -1000], dtype=torch.int32,
-                             device=dev)
-    for label, ring in rings.items():
-        for bi, st in ((block_idx, start), (odd_idx, odd_start)):
-            got = rk.gather_windows_cuda(ring, bi, st, window)
-            want = rk.gather_windows_plain(ring, bi, st, window)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want), f"gather_windows {label} differs")
-            errs.append((got.int() - want.int()).abs().max().item())
-        gathered[label] = rk.gather_windows_cuda(ring, block_idx, start,
-                                                 window)
-        print(f"gather_windows {label} {tuple(ring.shape)}: exact",
-              flush=True)
-    ring, bi = rings["unpadded"], block_idx.long()[:, None]
-    results["gather_windows"] = dict(
-        max_abs_err=float(max(errs)),
-        ms=cuda_ms(lambda: rk.gather_windows_cuda(ring, block_idx, start,
-                                                  window)),
-        plain_ms=cuda_ms(lambda: rk.gather_windows_plain(ring, block_idx,
-                                                         start, window)),
-        library_ms=cuda_ms(lambda: ring[bi, tidx]),
-        bound_ms=2 * batch * window * h * w / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes")
+    err = gather_checks(dev, rings, window)
+    results, gathered, draws = {}, {}, {}
+    for label, name in (("unpadded", "gather_windows"),
+                        ("padded", "gather_windows_padded")):
+        results[name], draws[label] = gather_timings(dev, rings[label],
+                                                     window, err)
+        gathered[label] = rk.gather_windows_cuda(
+            rings[label], *draws[label][0], window)
     obs, obs_padded = gathered["unpadded"], gathered["padded"]
+    # the decode right after a gather, back to back, as the step runs them
+    ring, marks = rings["unpadded"], []
+
+    def gather_then_decode(i):
+        out = rk.gather_windows_cuda(ring, *draws["unpadded"][i], window)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        rk.stack_frames_cuda(out, t, k, torch.bfloat16, h, w, True)
+        b.record()
+        marks.append((a, b))
+
+    b2b_ms(gather_then_decode, repeats=1)
+    after_gather = statistics.median(a.elapsed_time(b) for a, b in marks[1:])
     del rings, ring
 
     errs = []
@@ -324,7 +462,14 @@ def replay_kernel_checks(dev):
         plain_ms=cuda_ms(lambda: rk.stack_frames_plain(obs, t, k,
                                                        torch.bfloat16, h, w,
                                                        True)),
-        library_ms=None, bound_ms=bound_ms, bound_by="bytes")
+        b2b_ms=b2b_ms(lambda i: rk.stack_frames_cuda(obs, t, k,
+                                                      torch.bfloat16, h, w,
+                                                      True)),
+        b2b_after_gather_ms=after_gather, library_ms=None,
+        bound_ms=bound_ms, bound_by="bytes")
+    print(f"stack_frames bf16 space-to-depth: back to back "
+          f"{results['stack_frames']['b2b_ms']:.4f} ms alone, "
+          f"{after_gather:.4f} ms right after a gather", flush=True)
     for dtype in (torch.bfloat16, torch.float32):
         for s2d, layout in ((False, "standard"), (True, "space-to-depth")):
             ms = cuda_ms(lambda: rk.stack_frames_cuda(obs, t, k, dtype, h, w,
@@ -467,10 +612,12 @@ def lstm_kernel_checks(dev):
         bounds = lstm_bounds(LSTM_REF_SHAPE, dname)
         for name, (kernel, plain) in times.items():
             r = dict(max_abs_err=errs[name], ms=cuda_ms(kernel),
+                     b2b_ms=b2b_ms(lambda i: kernel()),
                      plain_ms=cuda_ms(plain, runs=10), library_ms=None,
                      bound_ms=bounds[name][0], bound_by=bounds[name][1])
             print(f"{name} {dname} T,B,H={LSTM_REF_SHAPE}: kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['ms']:.4f} ms (back to back {r['b2b_ms']:.4f}), "
+                  f"plain {r['plain_ms']:.4f} ms, bound "
                   f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})",
                   flush=True)
             if dtype == torch.bfloat16:
@@ -534,8 +681,9 @@ def phase_kernels(dev):
     results = replay_kernel_checks(dev)
     results.update(lstm_kernel_checks(dev))
     for name, r in results.items():
-        print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, library {r['library_ms']} ms, bound "
+        print(f"{name}: kernel {r['ms']:.4f} ms (back to back "
+              f"{r['b2b_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']} ms, bound "
               f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})", flush=True)
     lstm_layer_yardstick(dev)
     return results
@@ -646,6 +794,17 @@ def _profile(step, ts, rs) -> float:
                 for e in events if e.device_type == DeviceType.CUDA
                 and FALLBACK_KERNELS.search(e.key)]
     print(f"first-conv fallback kernels: {fallback or 'none'}", flush=True)
+    # the sampler's int64 block indices reach the gather as they are: no
+    # cast (a copy kernel) runs right before it
+    kernels = sorted((e for e in p.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    before = {kernels[i - 1].name[:100] for i, e in enumerate(kernels)
+              if i and "gather_windows" in e.name}
+    print(f"kernels right before gather_windows: {sorted(before)}",
+          flush=True)
+    check(before and not any("copy" in name for name in before),
+          f"a copy runs before gather_windows: {before}")
     # the device's own events only (operator rows repeat their kernels)
     return sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CUDA) / 3e3
@@ -782,14 +941,17 @@ def main(argv) -> int:
     launches.update({name: n for name, n in
                      phase_cli(dev, FUSED_ARGS, "pallas_lstm on, double DQN")
                      .items() if name.startswith("lstm")})
+    launches["gather_windows_padded"] = phase_cli(
+        dev, PADDED_ARGS, "padded storage")["gather_windows"]
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                    b2b_ms=r["b2b_ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"])
                for name, r in timings.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,70 +21,237 @@
 //
 // Bound: bytes. Pure data movement, B * window * Hs * Ws bytes read and as
 // many written (104.8 MB at B=128, window 58, 84x84: ~31 us at 3.35 TB/s).
-// Design: a sampled window is ONE contiguous run of the ring, so the kernel
-// is a batched memcpy. Grid (chunks, B): each block loads its own sample's
-// block index and start (the scalar prefetch of the TPU kernel) and copies
-// with 16-byte vector loads/stores in a grid-stride loop. Hs*Ws = 7056 and
-// 96*128 are multiples of 16, so the vector path covers every byte; the
-// wrapper picks the byte-wide instantiation for frame sizes that are not.
-// Off-contract indices follow lax.dynamic_slice / jnp indexing in the
-// reference: a negative index counts from the end, then start clamps to
-// [0, row_len - window] and the block index to [0, num_rows - 1].
+// A sampled window is ONE contiguous run of the ring, so the kernel is a
+// batched memcpy. The work is cut into items (ops/replay_kernels.py
+// gather_plan): item k is bytes [c * chunk, c * chunk + chunk) of sample
+// k % batch's window, c = k / batch, the last chunk of a window shorter.
+// The grid is persistent: CTA g walks items [g * per, (g + 1) * per), which
+// are the same chunk of neighbouring samples. (Walking items g, g + grid,
+// ... instead puts every CTA on the same chunk at once, and the writes land
+// a window's bytes apart: 3-5% slower on the card.)
+// - gather_windows_bulk_kernel (frame bytes a multiple of 16): one thread
+//   moves the bytes with Hopper's bulk copies (the counterpart of K2's
+//   HBM->HBM async copy), through a ring of kBulkStages shared-memory
+//   buffers, each with an mbarrier, loads kBulkAhead items ahead of the
+//   stores. The warp first resolves the CTA's item addresses into a table
+//   in shared memory, in parallel, so the copying thread never waits on an
+//   index load. A load cp.async.bulk's an item into its stage; once the
+//   stage's barrier completes, a bulk store writes it to `out` in a bulk
+//   group; a stage is refilled once its store has read it
+//   (cp.async.bulk.wait_group.read). No thread touches the bytes. Both sides
+//   carry an L2 evict_first policy: the 0.8 GB ring never stays in the 50
+//   MB L2, and evict_first stores made the gather 4% faster on the card
+//   with the decode that reads `out` next no slower (evict_last stores made
+//   that decode 1% faster and the gather 4% slower).
+// - gather_windows_bytes_kernel: bulk copies need 16-byte addresses and
+//   sizes, so a frame whose size is not a multiple of 16 takes this kernel
+//   over the same items: every thread copies bytes, kBytesUnroll loads in
+//   flight before the stores.
+// Indices come as int32 or int64 (the sampler's own dtype; no cast kernel
+// before the gather). Off-contract indices follow lax.dynamic_slice / jnp
+// indexing in the reference: a negative index counts from the end, then
+// start clamps to [0, row_len - window] and the block index to
+// [0, num_rows - 1].
 
-template <typename V>
-__global__ void gather_windows_kernel(const uint8_t* __restrict__ ring,
-                                      const int32_t* __restrict__ block_idx,
-                                      const int32_t* __restrict__ start,
-                                      uint8_t* __restrict__ out,
-                                      int64_t num_rows, int64_t row_len,
-                                      int64_t frame_bytes, int64_t window) {
-  const int64_t i = blockIdx.y;
-  int64_t bi = block_idx[i];
-  if (bi < 0) bi += num_rows;
-  bi = bi < 0 ? 0 : (bi >= num_rows ? num_rows - 1 : bi);
-  int64_t st = start[i];
-  if (st < 0) st += row_len;
-  const int64_t max_start = row_len - window;
+constexpr int kBulkStages = 12;
+constexpr int kBulkAhead = 10;
+constexpr int kBytesThreads = 256;
+constexpr int kBytesUnroll = 8;
+
+struct GatherArgs {
+  const uint8_t* ring;
+  const void* block_idx;
+  const void* start;
+  uint8_t* out;
+  int64_t batch, num_rows, row_len, frame_bytes, window;
+  int64_t chunk;       // bytes of an item (a multiple of 16)
+  int64_t items;       // batch * chunks of a window
+  int64_t per;         // items of a CTA
+  int idx64, start64;  // index dtypes: int64 (1) or int32 (0)
+};
+
+struct GatherItem {
+  const uint8_t* src;
+  uint8_t* dst;
+  uint32_t bytes;
+};
+
+__device__ __forceinline__ int64_t load_index(const void* p, int is64,
+                                              int64_t i) {
+  return is64 ? (int64_t)__ldg(static_cast<const long long*>(p) + i)
+              : (int64_t)__ldg(static_cast<const int32_t*>(p) + i);
+}
+
+__device__ __forceinline__ GatherItem gather_item(const GatherArgs& a,
+                                                  int64_t k) {
+  const int64_t i = k % a.batch;
+  const int64_t offset = (k / a.batch) * a.chunk;
+  const int64_t window_bytes = a.window * a.frame_bytes;
+  int64_t bi = load_index(a.block_idx, a.idx64, i);
+  if (bi < 0) bi += a.num_rows;
+  bi = bi < 0 ? 0 : (bi >= a.num_rows ? a.num_rows - 1 : bi);
+  int64_t st = load_index(a.start, a.start64, i);
+  if (st < 0) st += a.row_len;
+  const int64_t max_start = a.row_len - a.window;
   st = st < 0 ? 0 : (st > max_start ? max_start : st);
+  const int64_t rest = window_bytes - offset;
+  return {a.ring + (bi * a.row_len + st) * a.frame_bytes + offset,
+          a.out + i * window_bytes + offset,
+          (uint32_t)(rest < a.chunk ? rest : a.chunk)};
+}
 
-  const int64_t n = window * frame_bytes / sizeof(V);
-  const V* src = reinterpret_cast<const V*>(
-      ring + (bi * row_len + st) * frame_bytes);
-  V* dst = reinterpret_cast<V*>(out + i * window * frame_bytes);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += stride) {
-    dst[j] = __ldg(src + j);
+// this CTA's items: [blockIdx.x * per, min(items, (blockIdx.x + 1) * per))
+__device__ __forceinline__ int64_t first_item(const GatherArgs& a) {
+  return (int64_t)blockIdx.x * a.per;
+}
+
+__device__ __forceinline__ int64_t item_count(const GatherArgs& a) {
+  const int64_t left = a.items - first_item(a);
+  return left < a.per ? left : a.per;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Dynamic shared memory: the stages, then the CTA's item table.
+__global__ void __launch_bounds__(32)
+gather_windows_bulk_kernel(const GatherArgs a) {
+  static_assert(kBulkAhead >= 1 && kBulkAhead < kBulkStages,
+                "loads run ahead of stores");
+  extern __shared__ __align__(128) uint8_t stage_buf[];
+  __shared__ __align__(8) uint64_t full[kBulkStages];
+  const int64_t mine = item_count(a);
+  GatherItem* table = reinterpret_cast<GatherItem*>(
+      stage_buf + (int64_t)kBulkStages * a.chunk);
+  for (int64_t q = threadIdx.x; q < mine; q += 32) {
+    table[q] = gather_item(a, first_item(a) + q);
+  }
+  __syncwarp();
+  if (threadIdx.x != 0) return;
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  for (int s = 0; s < kBulkStages; ++s) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                     smem_addr(&full[s]))
+                 : "memory");
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+
+  auto load = [&](int64_t q) {
+    const GatherItem it = table[q];
+    const int s = (int)(q % kBulkStages);
+    const uint32_t bar = smem_addr(&full[s]);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(bar), "r"(it.bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".L2::cache_hint [%0], [%1], %2, [%3], %4;"
+        ::"r"(smem_addr(stage_buf + (int64_t)s * a.chunk)), "l"(it.src),
+        "r"(it.bytes), "r"(bar), "l"(policy)
+        : "memory");
+  };
+  for (int64_t q = 0; q < kBulkAhead && q < mine; ++q) load(q);
+  for (int64_t q = 0; q < mine; ++q) {
+    const int s = (int)(q % kBulkStages);
+    mbar_wait(smem_addr(&full[s]), (uint32_t)((q / kBulkStages) & 1));
+    const GatherItem it = table[q];
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
+        " [%0], [%1], %2, %3;"
+        ::"l"(it.dst), "r"(smem_addr(stage_buf + (int64_t)s * a.chunk)),
+        "r"(it.bytes), "l"(policy)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    if (q + kBulkAhead < mine) {
+      // the stage of item q + ahead last held item q + ahead - stages,
+      // whose store is older than the last stages - ahead groups
+      asm volatile("cp.async.bulk.wait_group.read %0;"
+                   ::"n"(kBulkStages - kBulkAhead) : "memory");
+      load(q + kBulkAhead);
+    }
+  }
+  // the stages must outlive the stores' reads of them; the writes complete
+  // before the grid does
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kBytesThreads)
+gather_windows_bytes_kernel(const GatherArgs a) {
+  const int64_t first = first_item(a), last = first + item_count(a);
+  for (int64_t k = first; k < last; ++k) {
+    const GatherItem it = gather_item(a, k);
+    const int n = (int)it.bytes;
+    for (int base = threadIdx.x; base < n;
+         base += kBytesThreads * kBytesUnroll) {
+      uint8_t r[kBytesUnroll];
+#pragma unroll
+      for (int u = 0; u < kBytesUnroll; ++u) {
+        const int j = base + u * kBytesThreads;
+        if (j < n) r[u] = __ldcs(it.src + j);
+      }
+#pragma unroll
+      for (int u = 0; u < kBytesUnroll; ++u) {
+        const int j = base + u * kBytesThreads;
+        if (j < n) __stcs(it.dst + j, r[u]);
+      }
+    }
   }
 }
 
 extern "C" int gather_windows(const void* ring, const void* block_idx,
-                              const void* start, void* out, int64_t batch,
-                              int64_t num_rows, int64_t row_len,
-                              int64_t frame_bytes, int64_t window, int vec16,
-                              void* stream) {
-  const int threads = 256;
-  const int64_t bytes = window * frame_bytes;
-  const int64_t units = vec16 ? bytes / 16 : bytes;
-  // ~4 units per thread per pass; enough blocks in flight to fill 132 SMs
-  int64_t chunks = (units + threads * 4 - 1) / (threads * 4);
-  if (chunks < 1) chunks = 1;
-  if (chunks > 65535) chunks = 65535;
-  dim3 grid((unsigned)chunks, (unsigned)batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec16) {
-    gather_windows_kernel<uint4><<<grid, threads, 0, s>>>(
-        static_cast<const uint8_t*>(ring),
-        static_cast<const int32_t*>(block_idx),
-        static_cast<const int32_t*>(start), static_cast<uint8_t*>(out),
-        num_rows, row_len, frame_bytes, window);
-  } else {
-    gather_windows_kernel<uint8_t><<<grid, threads, 0, s>>>(
-        static_cast<const uint8_t*>(ring),
-        static_cast<const int32_t*>(block_idx),
-        static_cast<const int32_t*>(start), static_cast<uint8_t*>(out),
-        num_rows, row_len, frame_bytes, window);
+                              int idx64, const void* start, int start64,
+                              void* out, int64_t batch, int64_t num_rows,
+                              int64_t row_len, int64_t frame_bytes,
+                              int64_t window, int64_t chunk, int64_t per,
+                              int64_t grid, void* stream) {
+  const int64_t window_bytes = window * frame_bytes;
+  const int64_t items =
+      chunk > 0 ? batch * ((window_bytes + chunk - 1) / chunk) : 0;
+  const bool bulk = frame_bytes % 16 == 0;
+  // the plan's geometry: 16-byte chunks that fit a 32-bit size, and CTAs
+  // that each walk at least one item and together cover them all
+  if (chunk <= 0 || chunk % 16 || chunk > 2147483647 || per <= 0 ||
+      grid <= 0 || grid > 2147483647 || grid * per < items ||
+      (grid - 1) * per >= items ||
+      (bulk && (reinterpret_cast<uintptr_t>(ring) % 16 ||
+                reinterpret_cast<uintptr_t>(out) % 16))) {
+    return (int)cudaErrorInvalidValue;
   }
+  const GatherArgs a{static_cast<const uint8_t*>(ring), block_idx, start,
+                     static_cast<uint8_t*>(out), batch, num_rows, row_len,
+                     frame_bytes, window, chunk, items, per, idx64, start64};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!bulk) {
+    gather_windows_bytes_kernel<<<(unsigned)grid, kBytesThreads, 0, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  // the stages and the item table; the attribute is raised when a launch
+  // needs more than the last one set (once for a shape), not on every
+  // launch, and refused past 227 KB (at 16 KB chunks, past ~1,480 items a
+  // CTA)
+  static int64_t allowed = 48 * 1024;
+  const int64_t smem = kBulkStages * chunk + per * (int64_t)sizeof(GatherItem);
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gather_windows_bulk_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed = smem;
+  }
+  gather_windows_bulk_kernel<<<(unsigned)grid, 32, (size_t)smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

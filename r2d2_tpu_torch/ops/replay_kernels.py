@@ -19,7 +19,9 @@ count), so a run can show that its main path went through the kernels.
 """
 
 import ctypes
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -30,12 +32,14 @@ LAUNCHES = {"gather_windows": 0, "stack_frames": 0}
 
 _INV255 = 1.0 / 255.0
 _SIGNATURES = {
-    "gather_windows": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
-    + [ctypes.c_int, ctypes.c_void_p],
+    "gather_windows": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int64] * 8 + [ctypes.c_void_p],
     "stack_frames": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                      ctypes.c_int] + [ctypes.c_int64] * 8 + [ctypes.c_void_p],
 }
 _lib = None
+_SM_COUNT = {}
 
 
 def reset_launch_counts() -> None:
@@ -61,7 +65,9 @@ def _check(err: int, name: str) -> None:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of the device's current stream (the raw getter, without
+    the Stream object ``torch.cuda.current_stream`` builds)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +87,99 @@ def gather_windows_plain(ring: torch.Tensor, block_idx: torch.Tensor,
     return ring[bi[:, None], t]
 
 
+# The gather kernel's work partition (csrc/replay_kernels.cu gather_windows):
+# bulk copies, one CTA of one copying thread a multiprocessor through 12
+# shared-memory stages of up to 16 KB (16,384 x 12 = 196,608 bytes with the
+# item table, within a block's 227 KB); frames that are not a multiple of 16
+# bytes, the byte-wide kernel, four CTAs of 256 threads a multiprocessor.
+BULK_PARTITION = {"ctas_per_sm": 1, "max_chunk": 16384}
+BYTES_PARTITION = {"ctas_per_sm": 4, "max_chunk": 32768}
+_GATHER_MIN_CHUNK = 1024     # smaller items only where the grid needs them
+_GATHER_ITEM_COST = 256      # an item's fixed cost, in bytes moved
+_INDEX_TYPES = (torch.int32, torch.int64)
+
+
+@dataclass(frozen=True)
+class GatherPlan:
+    """Work items of one gather. Item k is bytes [c * chunk, c * chunk +
+    chunk) of sample k % batch's window, c = k // batch (the last chunk of a
+    window shorter); CTA g of ``grid`` walks items [g * per_cta, (g + 1) *
+    per_cta), the same chunk of neighbouring samples."""
+    batch: int
+    window_bytes: int
+    chunk: int
+    per_cta: int
+    grid: int
+
+    @property
+    def chunks_per_sample(self) -> int:
+        return -(-self.window_bytes // self.chunk)
+
+    @property
+    def items(self) -> int:
+        return self.batch * self.chunks_per_sample
+
+    def item(self, k: int) -> Tuple[int, int, int]:
+        """(sample, byte offset in its window, byte count) of item k."""
+        offset = (k // self.batch) * self.chunk
+        return (k % self.batch, offset,
+                min(self.chunk, self.window_bytes - offset))
+
+    def walk(self, cta: int) -> List[Tuple[int, int, int]]:
+        """The items CTA ``cta`` copies, in its order."""
+        first = cta * self.per_cta
+        return [self.item(k)
+                for k in range(first, min(first + self.per_cta, self.items))]
+
+
+@functools.lru_cache(maxsize=64)
+def gather_plan(batch: int, window: int, frame_bytes: int, num_sms: int,
+                ctas_per_sm: int = BULK_PARTITION["ctas_per_sm"],
+                max_chunk: int = BULK_PARTITION["max_chunk"]) -> GatherPlan:
+    """The gather's work partition on a card with ``num_sms``
+    multiprocessors: a chunk (a multiple of 16 bytes, at most ``max_chunk``)
+    and a persistent grid of at most ``ctas_per_sm`` CTAs a multiprocessor,
+    each with at least one item. Of the chunk counts per window from the
+    fewest that fit ``max_chunk`` up to chunks of _GATHER_MIN_CHUNK, it
+    takes the one whose busiest CTA moves the fewest bytes, an item's fixed
+    cost counted; the fewest chunks on a tie."""
+    if min(batch, window, frame_bytes, num_sms, ctas_per_sm) < 1 \
+            or max_chunk < 16:
+        raise ValueError("gather_plan needs positive sizes")
+    window_bytes = window * frame_bytes
+    slots = num_sms * ctas_per_sm
+    fewest = -(-window_bytes // (max_chunk // 16 * 16))
+    most = max(fewest, window_bytes // _GATHER_MIN_CHUNK)
+    best = None
+    for n in range(fewest, most + 1):
+        chunk = -(-window_bytes // (16 * n)) * 16
+        items = batch * -(-window_bytes // chunk)
+        per_cta = -(-items // min(items, slots))
+        cost = per_cta * (chunk + _GATHER_ITEM_COST)
+        if best is None or cost < best[0]:
+            best = (cost, GatherPlan(batch, window_bytes, chunk, per_cta,
+                                     -(-items // per_cta)))
+    return best[1]
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    count = _SM_COUNT.get(index)
+    if count is None:
+        count = torch.cuda.get_device_properties(index).multi_processor_count
+        _SM_COUNT[index] = count
+    return count
+
+
+def _index(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """An index vector as the kernel reads it: int32 or int64 on the ring's
+    device, as given (the sampler's own dtype); anything else converted."""
+    if t.device != device or t.dtype not in _INDEX_TYPES:
+        t = t.to(device, torch.int64)
+    return t.contiguous()
+
+
 def gather_windows_cuda(ring: torch.Tensor, block_idx: torch.Tensor,
                         start: torch.Tensor, window: int) -> torch.Tensor:
     """CUDA kernel launch (see csrc/replay_kernels.cu gather_windows)."""
@@ -92,18 +191,25 @@ def gather_windows_cuda(ring: torch.Tensor, block_idx: torch.Tensor,
     num_rows, row_len, height, width = ring.shape
     if not 0 < window <= row_len:
         raise ValueError(f"window {window} does not fit rows of {row_len}")
-    block_idx = block_idx.to(ring.device, torch.int32).contiguous()
-    start = start.to(ring.device, torch.int32).contiguous()
+    if block_idx.dim() != 1 or block_idx.shape != start.shape:
+        raise ValueError("block_idx and start must be vectors of one length")
+    device = ring.device
+    block_idx, start = _index(block_idx, device), _index(start, device)
     batch = block_idx.shape[0]
     out = torch.empty((batch, window, height, width), dtype=torch.uint8,
-                      device=ring.device)
-    if batch == 0:
+                      device=device)
+    if out.numel() == 0:
         return out
     frame_bytes = height * width
+    partition = BULK_PARTITION if frame_bytes % 16 == 0 else BYTES_PARTITION
+    plan = gather_plan(batch, window, frame_bytes, _sm_count(device),
+                       partition["ctas_per_sm"], partition["max_chunk"])
     _check(_library().gather_windows(
-        ring.data_ptr(), block_idx.data_ptr(), start.data_ptr(),
-        out.data_ptr(), batch, num_rows, row_len, frame_bytes, window,
-        int(frame_bytes % 16 == 0), _stream(ring.device)), "gather_windows")
+        ring.data_ptr(), block_idx.data_ptr(),
+        int(block_idx.dtype == torch.int64), start.data_ptr(),
+        int(start.dtype == torch.int64), out.data_ptr(), batch, num_rows,
+        row_len, frame_bytes, window, plan.chunk, plan.per_cta, plan.grid,
+        _stream(device)), "gather_windows")
     LAUNCHES["gather_windows"] += 1
     return out
 
