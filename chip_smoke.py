@@ -17,7 +17,9 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      standard and 2x2 space-to-depth, on unpadded and padded storage, and
      its any-shape kernel at shapes its fast one does not tile), the LSTM
      scan kernels at ragged small shapes and at the reference shape (T=55,
-     B=128, H=512) in f32 and bf16 (tolerances at LSTM_TOL); CUDA-event
+     B=128, H=512) in f32 and bf16 (tolerances at LSTM_TOL), and the f32
+     reference shape again right after a new, smaller shape of the same
+     kernels (LSTM_ORDER_SHAPE); CUDA-event
      times of kernel (timed alone, ``ms``, and back to back, ``b2b_ms``:
      20 launches enqueued behind a spin kernel, the gather on a fresh draw
      of indices each launch; the decode also right after a gather), plain
@@ -27,21 +29,30 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      (r2d2_tpu_torch/tools/conv_layouts.py);
   4. a small f32 learner step on the card against the same step on the
      CPU, on the default path and with network.pallas_lstm="on" and double
-     DQN; then the learner step at the reference shape (B=128,
-     T=40+10+5, 84x84x4, cnn 1024, LSTM 512, dueling, bf16) over a replay
+     DQN; one f32 step at the reference widths (B=128 x 40+10+5, 84x84x4,
+     cnn 1024, LSTM 512, dueling) with every kernel on, card against the
+     port's CPU step; then over a replay at the reference shape (bf16)
      filled by replay_add_many (capacity cut from 500,000 to 100,000
-     steps), on the default path, with double DQN, and with the fused LSTM
-     scan and double DQN, timed in turns;
+     steps): one CUDA graph of 4 learner steps against 4 eager steps from
+     the same state and jitter, on the default and fused_double paths
+     (the replayed graph's kernels counted by name in the profile), and
+     the reference paths of r2d2_tpu_torch/tools/bench.py (default,
+     double, fused_double, fused), each at 1 and at the resolved
+     runtime.steps_per_dispatch, timed in turns;
   5. the trainer through its entry point, r2d2_tpu_torch.cli.train, at the
-     same widths for a few learner steps, on the default path, with
+     same widths for three dispatches of the resolved steps per dispatch
+     (the eager warm-up, the capture, a replay), on the default path, with
      --network.pallas_lstm=on --network.use_double=true, and on padded
      storage (--replay.pallas_exact_gather=on, the exact-read gather's);
      the kernel launch counts of these runs go into the ``kernels`` line
-     (the gather's two rows: unpadded and padded storage).
+     (the gather's two rows: unpadded and padded storage; a graph replay
+     adds the launches its capture counted), each run under the profiler,
+     whose kernel names must show the same launches.
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
 The last line is {"ok": true, "device": {...}}. ``--profile`` adds a
-torch.profiler breakdown of three reference-shape steps of each path,
+torch.profiler breakdown of three reference-shape steps of each path (a
+graphed cell: one dispatch),
 names any kernel of the first conv's 4-channel fallback it finds, and
 checks that no copy kernel (an index cast) runs right before the
 gather.
@@ -60,7 +71,6 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 # H100 SXM dense peaks by input type: bf16 on the tensor cores, f32 off them
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-REF_CAPACITY = 100_000             # down from 500,000 to fit the smoke's time
 KERNEL_SOURCES = {"replay_kernels": "r2d2_tpu_torch/csrc/replay_kernels.cu",
                   "lstm_kernels": "r2d2_tpu_torch/csrc/lstm_kernels.cu"}
 # the gather is one kernel; its rows: unpadded storage (the row gather's,
@@ -95,7 +105,23 @@ LSTM_REF_SHAPE = (55, 128, 512)                          # T, B, H
 LSTM_SMALL_SHAPES = ((4, 3, 17), (5, 8, 18), (6, 70, 16), (3, 130, 24),
                      (4, 33, 17), (4, 33, 40), (3, 256, 512), (2, 300, 512),
                      (2, 24, 544))
+# a shape whose f32 kernels need less shared memory than the reference
+# shape's, at an H no earlier check uses: launched between two reference
+# launches, it must not shrink the kernels' shared-memory limit
+LSTM_ORDER_SHAPE = (3, 8, 32)
 FUSED_ARGS = ["--network.pallas_lstm=on", "--network.use_double=true"]
+REF_WINDOW = 16                    # steps a timed window; a multiple of K
+GRAPH_K = 4                        # the graph-vs-eager phase's dispatch
+GRAPH_PATHS = ("default", "fused_double")
+REF_CPU_BLOCKS = 8                 # replay of the card-vs-CPU f32 step
+# the device's kernel names -> the wrapper launch count each stands for
+KERNEL_NAMES = {
+    "gather_windows": re.compile(r"gather_windows_\w+_kernel"),
+    "stack_frames": re.compile(r"stack_frames_\w*kernel"),
+    "lstm_fwd": re.compile(r"lstm_fwd_kernel<[^>]*true>"),
+    "lstm_fwd_lean": re.compile(r"lstm_fwd_kernel<[^>]*false>"),
+    "lstm_bwd": re.compile(r"lstm_bwd_kernel"),
+}
 PADDED_ARGS = ["--replay.pallas_exact_gather=on"]    # 84x84 stored as 96x128
 BACK_TO_BACK = 20                  # launches enqueued ahead of the card
 SPIN_CYCLES = 20_000_000           # ~10 ms: longer than enqueuing them
@@ -121,16 +147,13 @@ def _import_port():
 
 
 def _reset_counts() -> None:
-    from r2d2_tpu_torch.ops import lstm_kernels as lk
-    from r2d2_tpu_torch.ops import replay_kernels as rk
-    rk.reset_launch_counts()
-    lk.reset_launch_counts()
+    from r2d2_tpu_torch.ops.launch_counts import reset_launch_counts
+    reset_launch_counts()
 
 
 def _counts() -> dict:
-    from r2d2_tpu_torch.ops import lstm_kernels as lk
-    from r2d2_tpu_torch.ops import replay_kernels as rk
-    return {**rk.LAUNCHES, **lk.LAUNCHES}
+    from r2d2_tpu_torch.ops.launch_counts import launch_counts
+    return launch_counts()
 
 
 def cuda_ms(fn, runs: int = 30, warmup: int = 3) -> float:
@@ -584,15 +607,27 @@ def lstm_bounds(shape, dtype_name):
 
 def lstm_kernel_checks(dev):
     """LSTM kernels vs plain versions (ragged small shapes, then the
-    reference shape, f32 and bf16) and their times in bf16, the main
-    path's type; f32 times printed beside."""
+    reference shape, f32 and bf16; then LSTM_ORDER_SHAPE and the reference
+    shape in f32) and their times in bf16, the main path's type; f32
+    times printed beside."""
     import torch
     from r2d2_tpu_torch.ops import lstm_kernels as lk
+    from r2d2_tpu_torch.utils.device import sm_count
     errs = {"lstm_fwd": 0.0, "lstm_fwd_lean": 0.0, "lstm_bwd": 0.0}
     for shape in (*LSTM_SMALL_SHAPES, LSTM_REF_SHAPE):
         for dtype in (torch.float32, torch.bfloat16):
             for name, err in lstm_check(dev, shape, dtype).items():
                 errs[name] = max(errs[name], err)
+    # shared memory: the reference shape, a new smaller one, the reference
+    # shape again (its launch setup cached), on the same instantiations
+    sms = sm_count(dev)
+    smem = [(lk.fwd_geometry(b, h, torch.float32, sms).smem,
+             lk.bwd_geometry(b, h, torch.float32, sms).smem)
+            for _, b, h in (LSTM_REF_SHAPE, LSTM_ORDER_SHAPE)]
+    check(all(small < ref for ref, small in zip(*smem)), f"smem {smem}")
+    for shape in (LSTM_ORDER_SHAPE, LSTM_REF_SHAPE):
+        for name, err in lstm_check(dev, shape, torch.float32).items():
+            errs[name] = max(errs[name], err)
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
@@ -702,27 +737,6 @@ def _tiny_config():
         "replay.batch_size": 8, "optim.lr": 1e-3})
 
 
-def _filled_replay(cfg, device, blocks):
-    from r2d2_tpu_torch.replay.device_replay import (replay_add_many,
-                                                     replay_init)
-    from r2d2_tpu_torch.replay.structs import ReplaySpec, stack_blocks
-    spec = ReplaySpec.from_config(cfg, device)
-    rs = replay_init(spec, device)
-    for i in range(0, len(blocks), 25):
-        replay_add_many(spec, rs, stack_blocks(blocks[i:i + 25]))
-    return spec, rs
-
-
-def _learner(cfg, device, spec, action_dim, seed=0):
-    from r2d2_tpu_torch.learner.train_step import (create_train_state,
-                                                   make_learner_step)
-    from r2d2_tpu_torch.models.network import NetworkApply
-    net = NetworkApply(action_dim, cfg.network, cfg.env.frame_stack,
-                       cfg.env.frame_height, cfg.env.frame_width, device)
-    ts = create_train_state(net, cfg.optim, seed, cfg.network.use_double)
-    return ts, make_learner_step(net, spec, cfg.optim, cfg.network.use_double)
-
-
 def phase_small_step_vs_cpu(dev, overrides, label):
     """Two f32 learner steps at a small shape: card (kernels) vs CPU (plain
     versions) on the same replay, weights and jitter. Tolerance: rtol 1e-4
@@ -732,6 +746,7 @@ def phase_small_step_vs_cpu(dev, overrides, label):
     import torch
     from r2d2_tpu_torch.replay.structs import ReplaySpec
     from r2d2_tpu_torch.replay.synthetic import make_synthetic_block
+    from r2d2_tpu_torch.tools import bench
     cfg = _tiny_config().replace(**overrides)
     spec = ReplaySpec.from_config(cfg, torch.device("cpu"))
     rng = np.random.default_rng(1)
@@ -740,8 +755,8 @@ def phase_small_step_vs_cpu(dev, overrides, label):
                           generator=torch.Generator().manual_seed(3))
     runs = {}
     for device in (torch.device("cpu"), dev):
-        spec, rs = _filled_replay(cfg, device, blocks)
-        ts, step = _learner(cfg, device, spec, 18)
+        spec, rs = bench.filled_replay(cfg, device, blocks)
+        ts, step = bench.build_learner_step(cfg, device, spec)
         _reset_counts()
         losses = []
         for u in uniforms:
@@ -765,156 +780,284 @@ def phase_small_step_vs_cpu(dev, overrides, label):
           f"{runs['cuda'][2]}", flush=True)
 
 
-REF_PATHS = {   # label: overrides of the reference configuration
-    "default": {},
-    "double": {"network.use_double": True},
-    "fused_double": {"network.use_double": True,
-                     "network.pallas_lstm": "on"},
-}
+def _want_launches(overrides: dict, steps: int) -> dict:
+    """Launches per kernel in ``steps`` learner steps of a path: one
+    gather and one decode a step (one decode feeds every unroll), and with
+    the fused scan its forward and backward, plus the lean forward of the
+    double-DQN target unroll."""
+    double = bool(overrides.get("network.use_double", False))
+    fused = overrides.get("network.pallas_lstm") == "on"
+    return {"gather_windows": steps, "stack_frames": steps,
+            "lstm_fwd": steps if fused else 0,
+            "lstm_fwd_lean": steps if fused and double else 0,
+            "lstm_bwd": steps if fused else 0}
 
 
-def _profile(step, ts, rs) -> float:
-    """torch.profiler over 3 steps: prints the top ops by device time and
-    returns the device's busy ms per step."""
-    import torch
+def _profiled_kernel_counts(prof) -> dict:
+    """Launches per kernel in a profile, read from the device's own kernel
+    names (what a CUDA graph replay ran, which no wrapper counted)."""
+    from r2d2_tpu_torch.tools import bench
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for event in bench.device_kernels(prof):
+        for name, pattern in KERNEL_NAMES.items():
+            if pattern.search(event.name):
+                counts[name] += 1
+    return counts
+
+
+def _profile(step, ts, rs, dispatches: int, steps: int) -> float:
+    """torch.profiler over ``dispatches`` calls: prints the top ops by
+    device time and returns the device's busy ms per step."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as prof
-    torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CPU,
-                          ProfilerActivity.CUDA]) as p:
-        for _ in range(3):
-            ts, rs, _ = step(ts, rs)
-        torch.cuda.synchronize()
-    events = p.key_averages()
+    from r2d2_tpu_torch.tools import bench
+    prof, _ = bench.profile_steps(step, ts, rs, dispatches)
+    events = prof.key_averages()
     print(events.table(sort_by="self_cuda_time_total", row_limit=20),
           flush=True)
     # what cuDNN did with a 4-channel first conv: a layout conversion and
     # an f32 implicit GEMM
-    fallback = [f"{e.key[:100]} {e.self_device_time_total / 3e3:.3f} ms"
-                for e in events if e.device_type == DeviceType.CUDA
+    fallback = [f"{e.key[:100]} {e.self_device_time_total / 1e3 / steps:.3f}"
+                " ms" for e in events if e.device_type == DeviceType.CUDA
                 and FALLBACK_KERNELS.search(e.key)]
     print(f"first-conv fallback kernels: {fallback or 'none'}", flush=True)
     # the sampler's int64 block indices reach the gather as they are: no
     # cast (a copy kernel) runs right before it
-    kernels = sorted((e for e in p.events()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
+    kernels = bench.device_kernels(prof)
     before = {kernels[i - 1].name[:100] for i, e in enumerate(kernels)
               if i and "gather_windows" in e.name}
     print(f"kernels right before gather_windows: {sorted(before)}",
           flush=True)
     check(before and not any("copy" in name for name in before),
           f"a copy runs before gather_windows: {before}")
-    # the device's own events only (operator rows repeat their kernels)
-    return sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA) / 3e3
+    return bench.device_busy_ms(prof) / steps
 
 
-def phase_reference_step(dev, profile: bool):
-    """The three REF_PATHS over one filled replay, each timed in two
-    windows of 10 steps, in turns (a b c c b a)."""
-    import numpy as np
+def phase_reference_replay(dev):
+    """The reference configuration's replay, filled by replay_add_many
+    with synthetic blocks (capacity cut from 500,000 to 100,000 steps)."""
     import torch
-    from r2d2_tpu_torch.config import Config
-    from r2d2_tpu_torch.replay.structs import ReplaySpec
-    from r2d2_tpu_torch.replay.synthetic import make_synthetic_block
-
-    base = Config().replace(**{"replay.capacity": REF_CAPACITY})
-    spec = ReplaySpec.from_config(base, dev)
+    from r2d2_tpu_torch.tools import bench
+    base = bench.reference_config()
     t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    blocks = [make_synthetic_block(spec, rng) for _ in range(spec.num_blocks)]
-    spec, rs = _filled_replay(base, dev, blocks)
-    del blocks
+    spec, rs = bench.filled_replay(
+        base, dev, bench.synthetic_blocks(base, base.num_blocks))
     torch.cuda.synchronize()
     print(f"reference replay: {spec.num_blocks} blocks, capacity "
-          f"{REF_CAPACITY} steps (cut from 500,000), ring "
+          f"{bench.REF_CAPACITY} steps (cut from 500,000), ring "
           f"{spec.device_ring_bytes / 1e9:.2f} GB, filled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    learners = {}
-    for label, overrides in REF_PATHS.items():
-        ts, step = _learner(base.replace(**overrides), dev, spec, 18)
-        check(ts.params.compute_dtype == torch.bfloat16, "bf16 on CUDA")
-        check(ts.params.lstm.fused == ("network.pallas_lstm" in overrides),
-              f"{label}: LSTM path")
-        for _ in range(3):
-            ts, rs, m = step(ts, rs)
-        learners[label] = [ts, step]
-    torch.cuda.synchronize()
+    return base, spec, rs
 
-    window, out = 10, {label: {"step_ms": [], "losses": [], "peak_mem_gb": 0.0}
-                       for label in REF_PATHS}
-    order = list(REF_PATHS) + list(reversed(REF_PATHS))
-    for label in order:
-        ts, step = learners[label]
-        overrides = REF_PATHS[label]
+
+def _clone_replay(rs):
+    import dataclasses
+    import torch
+    return dataclasses.replace(rs, **{
+        f.name: getattr(rs, f.name).clone() for f in dataclasses.fields(rs)
+        if torch.is_tensor(getattr(rs, f.name))})
+
+
+def phase_graph_vs_eager(dev, base, spec, rs):
+    """One CUDA graph of GRAPH_K steps against GRAPH_K eager single steps
+    at the reference shape (bf16), on GRAPH_PATHS: the same weights, each
+    on its own copy of one replay, the same injected (K, B) jitter, three
+    dispatches (the eager warm-up, the capture and its first replay, a
+    second replay), then a fourth with each side drawing its jitter from
+    its own generator. Losses and tree within rtol 1e-4: the two runs take
+    the same kernels, but cuDNN's weight gradients and the LSTM backward's
+    dWh sum in an order that may differ between runs. The second replay
+    runs under the profiler: every kernel of the path ran GRAPH_K times in
+    it, by the device's kernel names, and the launch counts that the
+    graph adds per replay say the same."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from r2d2_tpu_torch.tools import bench
+    uniforms = torch.rand((3, GRAPH_K, spec.batch_size),
+                          generator=torch.Generator().manual_seed(5)).to(dev)
+    for label in GRAPH_PATHS:
+        overrides = bench.PATHS[label]
+        cfg = base.replace(**overrides)
+        rs_graph, rs_eager = _clone_replay(rs), _clone_replay(rs)
+        ts_graph, multi = bench.build_learner_step(cfg, dev, spec,
+                                                   GRAPH_K)
+        ts_eager, single = bench.build_learner_step(cfg, dev, spec)
+        want = _want_launches(overrides, GRAPH_K)
+        for d, u in enumerate(uniforms):
+            _reset_counts()
+            if d == 2:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    _, _, m = multi(ts_graph, rs_graph, u)
+                    torch.cuda.synchronize()
+                seen = _profiled_kernel_counts(prof)
+                check(seen == want, f"graph {label}: the profile shows "
+                      f"{seen}, want {want}")
+            else:
+                _, _, m = multi(ts_graph, rs_graph, u)
+            counted = _counts()
+            check(counted == want, f"graph {label} dispatch {d}: launches "
+                  f"{counted}, want {want}")
+            eager = torch.stack([single(ts_eager, rs_eager, u[k])[2]["loss"]
+                                 for k in range(GRAPH_K)])
+            got, ref = m["loss"].cpu().numpy(), eager.cpu().numpy()
+            check(m["loss"].shape == (GRAPH_K,) and np.isfinite(got).all(),
+                  f"graph {label}: losses {got}")
+            np.testing.assert_allclose(got, ref, rtol=1e-4)
+            np.testing.assert_allclose(rs_graph.tree.cpu().numpy(),
+                                       rs_eager.tree.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-6)
+            print(f"graph vs eager ({label}, K={GRAPH_K}) dispatch {d}: "
+                  f"losses {got.tolist()} vs {ref.tolist()}, max rel "
+                  f"{float(np.max(np.abs(got - ref) / np.abs(ref))):.3e}, "
+                  f"launches {counted}", flush=True)
+        # a fourth dispatch on each side's own generator (seeded alike and
+        # not drawn from so far): the graph's K draws of B are the jitter
+        # chain of K single steps
+        _, _, m = multi(ts_graph, rs_graph)
+        eager = torch.stack([single(ts_eager, rs_eager)[2]["loss"]
+                             for _ in range(GRAPH_K)])
+        np.testing.assert_allclose(m["loss"].cpu().numpy(),
+                                   eager.cpu().numpy(), rtol=1e-4)
+        check(multi.graph is not None and ts_graph.step == 4 * GRAPH_K
+              and int(ts_graph.step_count) == 4 * GRAPH_K,
+              f"graph {label}: step {ts_graph.step}")
+        print(f"graph vs eager ({label}): the replayed graph ran every "
+              f"kernel {GRAPH_K} times by the profile: {seen}", flush=True)
+        del rs_graph, rs_eager, multi, single, ts_graph, ts_eager
+        torch.cuda.empty_cache()
+
+
+def phase_reference_vs_cpu(dev):
+    """One f32 learner step at the reference widths (84x84x4, cnn_out
+    1024, LSTM 512, dueling, B=128 x 55 steps) with every kernel on
+    (network.pallas_lstm="on"): the card against the port's CPU step (the
+    plain versions) on the same replay of REF_CPU_BLOCKS blocks, weights
+    and jitter. rtol 1e-4 on the loss, the grad norm and the tree: cuDNN,
+    cuBLAS and the LSTM kernels sum in other orders than the CPU (TF32 is
+    off)."""
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.tools import bench
+    cfg = bench.reference_config(**{
+        "replay.capacity": REF_CPU_BLOCKS * 400, "network.bf16": "off",
+        "network.pallas_lstm": "on"})
+    blocks = bench.synthetic_blocks(cfg, cfg.num_blocks, seed=3)
+    uniform = torch.rand(cfg.replay.batch_size,
+                         generator=torch.Generator().manual_seed(4))
+    runs = {}
+    for device in (torch.device("cpu"), dev):
+        spec, rs = bench.filled_replay(cfg, device, blocks)
+        ts, step = bench.build_learner_step(cfg, device, spec)
         _reset_counts()
-        torch.cuda.reset_peak_memory_stats(dev)
-        losses = []
         t0 = time.perf_counter()
-        for _ in range(window):
-            ts, rs, m = step(ts, rs)
-            losses.append(m["loss"])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        _, rs, m = step(ts, rs, uniform.to(device))
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        runs[device.type] = dict(
+            loss=loss, grad_norm=norm, tree=rs.tree.cpu().numpy(),
+            params={k: v.cpu() for k, v in ts.params.state_dict().items()},
+            seconds=time.perf_counter() - t0, launches=_counts())
+    cpu, card = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-4)
+    np.testing.assert_allclose(card["grad_norm"], cpu["grad_norm"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(card["tree"], cpu["tree"], rtol=1e-4,
+                               atol=1e-6)
+    check(card["launches"] == _want_launches(
+        {"network.pallas_lstm": "on"}, 1), f"launches {card['launches']}")
+    check(not any(cpu["launches"].values()), "the CPU step launched")
+    param_err = max(float((card["params"][k] - v).abs().max())
+                    for k, v in cpu["params"].items())
+    tree_rel = float(np.max(np.abs(card["tree"] - cpu["tree"])
+                            / np.maximum(np.abs(cpu["tree"]), 1e-30)))
+    print(f"reference-shape f32 step, card vs CPU (B="
+          f"{cfg.replay.batch_size}, {REF_CPU_BLOCKS} blocks): loss "
+          f"{card['loss']!r} vs {cpu['loss']!r} (rel "
+          f"{abs(card['loss'] - cpu['loss']) / abs(cpu['loss']):.3e}), "
+          f"grad norm {card['grad_norm']!r} vs {cpu['grad_norm']!r}, tree "
+          f"max rel {tree_rel:.3e}, "
+          f"params after Adam max abs {param_err:.3e}; CPU step "
+          f"{cpu['seconds']:.1f} s, card step {card['seconds']:.2f} s",
+          flush=True)
+
+
+def phase_reference_step(dev, base, spec, rs, resolved_k: int,
+                         profile: bool):
+    """tools/bench.py's PATHS (default, double, fused_double, fused =
+    single DQN with every kernel on) over one filled replay, each at K=1
+    and at the resolved K (one CUDA graph of K steps), every cell timed in
+    two windows of REF_WINDOW steps, in turns (a b .. z z .. b a); the
+    launch counts of each window checked."""
+    import torch
+    from r2d2_tpu_torch.tools import bench
+    ks = sorted({1, resolved_k})
+    cells = {}
+    for label, overrides in bench.PATHS.items():
+        for k in ks:
+            cell = bench.Cell(label, k, base.replace(**overrides), dev,
+                              spec, rs)
+            params = cell.ts.params
+            check(params.compute_dtype == torch.bfloat16, "bf16 on CUDA")
+            check(params.lstm.fused == (overrides.get("network.pallas_lstm")
+                                        == "on"), f"{label}: LSTM path")
+            cells[label, k] = cell
+    torch.cuda.synchronize()
+    for key in list(cells) + list(reversed(list(cells))):
+        _reset_counts()
+        cells[key].window(rs, REF_WINDOW)
         launches = _counts()
-        fused = "network.pallas_lstm" in overrides
-        want = {"gather_windows": window, "stack_frames": window,
-                "lstm_fwd": window if fused else 0,
-                "lstm_fwd_lean": window if fused else 0,
-                "lstm_bwd": window if fused else 0}
-        # one decode per step feeds every unroll of the step
-        check(launches == want, f"{label}: launches {launches}")
-        r = out[label]
-        r["step_ms"].append(dt / window * 1e3)
-        r["losses"] += [float(x) for x in losses]
-        r["peak_mem_gb"] = max(r["peak_mem_gb"],
-                               torch.cuda.max_memory_allocated(dev) / 1e9)
-        learners[label][0] = ts
-    for label, r in out.items():
-        losses = r.pop("losses")
-        check(all(math.isfinite(x) for x in losses), f"{label}: {losses}")
-        r.update(steps=len(losses), loss_first=losses[0],
-                 loss_last=losses[-1],
-                 seq_updates_per_s=[spec.batch_size * 1e3 / ms
-                                    for ms in r["step_ms"]])
-        print(f"reference learner step {label}: " + json.dumps(r),
+        want = _want_launches(bench.PATHS[key[0]], REF_WINDOW)
+        check(launches == want, f"{key}: launches {launches}, want {want}")
+    out = {}
+    for (label, k), cell in cells.items():
+        if profile:
+            dispatches = max(1, 3 // k)
+            cell.busy_ms = _profile(cell.step, cell.ts, rs, dispatches,
+                                    dispatches * k)
+        r = cell.result(spec.batch_size)
+        out[label, k] = r
+        print(f"reference learner step {label} K={k}: " + json.dumps(r),
               flush=True)
-    if profile:
-        # busy time under the profiler against the unprofiled step time
-        # (the profiler slows the host, not the device)
-        for label, (ts, step) in learners.items():
-            busy = _profile(step, ts, rs)
-            step_ms = statistics.mean(out[label]["step_ms"])
-            print(f"profile {label}: device busy {busy:.3f} ms/step, idle "
-                  f"share {max(0.0, 1 - busy / step_ms):.3f} of the timed "
-                  f"{step_ms:.3f} ms/step", flush=True)
     return out
 
 
-def phase_cli(dev, extra, label):
+def phase_cli(dev, extra, label, k):
+    """cli.train on the card for three dispatches of the resolved K (the
+    eager warm-up, the capture, a replay), under the profiler: the launch
+    counts (a graph replay's added from its capture) must be what the
+    device ran, by its kernel names."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from r2d2_tpu_torch.cli import train
-    steps = 5
+    steps = 3 * k
     _reset_counts()
-    summary = train.main([
-        "--env.game_name=Fake", "--replay.capacity=20000",
-        "--replay.learning_starts=400",
-        "--replay.max_env_steps_per_train_step=4", f"--max-steps={steps}",
-        *extra])
     torch.cuda.synchronize()
+    # the device's events only: tracing the host's ops of a whole run
+    # would cost more than the run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        summary = train.main([
+            "--env.game_name=Fake", "--replay.capacity=20000",
+            "--replay.learning_starts=400",
+            "--replay.max_env_steps_per_train_step=4",
+            f"--max-steps={steps}", *extra])
+        torch.cuda.synchronize()
     launches = _counts()
+    seen = _profiled_kernel_counts(prof)
+    check(seen == {name: launches[name] for name in seen},
+          f"cli.train {label}: the profile shows {seen}, counted "
+          f"{launches}")
     check(summary["steps"] == steps
           and summary["device"].startswith("cuda"), summary["device"])
-    check(all(math.isfinite(x) for x in summary["losses"]), summary)
-    fused = "--network.pallas_lstm=on" in extra
-    want = {"gather_windows": steps, "stack_frames": steps,
-            "lstm_fwd": steps if fused else 0,
-            "lstm_fwd_lean": steps if fused else 0,
-            "lstm_bwd": steps if fused else 0}
+    check(len(summary["losses"]) == steps
+          and all(math.isfinite(x) for x in summary["losses"]), summary)
+    overrides = {"network.pallas_lstm": "on", "network.use_double": True} \
+        if extra == FUSED_ARGS else {}
+    want = _want_launches(overrides, steps)
     check(launches == want, f"cli.train {label}: launches {launches}")
-    print(f"cli.train on the card ({label}): {steps} steps, launches "
-          f"{launches}", flush=True)
+    print(f"cli.train on the card ({label}): {steps} steps in dispatches "
+          f"of {k}, launches {launches}, equal to the profile's kernel "
+          "names", flush=True)
     return launches
 
 
@@ -924,25 +1067,46 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     _import_port()
+    from r2d2_tpu_torch.config import RuntimeConfig
     from r2d2_tpu_torch.utils.device import configure_numerics
     configure_numerics()
     dev = torch.device("cuda", 0)
+    resolved_k = RuntimeConfig().resolved_steps_per_dispatch(dev)
+
+    t0 = time.perf_counter()
+
+    def done(phase: str) -> None:
+        print(f"{phase} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     phase_versions()
     phase_build()
+    done("build")
     timings = phase_kernels(dev)
     phase_conv_layouts(dev)
+    done("kernels")
     phase_small_step_vs_cpu(dev, {}, "default")
     phase_small_step_vs_cpu(dev, {"network.pallas_lstm": "on",
                                   "network.use_double": True},
                             "pallas_lstm on, double DQN")
-    phase_reference_step(dev, "--profile" in argv)
-    launches = phase_cli(dev, [], "default")
+    phase_reference_vs_cpu(dev)
+    done("card vs CPU")
+    base, spec, rs = phase_reference_replay(dev)
+    phase_graph_vs_eager(dev, base, spec, rs)
+    done("graph vs eager")
+    phase_reference_step(dev, base, spec, rs, resolved_k,
+                         "--profile" in argv)
+    done("reference paths")
+    del rs
+    torch.cuda.empty_cache()
+    launches = phase_cli(dev, [], "default", resolved_k)
     launches.update({name: n for name, n in
-                     phase_cli(dev, FUSED_ARGS, "pallas_lstm on, double DQN")
-                     .items() if name.startswith("lstm")})
+                     phase_cli(dev, FUSED_ARGS, "pallas_lstm on, double DQN",
+                               resolved_k).items()
+                     if name.startswith("lstm")})
     launches["gather_windows_padded"] = phase_cli(
-        dev, PADDED_ARGS, "padded storage")["gather_windows"]
+        dev, PADDED_ARGS, "padded storage", resolved_k)["gather_windows"]
+    done("cli.train")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}

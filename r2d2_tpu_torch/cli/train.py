@@ -10,8 +10,11 @@ Extra (non-config) flags:
     --seed=N            env, weights and sampling seed (default 0)
     --collect-eps=E     epsilon of the collecting policy (default 0.4)
 
-The collect:learn ratio is ``replay.max_env_steps_per_train_step``; values
-below 1 run one env step per learner step.
+The collect:learn ratio is ``replay.max_env_steps_per_train_step`` env
+steps per dispatch of ``runtime.steps_per_dispatch`` learner steps (-1, the
+default: 1 on the CPU, the bench's winner on CUDA; one CUDA graph of K
+steps there); values below 1 run one env step per dispatch. Each log line
+holds a dispatch's losses.
 """
 
 import json
@@ -20,6 +23,7 @@ import sys
 
 
 def main(argv=None) -> dict:
+    import torch
     from r2d2_tpu_torch.config import Config, parse_overrides
     from r2d2_tpu_torch.tools.sync_train import sync_train
     from r2d2_tpu_torch.utils.device import configure_numerics
@@ -42,13 +46,14 @@ def main(argv=None) -> dict:
                  else cfg.optim.training_steps)
 
     def log(step, metrics):
-        print(json.dumps({"step": step, "loss": float(metrics["loss"])}),
+        print(json.dumps({"step": step, "loss": metrics["loss"].tolist()}),
               flush=True)
 
     net, learner = sync_train(cfg, max_steps, float(flags["collect-eps"]),
                               seed=int(flags["seed"]),
                               device=flags["device"], log_fn=log)
-    losses = [float(x) for x in learner.losses]
+    losses = (torch.cat([x.reshape(-1) for x in learner.losses]).tolist()
+              if learner.losses else [])
     summary = {"steps": learner.training_steps,
                "env_steps": learner.env_steps,
                "device": str(net.device),

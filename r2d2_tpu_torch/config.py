@@ -16,10 +16,19 @@ runs on, never for a TPU:
 * ``network.pallas_lstm`` picks a path, not a route: "on" runs the LSTM
   time scan (T > 1) as one fused scan (``ops/lstm_kernels.py``: the kernels
   on CUDA, their plain versions on the CPU), "off" (the default) the Python
-  scan. "auto" = off on every device until a measurement of the port picks
-  a winner; the JAX package's "auto" means "iff TPU", which is off here
-  too. Its TPU grid and debug knobs (``pallas_lstm_block``,
-  ``pallas_lstm_interpret``) have no meaning on the card and are refused.
+  scan. "auto" = the faster path as ``tools/bench.py`` measured it on CUDA
+  (``CUDA_AUTO``), off on the CPU. Its TPU grid and debug knobs
+  (``pallas_lstm_block``, ``pallas_lstm_interpret``) have no meaning on the
+  card and are refused.
+* ``optim.fused_double_unroll`` (double DQN only) is parsed and checked as
+  in the JAX package, where "on" interleaves the online and target unrolls
+  in one time loop. Here both values run the same two unrolls
+  (``models/network.py dual_sequence_q``); "auto" resolves as for
+  pallas_lstm.
+* ``runtime.steps_per_dispatch``: learner steps per dispatch, one CUDA graph
+  of K steps on the card (``learner/train_step.py
+  make_multi_learner_step``). -1 = the bench's winner on CUDA, 1 on the
+  CPU.
 * ``network.space_to_depth``: "on"/"off" only, as in the JAX package: it
   picks the first conv's parameter layout. Which input the conv runs on is
   not a setting (models/network.py ``input_layout``).
@@ -33,6 +42,17 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Tuple
+
+# What "auto" (and steps_per_dispatch=-1) resolves to on CUDA: the faster
+# setting in pairs that tools/bench.py measured in one call on an H100 at
+# the reference shape (PERF.md section 5): the fused scan against the loop
+# (single DQN), and K=4, the fewest steps a dispatch within 1% of the
+# fastest. fused_double_unroll stays off: an interleaved unroll measured
+# no faster than the two unrolls, which both settings now run. The CPU
+# resolves them to off, off and 1.
+CUDA_AUTO = {"network.pallas_lstm": True,
+             "optim.fused_double_unroll": False,
+             "runtime.steps_per_dispatch": 4}
 
 
 @dataclass(frozen=True)
@@ -106,6 +126,25 @@ class OptimConfig:
     # "planar" and "nhwc" give the same tensor here: the CUDA decode
     # writes the layout the network's first conv takes directly
     pallas_decode_layout: str = "planar"
+    # the JAX package's interleaved double-DQN unroll; parsed and checked,
+    # both values run models/network.py dual_sequence_q
+    fused_double_unroll: str = "off"
+
+
+@dataclass(frozen=True)
+class RuntimeConfig:
+    # learner steps per dispatch: one CUDA graph of K steps on the card, K
+    # eager steps on the CPU; -1 = auto (resolved_steps_per_dispatch)
+    steps_per_dispatch: int = -1
+
+    def resolved_steps_per_dispatch(self, device) -> int:
+        """A value > 0 as given; otherwise the bench's winner on CUDA and 1
+        on the CPU."""
+        if self.steps_per_dispatch > 0:
+            return self.steps_per_dispatch
+        if _device_type(device) == "cuda":
+            return CUDA_AUTO["runtime.steps_per_dispatch"]
+        return 1
 
 
 @dataclass(frozen=True)
@@ -115,6 +154,7 @@ class Config:
     sequence: SequenceConfig = field(default_factory=SequenceConfig)
     replay: ReplayConfig = field(default_factory=ReplayConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
     def __post_init__(self):
         if self.replay.block_length % self.sequence.learning_steps != 0:
@@ -189,9 +229,27 @@ def check_kernel_setting(setting, device, field_name: str) -> None:
             "version is; use 'auto'")
 
 
-def resolve_pallas_lstm(setting) -> bool:
-    """"on" = the fused scan; "off" and "auto" = the Python scan."""
-    return bool(_parse_setting(setting, "network.pallas_lstm"))
+def _device_type(device) -> str:
+    return "cpu" if device is None else str(device).split(":")[0]
+
+
+def _resolve_auto(setting, field_name: str, device) -> bool:
+    value = _parse_setting(setting, field_name)
+    if value is None:
+        return _device_type(device) == "cuda" and CUDA_AUTO[field_name]
+    return value
+
+
+def resolve_pallas_lstm(setting, device=None) -> bool:
+    """"on" = the fused scan, "off" = the Python scan, "auto" = CUDA_AUTO's
+    choice on CUDA, the Python scan on the CPU (``device`` None)."""
+    return _resolve_auto(setting, "network.pallas_lstm", device)
+
+
+def resolve_fused_double_unroll(setting, device=None) -> bool:
+    """The setting as a bool, "auto" as for resolve_pallas_lstm; raises on
+    a value the JAX package refuses."""
+    return _resolve_auto(setting, "optim.fused_double_unroll", device)
 
 
 def resolve_space_to_depth(setting) -> bool:

@@ -62,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -1075,22 +1077,67 @@ __global__ void __launch_bounds__(kThreads)
   }  // dWh tiles
 }
 
+// How many blocks of ``kernel`` with ``smem`` bytes of dynamic shared memory
+// can be resident at once on the current device. The shared-memory limit is
+// one attribute per kernel, so it is set once per (kernel, device), to the
+// card's opt-in maximum: a launch of one size never lowers it below that of
+// another. The SM count and the occupancy query run once per (kernel,
+// bytes, device) and are cached, so a launch makes no other runtime call
+// and can be captured into a CUDA graph.
+struct ResidentLimit {
+  const void* kernel;
+  size_t smem;
+  int device;
+  int blocks;
+};
+std::mutex g_limits_mutex;
+std::vector<ResidentLimit> g_limits;
+
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t smem, int* blocks) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(g_limits_mutex);
+  bool limit_set = false;
+  for (const ResidentLimit& limit : g_limits) {
+    if (limit.kernel != key || limit.device != device) continue;
+    if (limit.smem == smem) {
+      *blocks = limit.blocks;
+      return cudaSuccess;
+    }
+    limit_set = true;
+  }
+  int sms = 0, optin = 0, per_sm = 0;
+  if (!limit_set) {
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  g_limits.push_back({key, smem, device, per_sm * sms});
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
 // Launch ``blocks`` co-resident blocks or return an error: the barrier would
-// deadlock if one block waited for another that has no SM.
+// deadlock if one block waited for another that has no SM. Under stream
+// capture the launch becomes a cooperative kernel node of the graph.
 template <typename Kernel>
 int launch_cooperative(Kernel kernel, int blocks, size_t smem, void** args,
                        void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int resident = 0;
+  cudaError_t err = resident_blocks(kernel, smem, &resident);
   if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (resident < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(blocks), dim3(kThreads), args, smem,
                                     static_cast<cudaStream_t>(stream));

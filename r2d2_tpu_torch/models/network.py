@@ -256,6 +256,28 @@ class R2D2Network(nn.Module):
         return q.reshape(batch, seq, -1), pack_hidden(carry).float()
 
 
+def dual_sequence_q(net: "NetworkApply", online: R2D2Network,
+                    target: R2D2Network, obs_seq: torch.Tensor,
+                    last_action_seq: torch.Tensor, hidden_a: torch.Tensor,
+                    hidden_b: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The online and the target network unrolled over one decoded
+    sequence, the JAX package's ``dual_sequence_q``: (Q_online, Q_target),
+    each (B, T, A) f32, the target's outside autograd (the loss stops its
+    gradient, as JAX's stop_gradient does). ``obs_seq`` is in
+    ``net.input_layout``, the layout the learner's decode emits. JAX
+    interleaves the two recurrent chains in one time loop because XLA runs
+    two while loops one after the other; eager kernels on one CUDA stream
+    queue back to back either way, so here each network runs its own
+    unroll."""
+    q_online, _ = online(obs_seq, last_action_seq, hidden_a,
+                         net.input_layout)
+    with torch.no_grad():
+        q_target, _ = target(obs_seq, last_action_seq, hidden_b,
+                             net.input_layout)
+    return q_online, q_target
+
+
 def _lecun_normal_(weight: torch.Tensor, fan_in: int, gen: torch.Generator):
     """flax's default kernel init: truncated normal, variance 1/fan_in."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -299,7 +321,7 @@ class NetworkApply:
         self.device = torch.device(device)
         self.config = dataclasses.replace(
             config, bf16=resolve_bf16(config.bf16, self.device),
-            pallas_lstm=resolve_pallas_lstm(config.pallas_lstm),
+            pallas_lstm=resolve_pallas_lstm(config.pallas_lstm, self.device),
             space_to_depth=resolve_space_to_depth(config.space_to_depth))
         self.action_dim = action_dim
         self.obs_hw = (frame_height, frame_width, frame_stack)

@@ -24,13 +24,19 @@ as the JAX custom_vjp's primal does. A CUDA tensor launches the kernel or
 raises; only CPU tensors take the plain versions. ``LAUNCHES`` counts
 kernel launches (plain calls do not count). ``fwd_geometry`` and
 ``bwd_geometry`` are the kernels' grids and shared memory for a shape,
-which the wrappers pass to them.
+which the wrappers pass to them; each is computed once per (batch,
+hidden, dtype, SM count), as the C side caches each kernel's occupancy
+query, so that a launch does no per-call setup and can be captured in a
+CUDA graph.
 """
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
+
+from r2d2_tpu_torch.utils.device import sm_count, stream_handle
 
 LAUNCHES = {"lstm_fwd": 0, "lstm_fwd_lean": 0, "lstm_bwd": 0}
 
@@ -96,6 +102,7 @@ def _fits(name: str, batch: int, hidden: int, dtype: torch.dtype,
                          f"{smem} bytes of shared memory, above {SMEM_LIMIT}")
 
 
+@functools.lru_cache(maxsize=None)
 def fwd_geometry(batch: int, hidden: int, dtype: torch.dtype,
                  sms: int) -> ScanGeometry:
     """The forward kernel's grid for a (batch, hidden) problem on a card
@@ -118,6 +125,7 @@ def fwd_geometry(batch: int, hidden: int, dtype: torch.dtype,
                         slots * groups, smem, slots)
 
 
+@functools.lru_cache(maxsize=None)
 def bwd_geometry(batch: int, hidden: int, dtype: torch.dtype,
                  sms: int) -> ScanGeometry:
     """The backward kernel's grid for a (batch, hidden) problem on a card
@@ -280,8 +288,9 @@ def lstm_fwd_cuda(xpb: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
     steps, batch, hidden = _shapes(xpb, wh, c0, h0)
     dev, dtype = xpb.device, xpb.dtype
     hseq = torch.empty((steps, batch, hidden), dtype=dtype, device=dev)
-    geo = fwd_geometry(batch, hidden, dtype, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    geo = fwd_geometry(batch, hidden, dtype, sm_count(dev))
+    # zeroed per call: under graph capture the fill is a node of the
+    # graph, so every replay starts its barriers from zero
     barrier = torch.zeros(geo.counters, dtype=torch.int32, device=dev)
     if save_residuals:
         cseq = torch.empty_like(hseq)
@@ -295,7 +304,7 @@ def lstm_fwd_cuda(xpb: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
         hseq.data_ptr(), *ptrs, barrier.data_ptr(), steps, batch, hidden,
         geo.slots, geo.smem, int(dtype == torch.bfloat16),
         int(save_residuals),
-        torch.cuda.current_stream(dev).cuda_stream), "lstm_fwd")
+        stream_handle(dev)), "lstm_fwd")
     if save_residuals:
         LAUNCHES["lstm_fwd"] += 1
         return hseq, cseq, acts
@@ -320,8 +329,7 @@ def lstm_bwd_cuda(wh, c0, h0, hseq, cseq, acts, dhseq, dcfin, dhfin):
     dwh = torch.empty((hidden, 4 * hidden), dtype=torch.float32, device=dev)
     dc0 = torch.empty((batch, hidden), dtype=torch.float32, device=dev)
     dh0 = torch.empty_like(dc0)
-    geo = bwd_geometry(batch, hidden, dtype, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    geo = bwd_geometry(batch, hidden, dtype, sm_count(dev))
     barrier = torch.zeros(geo.counters, dtype=torch.int32, device=dev)
     _raise_on(_library().lstm_bwd(
         dhseq.data_ptr(), acts.data_ptr(), cseq.data_ptr(), hseq.data_ptr(),
@@ -329,7 +337,7 @@ def lstm_bwd_cuda(wh, c0, h0, hseq, cseq, acts, dhseq, dcfin, dhfin):
         dhfin.data_ptr(), dxpb.data_ptr(), dwh.data_ptr(), dc0.data_ptr(),
         dh0.data_ptr(), barrier.data_ptr(), steps, batch, hidden, geo.slots,
         geo.smem, int(dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream), "lstm_bwd")
+        stream_handle(dev)), "lstm_bwd")
     LAUNCHES["lstm_bwd"] += 1
     return dxpb, dwh, dc0, dh0
 

@@ -27,6 +27,7 @@ import torch
 
 from r2d2_tpu_torch.ops.indexing import (frame_stack_indices,
                                          space_to_depth_2x2)
+from r2d2_tpu_torch.utils.device import sm_count, stream_handle
 
 LAUNCHES = {"gather_windows": 0, "stack_frames": 0}
 
@@ -39,7 +40,6 @@ _SIGNATURES = {
                      ctypes.c_int] + [ctypes.c_int64] * 8 + [ctypes.c_void_p],
 }
 _lib = None
-_SM_COUNT = {}
 
 
 def reset_launch_counts() -> None:
@@ -62,12 +62,6 @@ def _library():
 def _check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-
-
-def _stream(device: torch.device) -> int:
-    """The handle of the device's current stream (the raw getter, without
-    the Stream object ``torch.cuda.current_stream`` builds)."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -162,16 +156,6 @@ def gather_plan(batch: int, window: int, frame_bytes: int, num_sms: int,
     return best[1]
 
 
-def _sm_count(device: torch.device) -> int:
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    count = _SM_COUNT.get(index)
-    if count is None:
-        count = torch.cuda.get_device_properties(index).multi_processor_count
-        _SM_COUNT[index] = count
-    return count
-
-
 def _index(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """An index vector as the kernel reads it: int32 or int64 on the ring's
     device, as given (the sampler's own dtype); anything else converted."""
@@ -202,14 +186,14 @@ def gather_windows_cuda(ring: torch.Tensor, block_idx: torch.Tensor,
         return out
     frame_bytes = height * width
     partition = BULK_PARTITION if frame_bytes % 16 == 0 else BYTES_PARTITION
-    plan = gather_plan(batch, window, frame_bytes, _sm_count(device),
+    plan = gather_plan(batch, window, frame_bytes, sm_count(device),
                        partition["ctas_per_sm"], partition["max_chunk"])
     _check(_library().gather_windows(
         ring.data_ptr(), block_idx.data_ptr(),
         int(block_idx.dtype == torch.int64), start.data_ptr(),
         int(start.dtype == torch.int64), out.data_ptr(), batch, num_rows,
         row_len, frame_bytes, window, plan.chunk, plan.per_cta, plan.grid,
-        _stream(device)), "gather_windows")
+        stream_handle(device)), "gather_windows")
     LAUNCHES["gather_windows"] += 1
     return out
 
@@ -285,7 +269,7 @@ def stack_frames_cuda(obs: torch.Tensor, seq_window: int, frame_stack: int,
     _check(_library().stack_frames(
         obs.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
         int(space_to_depth), batch, seq_window, frame_stack, row_len,
-        stored_h, stored_w, out_height, out_width, _stream(obs.device)),
+        stored_h, stored_w, out_height, out_width, stream_handle(obs.device)),
         "stack_frames")
     LAUNCHES["stack_frames"] += 1
     return out

@@ -1,7 +1,8 @@
 """A minimal learner: train state and device replay on one device, block
-ingestion, the training gate, and one learner step per call. The
-counterpart of the JAX package's ``Learner`` without its threads,
-telemetry, checkpoints or services."""
+ingestion, the training gate, and one dispatch of
+``runtime.steps_per_dispatch`` learner steps per call (one CUDA graph of K
+steps on the card). The counterpart of the JAX package's ``Learner``
+without its threads, telemetry, checkpoints or services."""
 
 from typing import List, Optional
 
@@ -10,7 +11,8 @@ import torch
 
 from r2d2_tpu_torch.config import Config
 from r2d2_tpu_torch.learner.train_step import (create_train_state,
-                                               make_learner_step)
+                                               make_learner_step,
+                                               make_multi_learner_step)
 from r2d2_tpu_torch.models.network import NetworkApply
 from r2d2_tpu_torch.replay.device_replay import replay_add, replay_init
 from r2d2_tpu_torch.replay.structs import Block, ReplaySpec, RingAccountant
@@ -29,10 +31,18 @@ class Learner:
                                               use_double)
         self.replay_state = replay_init(self.spec, self.device)
         self.ring = RingAccountant(self.spec.num_blocks)
-        self._step_fn = make_learner_step(net, self.spec, cfg.optim,
-                                          use_double)
+        self.steps_per_dispatch = cfg.runtime.resolved_steps_per_dispatch(
+            self.device)
+        if self.steps_per_dispatch > 1:
+            self._step_fn = make_multi_learner_step(
+                net, self.spec, cfg.optim, use_double,
+                self.steps_per_dispatch)
+        else:
+            self._step_fn = make_learner_step(net, self.spec, cfg.optim,
+                                              use_double)
         self.env_steps = 0
-        self.losses: List[torch.Tensor] = []    # device scalars, no sync
+        # per dispatch: a device scalar (K = 1) or a (K,) tensor; no sync
+        self.losses: List[torch.Tensor] = []
 
     def ingest(self, block: Block) -> None:
         """Ring-write one actor block."""
@@ -51,6 +61,9 @@ class Learner:
         return self.train_state.step
 
     def step(self, uniform: Optional[torch.Tensor] = None) -> dict:
+        """One dispatch: ``steps_per_dispatch`` learner steps
+        (``training_steps`` advances by that many). ``uniform``: the
+        jitter, (B,) for one step a dispatch, else (K, B)."""
         self.train_state, self.replay_state, metrics = self._step_fn(
             self.train_state, self.replay_state, uniform)
         self.losses.append(metrics["loss"])

@@ -1,6 +1,8 @@
 """Synchronous collect:learn training: exactly
-``replay.max_env_steps_per_train_step`` env steps per learner step, one
-thread, seeds pinned, so the same run twice gives the same losses."""
+``replay.max_env_steps_per_train_step`` env steps per ``learner.step()``
+call (one dispatch of ``runtime.steps_per_dispatch`` learner steps, as in
+the JAX package's sync_train), one thread, seeds pinned, so the same run
+twice gives the same losses."""
 
 from r2d2_tpu_torch.config import Config
 
@@ -8,7 +10,8 @@ from r2d2_tpu_torch.config import Config
 def sync_train(cfg: Config, train_steps: int, collect_eps: float,
                seed: int = 0, param_refresh_interval: int = 10,
                device=None, log_fn=None):
-    """Train ``train_steps`` learner steps on ``device`` (CUDA by default).
+    """Train until ``train_steps`` learner steps are taken (a multiple of
+    the dispatch's K past it at most) on ``device`` (CUDA by default).
     Returns ``(net, learner)``."""
     from r2d2_tpu_torch.actor.local_buffer import LocalBuffer
     from r2d2_tpu_torch.actor.policy import ActorPolicy

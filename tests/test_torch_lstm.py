@@ -296,6 +296,32 @@ def test_pallas_lstm_setting():
             parse_overrides(Config(), [knob])
 
 
+@pytest.mark.parametrize("geometry", [lk.fwd_geometry, lk.bwd_geometry],
+                         ids=["fwd", "bwd"])
+def test_launch_geometry_is_cached_per_shape_type_and_card(geometry):
+    """The wrappers' geometry is computed once per (batch, hidden, dtype,
+    SM count): a repeat is a cache hit that returns the same object, equal
+    to the uncached geometry; each field of the key that differs is a new
+    entry; a shape that does not fit raises every time and is not
+    cached."""
+    geometry.cache_clear()
+    first = geometry(128, 512, torch.bfloat16, 132)
+    assert first == geometry.__wrapped__(128, 512, torch.bfloat16, 132)
+    assert geometry(128, 512, torch.bfloat16, 132) is first
+    assert geometry.cache_info()[:2] == (1, 1)    # hits, misses
+    for key in ((64, 512, torch.bfloat16, 132),
+                (128, 256, torch.bfloat16, 132),
+                (128, 512, torch.float32, 132),
+                (128, 512, torch.bfloat16, 114)):
+        assert geometry(*key) == geometry.__wrapped__(*key)
+    assert geometry.cache_info()[:2] == (1, 5)
+    for _ in range(2):
+        with pytest.raises(ValueError, match="unit groups"):
+            geometry(128, 32 * 133, torch.bfloat16, 132)
+    assert geometry.cache_info()[:2] == (1, 7)
+    assert geometry.cache_info().currsize == 5
+
+
 def test_phase_probe_instruments_the_kernel_source():
     """tools/lstm_phases.py puts its clocks at anchors of
     csrc/lstm_kernels.cu: every anchor is found once (the forward's 4
