@@ -38,7 +38,16 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      (the replayed graph's kernels counted by name in the profile), and
      the reference paths of r2d2_tpu_torch/tools/bench.py (default,
      double, fused_double, fused), each at 1 and at the resolved
-     runtime.steps_per_dispatch, timed in turns;
+     runtime.steps_per_dispatch, timed in turns. Host placement: the
+     external-batch step on host-sampled batches, card against the CPU
+     (small f32 on the default path and with pallas_lstm on and double
+     DQN, one f32 step at the reference widths; rtol 1e-4), its one-step
+     CUDA graph against eager steps (bf16, reference shape, 4 steps),
+     and the host-placement Learner at the reference shape (bench's host
+     path) with a block ingested after every step: seq-updates/s, the
+     prefetch thread's sample and copy ms, busy and idle, launches per
+     step (no gather; the decode and the LSTM kernels once a step),
+     by count and by the profile's kernel names;
   5. the trainer through its entry point, r2d2_tpu_torch.cli.train, at the
      same widths for three dispatches of the resolved steps per dispatch
      (the eager warm-up, the capture, a replay), on the default path, with
@@ -47,7 +56,8 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      the kernel launch counts of these runs go into the ``kernels`` line
      (the gather's two rows: unpadded and padded storage; a graph replay
      adds the launches its capture counted), each run under the profiler,
-     whose kernel names must show the same launches.
+     whose kernel names must show the same launches; the host path's
+     timed launches go beside them (``host_path_launches``).
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
 The last line is {"ok": true, "device": {...}}. ``--profile`` adds a
@@ -113,6 +123,7 @@ FUSED_ARGS = ["--network.pallas_lstm=on", "--network.use_double=true"]
 REF_WINDOW = 16                    # steps a timed window; a multiple of K
 GRAPH_K = 4                        # the graph-vs-eager phase's dispatch
 GRAPH_PATHS = ("default", "fused_double")
+HOST_WINDOWS = 2                   # timed windows of the host path
 REF_CPU_BLOCKS = 8                 # replay of the card-vs-CPU f32 step
 # the device's kernel names -> the wrapper launch count each stands for
 KERNEL_NAMES = {
@@ -805,12 +816,13 @@ def _profiled_kernel_counts(prof) -> dict:
     return counts
 
 
-def _profile(step, ts, rs, dispatches: int, steps: int) -> float:
-    """torch.profiler over ``dispatches`` calls: prints the top ops by
-    device time and returns the device's busy ms per step."""
+def _profile(dispatch, dispatches: int, steps: int) -> float:
+    """torch.profiler over ``dispatches`` calls of ``dispatch()``: prints
+    the top ops by device time and returns the device's busy ms per
+    step."""
     from torch.autograd import DeviceType
     from r2d2_tpu_torch.tools import bench
-    prof, _ = bench.profile_steps(step, ts, rs, dispatches)
+    prof, _ = bench.profile_steps(dispatch, dispatches)
     events = prof.key_averages()
     print(events.table(sort_by="self_cuda_time_total", row_limit=20),
           flush=True)
@@ -839,14 +851,14 @@ def phase_reference_replay(dev):
     from r2d2_tpu_torch.tools import bench
     base = bench.reference_config()
     t0 = time.perf_counter()
-    spec, rs = bench.filled_replay(
-        base, dev, bench.synthetic_blocks(base, base.num_blocks))
+    blocks = bench.synthetic_blocks(base, base.num_blocks)
+    spec, rs = bench.filled_replay(base, dev, blocks)
     torch.cuda.synchronize()
     print(f"reference replay: {spec.num_blocks} blocks, capacity "
           f"{bench.REF_CAPACITY} steps (cut from 500,000), ring "
           f"{spec.device_ring_bytes / 1e9:.2f} GB, filled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return base, spec, rs
+    return base, spec, rs, blocks
 
 
 def _clone_replay(rs):
@@ -994,6 +1006,8 @@ def phase_reference_step(dev, base, spec, rs, resolved_k: int,
     ks = sorted({1, resolved_k})
     cells = {}
     for label, overrides in bench.PATHS.items():
+        if label == bench.HOST_PATH:
+            continue                    # phase_host_learner drives it
         for k in ks:
             cell = bench.Cell(label, k, base.replace(**overrides), dev,
                               spec, rs)
@@ -1013,13 +1027,267 @@ def phase_reference_step(dev, base, spec, rs, resolved_k: int,
     for (label, k), cell in cells.items():
         if profile:
             dispatches = max(1, 3 // k)
-            cell.busy_ms = _profile(cell.step, cell.ts, rs, dispatches,
+            cell.busy_ms = _profile(lambda: cell.dispatch(rs), dispatches,
                                     dispatches * k)
         r = cell.result(spec.batch_size)
         out[label, k] = r
         print(f"reference learner step {label} K={k}: " + json.dumps(r),
               flush=True)
     return out
+
+
+def _want_host_launches(cfg, steps: int) -> dict:
+    """Launches per kernel in ``steps`` external-batch steps: the host
+    gathers the windows, so no gather; the rest as on the device path."""
+    return {**_want_launches({
+        "network.pallas_lstm": cfg.network.pallas_lstm,
+        "network.use_double": cfg.network.use_double}, steps),
+        "gather_windows": 0}
+
+
+def _host_batches(cfg, blocks, count: int, seed: int):
+    """``count`` batches that a host replay (native sum tree) of ``blocks``
+    samples, numpy."""
+    import torch
+    from r2d2_tpu_torch.replay.host_replay import HostReplay
+    from r2d2_tpu_torch.replay.structs import ReplaySpec
+    host = HostReplay(ReplaySpec.from_config(cfg, torch.device("cpu")),
+                      seed=seed)
+    for block in blocks:
+        host.add(block)
+    return [host.sample()[0] for _ in range(count)]
+
+
+def _device_batch(batch, device):
+    import dataclasses
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.replay.structs import SampleBatch
+    return SampleBatch(**{f.name: torch.from_numpy(np.array(getattr(
+        batch, f.name))).to(device) for f in dataclasses.fields(SampleBatch)})
+
+
+def _external_step(cfg, device):
+    """(train state from seed 0, make_external_batch_step) on ``device``:
+    on CUDA a one-step CUDA graph, whose ``body`` is the eager step."""
+    import torch
+    from r2d2_tpu_torch.learner.train_step import (create_train_state,
+                                                   make_external_batch_step)
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.replay.structs import ReplaySpec
+    from r2d2_tpu_torch.tools import bench
+    net = NetworkApply(bench.ACTION_DIM, cfg.network, cfg.env.frame_stack,
+                       cfg.env.frame_height, cfg.env.frame_width, device)
+    ts = create_train_state(net, cfg.optim, 0, cfg.network.use_double)
+    spec = ReplaySpec.from_config(cfg, torch.device(device))
+    return ts, make_external_batch_step(net, spec, cfg.optim,
+                                        cfg.network.use_double)
+
+
+def _host_metrics(m) -> dict:
+    return {k: v.detach().float().cpu().numpy() for k, v in m.items()}
+
+
+def phase_external_vs_cpu(dev, cfg, blocks, steps: int, label: str):
+    """make_external_batch_step on the card (the eager warm-up, then the
+    one-step graph) against the port's CPU step on the same host-sampled
+    batches from the same weights, f32: loss, grad norm and priorities
+    within rtol 1e-4 (priorities also atol 1e-6, as the tree is held in
+    the device path's check); no gather launches, the decode and the LSTM
+    kernels once a step."""
+    import numpy as np
+    import torch
+    batches = _host_batches(cfg, blocks, steps, seed=2)
+    runs = {}
+    for device in (torch.device("cpu"), dev):
+        ts, step = _external_step(cfg, device)
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = [_host_metrics(step(ts, _device_batch(b, device))[1])
+               for b in batches]
+        runs[device.type] = (out, _counts(), time.perf_counter() - t0)
+    for got, want in zip(runs["cuda"][0], runs["cpu"][0]):
+        check(np.isfinite(got["loss"]) and got["priorities"].shape
+              == (cfg.replay.batch_size,), f"{label}: {got}")
+        for name in ("loss", "grad_norm", "mean_q"):
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-4)
+        np.testing.assert_allclose(got["priorities"], want["priorities"],
+                                   rtol=1e-4, atol=1e-6)
+    check(not any(runs["cpu"][1].values()), f"CPU launched {runs['cpu'][1]}")
+    want_launches = _want_host_launches(cfg, steps)
+    check(runs["cuda"][1] == want_launches,
+          f"external {label}: launches {runs['cuda'][1]}, want "
+          f"{want_launches}")
+    rel = max(float(np.max(np.abs(a["priorities"] - b["priorities"])
+                           / np.abs(b["priorities"])))
+              for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    print(f"external-batch step ({label}), card vs CPU, {steps} step(s): "
+          f"losses {[float(m['loss']) for m in runs['cuda'][0]]} vs "
+          f"{[float(m['loss']) for m in runs['cpu'][0]]}, priorities max "
+          f"rel {rel:.3e}, launches {runs['cuda'][1]}; CPU "
+          f"{runs['cpu'][2]:.1f} s", flush=True)
+
+
+def phase_external_graph_vs_eager(dev, base, blocks):
+    """The external-batch step as one CUDA graph of one step against eager
+    steps (the graph's own body) from the same weights on the same
+    GRAPH_K host batches, at the reference shape in bf16 with the host
+    path's settings: losses, grad norms and priorities within rtol 1e-4
+    (priorities atol 1e-6). The last replay runs under the profiler: the
+    kernels by their device names once each, no gather."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from r2d2_tpu_torch.tools import bench
+    cfg = base.replace(**bench.PATHS[bench.HOST_PATH])
+    batches = [_device_batch(b, dev)
+               for b in _host_batches(cfg, blocks[:40], GRAPH_K, seed=4)]
+    ts_graph, graphed = _external_step(cfg, dev)
+    ts_eager, eager = _external_step(cfg, dev)
+    counted = {}
+    for i, batch in enumerate(batches):
+        _reset_counts()
+        if i == len(batches) - 1:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, m = graphed(ts_graph, batch)
+                torch.cuda.synchronize()
+            seen = _profiled_kernel_counts(prof)
+            check(seen == _want_host_launches(cfg, 1),
+                  f"external graph: the profile shows {seen}")
+        else:
+            _, m = graphed(ts_graph, batch)
+        got = _host_metrics(m)
+        counted = {k: counted.get(k, 0) + n for k, n in _counts().items()}
+        want = _host_metrics(eager.body(ts_eager, batch))
+        ts_eager.step += 1
+        for name in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-4)
+        np.testing.assert_allclose(got["priorities"], want["priorities"],
+                                   rtol=1e-4, atol=1e-6)
+        rel = np.abs(got["priorities"] - want["priorities"]) / np.abs(
+            want["priorities"])
+        print(f"external graph vs eager, step {i}: loss {float(got['loss'])}"
+              f" vs {float(want['loss'])}, priorities max rel "
+              f"{float(rel.max()):.3e}", flush=True)
+    check(graphed.graph is not None and ts_graph.step == GRAPH_K
+          and int(ts_graph.step_count) == GRAPH_K, "external graph steps")
+    check(counted == _want_host_launches(cfg, GRAPH_K),
+          f"external graph: launches {counted}")
+    print(f"external graph vs eager ({GRAPH_K} steps, bf16 reference "
+          f"shape): launches {counted}, the last replay's kernels by name "
+          f"{seen}", flush=True)
+    del batches, ts_graph, ts_eager, graphed, eager
+    torch.cuda.empty_cache()
+
+
+def _sample_alone_ms(host_replay, samples: int = 10) -> float:
+    """Median ms of the host replay's sample into one preallocated batch
+    with no other thread running: the gather's own pace."""
+    import numpy as np
+    from r2d2_tpu_torch.replay.host_replay import batch_layout
+    from r2d2_tpu_torch.replay.structs import SampleBatch
+    out = SampleBatch(**{name: np.zeros(shape, dtype) for name, (
+        shape, dtype) in batch_layout(host_replay.spec).items()})
+    times = []
+    for _ in range(samples + 1):
+        t0 = time.perf_counter()
+        host_replay.sample(out=out)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def phase_host_learner(dev, base, blocks) -> dict:
+    """The host-placement Learner at the reference shape (tools/bench.py's
+    host path: every kernel on, one step a dispatch) over a host ring of
+    ``blocks``: 3 warm-up steps (the eager step, the capture, a replay),
+    HOST_WINDOWS timed windows of REF_WINDOW steps with a block ingested
+    after every step (so ``add`` races the prefetch thread's sample),
+    each window's launch counts checked (no gather; the decode and the
+    LSTM kernels once a step), then REF_WINDOW steps under the profiler,
+    whose kernel names must say the same. Prints seq-updates/s, ms/step,
+    the prefetch thread's sample and copy ms per batch, device busy and
+    idle. Returns the timed windows' launch counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from r2d2_tpu_torch.tools import bench
+    cfg = base.replace(**bench.PATHS[bench.HOST_PATH])
+    t0 = time.perf_counter()
+    learner = bench.host_learner(cfg, dev, blocks)
+    fill_s = time.perf_counter() - t0
+    try:
+        check(learner.replay_state is None
+              and learner.host_replay._native is not None
+              and learner.steps_per_dispatch == 1, "host placement")
+        losses = [learner.step()["loss"] for _ in range(3)]
+        torch.cuda.synchronize()
+        for kept in learner.timings.values():
+            kept.clear()
+        ms, total, fresh = [], {}, 0
+        for _ in range(HOST_WINDOWS):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(REF_WINDOW):
+                losses.append(learner.step()["loss"])
+                learner.ingest(blocks[fresh % len(blocks)])
+                fresh += 1
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / REF_WINDOW)
+            counted = _counts()
+            want = _want_host_launches(cfg, REF_WINDOW)
+            check(counted == want, f"host path: launches {counted}, want "
+                  f"{want}")
+            total = {k: total.get(k, 0) + n for k, n in counted.items()}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(REF_WINDOW):
+                losses.append(learner.step()["loss"])
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3 / REF_WINDOW
+        seen = _profiled_kernel_counts(prof)
+        check(seen == _want_host_launches(cfg, REF_WINDOW),
+              f"host path: the profile shows {seen}")
+        values = torch.stack(losses).float().cpu()
+        check(bool(torch.isfinite(values).all()), "host path: a loss is "
+              "not finite")
+        copies = sum(e.time_range.elapsed_us() for e in
+                     bench.device_kernels(prof) if "HtoD" in e.name
+                     ) / 1e3 / REF_WINDOW
+        busy = bench.device_busy_ms(prof) / REF_WINDOW
+        union = bench.device_union_ms(prof) / REF_WINDOW
+        mean_ms = statistics.mean(ms)
+        timings = learner.timings
+        report = dict(
+            path=bench.HOST_PATH, ms_per_step=ms,
+            seq_updates_per_s=[cfg.replay.batch_size * 1e3 / x for x in ms],
+            sample_ms=statistics.median(timings["sample_ms"]),
+            h2d_ms=statistics.median(timings["h2d_ms"]),
+            batches=len(timings["sample_ms"]),
+            device_busy_ms_per_step=busy, device_union_ms_per_step=union,
+            h2d_device_ms_per_step=copies, profiled_ms_per_step=profiled_ms,
+            idle_share=1.0 - busy / mean_ms,
+            idle_share_union=1.0 - union / mean_ms,
+            launches_per_step={k: n / (HOST_WINDOWS * REF_WINDOW)
+                               for k, n in total.items()},
+            dropped_priority_updates=learner.dropped_priority_updates,
+            host_ring_gb=learner.host_replay.obs.nbytes / 1e9,
+            fill_s=fill_s)
+    finally:
+        learner.stop_background()
+    check(not learner._bg_threads, "host path: a pipeline thread is left")
+    report["sample_alone_ms"] = _sample_alone_ms(learner.host_replay)
+    print(f"host-placement learner (reference shape): " + json.dumps(report),
+          flush=True)
+    pace = ("the host (its sample)" if report["sample_ms"]
+            > report["device_union_ms_per_step"] else "the card")
+    print(f"host path: sample {report['sample_ms']:.3f} ms a batch (alone,"
+          f" no other thread running: {report['sample_alone_ms']:.3f}) "
+          f"against {report['device_union_ms_per_step']:.3f} ms of device "
+          f"time a step: {pace} sets the pace", flush=True)
+    return total
 
 
 def phase_cli(dev, extra, label, k):
@@ -1068,6 +1336,7 @@ def main(argv) -> int:
         return 2
     _import_port()
     from r2d2_tpu_torch.config import RuntimeConfig
+    from r2d2_tpu_torch.tools import bench
     from r2d2_tpu_torch.utils.device import configure_numerics
     configure_numerics()
     dev = torch.device("cuda", 0)
@@ -1090,15 +1359,31 @@ def main(argv) -> int:
                                   "network.use_double": True},
                             "pallas_lstm on, double DQN")
     phase_reference_vs_cpu(dev)
+    small = _tiny_config()
+    small_blocks = bench.synthetic_blocks(small, small.num_blocks, seed=1)
+    phase_external_vs_cpu(dev, small, small_blocks, 2, "default")
+    fused_small = small.replace(**{"network.pallas_lstm": "on",
+                                   "network.use_double": True})
+    phase_external_vs_cpu(dev, fused_small, small_blocks, 2,
+                          "pallas_lstm on, double DQN")
+    ref_f32 = bench.reference_config(**{
+        "replay.capacity": REF_CPU_BLOCKS * 400, "network.bf16": "off",
+        "network.pallas_lstm": "on"})
+    phase_external_vs_cpu(dev, ref_f32, bench.synthetic_blocks(
+        ref_f32, REF_CPU_BLOCKS, seed=3), 1, "reference widths, f32")
     done("card vs CPU")
-    base, spec, rs = phase_reference_replay(dev)
+    base, spec, rs, blocks = phase_reference_replay(dev)
     phase_graph_vs_eager(dev, base, spec, rs)
+    phase_external_graph_vs_eager(dev, base, blocks)
     done("graph vs eager")
     phase_reference_step(dev, base, spec, rs, resolved_k,
                          "--profile" in argv)
     done("reference paths")
     del rs
     torch.cuda.empty_cache()
+    host_launches = phase_host_learner(dev, base, blocks)
+    del blocks
+    done("host path")
     launches = phase_cli(dev, [], "default", resolved_k)
     launches.update({name: n for name, n in
                      phase_cli(dev, FUSED_ARGS, "pallas_lstm on, double DQN",
@@ -1115,7 +1400,9 @@ def main(argv) -> int:
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     b2b_ms=r["b2b_ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r["library_ms"])
+                    library_ms=r["library_ms"],
+                    host_path_launches=host_launches.get(
+                        name.replace("_padded", ""), 0))
                for name, r in timings.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

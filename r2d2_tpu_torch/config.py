@@ -2,7 +2,7 @@
 optim sections of the JAX package's config, with the same field names and
 defaults, so a ``--section.field=value`` override means the same thing in
 both packages. Only the fields the port reads are here: a JAX-only setting
-(``--replay.placement=host``, ``--network.inference_dtype=int8``, ...) is
+(``--network.inference_dtype=int8``, ``--runtime.save_interval=N``, ...) is
 refused as an unknown field instead of being ignored.
 
 The tri-state knobs ("on"/"off"/"auto") resolve for the device the port
@@ -32,6 +32,12 @@ runs on, never for a TPU:
 * ``network.space_to_depth``: "on"/"off" only, as in the JAX package: it
   picks the first conv's parameter layout. Which input the conv runs on is
   not a setting (models/network.py ``input_layout``).
+* ``replay.placement``: "device" (the replay ring and its sum tree on the
+  card; the fused learner step samples there) or "host" (a numpy ring and
+  the native sum tree in host memory, ``replay/host_replay.py``; the
+  learner trains on batches a prefetch thread copies to the card, one step
+  a dispatch). Any other value is refused; the JAX package reads every
+  value but "host" as "device".
 * ``replay.pallas_exact_gather``: the 84x84 -> 96x128 storage pad that
   Mosaic's tile rule needed. A CUDA copy does not need it, so "auto" = off
   on every device; "on" still gives the padded layout.
@@ -42,6 +48,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Tuple
+
+PLACEMENTS = ("device", "host")       # replay.placement
 
 # What "auto" (and steps_per_dispatch=-1) resolves to on CUDA: the faster
 # setting in pairs that tools/bench.py measured in one call on an H100 at
@@ -110,6 +118,7 @@ class ReplayConfig:
     pallas_exact_gather: str = "auto"
     # env steps collected per learner step by the synchronous trainer
     max_env_steps_per_train_step: float = 0.0
+    placement: str = "device"       # or "host"
 
 
 @dataclass(frozen=True)
@@ -136,6 +145,8 @@ class RuntimeConfig:
     # learner steps per dispatch: one CUDA graph of K steps on the card, K
     # eager steps on the CPU; -1 = auto (resolved_steps_per_dispatch)
     steps_per_dispatch: int = -1
+    # host placement: device batches the prefetch thread keeps queued
+    prefetch_batches: int = 4
 
     def resolved_steps_per_dispatch(self, device) -> int:
         """A value > 0 as given; otherwise the bench's winner on CUDA and 1
@@ -169,6 +180,9 @@ class Config:
             )
         if self.sequence.forward_steps < 1:
             raise ValueError("sequence.forward_steps must be >= 1")
+        if self.replay.placement not in PLACEMENTS:
+            raise ValueError(f"replay.placement must be one of {PLACEMENTS}"
+                             f"; got {self.replay.placement!r}")
 
     @property
     def seqs_per_block(self) -> int:

@@ -1,7 +1,10 @@
 """The R2D2 learner step: sample -> decode -> unroll -> loss -> clip + Adam ->
 priority write-back -> hard target sync, the counterpart of the JAX
-package's fused ``make_learner_step``, and ``make_multi_learner_step``, K
-steps per dispatch (the JAX package's ``lax.scan`` of the step).
+package's fused ``make_learner_step``; ``make_multi_learner_step``, K
+steps per dispatch (the JAX package's ``lax.scan`` of the step); and
+``make_external_batch_step``, the step on a batch sampled on the host
+(``replay.placement="host"``), which returns the priorities instead of
+writing them back.
 
 The JAX step is one XLA program over donated buffers; here the same steps
 run on one CUDA stream and update the replay tree, the parameters and the
@@ -17,6 +20,7 @@ divides by ``norm + 1e-6`` instead, so it is not used). optax's Adam adds
 eps outside the square root, which is what ``torch.optim.Adam`` does.
 """
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -38,7 +42,8 @@ from r2d2_tpu_torch.ops.replay_kernels import stack_frames
 from r2d2_tpu_torch.ops.sum_tree import tree_update
 from r2d2_tpu_torch.ops.value import inverse_value_rescale, value_rescale
 from r2d2_tpu_torch.replay.device_replay import replay_sample
-from r2d2_tpu_torch.replay.structs import ReplaySpec, ReplayState, SampleBatch
+from r2d2_tpu_torch.replay.structs import (ReplaySpec, ReplayState,
+                                           SampleBatch, batch_fields)
 
 
 METRICS = ("loss", "mean_abs_td", "mean_q", "grad_norm")
@@ -177,29 +182,23 @@ def make_loss_fn(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
     return loss_fn
 
 
-def _make_step_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
-                    use_double: bool):
-    """``body(train_state, replay_state, uniform) -> metrics``: one step's
-    device work, all of it in place; the host mirror ``step`` is the
-    caller's to advance. ``uniform``: the (B,) sampling jitter, or None to
-    draw it from the train state's generator."""
+def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
+                     use_double: bool):
+    """``train(train_state, batch) -> metrics``: one step's device work on
+    a sampled batch, all of it in place (loss, clip + Adam, the step
+    counter and the hard target sync); ``metrics["priorities"]`` holds the
+    batch's (B,) new priorities. The host mirror ``step`` is the caller's
+    to advance."""
     loss_fn = make_loss_fn(net, spec, optim, use_double)
     interval = optim.target_net_update_interval
 
-    def body(ts: TrainState, rs: ReplayState,
-             uniform: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
-        batch = replay_sample(spec, rs, generator=ts.generator,
-                              uniform=uniform)
+    def train(ts: TrainState, batch: SampleBatch) -> Dict[str, torch.Tensor]:
         loss, aux = loss_fn(ts.params, ts.target_params, batch)
         ts.opt.zero_grad(set_to_none=False)
         loss.backward()
         grads = [p.grad for p in ts.params.parameters()]
         grad_norm = clip_by_global_norm_(grads, optim.grad_norm)
         ts.opt.step()
-
-        # priority write-back, right after the sample it belongs to
-        tree_update(spec.tree_layers, rs.tree, spec.prio_exponent,
-                    aux["priorities"], batch.idxes)
 
         # hard target sync on the 1-based step counter, on the device
         ts.step_count += 1
@@ -210,7 +209,28 @@ def _make_step_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
                                 ts.params.parameters()):
                     torch.where(sync, p, t, out=t)
         return {"loss": loss.detach(), "mean_abs_td": aux["mean_abs_td"],
-                "mean_q": aux["mean_q"], "grad_norm": grad_norm}
+                "mean_q": aux["mean_q"], "grad_norm": grad_norm,
+                "priorities": aux["priorities"]}
+
+    return train
+
+
+def _make_step_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
+                    use_double: bool):
+    """``body(train_state, replay_state, uniform) -> metrics``: sample,
+    train, and write the priorities back, right after the sample they
+    belong to. ``uniform``: the (B,) sampling jitter, or None to draw it
+    from the train state's generator."""
+    train = _make_train_body(net, spec, optim, use_double)
+
+    def body(ts: TrainState, rs: ReplayState,
+             uniform: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch = replay_sample(spec, rs, generator=ts.generator,
+                              uniform=uniform)
+        metrics = train(ts, batch)
+        tree_update(spec.tree_layers, rs.tree, spec.prio_exponent,
+                    metrics.pop("priorities"), batch.idxes)
+        return metrics
 
     return body
 
@@ -229,6 +249,33 @@ def make_learner_step(net: NetworkApply, spec: ReplaySpec,
         metrics = body(ts, rs, uniform)
         ts.step += 1
         return ts, rs, metrics
+
+    return step
+
+
+def make_external_batch_step(net: NetworkApply, spec: ReplaySpec,
+                             optim: OptimConfig, use_double: bool):
+    """The step of host-placement replay (``replay.placement="host"``): the
+    batch is sampled on the host (``replay/host_replay.py``) and copied to
+    the device by the caller. ``step(train_state, batch) -> (train_state,
+    metrics)``; ``metrics["priorities"]`` (B,) goes back to the host tree
+    with the sample's host indices, after the step. The batch is not
+    consumed.
+
+    On the CPU the step runs eagerly. On CUDA it is one CUDA graph of one
+    step over a static batch (``GraphedSteps`` with a batch input): each
+    call copies the given device batch into the static one on the current
+    stream, which must be able to read it, and replays the graph; the
+    first call runs eagerly as the capture's warm-up and counts as a step,
+    the second captures."""
+    train = _make_train_body(net, spec, optim, use_double)
+    if net.device.type == "cuda":
+        return GraphedSteps(train, 1, spec.batch_size, batch_input=True)
+
+    def step(ts: TrainState, batch: SampleBatch):
+        metrics = train(ts, batch)
+        ts.step += 1
+        return ts, metrics
 
     return step
 
@@ -268,7 +315,7 @@ def make_multi_learner_step(net: NetworkApply, spec: ReplaySpec,
     return multi
 
 
-def _state_tensors(ts: TrainState, rs: ReplayState
+def _state_tensors(ts: TrainState, rs: Optional[ReplayState]
                    ) -> List[Tuple[str, torch.Tensor]]:
     """Every tensor of the two states that a step reads or writes."""
     out = [("step_count", ts.step_count)]
@@ -282,7 +329,7 @@ def _state_tensors(ts: TrainState, rs: ReplayState
         for key, value in state.items():
             if torch.is_tensor(value):
                 out.append((f"opt.state[{i}].{key}", value))
-    for name, value in vars(rs).items():
+    for name, value in (vars(rs).items() if rs is not None else ()):
         if torch.is_tensor(value):
             out.append((f"replay.{name}", value))
     return out
@@ -290,41 +337,53 @@ def _state_tensors(ts: TrainState, rs: ReplayState
 
 class GraphedSteps:
     """K learner steps as one CUDA graph, the counterpart of the JAX
-    package's ``lax.scan`` of the step in one dispatch.
+    package's ``lax.scan`` of the step in one dispatch; with
+    ``batch_input``, the external-batch step (K = 1) as one CUDA graph
+    over a static batch, the counterpart of its single jitted program.
 
     * Dispatch 1 runs the K steps eagerly on a side stream: torch's
       warm-up before a capture, counted as real steps (no extra step is
       taken). Dispatch 2 captures the K steps into one graph and replays
       it; every later dispatch replays it.
-    * The jitter goes into a static (K, B) buffer before each replay:
-      step k's draws from the train state's generator, one per step as
-      the single step draws them, or the injected ``uniform``. The graph
-      holds no RNG state.
+    * The inputs go into static buffers before each replay, on the current
+      stream. Over the replay: the (K, B) jitter, step k's draws from the
+      train state's generator, one per step as the single step draws them,
+      or the injected ``uniform``; the graph holds no RNG state. With a
+      batch input: the given device batch, field by field.
     * A replay reads and writes the tensors the capture saw, at their
-      addresses: those of both states are recorded at capture, and a
-      replay raises if one of them has moved.
+      addresses: those of the states and the static inputs are recorded
+      at capture, and a replay raises if one of them has moved.
     * The kernel wrappers count launches when they are called, which a
       replay does not do: the counts of the capture are taken back and
       added once per replay.
     * A capture or launch that fails raises; nothing falls back to eager.
     """
 
-    def __init__(self, body: Callable, steps: int, batch_size: int):
+    def __init__(self, body: Callable, steps: int, batch_size: int,
+                 batch_input: bool = False):
+        if batch_input and steps != 1:
+            raise ValueError("a batch input feeds one step a dispatch")
         self.body = body
         self.steps = steps
         self.batch_size = batch_size
+        self.batch_input = batch_input
         self.dispatches = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.uniform: Optional[torch.Tensor] = None    # (K, B) static
-        self.out: Optional[torch.Tensor] = None        # (metrics, K) static
+        self.batch: Optional[SampleBatch] = None       # static batch input
+        self.out: Optional[Dict[str, torch.Tensor]] = None   # (K, ...) static
         self.addresses: Dict[str, int] = {}
         self.launches: Dict[str, int] = {}              # per replay
 
-    def _run(self, ts: TrainState, rs: ReplayState) -> torch.Tensor:
-        per_step = [self.body(ts, rs, self.uniform[k])
-                    for k in range(self.steps)]
-        return torch.stack([torch.stack([m[name] for m in per_step])
-                            for name in METRICS])
+    def _run(self, ts: TrainState, rs: Optional[ReplayState]
+             ) -> Dict[str, torch.Tensor]:
+        if self.batch_input:
+            per_step = [self.body(ts, self.batch)]
+        else:
+            per_step = [self.body(ts, rs, self.uniform[k])
+                        for k in range(self.steps)]
+        return {name: torch.stack([m[name] for m in per_step])
+                for name in per_step[0]}
 
     def _fill_uniform(self, ts: TrainState, device: torch.device,
                       uniform: Optional[torch.Tensor]) -> None:
@@ -340,8 +399,34 @@ class GraphedSteps:
         for row in self.uniform:
             row.uniform_(generator=ts.generator)
 
-    def _check_addresses(self, ts: TrainState, rs: ReplayState) -> None:
-        now = {name: t.data_ptr() for name, t in _state_tensors(ts, rs)}
+    def _fill_batch(self, batch: SampleBatch) -> None:
+        if self.batch is None:
+            self.batch = dataclasses.replace(batch, **{
+                name: torch.empty_like(t)
+                for name, t in batch_fields(batch).items()})
+        static = batch_fields(self.batch)
+        given = batch_fields(batch)
+        if static.keys() != given.keys() or any(
+                (t.shape, t.dtype, t.device)
+                != (static[n].shape, static[n].dtype, static[n].device)
+                for n, t in given.items()):
+            raise ValueError("the batch differs in fields, shapes, types or "
+                             "device from the one the step was built on")
+        for name, t in given.items():
+            static[name].copy_(t)
+
+    def _inputs(self) -> List[Tuple[str, torch.Tensor]]:
+        """The static inputs, once the first call has made them."""
+        if self.batch_input:
+            return ([] if self.batch is None else
+                    [(f"batch.{n}", t)
+                     for n, t in batch_fields(self.batch).items()])
+        return [] if self.uniform is None else [("uniform", self.uniform)]
+
+    def _check_addresses(self, ts: TrainState,
+                         rs: Optional[ReplayState]) -> None:
+        now = {name: t.data_ptr()
+               for name, t in _state_tensors(ts, rs) + self._inputs()}
         moved = sorted(name for name in now.keys() | self.addresses.keys()
                        if now.get(name) != self.addresses.get(name))
         if moved:
@@ -349,10 +434,18 @@ class GraphedSteps:
                 "the CUDA graph of the learner steps reads tensors that have "
                 f"moved since it was captured: {moved[:8]}")
 
-    def __call__(self, ts: TrainState, rs: ReplayState,
+    def __call__(self, ts: TrainState, rs_or_batch,
                  uniform: Optional[torch.Tensor] = None):
+        """``(ts, rs, uniform=None) -> (ts, rs, metrics)`` with (K,)
+        metrics; with a batch input ``(ts, batch) -> (ts, metrics)``, the
+        metrics of the one step."""
         device = ts.step_count.device
-        self._fill_uniform(ts, device, uniform)
+        if self.batch_input:
+            rs = None
+            self._fill_batch(rs_or_batch)
+        else:
+            rs = rs_or_batch
+            self._fill_uniform(ts, device, uniform)
         current = torch.cuda.current_stream(device)
         if self.dispatches == 0:
             side = torch.cuda.Stream(device)
@@ -360,7 +453,8 @@ class GraphedSteps:
             with torch.cuda.stream(side):
                 out = self._run(ts, rs)
             current.wait_stream(side)
-            out.record_stream(current)
+            for t in out.values():
+                t.record_stream(current)
         else:
             if self.graph is None:
                 self._capture(ts, rs)
@@ -371,17 +465,22 @@ class GraphedSteps:
             out = self.out
         self.dispatches += 1
         ts.step += self.steps
-        out = out.clone()
-        return ts, rs, dict(zip(METRICS, out.unbind(0)))
+        if self.batch_input:
+            return ts, {name: t[0].clone() for name, t in out.items()}
+        return ts, rs, {name: t.clone() for name, t in out.items()}
 
-    def _capture(self, ts: TrainState, rs: ReplayState) -> None:
+    def _capture(self, ts: TrainState, rs: Optional[ReplayState]) -> None:
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # thread-local: other threads (the host placement's prefetch and
+        # write-back) may allocate, copy and synchronize on their own
+        # streams while this thread captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = self._run(ts, rs)
         after = launch_counts()
         self.launches = {name: after[name] - before[name] for name in after}
         add_launch_counts({name: -n for name, n in self.launches.items()})
         self.graph, self.out = graph, out
         self.addresses = {name: t.data_ptr()
-                          for name, t in _state_tensors(ts, rs)}
+                          for name, t in _state_tensors(ts, rs)
+                          + self._inputs()}

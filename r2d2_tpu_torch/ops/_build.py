@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code: the CUDA kernels and the host
+replay's sum tree.
 
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library with
 a plain C interface under ``build/`` at the repository root, keyed by a hash
-of the source so an edit rebuilds, and loads with ``ctypes``. A source that
-does not build raises; nothing falls back. What ptxas reports about each
-kernel of a source built in this process (registers, shared memory,
+of the source so an edit rebuilds, and loads with ``ctypes``. A host C++
+source (``native/sum_tree.cc``) builds the same way with ``g++``. A source
+that does not build raises; nothing falls back. What ptxas reports about
+each kernel of a source built in this process (registers, shared memory,
 spills; ``-Xptxas -v``) is kept in ``PTXAS_REPORT``.
 """
 
@@ -15,15 +17,16 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-Wall"]
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Path, ctypes.CDLL] = {}
 PTXAS_REPORT: Dict[str, str] = {}
 
 
@@ -39,35 +42,62 @@ def _nvcc() -> str:
                        f"the kernels in {CSRC}")
 
 
-def _library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _cxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found: it builds the host replay's "
+                           "native sum tree")
+    return path
+
+
+def _library_path(source: Path, flags: List[str]) -> Path:
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+
+
+def _compile(compiler: str, flags: List[str], source: Path, force: bool
+             ) -> Tuple[Path, Optional[str]]:
+    """(library, the compiler's stderr, or None if it was built already)."""
+    lib = _library_path(source, flags)
+    if lib.exists() and not force:
+        return lib, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{Path(compiler).name} failed for {source.name}:"
+                           f"\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, proc.stderr
 
 
 def build(name: str, force: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built
     (``force``: compile anyway)."""
-    lib = _library_path(name)
-    if lib.exists() and not force:
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    PTXAS_REPORT[name] = proc.stderr
-    os.replace(tmp, lib)
+    lib, report = _compile(_nvcc(), NVCC_FLAGS, CSRC / f"{name}.cu", force)
+    if report is not None:
+        PTXAS_REPORT[name] = report
     return lib
+
+
+def _load(lib: Path) -> ctypes.CDLL:
+    loaded = _loaded.get(lib)
+    if loaded is None:
+        loaded = _loaded[lib] = ctypes.CDLL(str(lib))
+    return loaded
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _loaded[name] = lib
-        return lib
+        return _load(build(name))
+
+
+def load_host(source: Path) -> ctypes.CDLL:
+    """The loaded library for a host C++ source, built with g++ on first
+    use."""
+    with _lock:
+        return _load(_compile(_cxx(), CXX_FLAGS, source, False)[0])

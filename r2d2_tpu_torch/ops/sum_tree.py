@@ -4,7 +4,8 @@ Layout: one 1-D float32 tensor of 2**num_layers - 1 nodes; node 0 holds the
 total mass, leaves occupy [2**(L-1) - 1, 2**L - 1). ``tree_update`` is a
 leaf scatter plus a bottom-up parent rebuild; ``tree_sample`` a stratified
 root-to-leaf descent of the whole batch in lockstep. The numpy twins are the
-test oracle.
+host replay's tree when it is not asked for the native one
+(``native/sum_tree.cc``), and the test oracle.
 
 Duplicate leaves: if ``idxes`` names one leaf twice with different
 priorities, which write lands is unspecified (``index_put_`` without
@@ -79,7 +80,13 @@ def tree_sample(num_layers: int, tree: torch.Tensor, is_exponent: float,
 
 
 # ---------------------------------------------------------------------------
-# numpy twins (test oracle)
+# numpy twins
+
+
+def tree_init_np(capacity: int) -> Tuple[int, np.ndarray]:
+    """(num_layers, a zeroed float64 tree) for ``capacity`` leaves."""
+    num_layers = tree_num_layers(capacity)
+    return num_layers, np.zeros(2 ** num_layers - 1, dtype=np.float64)
 
 
 def tree_update_np(num_layers: int, tree: np.ndarray, prio_exponent: float,

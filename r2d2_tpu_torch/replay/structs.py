@@ -13,7 +13,7 @@ step t-1 (-1 = none).
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -185,22 +185,48 @@ class SampleBatch:
     lane: Optional[torch.Tensor] = None
 
 
+def batch_fields(batch: SampleBatch) -> Dict[str, Any]:
+    """The fields of a batch that hold arrays or tensors, by name."""
+    return {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)
+            if getattr(batch, f.name) is not None}
+
+
 class RingAccountant:
     """Host-side ring accounting: pointer advance, per-slot learning-step
-    counts and the total buffered steps behind the training gate."""
+    counts and weight versions, the total buffered steps behind the
+    training gate, and the monotonic add counter behind the host replay's
+    staleness guard. ``HostReplay`` owns one and the host-placement
+    ``Learner`` reads that same instance; under device placement the
+    ``Learner``'s instance mirrors ``ReplayState.block_ptr``."""
 
     def __init__(self, num_blocks: int):
         self.num_blocks = num_blocks
         self.ptr = 0
+        self.total_adds = 0        # monotonic; never wraps
         self.slot_steps = [0] * num_blocks
         self.buffer_steps = 0
+        # the landed block's weight_version; -1 = empty or unstamped
+        self.slot_versions = [-1] * num_blocks
 
-    def advance(self, learning_steps: int) -> int:
+    def advance(self, learning_steps: int, weight_version: int = -1) -> int:
+        """Account one block write: returns the slot it lands in and rolls
+        the pointer, replacing the overwritten slot's step count."""
         slot = self.ptr
         self.buffer_steps += learning_steps - self.slot_steps[slot]
         self.slot_steps[slot] = learning_steps
+        self.slot_versions[slot] = int(weight_version)
         self.ptr = (slot + 1) % self.num_blocks
+        self.total_adds += 1
         return slot
+
+    def live_versions(self):
+        """Weight versions of the slots that hold data (-1: unstamped)."""
+        return [v for v, steps in zip(self.slot_versions, self.slot_steps)
+                if steps > 0]
+
+    def stale_adds(self, adds_snapshot: int) -> int:
+        """Blocks written since ``adds_snapshot`` (a ``total_adds``)."""
+        return self.total_adds - adds_snapshot
 
 
 def empty_block_np(spec: ReplaySpec) -> dict:

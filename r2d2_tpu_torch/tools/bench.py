@@ -11,8 +11,11 @@ blocks, a 0.83 GB ring) and filled with synthetic blocks
 DQN, Python LSTM loop), double (double DQN, loop), fused_double (double
 DQN, ``network.pallas_lstm="on"``) and fused (single DQN, the fused
 scan), each at K learner steps per dispatch (``runtime.steps_per_dispatch``;
-K > 1 is one CUDA graph of K steps). Every cell trains from its own
-weights over the one replay.
+K > 1 is one CUDA graph of K steps); and host, the fused configuration
+under ``replay.placement="host"``: a ``Learner`` whose replay is in host
+memory (the same blocks), one external-batch step a dispatch (one CUDA
+graph of one step) fed by its prefetch thread. Every cell trains from its
+own weights, the device paths over the one device replay.
 
 Per cell: ms/step and seq-updates/s (B x steps/s) of WINDOW (32) steps
 on the host clock, ending in a sync, in turns over the cells (a b .. z z
@@ -22,14 +25,19 @@ kernel and copy events, and the kernels that took the most of it; the
 union of those events (where two overlap it counts once); and the
 profiled steps' own ms/step on the host clock. The idle share is
 1 - busy / (mean unprofiled ms/step), unclipped: it is negative where
-busy exceeds the unprofiled step. Peak GB is the replay ring plus the most
+busy exceeds the unprofiled step; ``idle_share_union`` is the same from
+the union (on the host path the batch copies overlap the step). Kernel
+launches per step by wrapper (a graph replay adds its capture's), and on
+the host path the prefetch thread's sample ms (host clock) and copy ms
+(CUDA events on its stream) per batch, medians over the timed windows.
+Peak GB is the replay ring (on the device) plus the most
 the cell's state, steps and graph held at once
 (``torch.cuda.max_memory_allocated`` while it was built and warmed up).
 From the medians it picks what "auto" resolves to on CUDA
 (``config.CUDA_AUTO``), each by a pair measured in this call: K, the
 fewest steps per dispatch whose mean speed-up over K=1 across paths is
 within 1% of the best; and ``network.pallas_lstm``, fused against default
-at that K.
+at that K. The host path takes no part in the choices.
 
 Prints the card's name and power limit (``nvidia-smi``), a line per cell,
 and last one JSON line with every cell and the choices (``--out``: also
@@ -52,7 +60,9 @@ PATHS = {   # label: overrides of the reference configuration
     "fused_double": {"network.use_double": True,
                      "network.pallas_lstm": "on"},
     "fused": {"network.pallas_lstm": "on"},
+    "host": {"network.pallas_lstm": "on", "replay.placement": "host"},
 }
+HOST_PATH = "host"         # one step a dispatch: K = 1 only
 KS = (1, 4, 16)
 WINDOW, ROUNDS = 32, 2     # steps a timed window (a multiple of every K)
 PROFILE_STEPS = 16
@@ -114,10 +124,27 @@ def build_learner_step(cfg, device, spec, steps_per_dispatch: int = 1,
     return ts, make_learner_step(net, spec, cfg.optim, use_double)
 
 
-def profile_steps(step, ts, rs, dispatches: int):
+def path_ks(label: str):
+    return (1,) if label == HOST_PATH else KS
+
+
+def host_learner(cfg, device, blocks, seed: int = 0):
+    """A host-placement Learner of ``cfg`` on ``device`` with ``blocks``
+    in its host replay."""
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.runtime.learner_loop import Learner
+    net = NetworkApply(ACTION_DIM, cfg.network, cfg.env.frame_stack,
+                       cfg.env.frame_height, cfg.env.frame_width, device)
+    learner = Learner(cfg, net, seed=seed)
+    for block in blocks:
+        learner.ingest(block)
+    return learner
+
+
+def profile_steps(dispatch, dispatches: int):
     """torch.profiler (CPU and CUDA) over ``dispatches`` calls of
-    ``step``; returns the profiler and the calls' wall ms on the host
-    clock (from before the first to a sync after the last)."""
+    ``dispatch()``; returns the profiler and the calls' wall ms on the
+    host clock (from before the first to a sync after the last)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -125,7 +152,7 @@ def profile_steps(step, ts, rs, dispatches: int):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(dispatches):
-            step(ts, rs)
+            dispatch()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     return prof, wall_ms
@@ -164,39 +191,65 @@ def device_union_ms(prof) -> float:
 
 
 class Cell:
-    """One path at one K: its train state, its step and its numbers."""
+    """One path at one K: its train state, its step and its numbers. The
+    host path's cell holds a host-placement ``Learner`` filled with
+    ``blocks``."""
 
-    def __init__(self, label: str, k: int, cfg, device, spec, rs):
+    def __init__(self, label: str, k: int, cfg, device, spec, rs,
+                 blocks=None):
         import torch
         self.label, self.k = label, k
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-        self.ts, self.step = build_learner_step(cfg, device, spec, k)
+        self.learner = None
+        if cfg.replay.placement == "host":
+            self.learner = host_learner(cfg, device, blocks)
+            self.ts = self.learner.train_state
+        else:
+            self.ts, self.step = build_learner_step(cfg, device, spec, k)
         # warm-up: K = 1 three steps; a graph its eager dispatch, its
         # capture and one replay
         self.losses = []
         for _ in range(3):
-            self.losses.append(self.step(self.ts, rs)[2]["loss"])
+            self.losses.append(self.dispatch(rs))
         torch.cuda.synchronize()
+        ring = 0 if self.learner is not None else spec.device_ring_bytes
         self.peak_gb = (torch.cuda.max_memory_allocated(device) - base
-                        + spec.device_ring_bytes) / 1e9
+                        + ring) / 1e9
         self.step_ms = []
+        self.window_steps = 0
+        self.launches = {}
         self.busy_ms = self.union_ms = self.profiled_ms = None
         self.top = []
+        if self.learner is not None:
+            for kept in self.learner.timings.values():
+                kept.clear()
+
+    def dispatch(self, rs):
+        """One dispatch; its loss (a device tensor)."""
+        if self.learner is not None:
+            return self.learner.step()["loss"]
+        return self.step(self.ts, rs)[2]["loss"]
 
     def window(self, rs, steps: int) -> None:
         import torch
+        from r2d2_tpu_torch.ops.launch_counts import launch_counts
+        before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps // self.k):
-            self.losses.append(self.step(self.ts, rs)[2]["loss"])
+            self.losses.append(self.dispatch(rs))
         torch.cuda.synchronize()
         self.step_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+        self.window_steps += steps
+        for name, n in launch_counts().items():
+            self.launches[name] = (self.launches.get(name, 0) + n
+                                   - before[name])
 
     def profile(self, rs) -> None:
         dispatches = max(1, PROFILE_STEPS // self.k)
-        prof, wall_ms = profile_steps(self.step, self.ts, rs, dispatches)
+        prof, wall_ms = profile_steps(lambda: self.dispatch(rs), dispatches)
         steps = dispatches * self.k
         self.busy_ms = device_busy_ms(prof) / steps
         self.union_ms = device_union_ms(prof) / steps
@@ -208,25 +261,40 @@ class Cell:
                              + event.time_range.elapsed_us() / 1e3 / steps)
         self.top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
 
+    def close(self) -> None:
+        if self.learner is not None:
+            self.learner.stop_background()
+
     def result(self, batch: int) -> dict:
         import torch
         losses = torch.cat([x.reshape(-1) for x in self.losses]).tolist()
         if not all(math.isfinite(x) for x in losses):
             raise RuntimeError(f"{self.label} K={self.k}: non-finite loss")
         mean_ms = statistics.mean(self.step_ms)
-        return dict(path=self.label, k=self.k, ms_per_step=self.step_ms,
-                    seq_updates_per_s=[batch * 1e3 / ms
-                                       for ms in self.step_ms],
-                    median_seq_updates_per_s=statistics.median(
-                        batch * 1e3 / ms for ms in self.step_ms),
-                    device_busy_ms_per_step=self.busy_ms,
-                    device_union_ms_per_step=self.union_ms,
-                    profiled_ms_per_step=self.profiled_ms,
-                    idle_share=(None if self.busy_ms is None else
-                                1.0 - self.busy_ms / mean_ms),
-                    peak_gb=self.peak_gb, top_kernels_ms_per_step=self.top,
-                    steps=len(losses),
-                    loss_first=losses[0], loss_last=losses[-1])
+        r = dict(path=self.label, k=self.k, ms_per_step=self.step_ms,
+                 seq_updates_per_s=[batch * 1e3 / ms for ms in self.step_ms],
+                 median_seq_updates_per_s=statistics.median(
+                     batch * 1e3 / ms for ms in self.step_ms),
+                 device_busy_ms_per_step=self.busy_ms,
+                 device_union_ms_per_step=self.union_ms,
+                 profiled_ms_per_step=self.profiled_ms,
+                 idle_share=(None if self.busy_ms is None else
+                             1.0 - self.busy_ms / mean_ms),
+                 idle_share_union=(None if self.union_ms is None else
+                                   1.0 - self.union_ms / mean_ms),
+                 launches_per_step={name: n / self.window_steps
+                                    for name, n in self.launches.items()},
+                 peak_gb=self.peak_gb, top_kernels_ms_per_step=self.top,
+                 steps=len(losses),
+                 loss_first=losses[0], loss_last=losses[-1])
+        if self.learner is not None:
+            timings = self.learner.timings
+            r.update(sample_ms=statistics.median(timings["sample_ms"]),
+                     h2d_ms=statistics.median(timings["h2d_ms"]),
+                     batches_timed=len(timings["sample_ms"]),
+                     dropped_priority_updates=(
+                         self.learner.dropped_priority_updates))
+        return r
 
 
 def choose_autos(cells: dict) -> dict:
@@ -234,7 +302,8 @@ def choose_autos(cells: dict) -> dict:
     medians (see the module docstring); ``cells`` by (path, K)."""
     rate = {key: c["median_seq_updates_per_s"] for key, c in cells.items()}
     speedup = {k: statistics.mean(rate[p, k] / rate[p, KS[0]]
-                                  for p in PATHS) for k in KS}
+                                  for p in PATHS if p != HOST_PATH)
+               for k in KS}
     # the fewest steps a dispatch within K_MARGIN of the best: a larger K
     # coarsens what the host sees (losses, weights) for no measured gain
     best = max(speedup.values())
@@ -255,25 +324,30 @@ def run() -> dict:
     device = torch.device("cuda", 0)
     base = reference_config()
     t0 = time.perf_counter()
-    spec, rs = filled_replay(base, device,
-                             synthetic_blocks(base, base.num_blocks))
+    blocks = synthetic_blocks(base, base.num_blocks)
+    spec, rs = filled_replay(base, device, blocks)
     torch.cuda.synchronize()
     print(f"reference replay: {spec.num_blocks} blocks, ring "
           f"{spec.device_ring_bytes / 1e9:.2f} GB, filled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     cells = {}
-    for label in PATHS:
-        for k in KS:
-            cfg = base.replace(**PATHS[label])
-            cells[label, k] = Cell(label, k, cfg, device, spec, rs)
-    order = list(cells) + list(reversed(list(cells)))
-    for _ in range(ROUNDS):
-        for key in order:
-            cells[key].window(rs, WINDOW)
-    for cell in cells.values():
-        cell.profile(rs)
-    results = {key: cell.result(spec.batch_size)
-               for key, cell in cells.items()}
+    try:
+        for label in PATHS:
+            for k in path_ks(label):
+                cfg = base.replace(**PATHS[label])
+                cells[label, k] = Cell(label, k, cfg, device, spec, rs,
+                                       blocks)
+        order = list(cells) + list(reversed(list(cells)))
+        for _ in range(ROUNDS):
+            for key in order:
+                cells[key].window(rs, WINDOW)
+        for cell in cells.values():
+            cell.profile(rs)
+        results = {key: cell.result(spec.batch_size)
+                   for key, cell in cells.items()}
+    finally:
+        for cell in cells.values():
+            cell.close()
     for r in results.values():
         print(f"bench {r['path']} K={r['k']}: "
               f"{r['median_seq_updates_per_s']:.2f} seq-updates/s, ms/step "
@@ -281,8 +355,11 @@ def run() -> dict:
               + f"; device busy {r['device_busy_ms_per_step']:.3f} ms/step "
               f"(union {r['device_union_ms_per_step']:.3f}, profiled steps "
               f"{r['profiled_ms_per_step']:.3f} ms), idle "
-              f"{r['idle_share']:.4f}, peak {r['peak_gb']:.3f} GB",
-              flush=True)
+              f"{r['idle_share']:.4f} (union {r['idle_share_union']:.4f}), "
+              f"peak {r['peak_gb']:.3f} GB, launches/step "
+              f"{r['launches_per_step']}"
+              + (f"; sample {r['sample_ms']:.3f} ms, H2D {r['h2d_ms']:.3f} "
+                 "ms per batch" if "sample_ms" in r else ""), flush=True)
     return dict(card=card_line(), device=torch.cuda.get_device_name(0),
                 torch=torch.__version__, cuda=torch.version.cuda,
                 shape=dict(batch=spec.batch_size, window=spec.seq_window,

@@ -27,6 +27,12 @@ def sync_train(cfg: Config, train_steps: int, collect_eps: float,
         raise ValueError(
             "sync_train needs replay.max_env_steps_per_train_step >= 1 "
             f"(got {cfg.replay.max_env_steps_per_train_step})")
+    if cfg.replay.placement != "device":
+        raise ValueError(
+            "sync_train requires replay.placement='device': the host "
+            "placement's async prefetch/write-back threads sample "
+            "concurrently with ingestion, which breaks the "
+            "bit-reproducibility this loop exists to provide")
     if not cfg.env.env_id.startswith("Fake"):
         raise ValueError(f"env {cfg.env.env_id!r}: the port has only the "
                          "Fake environment so far")

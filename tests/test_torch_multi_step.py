@@ -183,8 +183,8 @@ def test_dispatch_equals_single_steps_exactly(use_double):
 
 def test_runtime_and_unroll_settings():
     """--runtime.steps_per_dispatch parses; -1 resolves to 1 on the CPU and
-    to the bench's winner on CUDA; other runtime fields of the JAX config
-    are refused. pallas_lstm and fused_double_unroll "auto": off on the
+    to the bench's winner on CUDA; prefetch_batches parses; other runtime
+    fields of the JAX config are refused. pallas_lstm and fused_double_unroll "auto": off on the
     CPU, CUDA_AUTO's choice on CUDA."""
     cfg = parse_overrides(Config(), ["--runtime.steps_per_dispatch=4",
                                      "--optim.fused_double_unroll=on"])
@@ -198,7 +198,10 @@ def test_runtime_and_unroll_settings():
         CUDA_AUTO["runtime.steps_per_dispatch"]
     assert RuntimeConfig(steps_per_dispatch=8).resolved_steps_per_dispatch(
         "cpu") == 8
-    for knob in ("--runtime.prefetch_batches=2", "--runtime.save_interval=5"):
+    assert parse_overrides(Config(), ["--runtime.prefetch_batches=2"]
+                           ).runtime.prefetch_batches == 2
+    for knob in ("--runtime.shm_transport=false",
+                 "--runtime.save_interval=5"):
         with pytest.raises(SystemExit, match="unknown field"):
             parse_overrides(Config(), [knob])
     for resolve, name in ((resolve_pallas_lstm, "network.pallas_lstm"),
@@ -365,17 +368,22 @@ def test_bench_choices_follow_its_pairs():
     """tools/bench.py's choices for "auto" on CUDA: the fewest steps a
     dispatch within 1% of the best mean speed-up over K=1, the fused scan
     iff it beats the loop (single DQN) at that K; the config holds what
-    the committed bench run chose, and fused_double_unroll off."""
+    the committed bench run chose, and fused_double_unroll off. The host
+    path (K = 1 only) takes no part, however fast."""
     from r2d2_tpu_torch.tools import bench
     assert set(bench.PATHS) == {"default", "double", "fused_double",
-                                "fused"}
+                                "fused", "host"}
+    assert bench.path_ks("host") == (1,)
+    assert bench.path_ks("fused") == bench.KS
     base = {"default": 100.0, "double": 80.0, "fused_double": 120.0,
             "fused": 160.0}
     scale = {1: 1.0, 4: 3.0, 16: 3.02}
 
     def cells():
-        return {(p, k): {"median_seq_updates_per_s": r * scale[k]}
-                for p, r in base.items() for k in bench.KS}
+        out = {(p, k): {"median_seq_updates_per_s": r * scale[k]}
+               for p, r in base.items() for k in bench.KS}
+        out["host", 1] = {"median_seq_updates_per_s": 1e6}
+        return out
 
     auto = bench.choose_autos(cells())
     assert auto["runtime.steps_per_dispatch"]["value"] == 4
