@@ -48,7 +48,8 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      prefetch thread's sample and copy ms, busy and idle, launches per
      step (no gather; the decode and the LSTM kernels once a step),
      by count and by the profile's kernel names;
-  5. the trainer through its entry point, r2d2_tpu_torch.cli.train, at the
+  5. the synchronous trainer through its entry point,
+     r2d2_tpu_torch.tools.sync_train, at the
      same widths for three dispatches of the resolved steps per dispatch
      (the eager warm-up, the capture, a replay), on the default path, with
      --network.pallas_lstm=on --network.use_double=true, and on padded
@@ -57,7 +58,42 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      (the gather's two rows: unpadded and padded storage; a graph replay
      adds the launches its capture counted), each run under the profiler,
      whose kernel names must show the same launches; the host path's
-     timed launches go beside them (``host_path_launches``).
+     timed launches go beside them (``host_path_launches``);
+  6. the orchestrated trainer through its entry point,
+     r2d2_tpu_torch.cli.train, at the reference widths (capacity 100,000)
+     for ORCH_SECONDS each: thread actors on the default configuration,
+     then spawned process actors (the shm ring) with
+     --network.pallas_lstm=on --network.use_double=true; a periodic
+     checkpoint every ORCH_SAVE_INTERVAL steps, ORCH_KEEP kept. Each run:
+     the learner trains on cuda with finite losses, the step-0 and the
+     final checkpoints are written, a periodic one falls inside the timed
+     window and the step-0 one is pruned, the reference's log lines are
+     there, every actor has ended (children with exit code 0, which they
+     give only if they never initialized CUDA) and every shm segment is
+     unlinked; a window of PROFILE_DISPATCHES dispatches under the
+     profiler (one dispatch of tracer warm-up before it; a spin kernel
+     marks its end on the card and one more dispatch runs traced, so the
+     tracer's records of the window's last kernels are in; a trace that
+     lost events is taken again, at most PROFILE_TRIES times), whose
+     kernel names must equal the wrappers' launch counts (these go into
+     the ``kernels`` line as ``orchestrated_launches``).
+     Printed: the learner's seq-updates/s over a window from a sync
+     after its second dispatch to a sync END_MARGIN_S before the run's
+     bound (publications and checkpoints inside, and the figure with the
+     checkpoints taken out; the profiled window follows it, away from a
+     checkpoint, and its trace's processing outlasts the run's bound),
+     env steps/s, the warm-up's seconds, blocks ingested, publications
+     and their host ms, each checkpoint's step and ms, the host seconds
+     spent in each part of the loop, the host ms between dispatches
+     (median, p90, max, stalls, and the stalls' and largest intervals'
+     host ms by part), and the device's busy and idle share over the
+     profiled window; then r2d2_tpu_torch.cli.evaluate --play on the
+     final checkpoint, 2 rounds;
+  7. learnability: r2d2_tpu_torch/tools/learnability.py's configuration
+     and thresholds (those of tests/test_torch_learnability.py) through
+     tools.sync_train with the learner on the card, one
+     step a dispatch (K=1, the JAX test's collect ratio of 2 env steps a
+     step): every evaluation seed >= 2x random, the mean >= 3x.
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
 The last line is {"ok": true, "device": {...}}. ``--profile`` adds a
@@ -70,6 +106,7 @@ gather.
 
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -123,6 +160,8 @@ FUSED_ARGS = ["--network.pallas_lstm=on", "--network.use_double=true"]
 REF_WINDOW = 16                    # steps a timed window; a multiple of K
 GRAPH_K = 4                        # the graph-vs-eager phase's dispatch
 GRAPH_PATHS = ("default", "fused_double")
+PROFILE_TRIES = 3                  # traces of one graph replay (if empty)
+                                   # or of a window (if short)
 HOST_WINDOWS = 2                   # timed windows of the host path
 REF_CPU_BLOCKS = 8                 # replay of the card-vs-CPU f32 step
 # the device's kernel names -> the wrapper launch count each stands for
@@ -134,6 +173,20 @@ KERNEL_NAMES = {
     "lstm_bwd": re.compile(r"lstm_bwd_kernel"),
 }
 PADDED_ARGS = ["--replay.pallas_exact_gather=on"]    # 84x84 stored as 96x128
+ORCH_SECONDS = 40.0                # each orchestrated cli.train run
+ORCH_SAVE_INTERVAL = 800          # learner steps between its checkpoints
+ORCH_KEEP = 2                      # checkpoints it keeps
+END_MARGIN_S = 7.0                 # its timed window ends this long before
+                                   # ORCH_SECONDS, at a sync; the profiled
+                                   # window follows
+PROFILE_DISPATCHES = 16            # dispatches of its profiled window
+ORCH_RUNS = (("thread", [], "thread actors, default"),
+             ("process", FUSED_ARGS,
+              "process actors, pallas_lstm on, double DQN"))
+ORCH_LOG_LINES = (r"^buffer size: \d+$", r"^buffer update speed: .*/s$",
+                  r"^number of environment steps: \d+$",
+                  r"^number of training steps: \d+$",
+                  r"^training speed: .*/s$", r"^loss: -?\d+\.\d{4}$")
 BACK_TO_BACK = 20                  # launches enqueued ahead of the card
 SPIN_CYCLES = 20_000_000           # ~10 ms: longer than enqueuing them
 # cuDNN kernels of a 4-channel first conv's fallback (a layout conversion,
@@ -1133,8 +1186,10 @@ def phase_external_graph_vs_eager(dev, base, blocks):
     steps (the graph's own body) from the same weights on the same
     GRAPH_K host batches, at the reference shape in bf16 with the host
     path's settings: losses, grad norms and priorities within rtol 1e-4
-    (priorities atol 1e-6). The last replay runs under the profiler: the
-    kernels by their device names once each, no gather."""
+    (priorities atol 1e-6). Then one more replay runs under the profiler:
+    the kernels by their device names once each, no gather (a trace that
+    holds no device event at all, the tracer's loss, is taken again, at
+    most PROFILE_TRIES times)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1147,17 +1202,7 @@ def phase_external_graph_vs_eager(dev, base, blocks):
     counted = {}
     for i, batch in enumerate(batches):
         _reset_counts()
-        if i == len(batches) - 1:
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                _, m = graphed(ts_graph, batch)
-                torch.cuda.synchronize()
-            seen = _profiled_kernel_counts(prof)
-            check(seen == _want_host_launches(cfg, 1),
-                  f"external graph: the profile shows {seen}")
-        else:
-            _, m = graphed(ts_graph, batch)
+        _, m = graphed(ts_graph, batch)
         got = _host_metrics(m)
         counted = {k: counted.get(k, 0) + n for k, n in _counts().items()}
         want = _host_metrics(eager.body(ts_eager, batch))
@@ -1175,8 +1220,19 @@ def phase_external_graph_vs_eager(dev, base, blocks):
           and int(ts_graph.step_count) == GRAPH_K, "external graph steps")
     check(counted == _want_host_launches(cfg, GRAPH_K),
           f"external graph: launches {counted}")
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            graphed(ts_graph, batches[-1])
+            torch.cuda.synchronize()
+        if bench.device_kernels(prof):
+            break
+    seen = _profiled_kernel_counts(prof)
+    check(seen == _want_host_launches(cfg, 1),
+          f"external graph: the profile shows {seen}")
     print(f"external graph vs eager ({GRAPH_K} steps, bf16 reference "
-          f"shape): launches {counted}, the last replay's kernels by name "
+          f"shape): launches {counted}, one more replay's kernels by name "
           f"{seen}", flush=True)
     del batches, ts_graph, ts_eager, graphed, eager
     torch.cuda.empty_cache()
@@ -1291,20 +1347,20 @@ def phase_host_learner(dev, base, blocks) -> dict:
 
 
 def phase_cli(dev, extra, label, k):
-    """cli.train on the card for three dispatches of the resolved K (the
-    eager warm-up, the capture, a replay), under the profiler: the launch
-    counts (a graph replay's added from its capture) must be what the
-    device ran, by its kernel names."""
+    """tools.sync_train on the card for three dispatches of the resolved K
+    (the eager warm-up, the capture, a replay), under the profiler: the
+    launch counts (a graph replay's added from its capture) must be what
+    the device ran, by its kernel names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from r2d2_tpu_torch.cli import train
+    from r2d2_tpu_torch.tools import sync_train
     steps = 3 * k
     _reset_counts()
     torch.cuda.synchronize()
     # the device's events only: tracing the host's ops of a whole run
     # would cost more than the run
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        summary = train.main([
+        summary = sync_train.main([
             "--env.game_name=Fake", "--replay.capacity=20000",
             "--replay.learning_starts=400",
             "--replay.max_env_steps_per_train_step=4",
@@ -1313,7 +1369,7 @@ def phase_cli(dev, extra, label, k):
     launches = _counts()
     seen = _profiled_kernel_counts(prof)
     check(seen == {name: launches[name] for name in seen},
-          f"cli.train {label}: the profile shows {seen}, counted "
+          f"sync_train {label}: the profile shows {seen}, counted "
           f"{launches}")
     check(summary["steps"] == steps
           and summary["device"].startswith("cuda"), summary["device"])
@@ -1322,11 +1378,377 @@ def phase_cli(dev, extra, label, k):
     overrides = {"network.pallas_lstm": "on", "network.use_double": True} \
         if extra == FUSED_ARGS else {}
     want = _want_launches(overrides, steps)
-    check(launches == want, f"cli.train {label}: launches {launches}")
-    print(f"cli.train on the card ({label}): {steps} steps in dispatches "
+    check(launches == want, f"sync_train {label}: launches {launches}")
+    print(f"sync_train on the card ({label}): {steps} steps in dispatches "
           f"of {k}, launches {launches}, equal to the profile's kernel "
           "names", flush=True)
     return launches
+
+
+def _time_calls(obj, name: str, seconds: dict) -> None:
+    """Wrap ``obj.name`` to add each call's host seconds to
+    ``seconds[name]`` (what the orchestrated loop spends where)."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+
+
+def _raw_device_events(prof) -> list:
+    """(name, start ns, end ns) of a profile's device events (no user
+    annotations), in order of start, read from the tracer's own records:
+    without the operator tree that ``prof.events()`` builds, which takes
+    seconds for a window of the default path's kernels."""
+    from torch.autograd import DeviceType
+    return sorted(((e.name(), e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not e.is_user_annotation()),
+                  key=lambda e: e[1])
+
+
+# the kernel of torch.cuda._sleep, which marks a profiled window's end
+END_MARK = "spin_kernel"
+
+
+def _raw_kernel_counts(events) -> dict:
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for name, _, _ in events:
+        for key, pattern in KERNEL_NAMES.items():
+            if pattern.search(name):
+                counts[key] += 1
+    return counts
+
+
+def _busy_ms(events) -> float:
+    return sum(stop - start for _, start, stop in events) / 1e6
+
+
+def _union_ms(events) -> float:
+    """Device time with overlapping events counted once, ms."""
+    total, end = 0, None
+    for _, start, stop in events:       # in order of start
+        if end is None or start >= end:
+            total += stop - start
+            end = stop
+        elif stop > end:
+            total += stop - end
+            end = stop
+    return total / 1e6
+
+
+def _interval_stats(state) -> dict:
+    """Host ms between consecutive dispatches from the third to the
+    timed window's end: median, p90, max, and the
+    seconds the intervals longer than 1.5x the median hold beyond it
+    (stalls); and where the stalls' and the three largest intervals' host
+    time went, by part of the loop (``wait``: none of the timed parts,
+    chiefly the wait for the card)."""
+    marks, parts = state["marks"], state["parts"]
+    intervals = []
+    for i in range(3, state["end"][3] + 1):
+        ms = (marks[i - 1] - marks[i - 2]) * 1e3
+        spent = {name: (s - parts[i - 2].get(name, 0.0)) * 1e3
+                 for name, s in parts[i - 1].items()}
+        spent = {name: x for name, x in spent.items() if x > 0}
+        spent["wait"] = ms - sum(spent.values())
+        intervals.append((ms, i, spent))
+    ms = sorted(x for x, _, _ in intervals)
+    median = statistics.median(ms)
+    stall_parts: dict = {}
+    for x, _, spent in intervals:
+        if x > 1.5 * median:
+            for name, v in spent.items():
+                stall_parts[name] = stall_parts.get(name, 0.0) + v
+    largest = sorted(intervals, key=lambda t: t[0], reverse=True)[:3]
+    return dict(dispatch_ms_median=median,
+                dispatch_ms_p90=ms[int(0.9 * (len(ms) - 1))],
+                dispatch_ms_max=ms[-1],
+                stall_s=sum(x - median for x in ms if x > 1.5 * median) / 1e3,
+                stalls=sum(1 for x in ms if x > 1.5 * median),
+                stall_ms_by_part={k: round(v, 3)
+                                  for k, v in sorted(stall_parts.items())},
+                largest_intervals=[
+                    dict(dispatch=i, ms=round(x, 3),
+                         by_part={k: round(v, 3)
+                                  for k, v in sorted(spent.items())})
+                    for x, i, spent in largest])
+
+
+def _orchestrated_report(summary, state, k, batch) -> dict:
+    """The numbers of one orchestrated run, from its summary and what its
+    dispatch hook recorded (host clock; the window from a sync after the
+    second dispatch to a sync END_MARGIN_S before the run's bound)."""
+    (t0, s0), (t1, s1, env1, _) = state["start"], state["end"]
+    steps, seconds = s1 - s0, t1 - t0
+    window = state["window"]
+    window_ms, busy, union = window["ms"], window["busy"], window["union"]
+    saves = state["saves"]
+    inside = [x for x in saves
+              if t0 <= x["t"] and x["t"] + x["ms"] / 1e3 <= t1]
+    save_s = sum(x["ms"] for x in inside) / 1e3
+    return dict(
+        steps=summary["steps"], steps_per_dispatch=k,
+        seq_updates_per_s=batch * steps / seconds,
+        seq_updates_per_s_saves_out=batch * steps / (seconds - save_s),
+        window_steps=steps, window_s=seconds,
+        env_steps=summary["env_steps"],
+        env_steps_per_s=summary["env_steps"] / summary["seconds"],
+        # ingested while the learner trained (dispatch 2 to the window end)
+        env_steps_per_s_training=(env1 - state["env_start"]) / (t1 - t0),
+        run_s=summary["seconds"],
+        warmup_s=state["warmup_s"],
+        blocks_ingested=summary["blocks_ingested"],
+        publishes=summary["publishes"],
+        publish_host_ms=summary["publish_ms"],
+        publish_write_ms=summary["publish_write_ms"],
+        saves=[dict(index=x["index"], step=x["step"], ms=round(x["ms"], 3),
+                    in_window=x in inside) for x in saves],
+        saves_in_window=len(inside), save_s_in_window=save_s,
+        step0_save_ms=summary["save_ms"][0],
+        checkpoints=summary["checkpoints"],
+        profiled_ms_per_dispatch=window_ms,
+        device_busy_ms_per_dispatch=busy,
+        device_union_ms_per_dispatch=union,
+        idle_share=1.0 - busy / window_ms,
+        idle_share_union=1.0 - union / window_ms,
+        final_loss=summary["final_loss"],
+        host_s={name: round(v, 3) for name, v in state["host_s"].items()},
+        **_interval_stats(state))
+
+
+def _record_saves(learner, state) -> None:
+    """Wrap ``learner.save`` so each call records its index, the step,
+    its start on the host clock and its ms in state["saves"]."""
+    save = learner.save
+
+    def recorded(index):
+        t0 = time.perf_counter()
+        try:
+            return save(index)
+        finally:
+            state["saves"].append(dict(
+                index=index, step=learner.training_steps, t=t0,
+                ms=(time.perf_counter() - t0) * 1e3))
+
+    learner.save = recorded
+
+
+def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
+    """cli.train on the card for ORCH_SECONDS with ``mode`` actors at the
+    reference widths (see the module docstring, phase 6). Returns (the
+    profiled window's launch counts, the report)."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from r2d2_tpu_torch.cli import train
+    from r2d2_tpu_torch.config import Config
+    batch = Config().replay.batch_size
+    state = {"calls": 0, "marks": [], "parts": [], "host_s": {},
+             "saves": []}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as save_dir:
+        step0 = os.path.join(save_dir, "Fake0_player0")
+
+        def start_window(n):
+            """Prepare the tracer over the next dispatch (its warm-up,
+            kept out of the trace); record the PROFILE_DISPATCHES after
+            it."""
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=1,
+                                             active=PROFILE_DISPATCHES,
+                                             repeat=1))
+            prof.__enter__()
+            state["prof"] = prof
+            state["window_start"] = n + 1
+
+        def record_window(n):
+            torch.cuda.synchronize()
+            state["prof"].step()
+            _reset_counts()
+            state["window_end"] = n + PROFILE_DISPATCHES
+            state["window_t0"] = time.perf_counter()
+
+        def close_window(n):
+            """The window's last dispatch has run: take its time and
+            counts, and mark its end on the card with a spin kernel. One
+            more dispatch runs traced before the tracer stops, so that the
+            tracer's records of the window's own last kernels are in."""
+            torch.cuda.synchronize()
+            state["window_synced"] = time.perf_counter()
+            state["window_launches"] = _counts()
+            torch.cuda._sleep(1000)
+            state["cooldown_end"] = n + 1
+
+        def end_window(n):
+            """Stop the tracer and read the device events before the end
+            mark; a trace that holds none, or whose kernel names disagree
+            with the wrappers' counts (the tracer has lost events), is
+            taken again, up to PROFILE_TRIES windows; the last one taken
+            is kept."""
+            torch.cuda.synchronize()
+            prof = state.pop("prof")
+            prof.__exit__(None, None, None)
+            events = _raw_device_events(prof)
+            del prof
+            ends = [start for name, start, _ in events if END_MARK in name]
+            if ends:
+                events = [e for e in events if e[1] < ends[-1]]
+            seen = _raw_kernel_counts(events)
+            launches = state["window_launches"]
+            state.setdefault("tries", []).append(seen)
+            if (ends and events and seen == launches) \
+                    or len(state["tries"]) >= PROFILE_TRIES:
+                state["window"] = dict(
+                    ms=(state["window_synced"] - state["window_t0"]) * 1e3
+                    / PROFILE_DISPATCHES,
+                    busy=_busy_ms(events) / PROFILE_DISPATCHES,
+                    union=_union_ms(events) / PROFILE_DISPATCHES,
+                    seen=seen, launches=launches, end_marked=bool(ends))
+            else:
+                start_window(n)
+
+        def hook(stack):
+            state["calls"] += 1
+            n = state["calls"]
+            steps = stack.learner.training_steps
+            state["marks"].append(time.perf_counter())
+            state["parts"].append(dict(state["host_s"]))
+            if n == 1:
+                state["step0_written"] = os.path.exists(step0)
+                state["warmup_s"] = time.perf_counter() - state["launched"]
+                learner = stack.learner
+                for obj, name in ((learner, "drain"), (learner, "_step_fn"),
+                                  (learner, "publish"), (learner, "save"),
+                                  (learner, "flush_metrics"),
+                                  (stack, "supervise")):
+                    _time_calls(obj, name, state["host_s"])
+                _record_saves(learner, state)
+            if n == 2:
+                torch.cuda.synchronize()
+                state["start"] = (time.perf_counter(), steps)
+                state["env_start"] = stack.learner.env_steps
+            elif "end" not in state:
+                if n > 2 and time.perf_counter() >= state["close"]:
+                    # the window ends once the card has run every dispatch
+                    torch.cuda.synchronize()
+                    state["end"] = (time.perf_counter(), steps,
+                                    stack.learner.env_steps, n)
+            elif "prof" in state:
+                if n == state["window_start"]:
+                    record_window(n)
+                elif n == state.get("window_end"):
+                    close_window(n)
+                elif n == state.get("cooldown_end"):
+                    end_window(n)
+            elif "window" not in state:
+                # after the timed window, with no checkpoint inside
+                span = ((PROFILE_DISPATCHES + 2)
+                        * stack.learner.steps_per_dispatch)
+                if (steps // ORCH_SAVE_INTERVAL
+                        == (steps + span) // ORCH_SAVE_INTERVAL):
+                    start_window(n)
+
+        try:
+            state["launched"] = time.perf_counter()
+            state["close"] = state["launched"] + ORCH_SECONDS - END_MARGIN_S
+            summary = train.main([
+                "--env.game_name=Fake", "--replay.capacity=100000",
+                f"--runtime.save_dir={save_dir}",
+                f"--runtime.save_interval={ORCH_SAVE_INTERVAL}",
+                f"--runtime.keep_checkpoints={ORCH_KEEP}",
+                "--runtime.log_interval=10",
+                f"--actor-mode={mode}", f"--max-seconds={ORCH_SECONDS}",
+                *extra], dispatch_hook=hook)
+        finally:
+            if state.get("prof") is not None:
+                state.pop("prof").__exit__(None, None, None)
+        check("window" in state and "end" in state, f"cli.train {label}: "
+              f"only {state['calls']} dispatches, fewer than the profiled "
+              "window or too few to reach the timed window's end")
+        steps = summary["steps"]
+        check(summary["device"].startswith("cuda"), summary["device"])
+        check(len(summary["losses"]) == steps
+              and all(math.isfinite(x) for x in summary["losses"]),
+              f"cli.train {label}: a loss is not finite")
+        check(state["step0_written"], "no step-0 checkpoint")
+        report = _orchestrated_report(summary, state, k, batch)
+        # a periodic save inside the timed window, and the pruning it
+        # causes: the step-0 checkpoint is gone, ORCH_KEEP are kept
+        check(any(x["index"] >= 1 and x["in_window"]
+                  for x in report["saves"]),
+              f"cli.train {label}: no periodic checkpoint inside the timed "
+              f"window: {report['saves']}")
+        final = (f"Fake{steps // ORCH_SAVE_INTERVAL + 1}_player0"
+                 if steps % ORCH_SAVE_INTERVAL else
+                 f"Fake{steps // ORCH_SAVE_INTERVAL}_player0")
+        check(final in summary["checkpoints"]
+              and len(summary["checkpoints"]) == ORCH_KEEP
+              and "Fake0_player0" not in summary["checkpoints"],
+              f"checkpoints {summary['checkpoints']}, want {final} and "
+              f"{ORCH_KEEP} kept, the step-0 one pruned")
+        log = open(os.path.join(save_dir, "train_player0.log")).read()
+        for line in ORCH_LOG_LINES:
+            check(re.search(line, log, re.M), f"no log line {line!r}")
+        check(summary["actors_alive"] == 0, "an actor is still running")
+        if mode == "process":
+            check(summary["actor_exitcodes"] == [0, 0],
+                  f"actor exit codes {summary['actor_exitcodes']}")
+        left = [n for n in summary["shm_segments"]
+                if os.path.exists(os.path.join("/dev/shm", n))]
+        check(not left, f"shm segments left: {left}")
+        launches = state["window"]["launches"]
+        seen = state["window"]["seen"]
+        if len(state["tries"]) > 1:
+            print(f"cli.train {label}: profiled windows taken "
+                  f"{len(state['tries'])} times; kernel names seen: "
+                  f"{state['tries']}", flush=True)
+        overrides = {"network.pallas_lstm": "on",
+                     "network.use_double": True} if extra == FUSED_ARGS \
+            else {}
+        want = _want_launches(overrides, PROFILE_DISPATCHES * k)
+        check(seen == launches == want, f"cli.train {label}: the profile "
+              f"shows {seen}, counted {launches}, want {want}")
+        report["launches"] = launches
+        print(f"orchestrated cli.train ({label}): " + json.dumps(report),
+              flush=True)
+        if evaluate:
+            from r2d2_tpu_torch.cli import evaluate as evaluate_cli
+            ckpt = os.path.join(save_dir, final)
+            t0 = time.perf_counter()
+            result = evaluate_cli.main(["--play", ckpt, "--rounds", "2"])
+            row = result["evaluations"][0]
+            check(math.isfinite(row["mean_return"]) and row["step"] == steps,
+                  f"evaluate: {row}")
+            print(f"cli.evaluate --play {final} (2 rounds, on the CPU): "
+                  f"mean return {row['mean_return']}, step {row['step']}, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, report
+
+
+def phase_learnability(dev):
+    """tools/learnability.py's configuration, budget and thresholds (those
+    of the CPU test) through sync_train with the learner on the card,
+    K=1."""
+    import tempfile
+    from r2d2_tpu_torch.tools import learnability as learn
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_learn_") as d:
+        cfg = learn.learn_config(d, **{"runtime.steps_per_dispatch": 1})
+        t0 = time.perf_counter()
+        result = learn.train_and_eval(cfg, dev)
+        seconds = time.perf_counter() - t0
+    check(result["training_steps"] >= learn.TRAIN_STEPS, result)
+    learn.check_returns(result["returns"])
+    print(f"learnability on the card (K=1, {learn.TRAIN_STEPS} steps, "
+          f"{seconds:.1f} s): greedy returns {result['returns']} (random "
+          "20, oracle 120; thresholds: each >= 40, mean >= 60)", flush=True)
 
 
 def main(argv) -> int:
@@ -1391,7 +1813,16 @@ def main(argv) -> int:
                      if name.startswith("lstm")})
     launches["gather_windows_padded"] = phase_cli(
         dev, PADDED_ARGS, "padded storage", resolved_k)["gather_windows"]
+    done("sync_train")
+    orchestrated = {}
+    for i, (mode, extra, label) in enumerate(ORCH_RUNS):
+        counted, _ = phase_orchestrated(dev, mode, extra, label, resolved_k,
+                                        evaluate=i == len(ORCH_RUNS) - 1)
+        for name, n in counted.items():
+            orchestrated[name] = max(orchestrated.get(name, 0), n)
     done("cli.train")
+    phase_learnability(dev)
+    done("learnability")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}
@@ -1402,7 +1833,9 @@ def main(argv) -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
                     host_path_launches=host_launches.get(
-                        name.replace("_padded", ""), 0))
+                        name.replace("_padded", ""), 0),
+                    orchestrated_launches=(0 if name.endswith("_padded")
+                                           else orchestrated[name]))
                for name, r in timings.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,37 +1,69 @@
-"""Training CLI of the PyTorch port: the synchronous collect:learn loop.
+"""Training CLI of the PyTorch port, the twin of the JAX package's
+``cli/train.py``: the orchestrated trainer (runtime/orchestrator.py), with
+actors in spawned processes (default) or threads feeding the learner.
 
-    python -m r2d2_tpu_torch.cli.train --env.game_name=Fake --max-steps=100
-    python -m r2d2_tpu_torch.cli.train --env.game_name=Fake --max-steps=5 \
-        --device=cpu --env.frame_height=24 --env.frame_width=24 ...
+    python -m r2d2_tpu_torch.cli.train --env.game_name=Fake --max-seconds=60
+    python -m r2d2_tpu_torch.cli.train --env.game_name=Fake --device=cpu \
+        --actor-mode=thread --max-steps=20 --env.frame_height=24 ...
 
 Extra (non-config) flags:
-    --max-steps=N       learner steps to take (default optim.training_steps)
-    --device=NAME       "cuda" (default; raises if there is none) or "cpu"
-    --seed=N            env, weights and sampling seed (default 0)
-    --collect-eps=E     epsilon of the collecting policy (default 0.4)
+    --actor-mode=thread|process   actor execution mode (default: process)
+    --max-steps=N                 stop after N learner steps
+    --max-seconds=S               wall-clock bound
+    --device=NAME                 "cuda" (default; raises without one) or
+                                  "cpu"
 
-The collect:learn ratio is ``replay.max_env_steps_per_train_step`` env
-steps per dispatch of ``runtime.steps_per_dispatch`` learner steps (-1, the
-default: 1 on the CPU, the bench's winner on CUDA; one CUDA graph of K
-steps there); values below 1 run one env step per dispatch. Each log line
-holds a dispatch's losses.
+Checkpoints land in ``runtime.save_dir`` as ``{game}{k}_player0`` (k =
+step // save_interval; the step-0 one first, the final one on any clean
+stop), the log in ``train_player0.log`` beside them. The last line printed
+is a JSON summary, which ``main`` also returns (with every flushed loss).
+The synchronous collect:learn loop is ``r2d2_tpu_torch.tools.sync_train``.
 """
 
 import json
 import math
+import os
 import sys
+import time
 
 
-def main(argv=None) -> dict:
-    import torch
+def _summary(stack, device, seconds: float) -> dict:
+    from r2d2_tpu_torch.runtime.checkpoint import list_checkpoints
+    learner = stack.learner
+    losses = learner.losses
+    snaps = stack.snapshots
+    workers = stack.processes or stack.threads
+    return {
+        "steps": learner.training_steps,
+        "env_steps": learner.env_steps,
+        "device": str(device),
+        "final_loss": losses[-1] if losses else math.nan,
+        "seconds": seconds,
+        "blocks_ingested": stack.metrics.ingest_blocks_total,
+        "publishes": snaps.publishes if snaps else 0,
+        "publish_ms": (sum(learner.publish_ms) / len(learner.publish_ms)
+                       if learner.publish_ms else None),
+        "publish_write_ms": (snaps.write_ms / snaps.publishes
+                             if snaps and snaps.publishes else None),
+        "save_ms": list(learner.save_ms),
+        "checkpoints": [os.path.basename(p) for _, p in list_checkpoints(
+            stack.cfg.runtime.save_dir, stack.cfg.env.game_name,
+            stack.player_idx)],
+        "actor_exitcodes": [getattr(w, "exitcode", None) for w in workers],
+        "actors_alive": sum(1 for w in workers if w.is_alive()),
+        "shm_segments": stack.segment_names,
+        "losses": losses,
+    }
+
+
+def main(argv=None, dispatch_hook=None) -> dict:
     from r2d2_tpu_torch.config import Config, parse_overrides
-    from r2d2_tpu_torch.tools.sync_train import sync_train
-    from r2d2_tpu_torch.utils.device import configure_numerics
+    from r2d2_tpu_torch.runtime.orchestrator import train
+    from r2d2_tpu_torch.utils.device import resolve_device
 
-    configure_numerics()
     argv = list(sys.argv[1:] if argv is None else argv)
-    flags = {"max-steps": None, "device": None, "seed": "0",
-             "collect-eps": "0.4"}
+    flags = {"actor-mode": "process", "max-steps": None,
+             "max-seconds": None, "device": None}
     rest = []
     for arg in argv:
         name, _, value = arg[2:].partition("=")
@@ -40,26 +72,23 @@ def main(argv=None) -> dict:
         else:
             rest.append(arg)
     cfg = parse_overrides(Config(), rest)
-    if cfg.replay.max_env_steps_per_train_step < 1:
-        cfg = cfg.replace(**{"replay.max_env_steps_per_train_step": 1})
-    max_steps = (int(flags["max-steps"]) if flags["max-steps"]
-                 else cfg.optim.training_steps)
+    device = resolve_device(flags["device"])
 
-    def log(step, metrics):
-        print(json.dumps({"step": step, "loss": metrics["loss"].tolist()}),
-              flush=True)
+    def log(record: dict) -> None:
+        print(" | ".join(f"{k}={v}" for k, v in record.items()
+                         if v is not None), flush=True)
 
-    net, learner = sync_train(cfg, max_steps, float(flags["collect-eps"]),
-                              seed=int(flags["seed"]),
-                              device=flags["device"], log_fn=log)
-    losses = (torch.cat([x.reshape(-1) for x in learner.losses]).tolist()
-              if learner.losses else [])
-    summary = {"steps": learner.training_steps,
-               "env_steps": learner.env_steps,
-               "device": str(net.device),
-               "final_loss": losses[-1] if losses else math.nan}
-    print(json.dumps(summary), flush=True)
-    summary["losses"] = losses
+    t0 = time.time()
+    stack = train(cfg,
+                  max_training_steps=(int(flags["max-steps"])
+                                      if flags["max-steps"] else None),
+                  max_seconds=(float(flags["max-seconds"])
+                               if flags["max-seconds"] else None),
+                  actor_mode=flags["actor-mode"], device=device,
+                  log_fn=log, dispatch_hook=dispatch_hook)
+    summary = _summary(stack, device, time.time() - t0)
+    print(json.dumps({k: v for k, v in summary.items() if k != "losses"}),
+          flush=True)
     return summary
 
 

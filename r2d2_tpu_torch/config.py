@@ -1,8 +1,10 @@
-"""Configuration of the PyTorch port: the env, network, sequence, replay and
-optim sections of the JAX package's config, with the same field names and
-defaults, so a ``--section.field=value`` override means the same thing in
-both packages. Only the fields the port reads are here: a JAX-only setting
-(``--network.inference_dtype=int8``, ``--runtime.save_interval=N``, ...) is
+"""Configuration of the PyTorch port: the env, network, sequence, replay,
+optim, actor and runtime sections of the JAX package's config, with the
+same field names and defaults, so a ``--section.field=value`` override
+means the same thing in both packages. Only the fields the port reads are
+here: a setting of a part the port does not have yet
+(``--network.inference_dtype=int8``, ``--replay.ingest_batch_blocks=8``,
+``--runtime.snapshot_interval=N``, ``--actor.on_device=true``, ...) is
 refused as an unknown field instead of being ignored.
 
 The tri-state knobs ("on"/"off"/"auto") resolve for the device the port
@@ -46,8 +48,9 @@ runs on, never for a TPU:
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 PLACEMENTS = ("device", "host")       # replay.placement
 
@@ -116,7 +119,12 @@ class ReplayConfig:
     learning_starts: int = 1_000
     pallas_sample_gather: str = "auto"
     pallas_exact_gather: str = "auto"
-    # env steps collected per learner step by the synchronous trainer
+    # blocks the learner pops from the feeder queue per drain, in the
+    # training loop and the orchestrator's warm-up loop alike
+    drain_max_blocks: int = 32
+    # rate limiter: ingestion pauses once env_steps > learning_starts +
+    # ratio * train_steps (0 = unthrottled); the synchronous trainer
+    # collects exactly this many env steps per dispatch
     max_env_steps_per_train_step: float = 0.0
     placement: str = "device"       # or "host"
 
@@ -141,12 +149,57 @@ class OptimConfig:
 
 
 @dataclass(frozen=True)
+class ActorConfig:
+    """Ape-X actor fan-out."""
+
+    num_actors: int = 2
+    base_eps: float = 0.4
+    eps_alpha: float = 7.0
+    actor_update_interval: int = 400   # env steps between weight pulls
+    max_episode_steps: int = 27_000
+    near_greedy_eps: float = 0.02      # episode returns come from actors below
+    # env lanes per actor worker (envs/vector.py): N > 1 steps N envs
+    # through one (N, 1) policy forward a tick; the epsilon ladder spreads
+    # over num_actors * envs_per_actor lanes (vector_lane_epsilons)
+    envs_per_actor: int = 1
+
+
+@dataclass(frozen=True)
 class RuntimeConfig:
+    save_dir: str = "models"
+    pretrain: str = ""               # weights-only warm start ("" = none)
+    # full resume: params, target params, optimizer state, step, env_steps
+    # and the sampling generator
+    resume: str = ""
+    save_interval: int = 1_000       # learner steps between checkpoints
+    log_interval: float = 20.0       # seconds between metric log lines
+    weight_publish_interval: int = 2  # learner steps between publications
     # learner steps per dispatch: one CUDA graph of K steps on the card, K
-    # eager steps on the CPU; -1 = auto (resolved_steps_per_dispatch)
+    # eager steps on the CPU; -1 = auto (resolved_steps_per_dispatch).
+    # Publish and checkpoint cadences coarsen to dispatch boundaries.
     steps_per_dispatch: int = -1
     # host placement: device batches the prefetch thread keeps queued
     prefetch_batches: int = 4
+    # process actors: blocks cross through the native shared-memory ring
+    # (a failed build raises); false: a multiprocessing.Queue
+    shm_transport: bool = True
+    test_epsilon: float = 0.01
+    seed: int = 0
+    restart_dead_actors: bool = True
+    # worker health: supervision cadence, the hang watchdog (0 = off) and
+    # its grace before a worker's first heartbeat
+    supervise_interval_s: float = 5.0
+    hang_timeout_s: float = 120.0
+    hang_spawn_grace_s: float = 300.0
+    # per-slot restart backoff (the k-th failure in the window waits
+    # base * 2^(k-2), capped) and the crash-loop breaker (0 = off)
+    restart_backoff_base_s: float = 1.0
+    restart_backoff_max_s: float = 60.0
+    max_restarts_per_window: int = 5
+    restart_window_s: float = 300.0
+    # one diagnostic dump when no block arrives for this long (0 = off)
+    ingest_stall_timeout_s: float = 300.0
+    keep_checkpoints: int = 0        # newest K kept per player; 0 = all
 
     def resolved_steps_per_dispatch(self, device) -> int:
         """A value > 0 as given; otherwise the bench's winner on CUDA and 1
@@ -165,6 +218,7 @@ class Config:
     sequence: SequenceConfig = field(default_factory=SequenceConfig)
     replay: ReplayConfig = field(default_factory=ReplayConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    actor: ActorConfig = field(default_factory=ActorConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
     def __post_init__(self):
@@ -183,6 +237,15 @@ class Config:
         if self.replay.placement not in PLACEMENTS:
             raise ValueError(f"replay.placement must be one of {PLACEMENTS}"
                              f"; got {self.replay.placement!r}")
+        if self.replay.drain_max_blocks < 1:
+            raise ValueError(
+                f"replay.drain_max_blocks ({self.replay.drain_max_blocks}) "
+                "must be >= 1")
+        if not 1 <= self.actor.envs_per_actor <= 100:
+            raise ValueError(
+                f"actor.envs_per_actor ({self.actor.envs_per_actor}) must be "
+                "in [1, 100]: per-lane seeds fill the worker's 100-wide seed "
+                "window (runtime.seed + 100*actor_idx + lane)")
 
     @property
     def seqs_per_block(self) -> int:
@@ -203,6 +266,36 @@ class Config:
         return dataclasses.replace(self, **{
             section: dataclasses.replace(getattr(self, section), **fields)
             for section, fields in updates.items()})
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Config":
+        """Inverse of to_dict (tuples round-trip through JSON lists); a
+        section absent from ``d`` takes its defaults."""
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            sub = dict(d.get(f.name) or {})
+            for key, value in sub.items():
+                if isinstance(value, list):
+                    sub[key] = tuple(
+                        tuple(x) if isinstance(x, list) else x for x in value)
+            kwargs[f.name] = _SECTION_TYPES[f.name](**sub)
+        return cls(**kwargs)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Config":
+        return cls.from_dict(json.loads(text))
+
+
+_SECTION_TYPES = {"env": EnvConfig, "network": NetworkConfig,
+                  "sequence": SequenceConfig, "replay": ReplayConfig,
+                  "optim": OptimConfig, "actor": ActorConfig,
+                  "runtime": RuntimeConfig}
 
 
 def _parse_setting(setting, field_name: str):
@@ -341,3 +434,31 @@ def parse_overrides(cfg: Config, argv: List[str]) -> Config:
             raise SystemExit(f"unknown field {fname!r} in section {section!r}")
         dotted[key] = _coerce(key, raw, matching[fname].type)
     return cfg.replace(**dotted) if dotted else cfg
+
+
+def apex_epsilon(actor_id: int, num_actors: int, base_eps: float,
+                 alpha: float) -> float:
+    """Ape-X per-actor epsilon ladder: eps_i = base ** (1 + i*alpha/(N-1));
+    a single actor gets base_eps."""
+    if num_actors <= 1:
+        return base_eps
+    return base_eps ** (1 + actor_id / (num_actors - 1) * alpha)
+
+
+def vector_lane_epsilons(actor_idx: int, actor_cfg: ActorConfig,
+                         total_actors: Optional[int] = None) -> List[float]:
+    """Per-lane epsilon of one vector actor worker: the Ape-X ladder spread
+    over all ``total_actors * envs_per_actor`` lanes, worker ``actor_idx``
+    owning a contiguous slice, so a fleet of vector actors explores like
+    the equally sized fleet of scalar actors. ``total_actors`` defaults to
+    ``actor_cfg.num_actors``."""
+    if total_actors is None:
+        total_actors = actor_cfg.num_actors
+    if not 0 <= actor_idx < total_actors:
+        raise ValueError(f"actor_idx {actor_idx} outside the fleet of "
+                         f"{total_actors} workers")
+    k = actor_cfg.envs_per_actor
+    total = total_actors * k
+    return [apex_epsilon(actor_idx * k + lane, total, actor_cfg.base_eps,
+                         actor_cfg.eps_alpha)
+            for lane in range(k)]

@@ -1,8 +1,11 @@
-"""ctypes binding of the host replay's native sum tree (``sum_tree.cc``).
+"""ctypes bindings of the port's host-side native code: the host
+replay's sum tree (``sum_tree.cc``) and the shared-memory block ring
+(``shm_ring.cc``).
 
-The library builds with g++ into ``build/`` on first use
+Each library builds with g++ into ``build/`` on first use
 (``ops/_build.py``), never on import. A build that fails raises:
-``HostReplay(use_native=False)`` is the only way to the numpy twin.
+``HostReplay(use_native=False)`` is the only way to the numpy twin, and
+``runtime.shm_transport=false`` the only way around the ring.
 """
 
 import ctypes
@@ -12,6 +15,7 @@ from typing import Tuple
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "sum_tree.cc"
+RING_SOURCE = Path(__file__).resolve().parent / "shm_ring.cc"
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -31,6 +35,34 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.st_sample.argtypes = [ctypes.c_void_p, ctypes.c_double,
                               ctypes.c_int64, dptr, iptr, dptr]
     lib.st_sample.restype = None
+    return lib
+
+
+def ring_lib() -> ctypes.CDLL:
+    """The shm MPMC ring's library, built on first use."""
+    from r2d2_tpu_torch.ops import _build
+    lib = _build.load_host(RING_SOURCE)
+    if not getattr(lib, "_ring_declared", False):
+        u64, vp = ctypes.c_uint64, ctypes.c_void_p
+        lib.ring_required_bytes.argtypes = [u64, u64]
+        lib.ring_required_bytes.restype = u64
+        lib.ring_init.argtypes = [vp, u64, u64]
+        lib.ring_init.restype = None
+        lib.ring_size.argtypes = [vp]
+        lib.ring_size.restype = u64
+        lib.ring_recover_stalled.argtypes = [vp, u64]
+        lib.ring_recover_stalled.restype = u64
+        lib.ring_reserve_push.argtypes = [vp]
+        lib.ring_reserve_push.restype = ctypes.c_int64
+        lib.ring_commit_push.argtypes = [vp, ctypes.c_int64]
+        lib.ring_commit_push.restype = None
+        lib.ring_reserve_pop.argtypes = [vp]
+        lib.ring_reserve_pop.restype = ctypes.c_int64
+        lib.ring_commit_pop.argtypes = [vp, ctypes.c_int64]
+        lib.ring_commit_pop.restype = None
+        lib.ring_payload_offset.argtypes = [vp, ctypes.c_int64]
+        lib.ring_payload_offset.restype = u64
+        lib._ring_declared = True
     return lib
 
 

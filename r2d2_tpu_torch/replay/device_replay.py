@@ -72,18 +72,26 @@ def replay_add_many(spec: ReplaySpec, state: ReplayState,
     """Ring-write K stacked blocks (leading K axis on every field) in place:
     block k lands in row (block_ptr + k) % num_blocks and all K*S tree
     leaves are seeded by one tree_update. K <= num_blocks, so no two
-    blocks share a row."""
+    blocks share a row. On CUDA the host arrays go through pinned memory
+    and copy without blocking the host: the writes queue on the current
+    stream behind the dispatches already there (a pageable copy would
+    wait for them, leaving the card idle while the host catches up)."""
     k = int(np.shape(blocks.priority)[0])
     if k > spec.num_blocks:
         raise ValueError(
             f"replay_add_many got {k} blocks but the ring has only "
             f"{spec.num_blocks} rows")
     device = state.obs.device
-    rows = torch.tensor([(state.block_ptr + j) % spec.num_blocks
-                         for j in range(k)], dtype=torch.int64, device=device)
+    cuda = device.type == "cuda"
 
     def t(x, dtype):
-        return torch.as_tensor(x, dtype=dtype).to(device)
+        host = torch.as_tensor(x, dtype=dtype)
+        if cuda:
+            host = host.pin_memory()
+        return host.to(device, non_blocking=cuda)
+
+    rows = t([(state.block_ptr + j) % spec.num_blocks for j in range(k)],
+             torch.int64)
 
     idxes = (rows[:, None] * spec.seqs_per_block
              + torch.arange(spec.seqs_per_block, device=device)[None, :]

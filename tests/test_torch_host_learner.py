@@ -2,8 +2,9 @@
 the prefetch and write-back threads and the write-back reaches the host
 tree; a stalled write-back counts its drops; a dead prefetch thread raises
 instead of hanging; stop_background joins; steps_per_dispatch > 1 is
-ignored with a warning; the synchronous trainer refuses the placement;
-both placements stamp the ring's slots alike. Every wait on a thread is
+ignored with a warning; the synchronous trainer refuses the placement
+and the orchestrated one trains under it; both placements stamp the
+ring's slots alike. Every wait on a thread is
 bounded."""
 
 import dataclasses
@@ -18,6 +19,7 @@ import torch
 
 from r2d2_tpu_torch.cli import train
 from r2d2_tpu_torch.config import Config, parse_overrides
+from r2d2_tpu_torch.tools import sync_train as sync_cli
 from r2d2_tpu_torch.models.network import NetworkApply
 from r2d2_tpu_torch.runtime.learner_loop import Learner
 from r2d2_tpu_torch.tools.sync_train import sync_train
@@ -170,16 +172,32 @@ def test_steps_per_dispatch_over_one_is_ignored_with_a_warning(caplog):
     assert "ignoring" not in caplog.text
 
 
-def test_sync_train_and_cli_refuse_host_placement():
+def test_sync_train_and_cli_refuse_host_placement(tmp_path):
     """The synchronous trainer's bit-reproducibility needs the device
-    replay, as in the JAX package; a placement other than the two is
-    refused by the config."""
+    replay, as in the JAX package: it and its entry point refuse host
+    placement. The orchestrated trainer (cli.train, thread actors) trains
+    under it, and its close joins the learner's threads (the JAX
+    package's test_end_to_end_host_placement). A placement other than the
+    two is refused by the config."""
     cfg = parse_overrides(Config(), TINY_ARGS + ["--replay.placement=host"])
     with pytest.raises(ValueError, match="requires replay.placement='device'"):
         sync_train(cfg, 1, 0.4, device="cpu")
     with pytest.raises(ValueError, match="requires replay.placement='device'"):
-        train.main(TINY_ARGS + ["--device=cpu", "--max-steps=1",
-                                "--replay.placement=host"])
+        sync_cli.main(TINY_ARGS + ["--device=cpu", "--max-steps=1",
+                                   "--replay.placement=host"])
+    stacks = []
+    summary = bounded(lambda: train.main(
+        TINY_ARGS + ["--device=cpu", "--max-steps=4", "--max-seconds=90",
+                     "--actor-mode=thread", "--replay.placement=host",
+                     "--runtime.save_interval=0",
+                     f"--runtime.save_dir={tmp_path}"],
+        dispatch_hook=lambda st: stacks.append(st) if not stacks else None),
+        timeout=WAIT * 2)
+    assert summary["steps"] >= 4 and np.all(np.isfinite(summary["losses"]))
+    learner = stacks[0].learner
+    assert learner.host_replay is not None and len(learner.host_replay) > 0
+    assert not learner._bg_threads
+    assert not any(t.is_alive() for t in stacks[0].threads)
     with pytest.raises(ValueError, match="replay.placement must be one of"):
         parse_overrides(Config(), ["--replay.placement=disk"])
 

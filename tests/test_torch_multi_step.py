@@ -21,7 +21,7 @@ from r2d2_tpu.learner.train_step import make_multi_learner_step as j_multi
 from r2d2_tpu.models.network import NetworkApply as JNetworkApply
 from r2d2_tpu.models.network import dual_sequence_q as j_dual
 from r2d2_tpu.replay import device_replay as jdr
-from r2d2_tpu_torch.cli import train
+from r2d2_tpu_torch.tools import sync_train
 from r2d2_tpu_torch.config import (CUDA_AUTO, Config, NetworkConfig,
                                    OptimConfig, RuntimeConfig,
                                    parse_overrides,
@@ -183,8 +183,8 @@ def test_dispatch_equals_single_steps_exactly(use_double):
 
 def test_runtime_and_unroll_settings():
     """--runtime.steps_per_dispatch parses; -1 resolves to 1 on the CPU and
-    to the bench's winner on CUDA; prefetch_batches parses; other runtime
-    fields of the JAX config are refused. pallas_lstm and fused_double_unroll "auto": off on the
+    to the bench's winner on CUDA; prefetch_batches parses; fields of
+    parts of the JAX config the port does not have yet are refused. pallas_lstm and fused_double_unroll "auto": off on the
     CPU, CUDA_AUTO's choice on CUDA."""
     cfg = parse_overrides(Config(), ["--runtime.steps_per_dispatch=4",
                                      "--optim.fused_double_unroll=on"])
@@ -200,8 +200,8 @@ def test_runtime_and_unroll_settings():
         "cpu") == 8
     assert parse_overrides(Config(), ["--runtime.prefetch_batches=2"]
                            ).runtime.prefetch_batches == 2
-    for knob in ("--runtime.shm_transport=false",
-                 "--runtime.save_interval=5"):
+    for knob in ("--runtime.snapshot_interval=5",
+                 "--replay.ingest_batch_blocks=8"):
         with pytest.raises(SystemExit, match="unknown field"):
             parse_overrides(Config(), [knob])
     for resolve, name in ((resolve_pallas_lstm, "network.pallas_lstm"),
@@ -216,10 +216,12 @@ def test_runtime_and_unroll_settings():
 
 
 def test_learner_and_cli_train_in_k_step_dispatches():
-    """steps_per_dispatch=4 on the CPU: the learner takes 4 steps a call
-    and keeps a (4,) loss tensor per dispatch; cli.train stops at the
-    first multiple of 4 at or past --max-steps and reports every step's
-    loss (the JAX package's test_multi_step_dispatch_end_to_end)."""
+    """steps_per_dispatch=4 on the CPU: the learner takes 4 steps a call,
+    a (4,) loss tensor per dispatch, and reports every step's loss once
+    flushed; the synchronous trainer (tools.sync_train, where the loop
+    moved from cli.train) stops at the first multiple of 4 at or past
+    --max-steps and reports every step's loss (the JAX package's
+    test_multi_step_dispatch_end_to_end)."""
     cfg = parse_overrides(Config(), TINY_ARGS
                           + ["--runtime.steps_per_dispatch=4"])
     net = NetworkApply(6, cfg.network, cfg.env.frame_stack,
@@ -235,10 +237,12 @@ def test_learner_and_cli_train_in_k_step_dispatches():
     assert learner.training_steps == 4 and m["loss"].shape == (4,)
     learner.step(torch.rand((4, spec.batch_size)))
     assert learner.training_steps == 8
-    assert [x.shape for x in learner.losses] == [(4,), (4,)]
+    losses = learner.losses
+    assert len(losses) == 8 and np.all(np.isfinite(losses))
+    assert losses[:4] == m["loss"].tolist()
 
-    summary = train.main(TINY_ARGS + ["--device=cpu", "--max-steps=6",
-                                      "--runtime.steps_per_dispatch=4"])
+    summary = sync_train.main(TINY_ARGS + ["--device=cpu", "--max-steps=6",
+                                           "--runtime.steps_per_dispatch=4"])
     assert summary["steps"] == 8 and len(summary["losses"]) == 8
     assert np.all(np.isfinite(summary["losses"]))
 

@@ -1,5 +1,6 @@
-"""The port's trainer entry point on the CPU, its device rule, and its
-isolation from JAX and from the JAX package."""
+"""The port's trainer entry points on the CPU (the synchronous
+``tools.sync_train`` and the orchestrated ``cli.train``), their device
+rule, and the port's isolation from JAX and from the JAX package."""
 
 import subprocess
 import sys
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from r2d2_tpu_torch.cli import train
+from r2d2_tpu_torch.tools import sync_train
 from r2d2_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.torch_port
@@ -27,11 +29,13 @@ TINY_ARGS = [
 
 
 def test_cli_train_on_cpu_is_reproducible():
-    """N learner steps at the tiny shape; the same seed gives the same
-    losses twice."""
+    """N learner steps of the synchronous trainer's entry point
+    (``tools.sync_train``, where the synchronous loop moved from
+    ``cli.train``) at the tiny shape; the same seed gives the same losses
+    twice."""
     args = TINY_ARGS + ["--device=cpu", "--max-steps=4", "--seed=3"]
-    a = train.main(args)
-    b = train.main(args)
+    a = sync_train.main(args)
+    b = sync_train.main(args)
     assert a["steps"] == 4 and a["device"] == "cpu"
     assert len(a["losses"]) == 4 and np.all(np.isfinite(a["losses"]))
     assert a["losses"] == b["losses"]
@@ -45,6 +49,8 @@ def test_default_device_raises_without_cuda():
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(TINY_ARGS + ["--max-steps=1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sync_train.main(TINY_ARGS + ["--max-steps=1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -57,11 +63,16 @@ def test_port_imports_nothing_of_jax():
         "for m in pkgutil.walk_packages(r2d2_tpu_torch.__path__, "
         "'r2d2_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import r2d2_tpu_torch.cli.train, chip_smoke\n"
+        "import r2d2_tpu_torch.cli.train, r2d2_tpu_torch.cli.evaluate\n"
+        "import r2d2_tpu_torch.runtime.orchestrator, chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'r2d2_tpu'))\n"
         "assert not bad, bad\n"
-        "assert 'r2d2_tpu_torch.replay.device_replay' in sys.modules\n")
+        "for name in ('replay.device_replay', 'runtime.orchestrator',\n"
+        "             'runtime.actor_main', 'runtime.shm_feeder',\n"
+        "             'envs.vector', 'cli.evaluate', 'tools.learnability',\n"
+        "             'tools.actor_profile'):\n"
+        "    assert 'r2d2_tpu_torch.' + name in sys.modules, name\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -84,9 +95,10 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
 
 
-def test_entry_points_turn_tf32_off():
-    """f32 means f32: cli.train and Learner construction each turn both
-    TF32 flags off (utils/device.configure_numerics), whatever they were."""
+def test_entry_points_turn_tf32_off(tmp_path):
+    """f32 means f32: cli.train (thread actors), tools.sync_train and
+    Learner construction each turn both TF32 flags off
+    (utils/device.configure_numerics), whatever they were."""
     from r2d2_tpu_torch.config import Config, parse_overrides
     from r2d2_tpu_torch.models.network import NetworkApply
     from r2d2_tpu_torch.runtime.learner_loop import Learner
@@ -96,7 +108,14 @@ def test_entry_points_turn_tf32_off():
     try:
         for f in flags:
             f.allow_tf32 = True
-        train.main(TINY_ARGS + ["--device=cpu", "--max-steps=1"])
+        train.main(TINY_ARGS + [
+            "--device=cpu", "--max-steps=1", "--actor-mode=thread",
+            "--actor.num_actors=1", "--runtime.save_interval=0",
+            f"--runtime.save_dir={tmp_path}", "--max-seconds=120"])
+        assert [f.allow_tf32 for f in flags] == [False, False]
+        for f in flags:
+            f.allow_tf32 = True
+        sync_train.main(TINY_ARGS + ["--device=cpu", "--max-steps=1"])
         assert [f.allow_tf32 for f in flags] == [False, False]
         for f in flags:
             f.allow_tf32 = True
