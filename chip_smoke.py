@@ -94,6 +94,26 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      tools.sync_train with the learner on the card, one
      step a dispatch (K=1, the JAX test's collect ratio of 2 env steps a
      step): every evaluation seed >= 2x random, the mean >= 3x.
+  8. on-device acting (actor/anakin.py, runtime/anakin_loop.py): two
+     small f32 acting segments on the card against the CPU from the same
+     weights and draws (Fake with the constant stamp, Grid with "td"
+     priorities; integer fields equal, float fields within ANAKIN_ATOL);
+     at the reference widths (bf16, ANAKIN_LANES lanes, 120-step blocks,
+     the ring write into a 100,000-step replay) one graph replay against
+     one eager segment from the same carry and generator state, bit for
+     bit, two replays drawing differently, and the segment's CUDA-event
+     ms (the ring of 99,960 steps: 833 blocks of 120); then cli.train --actor.on_device=true (the Fake env, the CUDA
+     "auto" path: K=4, pallas_lstm on) for ANAKIN_SECONDS: it trains on
+     cuda with finite losses, starts no actor, process or thread, and
+     every block comes from the acting graph; a window of
+     PROFILE_DISPATCHES dispatches under the profiler as in phase 6, whose
+     kernel names must equal the wrappers' launch counts (these go into
+     the ``kernels`` line as ``anakin_launches``); printed: seq-updates/s
+     over a synced window against the bench's fused K in this call, env
+     steps/s while training, host ms between dispatches, busy and idle
+     over the profiled window, peak GB and the warm-up; last, the
+     gridworld learns under the fused loop on the card
+     (tools/learnability.py grid_config, the JAX test's threshold).
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
 The last line is {"ok": true, "device": {...}}. ``--profile`` adds a
@@ -187,6 +207,19 @@ ORCH_LOG_LINES = (r"^buffer size: \d+$", r"^buffer update speed: .*/s$",
                   r"^number of environment steps: \d+$",
                   r"^number of training steps: \d+$",
                   r"^training speed: .*/s$", r"^loss: -?\d+\.\d{4}$")
+# on-device acting (phase 8): the reference widths with 120-step episodes
+# and blocks, ANAKIN_LANES lanes (actor.anakin_lanes' default), the
+# capacity cut to 99,960 steps (833 blocks of 120: the multiple of 120
+# nearest below phase 6's 100,000)
+ANAKIN_LANES = 64
+ANAKIN_CFG = {"actor.on_device": True, "replay.block_length": 120,
+              "env.episode_len": 120, "replay.capacity": 99_960}
+ANAKIN_ARGS = ["--actor.on_device=true", "--env.game_name=Fake",
+               "--replay.capacity=99960", "--replay.block_length=120",
+               "--env.episode_len=120", "--network.pallas_lstm=auto"]
+ANAKIN_SECONDS = 40.0              # the fused trainer's run
+# card vs CPU on small f32 segments: f32 sums in other orders on the card
+ANAKIN_ATOL = 1e-5
 BACK_TO_BACK = 20                  # launches enqueued ahead of the card
 SPIN_CYCLES = 20_000_000           # ~10 ms: longer than enqueuing them
 # cuDNN kernels of a 4-channel first conv's fallback (a layout conversion,
@@ -1540,13 +1573,92 @@ def _record_saves(learner, state) -> None:
     learner.save = recorded
 
 
+def _start_window(state, n):
+    """Prepare the tracer over the next dispatch (its warm-up, kept out of
+    the trace); record the PROFILE_DISPATCHES after it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1,
+                                     active=PROFILE_DISPATCHES, repeat=1))
+    prof.__enter__()
+    state["prof"] = prof
+    state["window_start"] = n + 1
+
+
+def _record_window(state, n):
+    import torch
+    torch.cuda.synchronize()
+    state["prof"].step()
+    _reset_counts()
+    state["window_end"] = n + PROFILE_DISPATCHES
+    state["window_t0"] = time.perf_counter()
+
+
+def _close_window(state, n):
+    """The window's last dispatch has run: take its time and counts, and
+    mark its end on the card with a spin kernel. One more dispatch runs
+    traced before the tracer stops, so that the tracer's records of the
+    window's own last kernels are in."""
+    import torch
+    torch.cuda.synchronize()
+    state["window_synced"] = time.perf_counter()
+    state["window_launches"] = _counts()
+    torch.cuda._sleep(1000)
+    state["cooldown_end"] = n + 1
+
+
+def _end_window(state, n):
+    """Stop the tracer and read the device events before the end mark; a
+    trace that holds none, or whose kernel names disagree with the
+    wrappers' counts (the tracer has lost events), is taken again, up to
+    PROFILE_TRIES windows; the last one taken is kept."""
+    import torch
+    torch.cuda.synchronize()
+    prof = state.pop("prof")
+    prof.__exit__(None, None, None)
+    events = _raw_device_events(prof)
+    del prof
+    ends = [start for name, start, _ in events if END_MARK in name]
+    if ends:
+        events = [e for e in events if e[1] < ends[-1]]
+    seen = _raw_kernel_counts(events)
+    launches = state["window_launches"]
+    state.setdefault("tries", []).append(seen)
+    if (ends and events and seen == launches) \
+            or len(state["tries"]) >= PROFILE_TRIES:
+        state["window"] = dict(
+            ms=(state["window_synced"] - state["window_t0"]) * 1e3
+            / PROFILE_DISPATCHES,
+            busy=_busy_ms(events) / PROFILE_DISPATCHES,
+            union=_union_ms(events) / PROFILE_DISPATCHES,
+            seen=seen, launches=launches, end_marked=bool(ends))
+    else:
+        _start_window(state, n)
+
+
+def _advance_window(state, n, free: bool) -> None:
+    """Drive the profiled window from a dispatch hook, after the timed
+    window: start it where ``free`` (no checkpoint falls inside), then
+    record, close and end it at the dispatches set for each."""
+    if "prof" in state:
+        if n == state["window_start"]:
+            _record_window(state, n)
+        elif n == state.get("window_end"):
+            _close_window(state, n)
+        elif n == state.get("cooldown_end"):
+            _end_window(state, n)
+    elif "window" not in state and free:
+        _start_window(state, n)
+
+
 def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
     """cli.train on the card for ORCH_SECONDS with ``mode`` actors at the
     reference widths (see the module docstring, phase 6). Returns (the
     profiled window's launch counts, the report)."""
     import tempfile
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
     from r2d2_tpu_torch.cli import train
     from r2d2_tpu_torch.config import Config
     batch = Config().replay.batch_size
@@ -1555,65 +1667,6 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as save_dir:
         step0 = os.path.join(save_dir, "Fake0_player0")
-
-        def start_window(n):
-            """Prepare the tracer over the next dispatch (its warm-up,
-            kept out of the trace); record the PROFILE_DISPATCHES after
-            it."""
-            torch.cuda.synchronize()
-            prof = profile(activities=[ProfilerActivity.CUDA],
-                           schedule=schedule(wait=0, warmup=1,
-                                             active=PROFILE_DISPATCHES,
-                                             repeat=1))
-            prof.__enter__()
-            state["prof"] = prof
-            state["window_start"] = n + 1
-
-        def record_window(n):
-            torch.cuda.synchronize()
-            state["prof"].step()
-            _reset_counts()
-            state["window_end"] = n + PROFILE_DISPATCHES
-            state["window_t0"] = time.perf_counter()
-
-        def close_window(n):
-            """The window's last dispatch has run: take its time and
-            counts, and mark its end on the card with a spin kernel. One
-            more dispatch runs traced before the tracer stops, so that the
-            tracer's records of the window's own last kernels are in."""
-            torch.cuda.synchronize()
-            state["window_synced"] = time.perf_counter()
-            state["window_launches"] = _counts()
-            torch.cuda._sleep(1000)
-            state["cooldown_end"] = n + 1
-
-        def end_window(n):
-            """Stop the tracer and read the device events before the end
-            mark; a trace that holds none, or whose kernel names disagree
-            with the wrappers' counts (the tracer has lost events), is
-            taken again, up to PROFILE_TRIES windows; the last one taken
-            is kept."""
-            torch.cuda.synchronize()
-            prof = state.pop("prof")
-            prof.__exit__(None, None, None)
-            events = _raw_device_events(prof)
-            del prof
-            ends = [start for name, start, _ in events if END_MARK in name]
-            if ends:
-                events = [e for e in events if e[1] < ends[-1]]
-            seen = _raw_kernel_counts(events)
-            launches = state["window_launches"]
-            state.setdefault("tries", []).append(seen)
-            if (ends and events and seen == launches) \
-                    or len(state["tries"]) >= PROFILE_TRIES:
-                state["window"] = dict(
-                    ms=(state["window_synced"] - state["window_t0"]) * 1e3
-                    / PROFILE_DISPATCHES,
-                    busy=_busy_ms(events) / PROFILE_DISPATCHES,
-                    union=_union_ms(events) / PROFILE_DISPATCHES,
-                    seen=seen, launches=launches, end_marked=bool(ends))
-            else:
-                start_window(n)
 
         def hook(stack):
             state["calls"] += 1
@@ -1641,20 +1694,12 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
                     torch.cuda.synchronize()
                     state["end"] = (time.perf_counter(), steps,
                                     stack.learner.env_steps, n)
-            elif "prof" in state:
-                if n == state["window_start"]:
-                    record_window(n)
-                elif n == state.get("window_end"):
-                    close_window(n)
-                elif n == state.get("cooldown_end"):
-                    end_window(n)
-            elif "window" not in state:
+            else:
                 # after the timed window, with no checkpoint inside
                 span = ((PROFILE_DISPATCHES + 2)
                         * stack.learner.steps_per_dispatch)
-                if (steps // ORCH_SAVE_INTERVAL
-                        == (steps + span) // ORCH_SAVE_INTERVAL):
-                    start_window(n)
+                _advance_window(state, n, steps // ORCH_SAVE_INTERVAL
+                                == (steps + span) // ORCH_SAVE_INTERVAL)
 
         try:
             state["launched"] = time.perf_counter()
@@ -1751,6 +1796,316 @@ def phase_learnability(dev):
           "20, oracle 120; thresholds: each >= 40, mean >= 60)", flush=True)
 
 
+def _anakin_parts(cfg, dev, lanes: int, seed: int):
+    """The acting segment of ``cfg`` on ``dev``: (env, spec, module,
+    act), the module's weights from ``seed`` (drawn on the CPU, so the
+    same on every device)."""
+    from r2d2_tpu_torch.actor.anakin import AnakinAct
+    from r2d2_tpu_torch.config import apex_epsilon
+    from r2d2_tpu_torch.envs.factory import create_device_env
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.replay.structs import ReplaySpec
+    env = create_device_env(cfg.env, dev)
+    net = NetworkApply(env.action_dim, cfg.network, cfg.env.frame_stack,
+                       cfg.env.frame_height, cfg.env.frame_width, dev)
+    spec = ReplaySpec.from_config(cfg, dev)
+    eps = [apex_epsilon(i, lanes, cfg.actor.base_eps, cfg.actor.eps_alpha)
+           for i in range(lanes)]
+    act = AnakinAct(env, net, spec, num_lanes=lanes, epsilons=eps,
+                    gamma=cfg.optim.gamma, priority=cfg.actor.anakin_priority,
+                    near_greedy_eps=cfg.actor.near_greedy_eps,
+                    priority_eta=cfg.optim.priority_eta)
+    return env, spec, net.init(seed), act
+
+
+def _to(draws, dev):
+    import dataclasses
+    return dataclasses.replace(draws, **{
+        f.name: getattr(draws, f.name).to(dev)
+        for f in dataclasses.fields(draws)
+        if getattr(draws, f.name) is not None})
+
+
+def phase_anakin_vs_cpu(dev):
+    """Phase 8, part 1: two small f32 acting segments (the second ends the
+    episodes) on the card against the same segments on the CPU, from the
+    same weights and the same draws (drawn on the CPU), on the Fake env
+    with the constant stamp and the gridworld with "td" priorities:
+    actions and the integer and uint8 fields equal; hidden, rewards and
+    the td priorities (which carry Q) within ANAKIN_ATOL. No kernel
+    wrapper launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.actor.anakin import init_act_carry
+    for game, priority in (("Fake", 1.0), ("Grid", "td")):
+        cfg = _tiny_config().replace(**{
+            "env.game_name": game, "env.grid_size": 4,
+            "env.episode_len": 40, "actor.on_device": True,
+            "actor.anakin_lanes": 4, "actor.anakin_priority": priority})
+        gen = torch.Generator().manual_seed(11)
+        env, spec, _, act = _anakin_parts(cfg, torch.device("cpu"), 4, 0)
+        reset = env.reset_draws(4, gen)
+        draws = [act.draw(gen) for _ in range(2)]
+        runs = []
+        _reset_counts()
+        for device in (torch.device("cpu"), dev):
+            env, spec, module, act = _anakin_parts(cfg, device, 4, 0)
+            carry = init_act_carry(env, spec, 4,
+                                   reset_draws=reset.to(device))
+            out = []
+            for d in draws:
+                carry, blocks, stats = act(module, carry, 1,
+                                           draws=_to(d, device))
+                out.append((blocks, carry.hidden, stats))
+            runs.append(out)
+        check(not any(_counts().values()), f"a wrapper launched: {_counts()}")
+        worst = 0.0
+        for (cb, ch, cs), (gb, gh, gs) in zip(*runs):
+            for f in dataclasses.fields(cb):
+                a = getattr(cb, f.name)
+                b = getattr(gb, f.name).cpu()
+                if a.is_floating_point():
+                    err = float(torch.nan_to_num(a - b).abs().max())
+                    worst = max(worst, err)
+                    check(err <= ANAKIN_ATOL and torch.equal(a.isnan(),
+                                                             b.isnan()),
+                          f"{game} {f.name}: max abs {err}")
+                else:
+                    check(torch.equal(a, b), f"{game} {f.name} differs")
+            err = float((ch - gh.cpu()).abs().max())
+            worst = max(worst, err)
+            check(err <= ANAKIN_ATOL, f"{game} carry hidden: {err}")
+            check(int(cs["episodes"]) == int(gs["episodes"]), "episodes")
+        print(f"on-device acting, small f32 segments ({game}, priority "
+              f"{priority}), card vs CPU: actions and integer fields equal,"
+              f" float fields max abs {worst:.3e}", flush=True)
+
+
+def phase_anakin_graph(dev):
+    """Phase 8, part 2: the acting segment at the reference widths (bf16,
+    ANAKIN_LANES lanes, block_length 120) with its ring write into a
+    replay of 99,960 steps: one graph replay against one
+    eager segment from the same carry and generator state (blocks, carry
+    and the replay's rows bit-equal), two replays drawing differently,
+    then the segment's CUDA-event ms, graphed and eager. Returns the
+    graphed ms."""
+    import dataclasses
+    import torch
+    from r2d2_tpu_torch.actor.anakin import (ActSegment, assign_,
+                                             init_act_carry)
+    from r2d2_tpu_torch.replay.device_replay import replay_init
+    from r2d2_tpu_torch.tools import bench
+    cfg = bench.reference_config(**ANAKIN_CFG)
+    env, spec, module, act = _anakin_parts(cfg, dev, ANAKIN_LANES, 0)
+    check(module.compute_dtype == torch.bfloat16, "bf16 on CUDA")
+    rs = replay_init(spec, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    carry = init_act_carry(env, spec, ANAKIN_LANES, generator=gen)
+    seg = ActSegment(act, module, carry, spec, rs, gen)
+    _reset_counts()
+    seg.run(1)                          # the eager warm-up
+    seg.run(2)                          # the capture and its first replay
+    check(seg.graph is not None and seg.replays == 1, "no acting graph")
+
+    saved, gen_state, ptr = _clone_carry(carry), gen.get_state(), \
+        rs.block_ptr
+
+    def snapshot():
+        """What one segment made: its blocks, the replay rows it wrote,
+        its draws, the carry after it."""
+        torch.cuda.synchronize()
+        rows = torch.tensor([(ptr + i) % spec.num_blocks
+                             for i in range(ANAKIN_LANES)], device=dev)
+        return ([(f"block {f.name}", getattr(seg.blocks, f.name).clone())
+                 for f in dataclasses.fields(seg.blocks)]
+                + [(f"replay {n}", getattr(rs, n)[rows].clone())
+                   for n in ("obs", "last_action", "hidden", "action",
+                             "reward", "gamma", "seq_start",
+                             "weight_version", "lane")]
+                + [("draws", seg.draws.explore.clone())]
+                + [(f"carry {n}", v.clone()) for n, v in _flat_carry(carry)])
+
+    seg.run(3)
+    graphed = snapshot()
+    assign_(carry, saved)
+    gen.set_state(gen_state)
+    rs.block_ptr = ptr
+    seg.run(3, eager=True)
+    for (name, a), (_, b) in zip(graphed, snapshot()):
+        if a.is_floating_point():
+            a, b = a.nan_to_num(7.0), b.nan_to_num(7.0)
+        check(torch.equal(a, b), f"graph vs eager: {name} differs")
+    seg.run(4)
+    first = seg.draws.explore.clone()
+    seg.run(5)
+    check(not torch.equal(first, seg.draws.explore),
+          "two graph replays drew the same numbers")
+    check(not any(_counts().values()), f"a wrapper launched: {_counts()}")
+    graphed = cuda_ms(lambda: seg.run(1), runs=20, warmup=2)
+    eager = cuda_ms(lambda: seg.run(1, eager=True), runs=3, warmup=1)
+    steps = ANAKIN_LANES * spec.block_length
+    print(f"acting segment at the reference widths ({ANAKIN_LANES} lanes x "
+          f"{spec.block_length} steps, bf16, ring write included): graph "
+          f"= eager bit for bit (blocks, carry, replay rows, draws); "
+          f"replays draw anew; graphed {graphed:.3f} ms "
+          f"({steps / graphed * 1e3:.1f} env steps/s), eager "
+          f"{eager:.3f} ms", flush=True)
+    del seg, rs
+    torch.cuda.empty_cache()
+    return graphed
+
+
+def _flat_carry(carry):
+    import dataclasses
+    out = []
+    for f in dataclasses.fields(carry):
+        value = getattr(carry, f.name)
+        if dataclasses.is_dataclass(value):
+            out += [(f"{f.name}.{n}", v) for n, v in _flat_carry(value)]
+        else:
+            out.append((f.name, value))
+    return out
+
+
+def _clone_carry(carry):
+    import dataclasses
+    return dataclasses.replace(carry, **{
+        f.name: (_clone_carry(getattr(carry, f.name))
+                 if dataclasses.is_dataclass(getattr(carry, f.name))
+                 else getattr(carry, f.name).clone())
+        for f in dataclasses.fields(carry)})
+
+
+def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float):
+    """Phase 8, part 3: cli.train --actor.on_device=true on the card for
+    ANAKIN_SECONDS at the reference widths (see the module docstring).
+    Returns the profiled window's launch counts."""
+    import tempfile
+    import threading
+    import torch
+    from r2d2_tpu_torch.cli import train
+    from r2d2_tpu_torch.config import Config
+    batch = Config().replay.batch_size
+    state = {"calls": 0, "marks": [], "parts": [], "host_s": {}}
+    threads = threading.active_count()
+
+    def hook(stack):
+        state["calls"] += 1
+        n = state["calls"]
+        steps = stack.learner.training_steps
+        state["marks"].append(time.perf_counter())
+        state["parts"].append(dict(state["host_s"]))
+        if n == 1:
+            state["warmup_s"] = time.perf_counter() - state["launched"]
+            state["stack"] = stack
+            for obj, name in ((stack.segment, "run"),
+                              (stack.learner, "_step_fn"),
+                              (stack.learner, "flush_metrics")):
+                _time_calls(obj, name, state["host_s"])
+        if n == 2:
+            torch.cuda.synchronize()
+            state["start"] = (time.perf_counter(), steps)
+            state["env_start"] = stack.learner.env_steps
+        elif "end" not in state:
+            if n > 2 and time.perf_counter() >= state["close"]:
+                torch.cuda.synchronize()
+                state["end"] = (time.perf_counter(), steps,
+                                stack.learner.env_steps, n)
+        else:
+            _advance_window(state, n, True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_anakin_") as d:
+        torch.cuda.synchronize()
+        # what the run itself held at most, above what earlier phases left
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            state["launched"] = time.perf_counter()
+            state["close"] = (state["launched"] + ANAKIN_SECONDS
+                              - END_MARGIN_S)
+            summary = train.main([
+                *ANAKIN_ARGS, f"--runtime.save_dir={d}",
+                "--runtime.save_interval=0", "--runtime.log_interval=10",
+                f"--max-seconds={ANAKIN_SECONDS}"], dispatch_hook=hook)
+        finally:
+            if state.get("prof") is not None:
+                state.pop("prof").__exit__(None, None, None)
+        peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        log = open(os.path.join(d, "train_player0.log")).read()
+    check("window" in state and "end" in state, f"cli.train on-device: "
+          f"only {state['calls']} dispatches")
+    stack = state["stack"]
+    seg = stack.segment
+    steps = summary["steps"]
+    check(summary["device"].startswith("cuda"), summary["device"])
+    check(len(summary["losses"]) == steps
+          and all(math.isfinite(x) for x in summary["losses"]),
+          "cli.train on-device: a loss is not finite")
+    check(summary["actor_exitcodes"] == [] and summary["actors_alive"] == 0
+          and not stack.processes and not stack.threads
+          and threading.active_count() == threads,
+          "cli.train on-device started an actor, a process or a thread")
+    check(seg.graph is not None and seg.replays == seg.calls - 1
+          and summary["blocks_ingested"] == seg.calls * ANAKIN_LANES,
+          f"the blocks were not written by the acting graph: {seg.calls} "
+          f"segments, {seg.replays} replays, {summary['blocks_ingested']} "
+          "blocks")
+    for line in ORCH_LOG_LINES:
+        check(re.search(line, log, re.M), f"no log line {line!r}")
+    launches, seen = state["window"]["launches"], state["window"]["seen"]
+    (t0, s0), (t1, s1, env1, _) = state["start"], state["end"]
+    window = state["window"]
+    rate = batch * (s1 - s0) / (t1 - t0)
+    report = dict(
+        steps=steps, steps_per_dispatch=k, lanes=ANAKIN_LANES,
+        seq_updates_per_s=rate, bench_fused=bench_fused,
+        of_bench=rate / bench_fused, window_steps=s1 - s0,
+        window_s=t1 - t0, env_steps=summary["env_steps"],
+        env_steps_per_s_training=(env1 - state["env_start"]) / (t1 - t0),
+        segments=seg.calls, graph_replays=seg.replays,
+        segment_ms_alone=segment_ms, warmup_s=state["warmup_s"],
+        run_s=summary["seconds"],
+        profiled_ms_per_dispatch=window["ms"],
+        device_busy_ms_per_dispatch=window["busy"],
+        device_union_ms_per_dispatch=window["union"],
+        idle_share=1.0 - window["busy"] / window["ms"],
+        idle_share_union=1.0 - window["union"] / window["ms"],
+        peak_gb=peak_gb, final_loss=summary["final_loss"],
+        host_s={name: round(v, 3) for name, v in state["host_s"].items()},
+        launches=launches, **_interval_stats(state))
+    print("on-device cli.train (fused loop, Fake, 64 lanes, K="
+          f"{k}, pallas_lstm on): " + json.dumps(report), flush=True)
+    want = _want_launches({"network.pallas_lstm": "on"},
+                          PROFILE_DISPATCHES * k)
+    check(seen == launches == want, f"cli.train on-device: the profile "
+          f"shows {seen}, counted {launches}, want {want}")
+    return launches
+
+
+def phase_anakin_learnability(dev):
+    """Phase 8, part 4: tools/learnability.py's gridworld configuration
+    (tests/test_anakin.py's) through the fused loop on the card, one step
+    a dispatch as in the JAX test on the CPU; the JAX test's threshold
+    (check_grid_returns: the episodes before training against those of
+    the last quarter of it)."""
+    import tempfile
+    from r2d2_tpu_torch.tools import learnability as learn
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as d:
+        cfg = learn.grid_config(d, **{"runtime.steps_per_dispatch": 1})
+        t0 = time.perf_counter()
+        result = learn.grid_train(cfg, dev)
+        seconds = time.perf_counter() - t0
+    check(result["training_steps"] >= learn.GRID_TRAIN_STEPS, result)
+    verdict = learn.check_grid_returns(result["intervals"],
+                                       cfg.replay.learning_starts)
+    print(f"gridworld learnability under the fused loop on the card "
+          f"({learn.GRID_TRAIN_STEPS} steps, {seconds:.1f} s): early "
+          f"{verdict['early']:.4f}, late {verdict['late']:.4f} (threshold: "
+          "late >= max(3x early, early + 0.3), over "
+          f"{len(result['intervals'])} records)", flush=True)
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1798,8 +2153,8 @@ def main(argv) -> int:
     phase_graph_vs_eager(dev, base, spec, rs)
     phase_external_graph_vs_eager(dev, base, blocks)
     done("graph vs eager")
-    phase_reference_step(dev, base, spec, rs, resolved_k,
-                         "--profile" in argv)
+    reference = phase_reference_step(dev, base, spec, rs, resolved_k,
+                                     "--profile" in argv)
     done("reference paths")
     del rs
     torch.cuda.empty_cache()
@@ -1823,6 +2178,14 @@ def main(argv) -> int:
     done("cli.train")
     phase_learnability(dev)
     done("learnability")
+    phase_anakin_vs_cpu(dev)
+    segment_ms = phase_anakin_graph(dev)
+    anakin = phase_anakin_train(
+        dev, resolved_k,
+        reference["fused", resolved_k]["median_seq_updates_per_s"],
+        segment_ms)
+    phase_anakin_learnability(dev)
+    done("on-device acting")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}
@@ -1835,7 +2198,9 @@ def main(argv) -> int:
                     host_path_launches=host_launches.get(
                         name.replace("_padded", ""), 0),
                     orchestrated_launches=(0 if name.endswith("_padded")
-                                           else orchestrated[name]))
+                                           else orchestrated[name]),
+                    anakin_launches=(0 if name.endswith("_padded")
+                                     else anakin[name]))
                for name, r in timings.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from r2d2_tpu_torch.models.network import NetworkApply, initial_hidden
+from r2d2_tpu_torch.models.network import (NetworkApply, action_one_hot,
+                                           initial_hidden)
 from r2d2_tpu_torch.runtime.weights import load_parameters
 
 
@@ -36,15 +37,15 @@ def make_forward_fn(net: NetworkApply):
     single-step recurrent forward ``fn(module, stacked_obs, last_action,
     hidden)`` with ``stacked_obs`` (N, H, W, stack) f32 in [0, 1],
     ``last_action`` (N,) int (-1 = none, a zero one-hot row) and
-    ``hidden`` (N, 2, hidden) packed; returns (greedy actions (N,),
-    Q (N, A), hidden' (N, 2, hidden)) as tensors."""
-    actions = torch.arange(net.action_dim)
+    ``hidden`` (N, 2, hidden) packed, arrays or tensors on the module's
+    device; returns (greedy actions (N,), Q (N, A), hidden' (N, 2,
+    hidden)) as tensors."""
 
     @torch.no_grad()
     def step_fn(module, stacked_obs, last_action, hidden):
         obs = torch.as_tensor(stacked_obs, dtype=torch.float32)[:, None]
-        la = torch.as_tensor(np.asarray(last_action), dtype=torch.int64)
-        one_hot = (la[:, None, None] == actions).float()       # (N, 1, A)
+        la = torch.as_tensor(last_action, dtype=torch.int64)
+        one_hot = action_one_hot(la, net.action_dim)[:, None]  # (N, 1, A)
         q, h = module(obs, one_hot, torch.as_tensor(hidden))
         q = q[:, 0]
         return q.argmax(dim=-1), q, h

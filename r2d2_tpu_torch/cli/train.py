@@ -1,10 +1,14 @@
 """Training CLI of the PyTorch port, the twin of the JAX package's
 ``cli/train.py``: the orchestrated trainer (runtime/orchestrator.py), with
-actors in spawned processes (default) or threads feeding the learner.
+actors in spawned processes (default) or threads feeding the learner, or
+with ``--actor.on_device=true`` the fused act+train loop, which acts on the
+card (runtime/anakin_loop.py; --actor-mode has no meaning there).
 
     python -m r2d2_tpu_torch.cli.train --env.game_name=Fake --max-seconds=60
     python -m r2d2_tpu_torch.cli.train --env.game_name=Fake --device=cpu \
         --actor-mode=thread --max-steps=20 --env.frame_height=24 ...
+    python -m r2d2_tpu_torch.cli.train --env.game_name=Fake \
+        --actor.on_device=true --replay.block_length=120 --max-seconds=60
 
 Extra (non-config) flags:
     --actor-mode=thread|process   actor execution mode (default: process)

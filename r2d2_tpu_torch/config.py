@@ -4,8 +4,8 @@ same field names and defaults, so a ``--section.field=value`` override
 means the same thing in both packages. Only the fields the port reads are
 here: a setting of a part the port does not have yet
 (``--network.inference_dtype=int8``, ``--replay.ingest_batch_blocks=8``,
-``--runtime.snapshot_interval=N``, ``--actor.on_device=true``, ...) is
-refused as an unknown field instead of being ignored.
+``--runtime.snapshot_interval=N``, ``--mesh.dp=2``, ...) is refused as an
+unknown field instead of being ignored.
 
 The tri-state knobs ("on"/"off"/"auto") resolve for the device the port
 runs on, never for a TPU:
@@ -73,7 +73,11 @@ class EnvConfig:
     frame_stack: int = 4
     frame_height: int = 84
     frame_width: int = 84
+    # fixed episode length of the synthetic envs (Fake and the on-device
+    # Fake/Grid twins, envs/device_env.py)
     episode_len: int = 120
+    # grid side of the on-device gridworld (env kind "Grid")
+    grid_size: int = 6
 
     @property
     def env_id(self) -> str:
@@ -162,6 +166,23 @@ class ActorConfig:
     # through one (N, 1) policy forward a tick; the epsilon ladder spreads
     # over num_actors * envs_per_actor lanes (vector_lane_epsilons)
     envs_per_actor: int = 1
+    # on-device acting (runtime/anakin_loop.py): True trains through the
+    # fused act+train loop, whose acting segment steps anakin_lanes
+    # on-device envs (envs/device_env.py) through the learner's own
+    # network for block_length steps and writes one block per lane into
+    # the device replay, as one CUDA graph on the card; no actor, queue
+    # or weight service is built
+    on_device: bool = False
+    anakin_lanes: int = 64
+    # acting segments per learner dispatch once training has started
+    # (before learning_starts the loop only acts): the collect:learn knob,
+    # with the rate limiter on top
+    anakin_scans_per_train: int = 1
+    # initial priority of on-device blocks: a positive constant stamp, or
+    # "td" (the n-step TD errors of the acting policy's own Q-values,
+    # mixed per sequence with optim.priority_eta, as the host assembler
+    # seeds them)
+    anakin_priority: Any = 1.0
 
 
 @dataclass(frozen=True)
@@ -246,6 +267,64 @@ class Config:
                 f"actor.envs_per_actor ({self.actor.envs_per_actor}) must be "
                 "in [1, 100]: per-lane seeds fill the worker's 100-wide seed "
                 "window (runtime.seed + 100*actor_idx + lane)")
+        self._check_envs_and_acting()
+
+    def _check_envs_and_acting(self) -> None:
+        """The synthetic envs' and on-device acting's rules, the JAX
+        package's wording; the on-device preconditions fail here, at
+        construction, not inside the acting segment."""
+        env, actor = self.env, self.actor
+        if env.episode_len < 1:
+            raise ValueError(
+                f"env.episode_len ({env.episode_len}) must be >= 1")
+        if env.grid_size < 2:
+            raise ValueError(f"env.grid_size ({env.grid_size}) must be >= 2")
+        if env.grid_size > min(env.frame_height, env.frame_width):
+            raise ValueError(
+                f"env.grid_size ({env.grid_size}) must be <= the frame size "
+                f"({env.frame_height}x{env.frame_width}): a grid cell needs "
+                "at least one pixel, or the gridworld renders a uniform "
+                "background (zero-information obs)")
+        if actor.anakin_lanes < 1:
+            raise ValueError(
+                f"actor.anakin_lanes ({actor.anakin_lanes}) must be >= 1")
+        if actor.anakin_scans_per_train < 1:
+            raise ValueError(
+                f"actor.anakin_scans_per_train "
+                f"({actor.anakin_scans_per_train}) must be >= 1")
+        if isinstance(actor.anakin_priority, str):
+            if actor.anakin_priority != "td":
+                raise ValueError(
+                    f"actor.anakin_priority ({actor.anakin_priority!r}) must "
+                    "be 'td' (n-step TD seeding from the acting policy's "
+                    "Q-values) or a positive constant stamp")
+        elif not actor.anakin_priority > 0:
+            raise ValueError(
+                f"actor.anakin_priority ({actor.anakin_priority}) must be > "
+                "0: zero-priority sequences are unsamplable, so a freshly "
+                "emitted block could never be trained on")
+        if not actor.on_device:
+            return
+        if self.replay.placement != "device":
+            raise ValueError(
+                "actor.on_device requires replay.placement='device': the "
+                "acting segment writes its blocks straight into the device "
+                "replay (host placement would bring back the host round "
+                "trip the path exists to remove)")
+        if env.episode_len % self.replay.block_length != 0:
+            raise ValueError(
+                f"actor.on_device requires env.episode_len "
+                f"({env.episode_len}) to be a multiple of replay.block_length "
+                f"({self.replay.block_length}): the acting segment emits "
+                "fixed block_length-step blocks, so episode ends must land "
+                "on block boundaries (the host path's emit-on-done "
+                "semantics)")
+        if actor.anakin_lanes > self.num_blocks:
+            raise ValueError(
+                f"actor.anakin_lanes ({actor.anakin_lanes}) must be <= "
+                f"num_blocks ({self.num_blocks}): each segment writes one "
+                "block per lane in one ring write, whose rows must not "
+                "alias; grow replay.capacity or lower the lane count")
 
     @property
     def seqs_per_block(self) -> int:
@@ -399,6 +478,13 @@ def _coerce(key: str, value: str, annotation: str) -> Any:
                 f"invalid value {value!r} for {key!r}: expected "
                 "';'-separated out_channels,kernel,stride triples")
         return layers
+    if str(annotation) == "Any":
+        # actor.anakin_priority: a number is a constant stamp, any other
+        # string stays a string for Config's check ("td")
+        try:
+            return float(value)
+        except ValueError:
+            return value
     target = _SCALARS.get(str(annotation))
     if target is None:
         raise SystemExit(f"cannot set {key!r} from the command line")

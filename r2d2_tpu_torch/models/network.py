@@ -57,6 +57,14 @@ def initial_hidden(batch_size: int, hidden_dim: int,
     return torch.zeros((batch_size, 2, hidden_dim), dtype=dtype, device=device)
 
 
+def action_one_hot(last_action: torch.Tensor, action_dim: int
+                   ) -> torch.Tensor:
+    """(...,) action indices -> (..., action_dim) f32 one-hot on their
+    device; -1 (no action) gives a zero row, as jax.nn.one_hot does."""
+    classes = torch.arange(action_dim, device=last_action.device)
+    return (last_action.long()[..., None] == classes).float()
+
+
 def _linear(x, layer: nn.Linear, dtype):
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)

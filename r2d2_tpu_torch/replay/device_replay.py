@@ -7,6 +7,7 @@ order on one stream, so no add can land between a sample and its write-back
 and the ring needs no staleness guard.
 """
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -67,48 +68,76 @@ def replay_init(spec: ReplaySpec, device) -> ReplayState:
     )
 
 
-def replay_add_many(spec: ReplaySpec, state: ReplayState,
-                    blocks: Block) -> ReplayState:
-    """Ring-write K stacked blocks (leading K axis on every field) in place:
-    block k lands in row (block_ptr + k) % num_blocks and all K*S tree
-    leaves are seeded by one tree_update. K <= num_blocks, so no two
-    blocks share a row. On CUDA the host arrays go through pinned memory
-    and copy without blocking the host: the writes queue on the current
-    stream behind the dispatches already there (a pageable copy would
-    wait for them, leaving the card idle while the host catches up)."""
-    k = int(np.shape(blocks.priority)[0])
-    if k > spec.num_blocks:
-        raise ValueError(
-            f"replay_add_many got {k} blocks but the ring has only "
-            f"{spec.num_blocks} rows")
-    device = state.obs.device
-    cuda = device.type == "cuda"
+# the Block fields a ring write reads
+WRITTEN = ("priority", "obs_row", "last_action_row", "hidden", "action",
+           "reward", "gamma", "burn_in_steps", "learning_steps",
+           "forward_steps", "seq_start", "weight_version", "lane")
 
-    def t(x, dtype):
-        host = torch.as_tensor(x, dtype=dtype)
-        if cuda:
-            host = host.pin_memory()
-        return host.to(device, non_blocking=cuda)
 
-    rows = t([(state.block_ptr + j) % spec.num_blocks for j in range(k)],
-             torch.int64)
-
+def write_rows(spec: ReplaySpec, state: ReplayState, rows: torch.Tensor,
+               blocks: Block) -> None:
+    """Write K stacked blocks, tensors on the replay's device, into ring
+    ``rows`` (K,) int64 on that device and seed their K*S tree leaves by
+    one tree_update. Device ops only, no host value read: the on-device
+    acting segment calls this inside its CUDA graph, with rows from a
+    device-side pointer. ``state.block_ptr`` is the caller's to advance."""
     idxes = (rows[:, None] * spec.seqs_per_block
-             + torch.arange(spec.seqs_per_block, device=device)[None, :]
+             + torch.arange(spec.seqs_per_block, device=rows.device)[None, :]
              ).reshape(-1)
     tree_update(spec.tree_layers, state.tree, spec.prio_exponent,
-                t(blocks.priority, torch.float32).reshape(-1), idxes)
+                blocks.priority.reshape(-1), idxes)
     # the stored frame may be tile-padded (exact_gather): write the true
     # frame into its corner; the pad stays zero from replay_init
-    state.obs[rows, :, :spec.frame_height, :spec.frame_width] = t(
-        blocks.obs_row, torch.uint8)
+    state.obs[rows, :, :spec.frame_height, :spec.frame_width] = \
+        blocks.obs_row.to(torch.uint8)
     for name in ("last_action", "hidden", "action", "reward", "gamma",
                  "burn_in_steps", "learning_steps", "forward_steps",
                  "seq_start", "weight_version", "lane"):
         src = getattr(blocks, "last_action_row" if name == "last_action"
                       else name)
         dst = getattr(state, name)
-        dst[rows] = t(src, dst.dtype)
+        dst[rows] = src.to(dst.dtype)
+
+
+def replay_add_many(spec: ReplaySpec, state: ReplayState,
+                    blocks: Block) -> ReplayState:
+    """Ring-write K stacked blocks (leading K axis on every field) in place:
+    block k lands in row (block_ptr + k) % num_blocks and all K*S tree
+    leaves are seeded by one tree_update. K <= num_blocks, so no two
+    blocks share a row. Blocks already on the replay's device go straight
+    in, their rows computed there. Host arrays on CUDA go through pinned
+    memory and copy without blocking the host: the writes queue on the
+    current stream behind the dispatches already there (a pageable copy
+    would wait for them, leaving the card idle while the host catches
+    up)."""
+    on_device = torch.is_tensor(blocks.priority)
+    k = int(blocks.priority.shape[0] if on_device
+            else np.shape(blocks.priority)[0])
+    if k > spec.num_blocks:
+        raise ValueError(
+            f"replay_add_many got {k} blocks but the ring has only "
+            f"{spec.num_blocks} rows")
+    device = state.obs.device
+    if on_device:
+        if blocks.priority.device != device:
+            raise ValueError(f"blocks on {blocks.priority.device}, the "
+                             f"replay on {device}")
+        rows = (torch.arange(k, device=device) + state.block_ptr) \
+            % spec.num_blocks
+    else:
+        cuda = device.type == "cuda"
+
+        def t(x):
+            host = torch.as_tensor(np.asarray(x))
+            if cuda:
+                host = host.pin_memory()
+            return host.to(device, non_blocking=cuda)
+
+        rows = t(np.asarray([(state.block_ptr + j) % spec.num_blocks
+                             for j in range(k)], np.int64))
+        blocks = dataclasses.replace(blocks, **{
+            name: t(getattr(blocks, name)) for name in WRITTEN})
+    write_rows(spec, state, rows, blocks)
     state.block_ptr = (state.block_ptr + k) % spec.num_blocks
     return state
 

@@ -88,16 +88,54 @@ def _load_module(module: torch.nn.Module, state: Dict[str, torch.Tensor],
             raise ValueError(
                 f"checkpoint param {name!r} has shape "
                 f"{tuple(state[name].shape)}; the network expects "
-                f"{tuple(t.shape)} (network config differs from the "
-                "checkpoint's)")
+                f"{tuple(t.shape)}: architecture mismatch (network config "
+                "differs from the checkpoint's)")
     with torch.no_grad():
         for name, t in own.items():
             t.copy_(state[name])
 
 
+FIRST_CONV = "torso.convs.0.weight"
+
+
+def _maybe_migrate_space_to_depth(state: Dict[str, torch.Tensor],
+                                  module: torch.nn.Module
+                                  ) -> Dict[str, torch.Tensor]:
+    """A standard-layout checkpoint for a ``network.space_to_depth="on"``
+    network: the first conv's weight rewritten exactly
+    (models/network.py ``convert_params_space_to_depth``), as the JAX
+    package's ``_maybe_migrate_space_to_depth`` does. The reverse
+    direction is refused: there is no automatic downgrade. Anything else
+    is left for ``_load_module`` to judge."""
+    own = module.state_dict().get(FIRST_CONV)
+    got = state.get(FIRST_CONV)
+    if own is None or got is None or own.shape == got.shape:
+        return state
+    to, tc, tkh, tkw = own.shape
+    po, pc, pkh, pkw = got.shape
+    if (tc, tkh, tkw) == (4 * pc, pkh // 2, pkw // 2) and to == po:
+        from r2d2_tpu_torch.models.network import \
+            convert_params_space_to_depth
+        logging.getLogger(__name__).info(
+            "pretrain checkpoint uses the standard first-conv layout; "
+            "migrating it to space_to_depth (exact rewrite)")
+        return convert_params_space_to_depth(state, frame_stack=pc)
+    if (pc, pkh, pkw) == (4 * tc, tkh // 2, tkw // 2) and to == po:
+        raise ValueError(
+            "pretrain checkpoint uses the space_to_depth first-conv layout "
+            "but the network has network.space_to_depth=off: set it to "
+            "'on' (the transform is exact; there is no automatic "
+            "downgrade)")
+    return state
+
+
 def load_pretrain(path: str, module: torch.nn.Module) -> None:
-    """Weights-only warm start: the checkpoint's params into ``module``."""
-    _load_module(module, restore_checkpoint(path)["params"], path)
+    """Weights-only warm start: the checkpoint's params into ``module``,
+    a standard-layout checkpoint migrated into a space_to_depth network
+    (exact rewrite)."""
+    state = _maybe_migrate_space_to_depth(
+        restore_checkpoint(path)["params"], module)
+    _load_module(module, state, path)
 
 
 def resume_training_state(path: str, train_state) -> int:

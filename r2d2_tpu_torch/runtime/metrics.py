@@ -3,7 +3,8 @@ without its telemetry blocks: the reference's log lines in
 ``train_player{p}.log`` (the key strings its plot script matches) and one
 JSON record per log interval in ``metrics_player{p}.jsonl`` with the
 record's core keys (throughput, ingestion, worker health, dropped
-priority updates).
+priority updates) and, from the on-device acting loop, its ``anakin``
+block.
 
 ``log_dir=None`` keeps everything in memory: no file is written (what a
 bare ``Learner`` gets).
@@ -63,6 +64,7 @@ class TrainMetrics:
         self._ingest_pause_time = 0.0
         # the latest supervision snapshot (WorkerHealth.snapshot)
         self._actor_health = {}
+        self._anakin: Optional[dict] = None
 
     # -- feed points --
 
@@ -73,6 +75,19 @@ class TrainMetrics:
         if episode_return is not None and not np.isnan(episode_return):
             self.episode_reward += float(episode_return)
             self.num_episodes += 1
+
+    def on_episodes(self, count: int, return_sum: float) -> None:
+        """Episodes whose returns were summed on the device (on-device
+        acting reads them at log time, not block by block)."""
+        self.num_episodes += int(count)
+        self.episode_reward += float(return_sum)
+
+    def set_anakin(self, block: Optional[dict]) -> None:
+        """The interval's on-device acting block (env steps, episodes,
+        reported episodes and their return sum, in the JAX package's keys
+        at dp=1; runtime/anakin_loop.py flush_stats); emitted once as the
+        record's "anakin" key, None = none this interval."""
+        self._anakin = block
 
     def on_train_step(self, loss: float) -> None:
         """Per learner step."""
@@ -176,6 +191,9 @@ class TrainMetrics:
             self._ingest_blocks = 0
             self._ingest_latency_sum = 0.0
             self._ingest_pause_time = 0.0
+        if self._anakin is not None:
+            record["anakin"] = self._anakin
+            self._anakin = None
         if self._jsonl_path:
             with open(self._jsonl_path, "a") as f:
                 f.write(json.dumps(record) + "\n")

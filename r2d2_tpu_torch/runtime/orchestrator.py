@@ -259,7 +259,16 @@ def train(cfg: Config, *, max_training_steps: Optional[int] = None,
     (optim.training_steps), ``max_seconds``, or SIGTERM/SIGINT; returns
     the player's stack, closed, its learner holding the final state.
     ``device``: CUDA by default (raises without one). ``dispatch_hook``
-    is called after every learner dispatch with the stack."""
+    is called after every learner dispatch with the stack. With
+    ``actor.on_device`` the fused act+train loop runs instead
+    (runtime/anakin_loop.py), before any env, actor, queue or weight
+    service is built; ``actor_mode`` has no meaning there."""
+    if cfg.actor.on_device:
+        from r2d2_tpu_torch.runtime import anakin_loop
+        return anakin_loop.run_anakin_train(
+            cfg, max_training_steps=max_training_steps,
+            max_seconds=max_seconds, device=device, log_fn=log_fn,
+            dispatch_hook=dispatch_hook)
     if actor_mode not in ("thread", "process"):
         raise ValueError(f"actor_mode must be 'thread' or 'process'; got "
                          f"{actor_mode!r}")

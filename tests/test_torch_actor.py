@@ -207,13 +207,23 @@ def test_vector_env_and_wrappers_match_jax(rng):
 
 
 def test_create_env_names_missing_engines():
+    """Engines that are not installed raise and name themselves; the
+    on-device ids resolve to the host adapter over the device envs, and
+    the device factory names what it cannot build."""
+    from r2d2_tpu_torch.envs.device_env import HostDeviceEnv
+    from r2d2_tpu_torch.envs.factory import create_device_env
     cfg = Config()
     assert isinstance(create_env(cfg.env, seed=1), FakeR2D2Env)
-    for game, engine in (("Vizdoom", "ViZDoom"), ("ALE/Boxing", "gymnasium"),
-                         ("Grid", "on-device")):
+    for game, engine in (("Vizdoom", "ViZDoom"), ("ALE/Boxing", "gymnasium")):
         bad = dataclasses.replace(cfg.env, game_name=game)
         with pytest.raises((ImportError, ValueError), match=engine):
             create_env(bad)
+    assert isinstance(create_env(dataclasses.replace(cfg.env,
+                                                     game_name="Grid")),
+                      HostDeviceEnv)
+    with pytest.raises(ValueError, match="on-device"):
+        create_device_env(dataclasses.replace(cfg.env, game_name="Vizdoom"),
+                          "cpu")
 
 
 def _blocks_equal(got, want, atol=1e-5):

@@ -413,3 +413,62 @@ def test_full_resume_continues_exactly(tmp_path):
         for key in sa:
             assert torch.equal(torch.as_tensor(sa[key]),
                                torch.as_tensor(sb[key])), key
+
+
+def _save_params(save_dir: str, game: str, module) -> str:
+    from r2d2_tpu_torch.config import OptimConfig
+    from r2d2_tpu_torch.learner.train_step import TrainState, make_optimizer
+    ts = TrainState(params=module, target_params=module,
+                    opt=make_optimizer(OptimConfig(), module), step=0,
+                    generator=torch.Generator())
+    return save_checkpoint(save_dir, game, 1, 0, ts, 0)
+
+
+def test_pretrain_migrates_standard_checkpoint_to_space_to_depth(tmp_path):
+    """The twin of the JAX package's tests/test_runtime.py
+    test_pretrain_auto_migrates_space_to_depth: a standard-layout
+    checkpoint (JAX's weights, converted) warm-starts a
+    network.space_to_depth="on" network through an exact rewrite, whose
+    Q equals JAX's standard network's (atol/rtol 1e-5, f32, 84x84x4); an
+    s2d checkpoint into a standard network is refused naming
+    space_to_depth=off; an unrelated shape is an architecture mismatch."""
+    import jax
+    import jax.numpy as jnp
+    from r2d2_tpu.config import NetworkConfig as JNetworkConfig
+    from r2d2_tpu.models import initial_hidden as j_initial_hidden
+    from r2d2_tpu_torch.config import NetworkConfig
+    from r2d2_tpu_torch.models.convert import params_from_flax
+
+    jnet = JNetworkApply(4, JNetworkConfig(hidden_dim=16, cnn_out_dim=32),
+                         4, 84, 84)
+    jparams = jnet.init(jax.random.PRNGKey(2))
+    rng = np.random.default_rng(0)
+    obs = rng.uniform(0, 1, (2, 3, 84, 84, 4)).astype(np.float32)
+    la = np.zeros((2, 3, 4), np.float32)
+    q_jax, _ = jnet.apply(jparams, jnp.asarray(obs), jnp.asarray(la),
+                          j_initial_hidden(2, 16))
+
+    def net(s2d: str, hidden: int = 16) -> NetworkApply:
+        return NetworkApply(4, NetworkConfig(hidden_dim=hidden,
+                                             cnn_out_dim=32,
+                                             space_to_depth=s2d),
+                            4, 84, 84, "cpu")
+
+    standard = net("off").build()
+    standard.load_state_dict(params_from_flax(
+        jax.tree_util.tree_map(np.asarray, jparams)))
+    path = _save_params(str(tmp_path), "Fake", standard)
+    s2d = net("on").init(3)
+    assert s2d.torso.convs[0].weight.shape[1] == 16
+    load_pretrain(path, s2d)
+    with torch.no_grad():
+        q, _ = s2d(torch.from_numpy(obs), torch.from_numpy(la),
+                   torch.zeros(2, 2, 16))
+    np.testing.assert_allclose(q.numpy(), np.asarray(q_jax), rtol=1e-5,
+                               atol=1e-5)
+
+    path_s2d = _save_params(str(tmp_path), "FakeS2d", net("on").init(4))
+    with pytest.raises(ValueError, match="space_to_depth=off"):
+        load_pretrain(path_s2d, net("off").init(5))
+    with pytest.raises(ValueError, match="architecture mismatch"):
+        load_pretrain(path, net("off", hidden=32).init(6))

@@ -71,7 +71,8 @@ def test_port_imports_nothing_of_jax():
         "for name in ('replay.device_replay', 'runtime.orchestrator',\n"
         "             'runtime.actor_main', 'runtime.shm_feeder',\n"
         "             'envs.vector', 'cli.evaluate', 'tools.learnability',\n"
-        "             'tools.actor_profile'):\n"
+        "             'tools.actor_profile', 'envs.device_env',\n"
+        "             'actor.anakin', 'runtime.anakin_loop'):\n"
         "    assert 'r2d2_tpu_torch.' + name in sys.modules, name\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
