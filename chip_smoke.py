@@ -57,7 +57,8 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      the kernel launch counts of these runs go into the ``kernels`` line
      (the gather's two rows: unpadded and padded storage; a graph replay
      adds the launches its capture counted), each run under the profiler,
-     whose kernel names must show the same launches; the host path's
+     whose kernel names must show the same launches (a run whose trace
+     lost events runs again, at most PROFILE_TRIES times); the host path's
      timed launches go beside them (``host_path_launches``);
   6. the orchestrated trainer through its entry point,
      r2d2_tpu_torch.cli.train, at the reference widths (capacity 100,000)
@@ -114,6 +115,35 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      over the profiled window, peak GB and the warm-up; last, the
      gridworld learns under the fused loop on the card
      (tools/learnability.py grid_config, the JAX test's threshold).
+  9. serving on the card (serve/, ops/quant_kernels.py): (a) int8_linear
+     against its plain version at every dense shape of the quantized
+     forward (torso 3136->1024, input projection 1030->2048, recurrent
+     512->2048, head 512->512, outputs 512->6 and 512->1), M in
+     QUANT_ROWS, bf16 and f32 activations (tolerances at QUANT_F32_RTOL,
+     QUANT_BF16_ULP), timed at M=32 bf16 alone and back to back beside
+     the bound (int8 weights, scales, x and y at 3.35 TB/s), the plain
+     version and torch.matmul on the bf16 twin (the yardstick); (b) the
+     int8 forward at the reference widths, card (bf16 compute) against
+     the port's CPU forward (f32): greedy agreement >= 0.99 outside the
+     tie band, |dQ| <= 5% of the Q scale (JAX's tests/test_quant.py
+     rule), f32-compute int8 card vs CPU within 1e-4, and the weight
+     bytes a forward for f32 / bf16 / int8; (c) the PolicyServer at the
+     reference widths, f32 (bf16 compute) and int8: every bucket's CUDA
+     graph against the eager forward bit for bit, then SERVE_STEPS steps
+     of 32 lanes served against the eager forward from the same states
+     (actions and hidden equal; every dispatch a full bucket); (d)
+     python -m r2d2_tpu_torch.cli.serve as a process, f32 and int8,
+     loaded by socket clients (r2d2_tpu_torch/tools/serve_load.py
+     processes) at SERVE_LANES lanes: requests/s, client p50/p99,
+     dispatches/s, batch fill, the forward's CUDA-event ms per bucket, the
+     record's serving and quant blocks; it exits 0 at --seconds; (e)
+     cli.train --actor.inference=server (thread actors, int8 inference,
+     Fake, capacity 100,000) for SERVED_TRAIN_SECONDS: trains on cuda with
+     finite losses, every action served, a serving block in the record;
+     seq-updates/s against the bench's default path at the resolved K in
+     this call, env steps/s and the serving latency. The counts of (c),
+     (d) and (e) go into the ``kernels`` line as ``serve_launches``
+     (int8_linear's ``launches``); the script's total time is printed.
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
 The last line is {"ok": true, "device": {...}}. ``--profile`` adds a
@@ -139,7 +169,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 # H100 SXM dense peaks by input type: bf16 on the tensor cores, f32 off them
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCES = {"replay_kernels": "r2d2_tpu_torch/csrc/replay_kernels.cu",
-                  "lstm_kernels": "r2d2_tpu_torch/csrc/lstm_kernels.cu"}
+                  "lstm_kernels": "r2d2_tpu_torch/csrc/lstm_kernels.cu",
+                  "quant_kernels": "r2d2_tpu_torch/csrc/quant_kernels.cu"}
 # the gather is one kernel; its rows: unpadded storage (the row gather's,
 # K1) and tile-padded storage (the exact-read gather's, K2)
 REPLACES = {
@@ -149,6 +180,9 @@ REPLACES = {
     "lstm_fwd": "r2d2_tpu/ops/pallas_lstm.py:194",
     "lstm_fwd_lean": "r2d2_tpu/ops/pallas_lstm.py:194",
     "lstm_bwd": "r2d2_tpu/ops/pallas_lstm.py:307",
+    # no Pallas site: the dequantize-into-matmul XLA fuses in the JAX
+    # package's quantized forward
+    "int8_linear": "r2d2_tpu/models/network.py:526",
 }
 # LSTM kernels vs plain versions, (atol, rtol) on outputs compared in f32.
 # Not exact: the products sum in another order. f32: that order alone,
@@ -191,6 +225,7 @@ KERNEL_NAMES = {
     "lstm_fwd": re.compile(r"lstm_fwd_kernel<[^>]*true>"),
     "lstm_fwd_lean": re.compile(r"lstm_fwd_kernel<[^>]*false>"),
     "lstm_bwd": re.compile(r"lstm_bwd_kernel"),
+    "int8_linear": re.compile(r"int8_linear_kernel"),
 }
 PADDED_ARGS = ["--replay.pallas_exact_gather=on"]    # 84x84 stored as 96x128
 ORCH_SECONDS = 40.0                # each orchestrated cli.train run
@@ -870,7 +905,7 @@ def phase_small_step_vs_cpu(dev, overrides, label):
     want = {"gather_windows": steps, "stack_frames": steps,
             "lstm_fwd": steps if fused else 0,
             "lstm_fwd_lean": steps if fused and double else 0,
-            "lstm_bwd": steps if fused else 0}
+            "lstm_bwd": steps if fused else 0, "int8_linear": 0}
     check(runs["cuda"][2] == want, f"{label}: launches {runs['cuda'][2]}")
     print(f"small learner step ({label}), card vs CPU: losses "
           f"{runs['cuda'][0]} vs {runs['cpu'][0]}, launches "
@@ -887,7 +922,7 @@ def _want_launches(overrides: dict, steps: int) -> dict:
     return {"gather_windows": steps, "stack_frames": steps,
             "lstm_fwd": steps if fused else 0,
             "lstm_fwd_lean": steps if fused and double else 0,
-            "lstm_bwd": steps if fused else 0}
+            "lstm_bwd": steps if fused else 0, "int8_linear": 0}
 
 
 def _profiled_kernel_counts(prof) -> dict:
@@ -900,6 +935,13 @@ def _profiled_kernel_counts(prof) -> dict:
             if pattern.search(event.name):
                 counts[name] += 1
     return counts
+
+
+def _lost_events(seen: dict, want: dict) -> bool:
+    """A trace that shows fewer of some kernel and more of none than were
+    launched: it lost events (the tracer's, not the card's), and is taken
+    again."""
+    return seen != want and all(seen[k] <= want[k] for k in seen)
 
 
 def _profile(dispatch, dispatches: int, steps: int) -> float:
@@ -963,10 +1005,11 @@ def phase_graph_vs_eager(dev, base, spec, rs):
     second replay), then a fourth with each side drawing its jitter from
     its own generator. Losses and tree within rtol 1e-4: the two runs take
     the same kernels, but cuDNN's weight gradients and the LSTM backward's
-    dWh sum in an order that may differ between runs. The second replay
-    runs under the profiler: every kernel of the path ran GRAPH_K times in
-    it, by the device's kernel names, and the launch counts that the
-    graph adds per replay say the same."""
+    dWh sum in an order that may differ between runs. A fifth dispatch,
+    a replay, runs under the profiler (a trace that lost events is taken
+    again on the next replay, at most PROFILE_TRIES times): every kernel
+    of the path ran GRAPH_K times in it, by the device's kernel names,
+    and the launch counts that the graph adds per replay say the same."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -983,17 +1026,7 @@ def phase_graph_vs_eager(dev, base, spec, rs):
         want = _want_launches(overrides, GRAPH_K)
         for d, u in enumerate(uniforms):
             _reset_counts()
-            if d == 2:
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    _, _, m = multi(ts_graph, rs_graph, u)
-                    torch.cuda.synchronize()
-                seen = _profiled_kernel_counts(prof)
-                check(seen == want, f"graph {label}: the profile shows "
-                      f"{seen}, want {want}")
-            else:
-                _, _, m = multi(ts_graph, rs_graph, u)
+            _, _, m = multi(ts_graph, rs_graph, u)
             counted = _counts()
             check(counted == want, f"graph {label} dispatch {d}: launches "
                   f"{counted}, want {want}")
@@ -1021,6 +1054,21 @@ def phase_graph_vs_eager(dev, base, spec, rs):
         check(multi.graph is not None and ts_graph.step == 4 * GRAPH_K
               and int(ts_graph.step_count) == 4 * GRAPH_K,
               f"graph {label}: step {ts_graph.step}")
+        # one more replay under the profiler (a trace that lost events is
+        # taken again, on the next replay)
+        for _ in range(PROFILE_TRIES):
+            _reset_counts()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                multi(ts_graph, rs_graph)
+                torch.cuda.synchronize()
+            seen = _profiled_kernel_counts(prof)
+            check(_counts() == want, f"graph {label}: launches {_counts()}")
+            if not _lost_events(seen, want):
+                break
+        check(seen == want, f"graph {label}: the profile shows {seen}, "
+              f"want {want}")
         print(f"graph vs eager ({label}): the replayed graph ran every "
               f"kernel {GRAPH_K} times by the profile: {seen}", flush=True)
         del rs_graph, rs_eager, multi, single, ts_graph, ts_eager
@@ -1221,8 +1269,8 @@ def phase_external_graph_vs_eager(dev, base, blocks):
     path's settings: losses, grad norms and priorities within rtol 1e-4
     (priorities atol 1e-6). Then one more replay runs under the profiler:
     the kernels by their device names once each, no gather (a trace that
-    holds no device event at all, the tracer's loss, is taken again, at
-    most PROFILE_TRIES times)."""
+    lost events, the tracer's loss, is taken again, at most PROFILE_TRIES
+    times)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1257,11 +1305,13 @@ def phase_external_graph_vs_eager(dev, base, blocks):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES // 20)     # the tracer first
+            torch.cuda.synchronize()
             graphed(ts_graph, batches[-1])
             torch.cuda.synchronize()
-        if bench.device_kernels(prof):
+        seen = _profiled_kernel_counts(prof)
+        if not _lost_events(seen, _want_host_launches(cfg, 1)):
             break
-    seen = _profiled_kernel_counts(prof)
     check(seen == _want_host_launches(cfg, 1),
           f"external graph: the profile shows {seen}")
     print(f"external graph vs eager ({GRAPH_K} steps, bf16 reference "
@@ -1329,14 +1379,20 @@ def phase_host_learner(dev, base, blocks) -> dict:
             check(counted == want, f"host path: launches {counted}, want "
                   f"{want}")
             total = {k: total.get(k, 0) + n for k, n in counted.items()}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(REF_WINDOW):
-                losses.append(learner.step()["loss"])
-            torch.cuda.synchronize()
-            profiled_ms = (time.perf_counter() - t0) * 1e3 / REF_WINDOW
-        seen = _profiled_kernel_counts(prof)
+        # a trace that lost events is taken again, on the next window
+        for _ in range(PROFILE_TRIES):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(SPIN_CYCLES // 20)     # the tracer first
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(REF_WINDOW):
+                    losses.append(learner.step()["loss"])
+                torch.cuda.synchronize()
+                profiled_ms = (time.perf_counter() - t0) * 1e3 / REF_WINDOW
+            seen = _profiled_kernel_counts(prof)
+            if not _lost_events(seen, _want_host_launches(cfg, REF_WINDOW)):
+                break
         check(seen == _want_host_launches(cfg, REF_WINDOW),
               f"host path: the profile shows {seen}")
         values = torch.stack(losses).float().cpu()
@@ -1388,19 +1444,23 @@ def phase_cli(dev, extra, label, k):
     from torch.profiler import ProfilerActivity, profile
     from r2d2_tpu_torch.tools import sync_train
     steps = 3 * k
-    _reset_counts()
-    torch.cuda.synchronize()
-    # the device's events only: tracing the host's ops of a whole run
-    # would cost more than the run
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        summary = sync_train.main([
-            "--env.game_name=Fake", "--replay.capacity=20000",
-            "--replay.learning_starts=400",
-            "--replay.max_env_steps_per_train_step=4",
-            f"--max-steps={steps}", *extra])
+    # a trace that lost events is taken again, on a run of its own
+    for _ in range(PROFILE_TRIES):
+        _reset_counts()
         torch.cuda.synchronize()
-    launches = _counts()
-    seen = _profiled_kernel_counts(prof)
+        # the device's events only: tracing the host's ops of a whole run
+        # would cost more than the run
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            summary = sync_train.main([
+                "--env.game_name=Fake", "--replay.capacity=20000",
+                "--replay.learning_starts=400",
+                "--replay.max_env_steps_per_train_step=4",
+                f"--max-steps={steps}", *extra])
+            torch.cuda.synchronize()
+        launches = _counts()
+        seen = _profiled_kernel_counts(prof)
+        if not _lost_events(seen, launches):
+            break
     check(seen == {name: launches[name] for name in seen},
           f"sync_train {label}: the profile shows {seen}, counted "
           f"{launches}")
@@ -2106,6 +2166,427 @@ def phase_anakin_learnability(dev):
           f"{len(result['intervals'])} records)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serving on the card (serve/, ops/quant_kernels.py)
+
+# the quantized forward's dense layers at the reference widths (Fake: 6
+# actions): name, K (in), N (out)
+QUANT_SHAPES = (("torso.dense", 3136, 1024), ("lstm.input_proj", 1030, 2048),
+                ("lstm.recurrent_kernel", 512, 2048),
+                ("head.hidden", 512, 512), ("head.adv_out", 512, 6),
+                ("head.val_out", 512, 1))
+QUANT_ROWS = (1, 3, 32, 64)
+QUANT_MAIN = ("torso.dense", 32)   # the kernels line's case: bf16, M=32
+# int8_linear vs its plain version: f32 sums in another order, so rtol
+# 1e-5 scaled by sqrt(K) against the output's magnitude; a bf16 output
+# may round the other way, one bf16 ulp (<= 2^-7 relative)
+QUANT_F32_RTOL = 1e-5
+QUANT_BF16_ULP = 2.0 ** -7
+SERVE_LANES = (1, 8, 32)
+SERVE_LOAD_S = 4.0                 # each load window of cli.serve
+SERVE_STEPS = 200                  # served-vs-eager steps of 32 lanes
+SERVED_TRAIN_SECONDS = 25.0
+SERVED_TRAIN_ARGS = ["--actor-mode=thread", "--actor.inference=server",
+                     "--network.inference_dtype=int8",
+                     "--env.game_name=Fake", "--replay.capacity=100000"]
+
+
+def _quant_layer(k, n, g, dev):
+    from r2d2_tpu_torch.models.network import quantize_leaf_int8
+    from r2d2_tpu_torch.ops.quant_kernels import pad_int8_weight
+    import torch
+    w = torch.randn(n, k, generator=g) / math.sqrt(k)
+    leaf = quantize_leaf_int8(w, axis=0)
+    return (pad_int8_weight(leaf["q"]).to(dev),
+            leaf["scale"].reshape(-1).to(dev),
+            (torch.randn(n, generator=g) * 0.1).to(dev),
+            (leaf["q"].float() * leaf["scale"]).to(dev, torch.bfloat16))
+
+
+def phase_quant_kernel(dev) -> dict:
+    """9a: int8_linear against its plain version at every dense shape of
+    the quantized forward, M in QUANT_ROWS, bf16 and f32 activations; then
+    times, bound and yardstick per shape at M=32, bf16."""
+    import torch
+    from r2d2_tpu_torch.ops import quant_kernels as qk
+    g = torch.Generator().manual_seed(0)
+    layers = {name: _quant_layer(k, n, g, dev) for name, k, n in QUANT_SHAPES}
+    err = {"bfloat16": 0.0, "float32": 0.0}
+    for name, k, n in QUANT_SHAPES:
+        q, scale, bias, _ = layers[name]
+        for m in QUANT_ROWS:
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn(m, k, generator=g).to(dev, dt)
+                got = qk.int8_linear(x, q, scale, bias, dt).float()
+                want = qk.int8_linear_plain(x, q, scale, bias, dt).float()
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                key = "bfloat16" if dt == torch.bfloat16 else "float32"
+                err[key] = max(err[key], diff.max().item())
+                if dt == torch.float32:
+                    tol = QUANT_F32_RTOL * math.sqrt(k) * \
+                        want.abs().max().item()
+                    check(diff.max().item() <= tol,
+                          f"int8_linear {name} M={m} f32: {diff.max()}")
+                else:
+                    check(bool((diff <= QUANT_BF16_ULP * want.abs()
+                                + 1e-6).all()),
+                          f"int8_linear {name} M={m} bf16: {diff.max()}")
+    print(f"int8_linear matches its plain version at {len(QUANT_SHAPES)} "
+          f"shapes x M {QUANT_ROWS} x (bf16, f32): max abs err bf16 "
+          f"{err['bfloat16']:.3e}, f32 {err['float32']:.3e}", flush=True)
+    rows = {}
+    for name, k, n in QUANT_SHAPES:
+        q, scale, bias, w16 = layers[name]
+        m = QUANT_MAIN[1]
+        xs = [torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
+              for _ in range(BACK_TO_BACK)]
+        nbytes = qk.int8_linear_bytes(m, n, k, 2, 2)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * m * n * k / PEAK_FLOPS["bfloat16"] * 1e3
+        rows[name] = dict(
+            ms=cuda_ms(lambda: qk.int8_linear(xs[0], q, scale, bias)),
+            b2b_ms=b2b_ms(lambda i: qk.int8_linear(xs[i], q, scale, bias)),
+            plain_ms=cuda_ms(lambda: qk.int8_linear_plain(xs[0], q, scale,
+                                                          bias), runs=10),
+            library_ms=cuda_ms(lambda: torch.matmul(xs[0], w16.t())),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        r = rows[name]
+        print(f"int8_linear {name} ({k}->{n}, M={m}, bf16): kernel "
+              f"{r['ms']:.4f} ms (back to back {r['b2b_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f}, torch.matmul on the bf16 twin "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']})", flush=True)
+    main = dict(rows[QUANT_MAIN[0]])
+    main["max_abs_err"] = err["bfloat16"]
+    return main
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def _reference_serving(dev, mode: str):
+    """(cfg, card net, CPU net, CPU module) at the reference widths with
+    inference dtype ``mode``, weights from a seed."""
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.models.network import NetworkApply
+    cfg = Config().replace(**{"network.inference_dtype": mode})
+    h, w, s = 84, 84, 4
+    net = NetworkApply(6, cfg.network, s, h, w, dev)
+    cpu = NetworkApply(6, cfg.network, s, h, w, "cpu")
+    return cfg, net, cpu, cpu.init(5)
+
+
+def phase_quant_forward(dev) -> None:
+    """9b: the int8 forward on the card (bf16 compute) against the port's
+    CPU int8 forward (f32), by JAX's tests/test_quant.py rule; the card's
+    f32-compute int8 forward against the CPU's at atol 1e-4; the weight
+    bytes a forward streams per inference dtype."""
+    import torch
+    from r2d2_tpu_torch.models.network import (QuantInference,
+                                               make_inference_bundle,
+                                               param_tree_bytes)
+    _, net, cpu, module = _reference_serving(dev, "int8")
+    bundle = make_inference_bundle(cpu, module, 1)
+    card = QuantInference(net, bundle["quant"], dev)
+    card32 = QuantInference(net, bundle["quant"], dev, torch.float32)
+    host = QuantInference(cpu, bundle["quant"], "cpu")
+    check(card.dtype == torch.bfloat16 and host.dtype == torch.float32,
+          "compute dtypes")
+    g = torch.Generator().manual_seed(1)
+    agree = total = 0
+    dq_max = qscale = err32 = 0.0
+    for _ in range(4):
+        obs = torch.rand(64, 1, 84, 84, 4, generator=g)
+        la = torch.nn.functional.one_hot(
+            torch.randint(0, 6, (64, 1), generator=g), 6).float()
+        hid = torch.randn(64, 2, 512, generator=g) * 0.1
+        with torch.no_grad():
+            q_cpu, _ = host(obs, la, hid)
+            q_card, _ = card(obs.to(dev), la.to(dev), hid.to(dev))
+            q_card32, h_card32 = card32(obs.to(dev), la.to(dev), hid.to(dev))
+            _, h_cpu = host(obs, la, hid)
+        q_cpu, q_card = q_cpu[:, 0], q_card[:, 0].cpu()
+        err32 = max(err32, (q_card32[:, 0].cpu() - q_cpu).abs().max().item(),
+                    (h_card32.cpu() - h_cpu).abs().max().item())
+        dq = (q_card - q_cpu).abs().max().item()
+        dq_max, qscale = max(dq_max, dq), max(qscale, q_cpu.abs().max().item())
+        top2 = q_cpu.sort(dim=-1).values[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 2.0 * dq
+        same = q_card.argmax(-1) == q_cpu.argmax(-1)
+        agree += int(same[clear].sum())
+        total += int(clear.sum())
+    print(f"int8 forward, card bf16 vs CPU f32 at the reference widths: "
+          f"greedy agreement {agree}/{total} outside the tie band, max |dQ| "
+          f"{dq_max:.3e} of Q scale {qscale:.3e}; card f32-compute vs CPU "
+          f"{err32:.3e}", flush=True)
+    check(total >= 128 and agree / total >= 0.99, f"agreement {agree}/{total}")
+    check(dq_max <= 0.05 * max(qscale, 1e-3), f"|dQ| {dq_max} vs {qscale}")
+    check(err32 <= 1e-4, f"f32-compute int8 card vs CPU {err32}")
+    for mode in ("f32", "bf16", "int8"):
+        _, _, cpu_m, mod_m = _reference_serving(dev, mode)
+        twin = make_inference_bundle(cpu_m, mod_m, 0)
+        tree = twin if mode == "f32" else twin["quant"]
+        print(f"weight bytes a forward, {mode}: {param_tree_bytes(tree)}",
+              flush=True)
+
+
+def _serving_server(dev, mode: str, **kw):
+    from r2d2_tpu_torch.serve import InprocEndpoint, PolicyServer
+    cfg, net, _, module = _reference_serving(dev, mode)
+    endpoint = InprocEndpoint()
+    server = PolicyServer(cfg, net, module, endpoint=endpoint, **kw)
+    return cfg, server, endpoint
+
+
+def phase_serve_graphs(dev) -> dict:
+    """9c: the PolicyServer at the reference widths, f32 (bf16 compute)
+    and int8: each bucket's graph replay against the eager forward bit for
+    bit, then SERVE_STEPS steps of 32 lanes served against the eager
+    forward from the same states (actions and hidden equal). Returns the
+    launches counted over the served steps."""
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.ops.launch_counts import captured_launches
+    from r2d2_tpu_torch.serve import RemoteBatchedPolicy, StateCache
+    launches = {}
+    for mode in ("f32", "int8"):
+        cfg, server, endpoint = _serving_server(dev, mode)
+        g = np.random.default_rng(3)
+        eager_ms = {}
+        for b in server.buckets:
+            obs = g.uniform(size=(b, 84, 84, 4)).astype(np.float32)
+            la = g.integers(-1, 6, b)
+            hid = (g.normal(size=(b, 2, 512)) * 0.1).astype(np.float32)
+            got = server.graph_forward(b, obs, la, hid)
+            args = (torch.from_numpy(obs).to(dev), torch.from_numpy(la).to(dev),
+                    torch.from_numpy(hid).to(dev))
+            want = [t.cpu().numpy() for t in server.eager_forward(*args)]
+            for x, y, what in zip(got, want, ("actions", "q", "h")):
+                check(np.array_equal(x, y),
+                      f"{mode} bucket {b}: graph {what} != eager")
+            with torch.cuda.stream(server.stream):
+                eager_ms[b] = cuda_ms(lambda: server._eager(*args), runs=10)
+        graph_ms = server.forward_ms_by_bucket()
+        print(f"serve {mode}: every bucket's graph equals the eager forward "
+              "bit for bit; forward ms by bucket, graph replay "
+              f"{graph_ms}, eager {{"
+              + ", ".join(f"{b}: {v:.4f}" for b, v in eager_ms.items())
+              + "}", flush=True)
+        # 32 lanes served vs the eager forward on the same states
+        lanes = 32
+        ref = StateCache(lanes, 1, (84, 84), 4, 512, action_dim=6)
+        slots = [ref.lease(i)[0] for i in range(lanes)]
+        server.forward_ms = {b: [0, 0.0] for b in server.buckets}
+        server.start()
+        policy = RemoteBatchedPolicy(endpoint.connect(), 6, [0.0] * lanes,
+                                     list(range(lanes)), max_retry_s=15.0)
+        frames = g.integers(0, 255, (8, lanes, 84, 84), np.uint8)
+        reference = {}
+        for i in range(lanes):
+            policy.observe_reset_lane(i, frames[0, i])
+            ref.reset_slot(slots[i], frames[0, i])
+        _reset_counts()
+        t0 = time.perf_counter()
+        for t in range(SERVE_STEPS):
+            actions, q, hidden = policy.act()
+            stacked, last_action, h0 = ref.gather(slots)
+            # the reference's launches (this thread's) are not the path's
+            with captured_launches(server.stream) as compared:
+                want = server.eager_forward(
+                    torch.from_numpy(stacked).to(dev),
+                    torch.from_numpy(last_action).to(dev),
+                    torch.from_numpy(h0).to(dev))
+            _add_counts(reference, compared)
+            check(np.array_equal(actions, want[0].cpu().numpy())
+                  and np.array_equal(hidden, want[2].cpu().numpy()),
+                  f"serve {mode}: step {t} served != eager")
+            for i in range(lanes):
+                ref.write_hidden(slots[i], hidden[i])
+                ref.observe(slots[i], frames[(t + 1) % 8, i], actions[i])
+            policy.observe(frames[(t + 1) % 8], actions)
+        seconds = time.perf_counter() - t0
+        counted = {name: n - reference.get(name, 0)
+                   for name, n in _counts().items()}
+        block = server.stats.interval_block()
+        policy.close()
+        server.stop()
+        check(block["batch"]["fill_mean"] == lanes,
+              f"serve {mode}: fill {block['batch']}")
+        if mode == "int8":
+            check(counted["int8_linear"] > 0, "no int8_linear launch")
+        _add_counts(launches, counted)
+        print(f"serve {mode}: {SERVE_STEPS} steps of {lanes} lanes equal the "
+              f"eager forward (actions, hidden); {seconds:.2f} s with the "
+              f"checks, graph ms {server.forward_ms_by_bucket()[lanes]}, "
+              f"launches {counted}", flush=True)
+        del server
+        torch.cuda.empty_cache()
+    return launches
+
+
+SERVE_CLIENT_START_S = 10.0        # client processes' start-up allowance
+
+
+def _start_load(port: int, lanes: int, start_at: float) -> list:
+    """Client processes (tools/serve_load.py) loading ``lanes`` lanes for
+    SERVE_LOAD_S from wall-clock ``start_at``: up to 4 processes."""
+    procs = max(1, min(4, lanes))
+    per = lanes // procs
+    return [subprocess.Popen(
+        [sys.executable, "-m", "r2d2_tpu_torch.tools.serve_load",
+         "--port", str(port), "--lanes", str(per),
+         "--client-base", str(1000 * lanes + 100 * i), "--seed", str(i),
+         "--seconds", str(SERVE_LOAD_S), "--start-at", str(start_at)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(procs)]
+
+
+def _finish_load(lanes: int, running: list) -> dict:
+    """The load's summed requests/s and the worst p50/p99."""
+    outs = []
+    for p in running:
+        out, err = p.communicate(timeout=180)
+        check(p.returncode == 0, f"serve_load failed: {err[-2000:]}")
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    return {"lanes": lanes, "processes": len(running),
+            "requests_per_s": sum(o["requests_per_s"] for o in outs),
+            "p50_ms": max(o["p50_ms"] for o in outs),
+            "p99_ms": max(o["p99_ms"] for o in outs),
+            "timeouts": sum(o["timeouts"] for o in outs)}
+
+
+def phase_serve_cli(dev) -> dict:
+    """9d: python -m r2d2_tpu_torch.cli.serve on the card, f32 and int8,
+    loaded by socket clients at SERVE_LANES lanes; it exits 0 at
+    --seconds. Returns the servers' launch counts."""
+    import tempfile
+    launches = {}
+    # every load's clients start together; their windows follow one
+    # another, one second apart, after the start-up allowance
+    seconds = SERVE_CLIENT_START_S + len(SERVE_LANES) * (
+        SERVE_LOAD_S + 1.0) + 5.0
+    for mode in ("f32", "int8"):
+        save_dir = tempfile.mkdtemp(prefix=f"chip_smoke_serve_{mode}_")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "r2d2_tpu_torch.cli.serve",
+             f"--seconds={seconds}", "--save-dir", save_dir,
+             f"--network.inference_dtype={mode}",
+             f"--runtime.log_interval={SERVE_LOAD_S}"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            line = proc.stdout.readline()
+            m = re.match(r"serving on ([\d.]+):(\d+) \(action_dim=(\d+)\)",
+                         line)
+            check(m, f"cli.serve printed {line!r}")
+            port = int(m.group(2))
+            t0 = time.time() + SERVE_CLIENT_START_S
+            clients = [_start_load(port, lanes,
+                                   t0 + i * (SERVE_LOAD_S + 1.0))
+                       for i, lanes in enumerate(SERVE_LANES)]
+            loads = [_finish_load(lanes, running)
+                     for lanes, running in zip(SERVE_LANES, clients)]
+            out, err = proc.communicate(timeout=seconds + 60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                _, err = proc.communicate()
+                print(f"cli.serve {mode} killed; its stderr:\n{err[-4000:]}",
+                      flush=True)
+        check(proc.returncode == 0, f"cli.serve {mode}: {err[-3000:]}")
+        with open(os.path.join(save_dir, "serve_metrics.jsonl")) as f:
+            records = [json.loads(x) for x in f if x.strip()]
+        shutil.rmtree(save_dir, ignore_errors=True)
+        final = records[-1]
+        check(final["device"].startswith("cuda"), f"device {final['device']}")
+        busiest = max((r for r in records if "serving" in r),
+                      key=lambda r: r["serving"]["requests"])
+        span = max(records[-1]["t"] - records[0]["t"], 1e-9)
+        for row in loads:
+            print(f"cli.serve {mode}, {row['lanes']} lanes in "
+                  f"{row['processes']} processes: {row['requests_per_s']:.1f} "
+                  f"requests/s, client p50 {row['p50_ms']:.3f} ms, p99 "
+                  f"{row['p99_ms']:.3f} ms, timeouts {row['timeouts']}",
+                  flush=True)
+            check(row["timeouts"] == 0, f"timeouts under load: {row}")
+        print(f"cli.serve {mode}: {final['batches']} dispatches "
+              f"({final['batches'] / span:.1f}/s over the run), forward ms "
+              f"by bucket {final['forward_ms_by_bucket']}; busiest record's "
+              f"serving block {json.dumps(busiest['serving'])}"
+              + (f"; quant {json.dumps(busiest['quant'])}"
+                 if "quant" in busiest else ""), flush=True)
+        if mode == "int8":
+            check(final["launches"]["int8_linear"] > 0,
+                  "cli.serve int8 launched no int8_linear")
+        _add_counts(launches, final["launches"])
+    return launches
+
+
+def phase_served_train(dev, k, bench_default: float) -> dict:
+    """9e: cli.train --actor.inference=server (thread actors, int8
+    inference, Fake, capacity 100,000) for SERVED_TRAIN_SECONDS: trains on
+    cuda with finite losses, every action served, the record has a serving
+    block. Returns the launches of the run."""
+    import tempfile
+    import torch
+    from r2d2_tpu_torch.cli import train
+    from r2d2_tpu_torch.config import Config
+    batch = Config().replay.batch_size
+    marks = []
+
+    def hook(stack):
+        marks.append((time.perf_counter(), stack.learner.training_steps,
+                      stack.learner.env_steps))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_served_") as d:
+        _reset_counts()
+        summary = train.main(SERVED_TRAIN_ARGS + [
+            f"--max-seconds={SERVED_TRAIN_SECONDS}",
+            f"--runtime.save_dir={d}"], dispatch_hook=hook)
+        torch.cuda.synchronize()
+        counted = _counts()
+        records = [json.loads(x) for x in open(os.path.join(
+            d, "metrics_player0.jsonl")).read().split("\n") if x.strip()]
+    check(summary["device"].startswith("cuda"), "served training off cuda")
+    check(summary["steps"] > 0 and all(math.isfinite(x)
+                                        for x in summary["losses"]),
+          "served training: no steps or a non-finite loss")
+    served = summary["served"]
+    check(served["rows"] >= summary["env_steps"] > 0,
+          f"served rows {served['rows']} < env steps {summary['env_steps']}")
+    blocks = [r["serving"] for r in records if "serving" in r]
+    check(blocks, "no serving block in the records")
+    check(counted["int8_linear"] > 0, "served training: no int8_linear")
+    (t_a, s_a, e_a), (t_b, s_b, e_b) = marks[1], marks[-1]
+    rate = batch * (s_b - s_a) / (t_b - t_a)
+    print(f"served training (thread actors, int8, K={k}): "
+          f"{rate:.2f} seq-updates/s over dispatches 2..{len(marks)} "
+          f"({100 * rate / bench_default:.2f}% of the bench's default at "
+          f"K={k} in this call, {bench_default:.2f}); env steps/s "
+          f"{(e_b - e_a) / (t_b - t_a):.2f}; served rows {served['rows']} in "
+          f"{served['batches']} dispatches, forward ms by bucket "
+          f"{served['forward_ms_by_bucket']}; last serving latency "
+          f"{blocks[-1]['latency']}, fill {blocks[-1]['batch']['fill_mean']}"
+          f"; quant {records[-1].get('quant')}; launches {counted}",
+          flush=True)
+    return counted
+
+
+def phase_serving(dev, k, bench_default: float) -> dict:
+    """Phase 9 (see the module docstring); returns the int8 kernel's
+    timings and the serving paths' launch counts."""
+    result = phase_quant_kernel(dev)
+    phase_quant_forward(dev)
+    serve = phase_serve_graphs(dev)
+    _add_counts(serve, phase_serve_cli(dev))
+    _add_counts(serve, phase_served_train(dev, k, bench_default))
+    result["serve_launches"] = serve
+    return result
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2186,6 +2667,11 @@ def main(argv) -> int:
         segment_ms)
     phase_anakin_learnability(dev)
     done("on-device acting")
+    serving = phase_serving(dev, resolved_k,
+                            reference["default", resolved_k]
+                            ["median_seq_updates_per_s"])
+    serve_launches = serving["serve_launches"]
+    done("serving")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}
@@ -2200,9 +2686,22 @@ def main(argv) -> int:
                     orchestrated_launches=(0 if name.endswith("_padded")
                                            else orchestrated[name]),
                     anakin_launches=(0 if name.endswith("_padded")
-                                     else anakin[name]))
+                                     else anakin[name]),
+                    serve_launches=(0 if name.endswith("_padded")
+                                    else serve_launches[name]))
                for name, r in timings.items()]
+    kernels.append(dict(
+        name="int8_linear", route="cuda", source=KERNEL_SOURCES["quant_kernels"],
+        replaces=REPLACES["int8_linear"],
+        launches=serve_launches["int8_linear"],
+        max_abs_err=serving["max_abs_err"], ms=serving["ms"],
+        b2b_ms=serving["b2b_ms"], plain_ms=serving["plain_ms"],
+        bound_ms=serving["bound_ms"], bound_by=serving["bound_by"],
+        library_ms=serving["library_ms"], host_path_launches=0,
+        orchestrated_launches=0, anakin_launches=0,
+        serve_launches=serve_launches["int8_linear"]))
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -37,6 +37,13 @@ def _summary(stack, device, seconds: float) -> dict:
     losses = learner.losses
     snaps = stack.snapshots
     workers = stack.processes or stack.threads
+    server = getattr(stack, "serve_server", None)
+    served = None
+    if server is not None:
+        served = {"batches": server.batches_dispatched,
+                  "rows": server.rows_served,
+                  "forward_ms_by_bucket": server.forward_ms_by_bucket(),
+                  "weight_version": server.weight_version}
     return {
         "steps": learner.training_steps,
         "env_steps": learner.env_steps,
@@ -56,6 +63,7 @@ def _summary(stack, device, seconds: float) -> dict:
         "actor_exitcodes": [getattr(w, "exitcode", None) for w in workers],
         "actors_alive": sum(1 for w in workers if w.is_alive()),
         "shm_segments": stack.segment_names,
+        "served": served,
         "losses": losses,
     }
 

@@ -3,9 +3,11 @@ optim, actor and runtime sections of the JAX package's config, with the
 same field names and defaults, so a ``--section.field=value`` override
 means the same thing in both packages. Only the fields the port reads are
 here: a setting of a part the port does not have yet
-(``--network.inference_dtype=int8``, ``--replay.ingest_batch_blocks=8``,
-``--runtime.snapshot_interval=N``, ``--mesh.dp=2``, ...) is refused as an
-unknown field instead of being ignored.
+(``--replay.ingest_batch_blocks=8``, ``--runtime.snapshot_interval=N``,
+``--mesh.dp=2``, ...) is refused as an unknown field instead of being
+ignored, and a value the port cannot honour yet (``serve.servers > 1``,
+a quantized ``actor.on_device`` forward) is refused naming the item that
+brings it.
 
 The tri-state knobs ("on"/"off"/"auto") resolve for the device the port
 runs on, never for a TPU:
@@ -53,6 +55,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 PLACEMENTS = ("device", "host")       # replay.placement
+INFERENCE_DTYPES = ("f32", "bf16", "int8")   # network.inference_dtype
 
 # What "auto" (and steps_per_dispatch=-1) resolves to on CUDA: the faster
 # setting in pairs that tools/bench.py measured in one call on an H100 at
@@ -100,6 +103,11 @@ class NetworkConfig:
     space_to_depth: str = "off"
     # fused LSTM scan (ops/lstm_kernels.py) instead of the Python scan
     pallas_lstm: str = "off"
+    # weight dtype of the acting and serving forward ("f32", "bf16",
+    # "int8"): the publication carries the quantized twin beside the f32
+    # weights (models/network.py make_inference_bundle); the learner
+    # trains in the network.bf16 policy whatever this says
+    inference_dtype: str = "f32"
 
 
 @dataclass(frozen=True)
@@ -183,6 +191,64 @@ class ActorConfig:
     # mixed per sequence with optim.priority_eta, as the host assembler
     # seeds them)
     anakin_priority: Any = 1.0
+    # where the acting forward runs: "local" (each actor's own policy) or
+    # "server" (thin clients of one micro-batched policy server in the
+    # learner's process, which holds the weights and every lane's
+    # recurrent state; serve/)
+    inference: str = "local"
+
+
+@dataclass(frozen=True)
+class TelemetryConfig:
+    """The telemetry fields the port reads."""
+
+    # every N-th quantized forward also runs the f32 twin on the same live
+    # rows (max |dQ| and greedy agreement into the record's "quant"
+    # block); 0 = no probe
+    quant_probe_interval: int = 256
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """The central policy server (serve/): thin clients send raw frames,
+    one server loop holds the weights and a per-client state cache and
+    micro-batches requests into one forward. ``actor.inference="server"``
+    routes the actors through it, ``cli/serve.py`` runs it alone,
+    ``cli/evaluate.py --serve`` evaluates through it."""
+
+    # a batch dispatches when it holds max_batch requests or its oldest is
+    # deadline_ms old; widths pad to power-of-two buckets, each one CUDA
+    # graph captured at start on the card
+    max_batch: int = 32
+    deadline_ms: float = 5.0
+    # one server only: the router that spreads shards over several servers
+    # is not ported, so any other value is refused
+    servers: int = 1
+    max_servers: int = 0
+    # admission control: past this inbox backlog after a batch fill, the
+    # oldest queued requests are shed with STATUS_RETRY (0 = off)
+    queue_depth_bound: int = 0
+    # state cache: slots (one lane each) in equal shard groups
+    state_slots: int = 1024
+    state_shards: int = 4
+    # a disconnected client's state is kept this long (reconnect window)
+    lease_timeout_s: float = 120.0
+    # client timeout a request, and the retry budget before it gives up
+    request_timeout_s: float = 5.0
+    max_retry_s: float = 60.0
+    # requests older than this at dispatch are dropped unapplied (0 = off)
+    request_ttl_s: float = 10.0
+    # process actors' rung: "shm" (native request/reply rings), "socket"
+    # (TCP) or "auto" (shm where the native ring builds, else socket)
+    transport: str = "auto"
+    host: str = "127.0.0.1"
+    port: int = 0                    # 0 = an ephemeral port
+    request_ring_slots: int = 256
+    reply_ring_slots: int = 16
+    # seconds between the server's weight-service polls
+    weight_poll_interval_s: float = 1.0
+    # capture (CUDA) or run (CPU) every dispatch bucket at start
+    warmup: bool = True
 
 
 @dataclass(frozen=True)
@@ -241,6 +307,8 @@ class Config:
     optim: OptimConfig = field(default_factory=OptimConfig)
     actor: ActorConfig = field(default_factory=ActorConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
 
     def __post_init__(self):
         if self.replay.block_length % self.sequence.learning_steps != 0:
@@ -268,6 +336,83 @@ class Config:
                 "in [1, 100]: per-lane seeds fill the worker's 100-wide seed "
                 "window (runtime.seed + 100*actor_idx + lane)")
         self._check_envs_and_acting()
+        self._check_inference()
+
+    def _check_inference(self) -> None:
+        """The quantized plane's and the policy server's rules, the JAX
+        package's wording; what the port does not have yet is refused
+        naming the item that brings it."""
+        net, actor, sv = self.network, self.actor, self.serve
+        if net.inference_dtype not in INFERENCE_DTYPES:
+            raise ValueError(
+                f"network.inference_dtype ({net.inference_dtype!r}) must be "
+                "'f32', 'bf16', or 'int8' — the acting/serving forward's "
+                "weight dtype (the learner always trains in the network.bf16 "
+                "policy regardless)")
+        if self.telemetry.quant_probe_interval < 0:
+            raise ValueError(
+                f"telemetry.quant_probe_interval "
+                f"({self.telemetry.quant_probe_interval}) must be >= 0 (0 "
+                "disables the accuracy probe)")
+        if actor.on_device and net.inference_dtype != "f32":
+            raise ValueError(
+                f"network.inference_dtype={net.inference_dtype!r} with "
+                "actor.on_device=true is not ported yet: the quantized "
+                "branch of the on-device acting segment is the rest of "
+                "ROADMAP item A.5")
+        if actor.inference not in ("local", "server"):
+            raise ValueError(f"actor.inference ({actor.inference!r}) must be "
+                             "'local' or 'server'")
+        if actor.inference == "server":
+            if actor.on_device:
+                raise ValueError(
+                    "actor.inference='server' requires the host actor "
+                    "fleet: the fused on-device loop (actor.on_device) has "
+                    "no per-step policy client — its acting forward is "
+                    "already device-resident")
+            lanes = actor.num_actors * actor.envs_per_actor
+            if lanes > sv.state_slots:
+                raise ValueError(
+                    f"actor fleet has {lanes} lanes but serve.state_slots "
+                    f"is {sv.state_slots}: every lane leases a server-side "
+                    "state slot, so an undersized cache would thrash "
+                    "(evict live episodes) — raise serve.state_slots")
+        if sv.servers != 1 or sv.max_servers != 0:
+            raise ValueError(
+                f"serve.servers={sv.servers}, serve.max_servers="
+                f"{sv.max_servers}: the port serves from one server; a "
+                "serving fleet needs serve/router.py and fleet/membership.py"
+                ", ROADMAP item A.6 (router/fleet)")
+        if sv.max_batch < 1:
+            raise ValueError(f"serve.max_batch ({sv.max_batch}) must be >= 1")
+        if sv.deadline_ms < 0:
+            raise ValueError(
+                f"serve.deadline_ms ({sv.deadline_ms}) must be >= 0")
+        if sv.queue_depth_bound < 0:
+            raise ValueError(f"serve.queue_depth_bound "
+                             f"({sv.queue_depth_bound}) must be >= 0")
+        if sv.state_slots < 1 or sv.state_shards < 1:
+            raise ValueError(
+                "serve.state_slots and serve.state_shards must be >= 1")
+        if sv.state_slots % sv.state_shards != 0:
+            raise ValueError(
+                f"serve.state_slots ({sv.state_slots}) must be divisible by "
+                f"serve.state_shards ({sv.state_shards}): shards are equal "
+                "slot groups")
+        for fname in ("lease_timeout_s", "request_timeout_s",
+                      "max_retry_s", "weight_poll_interval_s"):
+            if getattr(sv, fname) <= 0:
+                raise ValueError(f"serve.{fname} must be > 0")
+        if sv.request_ttl_s < 0:
+            raise ValueError(
+                f"serve.request_ttl_s ({sv.request_ttl_s}) must be >= 0 (0 "
+                "disables expiry)")
+        if sv.transport not in ("auto", "shm", "socket"):
+            raise ValueError(f"serve.transport ({sv.transport!r}) must be "
+                             "'auto', 'shm', or 'socket'")
+        if sv.request_ring_slots < 2 or sv.reply_ring_slots < 2:
+            raise ValueError("serve.request_ring_slots and "
+                             "serve.reply_ring_slots must be >= 2")
 
     def _check_envs_and_acting(self) -> None:
         """The synthetic envs' and on-device acting's rules, the JAX
@@ -374,7 +519,8 @@ class Config:
 _SECTION_TYPES = {"env": EnvConfig, "network": NetworkConfig,
                   "sequence": SequenceConfig, "replay": ReplayConfig,
                   "optim": OptimConfig, "actor": ActorConfig,
-                  "runtime": RuntimeConfig}
+                  "runtime": RuntimeConfig, "telemetry": TelemetryConfig,
+                  "serve": ServeConfig}
 
 
 def _parse_setting(setting, field_name: str):

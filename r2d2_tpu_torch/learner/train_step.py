@@ -36,6 +36,7 @@ from r2d2_tpu_torch.ops.indexing import (learning_step_mask,
                                          online_q_positions,
                                          target_q_positions)
 from r2d2_tpu_torch.ops.launch_counts import (add_launch_counts,
+                                              captured_launches,
                                               launch_counts)
 from r2d2_tpu_torch.ops.priority import mixed_td_errors_masked
 from r2d2_tpu_torch.ops.replay_kernels import stack_frames
@@ -470,15 +471,18 @@ class GraphedSteps:
         return ts, rs, {name: t.clone() for name, t in out.items()}
 
     def _capture(self, ts: TrainState, rs: Optional[ReplayState]) -> None:
-        before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         # thread-local: other threads (the host placement's prefetch and
-        # write-back) may allocate, copy and synchronize on their own
-        # streams while this thread captures
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        # write-back, the policy server) may allocate, copy, synchronize
+        # and launch on their own streams while this thread captures; the
+        # capture counts only the launches on its own stream
+        stream = torch.cuda.Stream()
+        with captured_launches(stream) as counted, \
+                torch.cuda.graph(graph, stream=stream,
+                                 capture_error_mode="thread_local"):
             out = self._run(ts, rs)
-        after = launch_counts()
-        self.launches = {name: after[name] - before[name] for name in after}
+        self.launches = {name: counted.get(name, 0)
+                         for name in launch_counts()}
         add_launch_counts({name: -n for name, n in self.launches.items()})
         self.graph, self.out = graph, out
         self.addresses = {name: t.data_ptr()

@@ -1,4 +1,5 @@
-"""Carry weights and replay state over from the JAX package.
+"""Carry weights, quantized twins and replay state over from the JAX
+package.
 
 Inputs are plain numpy: a flax param tree as ``jax.tree.map(np.asarray,
 params)`` and a ``ReplayState`` whose leaves were turned into numpy the
@@ -23,31 +24,63 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
-def _dense(out: dict, prefix: str, p: Mapping) -> None:
-    out[f"{prefix}.weight"] = _t(p["kernel"]).T.contiguous()
-    if "bias" in p:
-        out[f"{prefix}.bias"] = _t(p["bias"])
+# each leaf's layout change, by the kind of tensor it is
+_LAYOUT = {"conv": lambda t: t.permute(3, 2, 0, 1).contiguous(),
+           "dense": lambda t: t.T.contiguous(),
+           "plain": lambda t: t}
 
 
-def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """A flax R2D2Network param tree -> the port's ``state_dict``."""
+def _walk(params: Mapping, leaf) -> Dict[str, torch.Tensor]:
+    """The flax tree's leaves by the port's names, ``leaf(x, kind)``
+    converting each."""
     p = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
+
+    def dense(prefix: str, sub: Mapping) -> None:
+        out[f"{prefix}.weight"] = leaf(sub["kernel"], "dense")
+        if "bias" in sub:
+            out[f"{prefix}.bias"] = leaf(sub["bias"], "plain")
+
     torso = p["torso"]
     conv_names = sorted((k for k in torso if k.startswith("Conv_")),
                         key=lambda k: int(k.split("_")[1]))
     for i, name in enumerate(conv_names):
-        out[f"torso.convs.{i}.weight"] = _t(
-            torso[name]["kernel"]).permute(3, 2, 0, 1).contiguous()
-        out[f"torso.convs.{i}.bias"] = _t(torso[name]["bias"])
-    _dense(out, "torso.dense", torso["Dense_0"])
+        out[f"torso.convs.{i}.weight"] = leaf(torso[name]["kernel"], "conv")
+        out[f"torso.convs.{i}.bias"] = leaf(torso[name]["bias"], "plain")
+    dense("torso.dense", torso["Dense_0"])
     lstm = p["lstm"]
-    _dense(out, "lstm.input_proj", lstm["input_proj"])
-    out["lstm.recurrent_kernel"] = _t(lstm["recurrent_kernel"])
-    out["lstm.bias"] = _t(lstm["bias"])
+    dense("lstm.input_proj", lstm["input_proj"])
+    out["lstm.recurrent_kernel"] = leaf(lstm["recurrent_kernel"], "plain")
+    out["lstm.bias"] = leaf(lstm["bias"], "plain")
     for name, sub in p["head"].items():
-        _dense(out, f"head.{name}", sub)
+        dense(f"head.{name}", sub)
     return out
+
+
+def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax R2D2Network param tree -> the port's ``state_dict``."""
+    return _walk(params, lambda x, kind: _LAYOUT[kind](_t(x)))
+
+
+def quant_params_from_flax(qparams: Mapping) -> Dict[str, object]:
+    """The quantized twin of a JAX inference bundle (``bundle["quant"]``,
+    numpy leaves) -> the port's twin (models/network.py quantize_params):
+    each {"q", "scale"} pair laid out as its weight (the scale's size-1
+    axes move with it), int8 q; other leaves f32, or bf16 where the JAX
+    leaf is bf16 (the "bf16" twin; its values cross exactly through
+    f32)."""
+
+    def leaf(x, kind):
+        if isinstance(x, Mapping):
+            return {"q": _LAYOUT[kind](torch.from_numpy(
+                        np.array(x["q"], dtype=np.int8, copy=True))),
+                    "scale": _LAYOUT[kind](_t(x["scale"]))}
+        t = _LAYOUT[kind](_t(x))
+        if np.asarray(x).dtype.name == "bfloat16":
+            t = t.to(torch.bfloat16)
+        return t
+
+    return _walk(qparams, leaf)
 
 
 def replay_state_from_jax(state, spec, device) -> "ReplayState":

@@ -1,28 +1,69 @@
-"""Every kernel wrapper's launch count, across ``ops/replay_kernels.py`` and
-``ops/lstm_kernels.py``: each wrapper adds one to its ``LAUNCHES`` entry
-where it launches its kernel. A CUDA graph replay calls no wrapper, so the
-graph of K learner steps adds the counts of its capture once per replay
-(``add_launch_counts``)."""
+"""Every kernel wrapper's launch count, across ``ops/replay_kernels.py``,
+``ops/lstm_kernels.py`` and ``ops/quant_kernels.py``: each wrapper counts
+one launch (``count_launch``) where it launches its kernel. A CUDA graph
+replay calls no wrapper, so the graph of K learner steps, like the policy
+server's graph of a dispatch bucket, adds the counts of its capture once
+per replay (``add_launch_counts``). A capture reads its own launches with
+``captured_launches``, by the stream it captures on: other threads (the
+policy server beside the learner) may launch kernels on their streams
+meanwhile, and a captured backward runs in autograd's own thread, on the
+capture stream."""
 
-from typing import Dict
+import threading
+from contextlib import contextmanager
+from typing import Dict, Iterator
 
-from r2d2_tpu_torch.ops import lstm_kernels, replay_kernels
+from r2d2_tpu_torch.utils.device import stream_handle
 
-_TABLES = (replay_kernels.LAUNCHES, lstm_kernels.LAUNCHES)
+_lock = threading.Lock()
+_captures: Dict[int, Dict[str, int]] = {}    # capture stream -> launches
+
+
+def count_launch(table: Dict[str, int], name: str, device) -> None:
+    """One launch of kernel ``name`` on ``device``'s current stream: into
+    its module's table and, when that stream is capturing under
+    ``captured_launches``, into the capture's record."""
+    table[name] += 1
+    if _captures:
+        record = _captures.get(stream_handle(device))
+        if record is not None:
+            with _lock:
+                record[name] = record.get(name, 0) + 1
+
+
+@contextmanager
+def captured_launches(stream) -> Iterator[Dict[str, int]]:
+    """The launches made on ``stream`` (a ``torch.cuda.Stream``) inside
+    the block, by kernel, whichever thread makes them."""
+    record: Dict[str, int] = {}
+    key = stream.cuda_stream
+    with _lock:
+        _captures[key] = record
+    try:
+        yield record
+    finally:
+        with _lock:
+            del _captures[key]
+
+
+def _tables():
+    from r2d2_tpu_torch.ops import lstm_kernels, quant_kernels, replay_kernels
+    return (replay_kernels.LAUNCHES, lstm_kernels.LAUNCHES,
+            quant_kernels.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches so far, by kernel."""
-    return {name: n for table in _TABLES for name, n in table.items()}
+    return {name: n for table in _tables() for name, n in table.items()}
 
 
 def add_launch_counts(counts: Dict[str, int]) -> None:
-    for table in _TABLES:
+    for table in _tables():
         for name in table:
             table[name] += counts.get(name, 0)
 
 
 def reset_launch_counts() -> None:
-    for table in _TABLES:
+    for table in _tables():
         for name in table:
             table[name] = 0

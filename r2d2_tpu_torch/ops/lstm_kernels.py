@@ -36,6 +36,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from r2d2_tpu_torch.ops.launch_counts import count_launch
 from r2d2_tpu_torch.utils.device import sm_count, stream_handle
 
 LAUNCHES = {"lstm_fwd": 0, "lstm_fwd_lean": 0, "lstm_bwd": 0}
@@ -306,9 +307,9 @@ def lstm_fwd_cuda(xpb: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
         int(save_residuals),
         stream_handle(dev)), "lstm_fwd")
     if save_residuals:
-        LAUNCHES["lstm_fwd"] += 1
+        count_launch(LAUNCHES, "lstm_fwd", dev)
         return hseq, cseq, acts
-    LAUNCHES["lstm_fwd_lean"] += 1
+    count_launch(LAUNCHES, "lstm_fwd_lean", dev)
     return hseq, cfin
 
 
@@ -338,7 +339,7 @@ def lstm_bwd_cuda(wh, c0, h0, hseq, cseq, acts, dhseq, dcfin, dhfin):
         dh0.data_ptr(), barrier.data_ptr(), steps, batch, hidden, geo.slots,
         geo.smem, int(dtype == torch.bfloat16),
         stream_handle(dev)), "lstm_bwd")
-    LAUNCHES["lstm_bwd"] += 1
+    count_launch(LAUNCHES, "lstm_bwd", dev)
     return dxpb, dwh, dc0, dh0
 
 

@@ -27,6 +27,7 @@ import torch
 
 from r2d2_tpu_torch.ops.indexing import (frame_stack_indices,
                                          space_to_depth_2x2)
+from r2d2_tpu_torch.ops.launch_counts import count_launch
 from r2d2_tpu_torch.utils.device import sm_count, stream_handle
 
 LAUNCHES = {"gather_windows": 0, "stack_frames": 0}
@@ -194,7 +195,7 @@ def gather_windows_cuda(ring: torch.Tensor, block_idx: torch.Tensor,
         int(start.dtype == torch.int64), out.data_ptr(), batch, num_rows,
         row_len, frame_bytes, window, plan.chunk, plan.per_cta, plan.grid,
         stream_handle(device)), "gather_windows")
-    LAUNCHES["gather_windows"] += 1
+    count_launch(LAUNCHES, "gather_windows", device)
     return out
 
 
@@ -271,7 +272,7 @@ def stack_frames_cuda(obs: torch.Tensor, seq_window: int, frame_stack: int,
         int(space_to_depth), batch, seq_window, frame_stack, row_len,
         stored_h, stored_w, out_height, out_width, stream_handle(obs.device)),
         "stack_frames")
-    LAUNCHES["stack_frames"] += 1
+    count_launch(LAUNCHES, "stack_frames", obs.device)
     return out
 
 

@@ -5,7 +5,8 @@ Per step: policy step, epsilon-greedy, env.step, frame-stack roll,
 LocalBuffer.add; at an episode's end the block is finished without a
 bootstrap (its return reported only by near-greedy actors); at a block
 boundary with the bootstrap Q; fresh weights are polled every
-``actor.actor_update_interval`` env steps.
+``actor.actor_update_interval`` env steps. A served policy
+(``actor.inference="server"``) is driven by the same loops.
 """
 
 import dataclasses
@@ -52,22 +53,64 @@ def make_actor_env(cfg: Config, player_idx: int, actor_idx: int, seed: int,
 def make_actor_policy(cfg: Config, net, params, actor_idx: int, seed: int,
                       epsilon: Optional[float] = None,
                       copy_updates: bool = True,
-                      total_actors: Optional[int] = None):
+                      total_actors: Optional[int] = None,
+                      serve_channel=None, serve_stats=None,
+                      should_stop: Optional[Callable[[], bool]] = None,
+                      quant_stats=None):
     """The policy matching ``make_actor_env``'s env; returns ``(policy,
     run_loop)``. ``epsilon`` overrides the scalar path's Ape-X value;
-    vector lanes take the ladder's spread (vector_lane_epsilons)."""
+    vector lanes take the ladder's spread (vector_lane_epsilons).
+
+    ``actor.inference="server"``: the same ladder and seeds build a thin
+    Remote(Batched)Policy over ``serve_channel`` (client ids = the lanes'
+    ladder positions), so a served fleet acts like the local one. At a
+    quantized ``network.inference_dtype`` the local policies act with the
+    twin; they probe only where a ``quant_stats`` takes the results (thread
+    actors: a process child has no way back to the record, and served
+    forwards probe on the server)."""
+    serve = cfg.actor.inference == "server"
+    if serve:
+        if serve_channel is None:
+            raise ValueError(
+                "actor.inference='server' needs a serve_channel (the "
+                "spawner connects it to the policy server's transport)")
+        kw = dict(stats=serve_stats,
+                  timeout_s=cfg.serve.request_timeout_s,
+                  max_retry_s=cfg.serve.max_retry_s,
+                  should_stop=should_stop,
+                  backoff_base_s=cfg.runtime.restart_backoff_base_s,
+                  backoff_max_s=cfg.runtime.restart_backoff_max_s)
+    qkw = {}
+    if not serve and cfg.network.inference_dtype != "f32":
+        qkw = dict(quant_stats=quant_stats,
+                   quant_probe_interval=(cfg.telemetry.quant_probe_interval
+                                         if quant_stats is not None else 0))
     if cfg.actor.envs_per_actor > 1:
         epsilons = vector_lane_epsilons(actor_idx, cfg.actor, total_actors)
         seeds = [seed + lane for lane in range(cfg.actor.envs_per_actor)]
-        return (BatchedActorPolicy(net, params, epsilons, seeds=seeds,
-                                   copy_updates=copy_updates),
-                run_vector_actor)
+        if serve:
+            from r2d2_tpu_torch.serve.client import RemoteBatchedPolicy
+            policy = RemoteBatchedPolicy(
+                serve_channel, net.action_dim, epsilons, seeds,
+                client_base=actor_idx * cfg.actor.envs_per_actor, **kw)
+        else:
+            policy = BatchedActorPolicy(net, params, epsilons, seeds=seeds,
+                                        copy_updates=copy_updates, **qkw)
+        return policy, run_vector_actor
     if epsilon is None:
         epsilon = apex_epsilon(actor_idx,
                                total_actors or cfg.actor.num_actors,
                                cfg.actor.base_eps, cfg.actor.eps_alpha)
-    return (ActorPolicy(net, params, epsilon, seed=seed,
-                        copy_updates=copy_updates), run_actor)
+    if serve:
+        from r2d2_tpu_torch.serve.client import RemotePolicy
+        policy = RemotePolicy(serve_channel, net.action_dim, epsilon,
+                              seed=seed,
+                              client_id=actor_idx * cfg.actor.envs_per_actor,
+                              **kw)
+    else:
+        policy = ActorPolicy(net, params, epsilon, seed=seed,
+                             copy_updates=copy_updates, **qkw)
+    return policy, run_actor
 
 
 def instrument_block_sink(sink: Callable, slot: int, board=None,

@@ -13,7 +13,11 @@ import os
 
 def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
                        epsilon: float, shm_name: str, queue, stop_event,
-                       health_board=None) -> None:
+                       health_board=None, serve_spec=None) -> None:
+    """``serve_spec`` (``actor.inference="server"``): the policy server's
+    rung, {"transport": "shm", "request_ring", "action_dim", "hidden_dim",
+    "reply_slots"} or {"transport": "socket", "host", "port"}; the actor
+    is then a thin client with no weights and no weight subscriber."""
     # a respawn booting after the parent unlinked the segments exits quietly
     if stop_event.is_set():
         return
@@ -22,7 +26,7 @@ def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
     torch.set_num_threads(1)
 
     from r2d2_tpu_torch.config import Config
-    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.models.network import NetworkApply, bundle_size
     from r2d2_tpu_torch.runtime.actor_loop import (instrument_block_sink,
                                                    make_actor_env,
                                                    make_actor_policy)
@@ -34,30 +38,59 @@ def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
     env = make_actor_env(cfg, player_idx, actor_idx, seed)
     net = NetworkApply(env.action_space.n, cfg.network, cfg.env.frame_stack,
                        cfg.env.frame_height, cfg.env.frame_width, "cpu")
-    template = net.init(cfg.runtime.seed)
-    try:
-        sub = WeightSubscriber(shm_name, template)
-    except FileNotFoundError:
-        env.close()
-        if stop_event.is_set():
-            return      # the parent tore the segments down mid-boot
-        raise
-    fresh = sub.poll()
-    params = template if fresh is None else fresh
+    sub = serve_channel = None
+    if cfg.actor.inference == "server":
+        params = None
+        if serve_spec["transport"] == "shm":
+            from r2d2_tpu_torch.serve.transport import ShmServeChannel
+            serve_channel = ShmServeChannel(
+                serve_spec["request_ring"], serve_spec["action_dim"],
+                serve_spec["hidden_dim"],
+                reply_slots=serve_spec["reply_slots"])
+        else:
+            from r2d2_tpu_torch.serve.transport import SocketChannel
+            serve_channel = SocketChannel(serve_spec["host"],
+                                          serve_spec["port"],
+                                          connect_retries=5,
+                                          eager_connect=True)
+    else:
+        template = net.init(cfg.runtime.seed)
+        try:
+            # the payload's length: the bundle's at a quantized dtype
+            sub = WeightSubscriber(shm_name, bundle_size(net))
+        except FileNotFoundError:
+            env.close()
+            if stop_event.is_set():
+                return      # the parent tore the segments down mid-boot
+            raise
+        fresh = sub.poll()
+        params = template if fresh is None else fresh
     # the subscriber hands over a fresh copy per poll: no second copy
     policy, run_loop = make_actor_policy(cfg, net, params, actor_idx, seed,
-                                         epsilon=epsilon, copy_updates=False)
+                                         epsilon=epsilon, copy_updates=False,
+                                         serve_channel=serve_channel,
+                                         should_stop=stop_event.is_set)
     beat = ((lambda: health_board.touch(actor_idx))
             if health_board is not None else None)
     sink = instrument_block_sink(
         lambda b: put_patient(queue, b, stop_event.is_set, beat=beat),
         actor_idx, board=health_board,
-        weight_version=lambda: sub.publish_count,
+        # the publication the actor acts with: the subscriber's, or the
+        # server's riding each reply
+        weight_version=((lambda: policy.weight_version) if sub is None
+                        else (lambda: sub.publish_count)),
         lane_base=actor_idx * cfg.actor.envs_per_actor)
     try:
-        run_loop(cfg, env, policy, block_sink=sink, weight_poll=sub.poll,
+        run_loop(cfg, env, policy, block_sink=sink,
+                 weight_poll=sub.poll if sub is not None else (lambda: None),
                  should_stop=stop_event.is_set)
+    except Exception:
+        if not stop_event.is_set():
+            raise       # a served policy raising at shutdown is a clean stop
     finally:
-        sub.close()
+        if sub is not None:
+            sub.close()
+        if serve_channel is not None:
+            policy.close()
     if torch.cuda.is_initialized():
         raise RuntimeError(f"actor process {actor_idx} initialized CUDA")

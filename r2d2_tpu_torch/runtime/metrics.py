@@ -4,7 +4,9 @@ without its telemetry blocks: the reference's log lines in
 JSON record per log interval in ``metrics_player{p}.jsonl`` with the
 record's core keys (throughput, ingestion, worker health, dropped
 priority updates) and, from the on-device acting loop, its ``anakin``
-block.
+block; with the policy server a ``serving`` block and at a quantized
+inference dtype a ``quant`` block (the JAX package's keys). Without them
+the record is what it was.
 
 ``log_dir=None`` keeps everything in memory: no file is written (what a
 bare ``Learner`` gets).
@@ -15,7 +17,7 @@ import logging
 import os
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -65,6 +67,9 @@ class TrainMetrics:
         # the latest supervision snapshot (WorkerHealth.snapshot)
         self._actor_health = {}
         self._anakin: Optional[dict] = None
+        # interval-block providers: called once a record, None = none
+        self._serving: Optional[Callable[[], Optional[dict]]] = None
+        self._quant: Optional[Callable[[], dict]] = None
 
     # -- feed points --
 
@@ -88,6 +93,15 @@ class TrainMetrics:
         at dp=1; runtime/anakin_loop.py flush_stats); emitted once as the
         record's "anakin" key, None = none this interval."""
         self._anakin = block
+
+    def set_serving(self, provider: Callable[[], Optional[dict]]) -> None:
+        """The policy server's ``serving`` block provider (consumes its
+        interval; a None block is left out of the record)."""
+        self._serving = provider
+
+    def set_quant(self, provider: Callable[[], dict]) -> None:
+        """The quantized forward's ``quant`` block provider."""
+        self._quant = provider
 
     def on_train_step(self, loss: float) -> None:
         """Per learner step."""
@@ -194,6 +208,12 @@ class TrainMetrics:
         if self._anakin is not None:
             record["anakin"] = self._anakin
             self._anakin = None
+        if self._serving is not None:
+            block = self._serving()
+            if block is not None:
+                record["serving"] = block
+        if self._quant is not None:
+            record["quant"] = self._quant()
         if self._jsonl_path:
             with open(self._jsonl_path, "a") as f:
                 f.write(json.dumps(record) + "\n")

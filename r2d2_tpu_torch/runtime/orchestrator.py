@@ -16,7 +16,18 @@ Actor modes:
 
 The learner publishes through a ``SnapshotPublisher``: a device-side
 snapshot on the step's stream, the host copy and the write on a thread of
-their own, so actors only ever read host snapshots.
+their own, so actors only ever read host snapshots. At a quantized
+``network.inference_dtype`` the publication is the inference bundle,
+quantized on the card inside that snapshot.
+
+``actor.inference="server"``: one ``PolicyServer`` (serve/) in this
+process, built before the learner's first dispatch, on the card beside
+the learner with its own copy of the published weights (it polls the
+weight service every ``serve.weight_poll_interval_s``). Actors are thin
+clients: thread actors on in-process channels, process actors over the
+shm request/reply rings or TCP (``serve.transport``). The periodic record
+then has a ``serving`` block, and at a quantized inference dtype a
+``quant`` block.
 """
 
 import logging
@@ -41,7 +52,9 @@ from r2d2_tpu_torch.runtime.learner_loop import Learner
 from r2d2_tpu_torch.runtime.metrics import TrainMetrics
 from r2d2_tpu_torch.runtime.weights import (InProcWeightStore,
                                             SnapshotPublisher,
-                                            WeightPublisher)
+                                            WeightPublisher,
+                                            WeightSubscriber,
+                                            make_publish_preparer)
 from r2d2_tpu_torch.utils.device import configure_numerics, resolve_device
 
 JOIN_S = 5.0                # a worker's join before terminate/kill
@@ -79,20 +92,71 @@ class PlayerStack:
         self.queue: Optional[BlockQueue] = None
         self._stop = None
         self._ctx = None
+        # the quantized plane: the publish-time quantizer (None at "f32")
+        # and the probe's aggregator, shared by thread actors and the
+        # server
+        self._prepare = make_publish_preparer(self.net)
+        self.quant_stats = None
+        if cfg.network.inference_dtype != "f32":
+            from r2d2_tpu_torch.telemetry import QuantStats
+            self.quant_stats = QuantStats(cfg.network.inference_dtype,
+                                          cfg.telemetry.quant_probe_interval)
+            self.metrics.set_quant(self.quant_stats.interval_block)
+        # the serving plane: the endpoint and the stats outlive a server;
+        # in-process clients share the stats, so the serving block's
+        # latency is the clients' round trip
+        self.serve_stats = self.serve_endpoint = self.serve_server = None
+        self._serve_transport = None
+        self._serve_sub: Optional[WeightSubscriber] = None
+        self._serve_spec = None
+        if cfg.actor.inference == "server":
+            from r2d2_tpu_torch.serve import InprocEndpoint, ServingStats
+            self.serve_stats = ServingStats()
+            self.serve_endpoint = InprocEndpoint()
+            self.metrics.set_serving(lambda: self.serve_stats.interval_block(
+                deadline_ms=cfg.serve.deadline_ms,
+                max_batch=cfg.serve.max_batch))
 
-    def _wire_publish(self, publish: Callable) -> None:
+    def _initial_payload(self):
+        """The weight service's first publication: the learner's module,
+        or at a quantized dtype the bundle stamped 1."""
+        module = self.learner.train_state.params
+        return module if self._prepare is None else self._prepare(module, 1)
+
+    def _wire_publish(self, publish: Callable, publish_count) -> None:
         self.snapshots = SnapshotPublisher(publish,
-                                           self.learner.train_state.params)
+                                           self.learner.train_state.params,
+                                           net=self.net,
+                                           publish_count=publish_count)
         self.learner.publish = self.snapshots
+
+    def _start_serve_server(self, weight_poll, weight_version,
+                            client_timed: bool) -> None:
+        """The one PolicyServer, on the learner's device with its own copy
+        of the current weights (its bucket graphs are captured here,
+        before the learner's first dispatch)."""
+        from r2d2_tpu_torch.serve import PolicyServer
+        self.serve_server = PolicyServer(
+            self.cfg, self.net, self.learner.train_state.params,
+            endpoint=self.serve_endpoint, weight_poll=weight_poll,
+            weight_version=weight_version, stats=self.serve_stats,
+            client_timed=client_timed, quant_stats=self.quant_stats).start()
 
 
     # -- thread actors --
 
     def start_actors_threads(self, stop: threading.Event) -> None:
-        self.store = InProcWeightStore(self.learner.train_state.params)
-        self._wire_publish(self.store.publish)
+        self.store = InProcWeightStore(self._initial_payload())
+        self._wire_publish(self.store.publish,
+                           lambda: self.store.publish_count)
         self.queue = BlockQueue(use_mp=False)
         self._stop = stop
+        if self.serve_endpoint is not None:
+            # the server reads the store under a reader id of its own
+            self._start_serve_server(
+                lambda: self.store.poll("serve"),
+                lambda: self.store.reader_version("serve"),
+                client_timed=True)
         for i in range(self.n_slots):
             self._spawn_thread_actor(i)
 
@@ -109,27 +173,38 @@ class PlayerStack:
         def should_stop(cancel=cancel):
             return self._stop.is_set() or cancel.is_set()
 
+        served = self.serve_endpoint is not None
         # the current snapshot, fresh on a respawn too (adopted: its
         # version is the stamp until the next poll)
         policy, run_loop = make_actor_policy(
-            cfg, self.net, self.store.current(reader_id=i), i, seed,
-            total_actors=self.n_slots)
+            cfg, self.net,
+            None if served else self.store.current(reader_id=i), i, seed,
+            total_actors=self.n_slots,
+            serve_channel=self.serve_endpoint.connect() if served else None,
+            serve_stats=self.serve_stats, should_stop=should_stop,
+            quant_stats=self.quant_stats)
         self.heartbeats.reset_slot(i)
         sink = instrument_block_sink(
             lambda b: self.queue.put_patient(
                 b, should_stop, beat=lambda: self.heartbeats.touch(i)),
             i, board=self.heartbeats,
-            weight_version=lambda: self.store.reader_version(i),
+            # served: the server's publication, riding each reply
+            weight_version=((lambda: policy.weight_version) if served
+                            else (lambda: self.store.reader_version(i))),
             lane_base=i * cfg.actor.envs_per_actor)
 
         def loop():
             try:
                 run_loop(cfg, env, policy, block_sink=sink,
-                         weight_poll=lambda: self.store.poll(i),
+                         weight_poll=((lambda: None) if served
+                                      else (lambda: self.store.poll(i))),
                          should_stop=should_stop)
             except Exception:
                 if not should_stop():
                     raise
+            finally:
+                if served:
+                    policy.close()
 
         t = threading.Thread(target=loop, daemon=True,
                              name=f"actor-p{self.player_idx}-{i}")
@@ -146,8 +221,9 @@ class PlayerStack:
     def start_actors_processes(self, stop_event) -> None:
         cfg = self.cfg
         self._ctx = mp.get_context("spawn")
-        self.publisher = WeightPublisher(self.learner.train_state.params)
-        self._wire_publish(self.publisher.publish)
+        self.publisher = WeightPublisher(self._initial_payload())
+        self._wire_publish(self.publisher.publish,
+                           lambda: self.publisher.publish_count)
         self.queue = BlockQueue(
             use_mp=True, ctx=self._ctx,
             shm_spec=self.learner.spec if cfg.runtime.shm_transport else None)
@@ -155,8 +231,53 @@ class PlayerStack:
         if cfg.runtime.shm_transport:
             self.segment_names.append(self.queue._q.name)
         self._stop = stop_event
+        if self.serve_endpoint is not None:
+            self._start_serve_transport()
         for i in range(self.n_slots):
             self._spawn_process_actor(i)
+
+    def _start_serve_transport(self) -> None:
+        """Process actors' rung to the server in this process: the shm
+        request/reply rings (``serve.transport`` "shm", or "auto" where
+        the native ring builds) or TCP on loopback. The server reads the
+        weights through one more subscriber of the publisher's segment
+        and times requests itself (its clients are elsewhere)."""
+        cfg = self.cfg
+        sub = self._serve_sub = WeightSubscriber(
+            self.publisher.name, self.publisher.num_weights, untrack=False)
+        if cfg.serve.transport in ("auto", "shm"):
+            try:
+                from r2d2_tpu_torch.serve import ShmServeTransport
+                self._serve_transport = ShmServeTransport(
+                    self.serve_endpoint.submit,
+                    (cfg.env.frame_height, cfg.env.frame_width),
+                    self.net.action_dim, cfg.network.hidden_dim,
+                    request_slots=cfg.serve.request_ring_slots,
+                    clients_are_children=True)
+                self._serve_spec = {
+                    "transport": "shm",
+                    "request_ring": self._serve_transport.request_ring,
+                    "action_dim": self.net.action_dim,
+                    "hidden_dim": cfg.network.hidden_dim,
+                    "reply_slots": max(cfg.serve.reply_ring_slots,
+                                       cfg.actor.envs_per_actor)}
+                self.segment_names.append(
+                    self._serve_transport.request_ring.name)
+            except Exception as e:
+                if cfg.serve.transport == "shm":
+                    raise
+                logging.getLogger(__name__).warning(
+                    "the native shm serve transport is unavailable (%s); "
+                    "serving over TCP on loopback", e)
+        if self._serve_spec is None:
+            from r2d2_tpu_torch.serve import SocketServerTransport
+            self._serve_transport = SocketServerTransport(
+                self.serve_endpoint.submit, cfg.serve.host, cfg.serve.port)
+            self._serve_spec = {"transport": "socket",
+                                "host": self._serve_transport.host,
+                                "port": self._serve_transport.port}
+        self._start_serve_server(sub.poll, lambda: sub.publish_count,
+                                 client_timed=False)
 
     def _spawn_process_actor(self, i: int) -> mp.Process:
         cfg = self.cfg
@@ -167,7 +288,8 @@ class PlayerStack:
             target=actor_process_main,
             args=(cfg.to_dict(), self.player_idx, i, eps,
                   self.publisher.name, self.queue._q, self._stop),
-            kwargs={"health_board": self.heartbeats},
+            kwargs={"health_board": self.heartbeats,
+                    "serve_spec": self._serve_spec},
             daemon=True, name=f"actor-p{self.player_idx}-{i}")
         p.start()
         if i < len(self.processes):
@@ -244,6 +366,13 @@ class PlayerStack:
                 p.join(timeout=2.0)
         for t in self.threads:
             t.join(timeout=JOIN_S)
+        # the server last: an actor still in an exchange gets its reply
+        if self.serve_server is not None:
+            self.serve_server.stop()
+        if self._serve_transport is not None:
+            self._serve_transport.close()
+        if self._serve_sub is not None:
+            self._serve_sub.close()
         if self.queue is not None:
             self.queue.close()
         self.heartbeats.close()

@@ -21,10 +21,18 @@ version before and after it.
   same in writer and readers.
 
 ``SnapshotPublisher`` is the learner's publish hook: it snapshots the
-parameters into a flat device buffer on the step's stream, copies that to
-pinned host memory on a stream of its own, and a thread of its own waits
-for the copy and hands the host vector to the store or the segment, so a
+parameters into a flat device buffer on the step's stream; a thread of its
+own copies that to pinned host memory on a stream of its own, waits for
+the copy and hands the host vector to the store or the segment, so a
 publication does not stall the card's queue.
+
+At ``network.inference_dtype`` "bf16" or "int8" the payload is the
+inference bundle as one flat f32 vector, [f32 weights | quantized twin |
+stamp] (models/network.py ``bundle_to_flat``; int8 values are exact in
+f32): the publisher's thread quantizes the snapshot on the card, on its
+copy stream, so the twin is built once a publication and neither the
+learner's stream nor its thread pays for it; the stamp is the
+publication the bundle rides in (``publish_count + 1``).
 """
 
 import multiprocessing
@@ -68,7 +76,40 @@ def flat_parameters(params) -> np.ndarray:
     if isinstance(params, torch.nn.Module):
         return torch.cat([p.detach().reshape(-1).float().cpu()
                           for p in params.parameters()]).numpy()
+    if isinstance(params, torch.Tensor):
+        return params.detach().float().cpu().numpy()
     return np.asarray(params, np.float32)
+
+
+def make_publish_preparer(net):
+    """The publish-time quantizer: None at inference_dtype "f32" (the
+    weights are the payload), else ``prepare(params, stamp)`` -> the
+    bundle's flat payload (f32 tensor on params' device), built once a
+    publication."""
+    if net.config.inference_dtype == "f32":
+        return None
+    from r2d2_tpu_torch.models.network import (bundle_to_flat,
+                                               make_inference_bundle)
+
+    def prepare(params, stamp: int) -> torch.Tensor:
+        with torch.no_grad():
+            return bundle_to_flat(net, make_inference_bundle(net, params,
+                                                             stamp))
+
+    return prepare
+
+
+def wrap_publish(publish, preparer, publish_count_fn):
+    """``publish(params)`` that publishes the bundle stamped
+    ``publish_count_fn() + 1``; ``publish`` itself when ``preparer`` is
+    None."""
+    if preparer is None:
+        return publish
+
+    def publish_bundle(params):
+        publish(preparer(params, publish_count_fn() + 1))
+
+    return publish_bundle
 
 
 def load_parameters(module: torch.nn.Module, params, copy: bool = True
@@ -139,13 +180,16 @@ class WeightPublisher:
 
 class WeightSubscriber:
     """Actor-side reader. ``template``: a module, a flat vector, or the
-    number of weights."""
+    number of weights. ``untrack=False``: a reader in the segment owner's
+    own process (the policy server's), whose registration is the
+    owner's."""
 
-    def __init__(self, name: str, template):
+    def __init__(self, name: str, template, untrack: bool = True):
         self.num_weights = (int(template) if isinstance(template, int)
                             else flat_parameters(template).shape[0])
         self.shm = shared_memory.SharedMemory(name=name)
-        untrack_attached_shm(self.shm)
+        if untrack:
+            untrack_attached_shm(self.shm)
         self._version = np.ndarray((1,), np.uint64, self.shm.buf, 0)
         self._crc = np.ndarray((1,), np.uint64, self.shm.buf, 8)
         self._payload = np.ndarray((self.num_weights,), np.float32,
@@ -225,8 +269,8 @@ class InProcWeightStore:
 
 
 class _Slot:
-    def __init__(self, params: List[torch.Tensor], device: torch.device):
-        total = sum(p.numel() for p in params)
+    def __init__(self, params: List[torch.Tensor], device: torch.device,
+                 total: int):
         cuda = device.type == "cuda"
         self.host = torch.empty(total, dtype=torch.float32, pin_memory=cuda)
         # the device snapshot (CUDA) or the host vector itself (CPU)
@@ -249,20 +293,38 @@ class SnapshotPublisher:
     a dispatch waits for the write of the publication before last, which
     starts only when the card reaches it.) On CUDA the snapshot is
     a multi-tensor copy into the slot's flat device buffer on the current
-    stream; a copy stream of its own moves it to pinned host memory behind
-    an event, which the thread waits on before calling ``publish`` (the
-    store's or the segment's) with the host vector. On the CPU the
-    snapshot is the host copy itself. Counts: ``requested`` and
+    stream, then an event; the publisher's thread has a copy stream of its
+    own wait on that event and move the slot to pinned host memory, waits
+    for the copy and calls ``publish`` (the store's or the segment's) with
+    the host vector. On the CPU the snapshot is the host copy itself. With
+    ``net`` at a quantized inference dtype the slot holds the bundle: the
+    publisher's thread builds the twin from the snapshot (on the copy
+    stream on CUDA, before the copy; its launches cost the learner's
+    thread nothing) and stamps it ``publish_count() + 1`` before the
+    write. Counts: ``requested`` and
     ``publishes`` (written out), and the host milliseconds the writer
     thread spent (``write_ms``)."""
 
     SLOTS = 3
 
-    def __init__(self, publish, module: torch.nn.Module):
+    def __init__(self, publish, module: torch.nn.Module, net=None,
+                 publish_count=None):
         self._publish = publish
         params = list(module.parameters())
         self.device = params[0].device
-        self._slots = [_Slot(params, self.device) for _ in range(self.SLOTS)]
+        self._net = (net if net is not None
+                     and net.config.inference_dtype != "f32" else None)
+        self._publish_count = publish_count
+        self._num_params = sum(p.numel() for p in params)
+        total = self._num_params
+        if self._net is not None:
+            from r2d2_tpu_torch.models.network import bundle_size
+            total = bundle_size(self._net)
+            if publish_count is None:
+                raise ValueError("a quantized payload needs publish_count "
+                                 "for its stamp")
+        self._slots = [_Slot(params, self.device, total)
+                       for _ in range(self.SLOTS)]
         self._next = 0
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -292,21 +354,28 @@ class SnapshotPublisher:
         self._next = (self._next + 1) % self.SLOTS
         self._wait(slot.free)
         slot.free.clear()
-        params = [p.detach() for p in module.parameters()]
-        done = None
+        torch._foreach_copy_(slot.views,
+                             [p.detach() for p in module.parameters()])
+        snapped = None
         if self._stream is not None:
-            torch._foreach_copy_(slot.views, params)
             snapped = torch.cuda.Event()
             snapped.record()
-            self._stream.wait_event(snapped)
-            with torch.cuda.stream(self._stream):
-                slot.host.copy_(slot.flat, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self._stream)
-        else:
-            torch._foreach_copy_(slot.views, params)
-        self._q.put((slot, done))
+        self._q.put((slot, snapped))
         self.requested += 1
+
+    def _quantize(self, slot: _Slot) -> None:
+        """The bundle's twin section from the slot's snapshot (no-op at
+        "f32")."""
+        if self._net is None:
+            return
+        from r2d2_tpu_torch.models.network import (named_params,
+                                                   quantize_params,
+                                                   twin_to_flat)
+        n = self._num_params
+        with torch.no_grad():
+            quant = quantize_params(named_params(self._net, slot.flat[:n]),
+                                    self._net.config.inference_dtype)
+            slot.flat[n:-1].copy_(twin_to_flat(self._net, quant))
 
     def _run(self) -> None:
         try:
@@ -314,9 +383,22 @@ class SnapshotPublisher:
                 item = self._q.get()
                 if item is None:
                     return
-                slot, done = item
-                if done is not None:
+                slot, snapped = item
+                if snapped is not None:
+                    # behind the snapshot, on the copy stream: the twin
+                    # and the copy to pinned memory, launched from this
+                    # thread, not the learner's
+                    with torch.cuda.stream(self._stream):
+                        self._stream.wait_event(snapped)
+                        self._quantize(slot)
+                        slot.host.copy_(slot.flat, non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record(self._stream)
                     done.synchronize()
+                else:
+                    self._quantize(slot)
+                if self._net is not None:
+                    slot.host[-1] = float(self._publish_count() + 1)
                 t0 = time.perf_counter()
                 self._publish(slot.host.numpy())
                 self.write_ms += (time.perf_counter() - t0) * 1e3

@@ -1,0 +1,6 @@
+"""The port's telemetry: the shared log histogram and the quantized
+inference probe's aggregator."""
+
+from r2d2_tpu_torch.telemetry.quant import QuantStats
+
+__all__ = ["QuantStats"]

@@ -455,9 +455,14 @@ def test_config_knobs_roundtrip_and_cli():
                            ).actor.anakin_priority == 0.5
     # knobs of parts the port does not have stay unknown fields
     for arg in ("--mesh.dp=2", "--multiplayer.enabled=true",
-                "--network.inference_dtype=int8", "--actor.fault_spec=x"):
+                "--actor.fault_spec=x"):
         with pytest.raises(SystemExit):
             parse_overrides(Config(), [arg])
+    # a quantized forward on the device is refused, naming the item
+    with pytest.raises(ValueError, match="A.5"):
+        parse_overrides(Config(), [
+            "--actor.on_device=true", "--replay.block_length=120",
+            "--replay.capacity=120000", "--network.inference_dtype=int8"])
 
 
 def test_config_validates_on_device_preconditions():

@@ -64,6 +64,7 @@ def test_port_imports_nothing_of_jax():
         "'r2d2_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import r2d2_tpu_torch.cli.train, r2d2_tpu_torch.cli.evaluate\n"
+        "import r2d2_tpu_torch.cli.serve\n"
         "import r2d2_tpu_torch.runtime.orchestrator, chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'r2d2_tpu'))\n"
@@ -72,7 +73,10 @@ def test_port_imports_nothing_of_jax():
         "             'runtime.actor_main', 'runtime.shm_feeder',\n"
         "             'envs.vector', 'cli.evaluate', 'tools.learnability',\n"
         "             'tools.actor_profile', 'envs.device_env',\n"
-        "             'actor.anakin', 'runtime.anakin_loop'):\n"
+        "             'actor.anakin', 'runtime.anakin_loop',\n"
+        "             'serve.server', 'serve.transport', 'serve.client',\n"
+        "             'serve.state_cache', 'cli.serve', 'telemetry.quant',\n"
+        "             'telemetry.histogram', 'ops.quant_kernels'):\n"
         "    assert 'r2d2_tpu_torch.' + name in sys.modules, name\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
