@@ -143,7 +143,35 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      seq-updates/s against the bench's default path at the resolved K in
      this call, env steps/s and the serving latency. The counts of (c),
      (d) and (e) go into the ``kernels`` line as ``serve_launches``
-     (int8_linear's ``launches``); the script's total time is printed.
+     (int8_linear's ``launches``);
+ 10. pipelined ingest, crash recovery and quantized on-device acting:
+     (a) cli.train with thread actors on the CUDA "auto" path (capacity
+     100,000) for INGEST_SECONDS at replay.ingest_batch_blocks 1 and then
+     8: cuda, finite losses, every block an actor sent committed or still
+     queued (the staged counters at zero); seq-updates/s over a synced
+     window and its two halves against the bench's default at the
+     resolved K in this call, host ms between dispatches (stalls by part),
+     ms a commit and a staged batch, the staging queue's depth, and which
+     K was faster beyond the halves' spread; (b) a learner at the
+     reference widths fills, steps, saves, snapshots and steps again; one
+     resumed from that checkpoint and snapshot holds the same replay and
+     gives the same losses bit for bit (capture host ms, write s, payload
+     bytes printed); then cli.train --runtime.auto_resume=true
+     --runtime.snapshot_interval=SUPERVISED_SNAPSHOT_INTERVAL as a process,
+     its child (learner.pid) SIGKILLed once the first snapshot is
+     committed: the supervisor relaunches it, it restores the replay
+     (restores 1, restored blocks > 0) and trains on cuda (the time from
+     the kill to its first dispatch printed); (c) a small int8 acting
+     segment on the card (its twin computing in f32) against the CPU's
+     from the same weights and draws, and the bf16-compute twin's Q on
+     the end states by 9b's rule; the int8 segment at the reference widths,
+     graph against eager bit for bit, its CUDA-event ms beside phase 8's
+     f32 one; cli.train --actor.on_device=true
+     --network.inference_dtype=int8 for QUANT_TRAIN_SECONDS: trains on
+     cuda, quant blocks with probes, and a profiled window whose kernel
+     names equal the wrappers' counts, int8_linear's included (these go
+     into the ``kernels`` line as ``anakin_quant_launches``, and into
+     int8_linear's ``launches``). The script's total time is printed.
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
 The last line is {"ok": true, "device": {...}}. ``--profile`` adds a
@@ -1856,10 +1884,13 @@ def phase_learnability(dev):
           "20, oracle 120; thresholds: each >= 40, mean >= 60)", flush=True)
 
 
-def _anakin_parts(cfg, dev, lanes: int, seed: int):
+def _anakin_parts(cfg, dev, lanes: int, seed: int, quant_probe_on=True,
+                  compute_dtype=None):
     """The acting segment of ``cfg`` on ``dev``: (env, spec, module,
     act), the module's weights from ``seed`` (drawn on the CPU, so the
-    same on every device)."""
+    same on every device). At a quantized inference dtype the module is
+    the InferenceTwin of those weights' bundle (stamp 1), its twin
+    computing in ``compute_dtype`` (the device's by default)."""
     from r2d2_tpu_torch.actor.anakin import AnakinAct
     from r2d2_tpu_torch.config import apex_epsilon
     from r2d2_tpu_torch.envs.factory import create_device_env
@@ -1874,8 +1905,19 @@ def _anakin_parts(cfg, dev, lanes: int, seed: int):
     act = AnakinAct(env, net, spec, num_lanes=lanes, epsilons=eps,
                     gamma=cfg.optim.gamma, priority=cfg.actor.anakin_priority,
                     near_greedy_eps=cfg.actor.near_greedy_eps,
-                    priority_eta=cfg.optim.priority_eta)
-    return env, spec, net.init(seed), act
+                    priority_eta=cfg.optim.priority_eta,
+                    quant_probe_on=quant_probe_on)
+    module = net.init(seed)
+    if cfg.network.inference_dtype != "f32":
+        from r2d2_tpu_torch.actor.policy import InferenceTwin
+        from r2d2_tpu_torch.models.network import (QuantInference,
+                                                   make_inference_bundle)
+        bundle = make_inference_bundle(net, module, 1)
+        module = InferenceTwin(net, bundle, dev)
+        if compute_dtype is not None:
+            module.quant = QuantInference(net, bundle["quant"], dev,
+                                          compute_dtype)
+    return env, spec, module, act
 
 
 def _to(draws, dev):
@@ -1942,23 +1984,28 @@ def phase_anakin_vs_cpu(dev):
               f" float fields max abs {worst:.3e}", flush=True)
 
 
-def phase_anakin_graph(dev):
-    """Phase 8, part 2: the acting segment at the reference widths (bf16,
-    ANAKIN_LANES lanes, block_length 120) with its ring write into a
-    replay of 99,960 steps: one graph replay against one
-    eager segment from the same carry and generator state (blocks, carry
-    and the replay's rows bit-equal), two replays drawing differently,
-    then the segment's CUDA-event ms, graphed and eager. Returns the
-    graphed ms."""
+def phase_anakin_graph(dev, mode: str = "f32"):
+    """Phase 8, part 2 (and 10c at ``mode`` "int8"): the acting segment at
+    the reference widths (bf16, ANAKIN_LANES lanes, block_length 120) with
+    its ring write into a replay of 99,960 steps: one graph replay against
+    one eager segment from the same carry and generator state (blocks,
+    carry and the replay's rows bit-equal), two replays drawing
+    differently, then the segment's CUDA-event ms, graphed and eager. At
+    int8 the segment acts with the twin (``int8_linear``, launches counted
+    per replay), as the fused loop builds it. Returns the graphed ms and
+    the launches of one replay."""
     import dataclasses
     import torch
     from r2d2_tpu_torch.actor.anakin import (ActSegment, assign_,
                                              init_act_carry)
     from r2d2_tpu_torch.replay.device_replay import replay_init
     from r2d2_tpu_torch.tools import bench
-    cfg = bench.reference_config(**ANAKIN_CFG)
-    env, spec, module, act = _anakin_parts(cfg, dev, ANAKIN_LANES, 0)
-    check(module.compute_dtype == torch.bfloat16, "bf16 on CUDA")
+    cfg = bench.reference_config(**ANAKIN_CFG,
+                                 **{"network.inference_dtype": mode})
+    env, spec, module, act = _anakin_parts(cfg, dev, ANAKIN_LANES, 0,
+                                           quant_probe_on=False)
+    check((module.quant.dtype if mode != "f32" else module.compute_dtype)
+          == torch.bfloat16, "bf16 on CUDA")
     rs = replay_init(spec, dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     carry = init_act_carry(env, spec, ANAKIN_LANES, generator=gen)
@@ -2001,19 +2048,33 @@ def phase_anakin_graph(dev):
     seg.run(5)
     check(not torch.equal(first, seg.draws.explore),
           "two graph replays drew the same numbers")
-    check(not any(_counts().values()), f"a wrapper launched: {_counts()}")
+    counted = _counts()
+    if mode == "f32":
+        check(not any(counted.values()), f"a wrapper launched: {counted}")
+    else:
+        # 6 calls (the eager warm-up, capture + replay, 3, its eager twin,
+        # 4, 5): each counts what one segment launches
+        per = seg.launches["int8_linear"]
+        check(per > 0 and counted == {**dict.fromkeys(counted, 0),
+                                      "int8_linear": 6 * per},
+              f"int8 segment launches {counted}, {per} a replay")
+        probe = seg.probe()
+        check(0.0 <= probe["quant_dq"] < 1.0
+              and 0.0 <= probe["quant_agree"] <= 1.0, f"probe {probe}")
     graphed = cuda_ms(lambda: seg.run(1), runs=20, warmup=2)
     eager = cuda_ms(lambda: seg.run(1, eager=True), runs=3, warmup=1)
     steps = ANAKIN_LANES * spec.block_length
     print(f"acting segment at the reference widths ({ANAKIN_LANES} lanes x "
-          f"{spec.block_length} steps, bf16, ring write included): graph "
-          f"= eager bit for bit (blocks, carry, replay rows, draws); "
-          f"replays draw anew; graphed {graphed:.3f} ms "
-          f"({steps / graphed * 1e3:.1f} env steps/s), eager "
-          f"{eager:.3f} ms", flush=True)
+          f"{spec.block_length} steps, bf16, ring write included, "
+          f"inference dtype {mode}): graph = eager bit for bit (blocks, "
+          f"carry, replay rows, draws); replays draw anew; graphed "
+          f"{graphed:.3f} ms ({steps / graphed * 1e3:.1f} env steps/s), "
+          f"eager {eager:.3f} ms; launches a replay {seg.launches}"
+          + (f"; probe {probe}" if mode != "f32" else ""), flush=True)
+    launches = dict(seg.launches)
     del seg, rs
     torch.cuda.empty_cache()
-    return graphed
+    return graphed, launches
 
 
 def _flat_carry(carry):
@@ -2037,10 +2098,13 @@ def _clone_carry(carry):
         for f in dataclasses.fields(carry)})
 
 
-def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float):
-    """Phase 8, part 3: cli.train --actor.on_device=true on the card for
-    ANAKIN_SECONDS at the reference widths (see the module docstring).
-    Returns the profiled window's launch counts."""
+def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float,
+                       extra=(), seconds: float = ANAKIN_SECONDS,
+                       label: str = "f32"):
+    """Phase 8, part 3 (10c with int8 ``extra``): cli.train
+    --actor.on_device=true on the card for ``seconds`` at the reference
+    widths (see the module docstring). Returns the profiled window's
+    launch counts and the run's records."""
     import tempfile
     import threading
     import torch
@@ -2082,17 +2146,18 @@ def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float):
         torch.cuda.reset_peak_memory_stats(dev)
         try:
             state["launched"] = time.perf_counter()
-            state["close"] = (state["launched"] + ANAKIN_SECONDS
-                              - END_MARGIN_S)
+            state["close"] = state["launched"] + seconds - END_MARGIN_S
             summary = train.main([
                 *ANAKIN_ARGS, f"--runtime.save_dir={d}",
-                "--runtime.save_interval=0", "--runtime.log_interval=10",
-                f"--max-seconds={ANAKIN_SECONDS}"], dispatch_hook=hook)
+                "--runtime.save_interval=0", "--runtime.log_interval=5",
+                f"--max-seconds={seconds}", *extra], dispatch_hook=hook)
         finally:
             if state.get("prof") is not None:
                 state.pop("prof").__exit__(None, None, None)
         peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
         log = open(os.path.join(d, "train_player0.log")).read()
+        records = [json.loads(x) for x in open(os.path.join(
+            d, "metrics_player0.jsonl")) if x.strip()]
     check("window" in state and "end" in state, f"cli.train on-device: "
           f"only {state['calls']} dispatches")
     stack = state["stack"]
@@ -2134,13 +2199,22 @@ def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float):
         peak_gb=peak_gb, final_loss=summary["final_loss"],
         host_s={name: round(v, 3) for name, v in state["host_s"].items()},
         launches=launches, **_interval_stats(state))
-    print("on-device cli.train (fused loop, Fake, 64 lanes, K="
-          f"{k}, pallas_lstm on): " + json.dumps(report), flush=True)
+    if stack.twin_ms:
+        report["twin_adoptions"] = len(stack.twin_ms)
+        report["twin_ms_median"] = statistics.median(stack.twin_ms)
+        report["twin_ms_max"] = max(stack.twin_ms)
+    print(f"on-device cli.train (fused loop, Fake, 64 lanes, K={k}, "
+          f"pallas_lstm on, inference dtype {label}): " + json.dumps(report),
+          flush=True)
     want = _want_launches({"network.pallas_lstm": "on"},
                           PROFILE_DISPATCHES * k)
+    if label != "f32":
+        check(launches["int8_linear"] > 0, "the int8 segment launched no "
+              "int8_linear in the profiled window")
+        want["int8_linear"] = launches["int8_linear"]
     check(seen == launches == want, f"cli.train on-device: the profile "
           f"shows {seen}, counted {launches}, want {want}")
-    return launches
+    return launches, records
 
 
 def phase_anakin_learnability(dev):
@@ -2185,10 +2259,11 @@ QUANT_BF16_ULP = 2.0 ** -7
 SERVE_LANES = (1, 8, 32)
 SERVE_LOAD_S = 4.0                 # each load window of cli.serve
 SERVE_STEPS = 200                  # served-vs-eager steps of 32 lanes
-SERVED_TRAIN_SECONDS = 25.0
+SERVED_TRAIN_SECONDS = 15.0
 SERVED_TRAIN_ARGS = ["--actor-mode=thread", "--actor.inference=server",
                      "--network.inference_dtype=int8",
-                     "--env.game_name=Fake", "--replay.capacity=100000"]
+                     "--env.game_name=Fake", "--replay.capacity=100000",
+                     "--runtime.log_interval=5"]
 
 
 def _quant_layer(k, n, g, dev):
@@ -2587,6 +2662,401 @@ def phase_serving(dev, k, bench_default: float) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 10: pipelined ingest, crash recovery, quantized on-device acting
+
+INGEST_SECONDS = 22.0              # each cli.train run of the ingest A/B
+INGEST_KS = (1, 8)                 # replay.ingest_batch_blocks, in turn
+INGEST_ARGS = ["--actor-mode=thread", "--env.game_name=Fake",
+               "--replay.capacity=100000", "--runtime.save_interval=0",
+               "--runtime.log_interval=5"]
+RECOVERY_BLOCKS = 12               # reference-width blocks of the twin test
+SUPERVISED_SECONDS = 55.0          # the supervised run's bound
+SUPERVISED_SNAPSHOT_INTERVAL = 100  # learner steps between its snapshots
+SUPERVISED_KILL_BY_S = 48.0        # its first snapshot must land by then
+QUANT_TRAIN_SECONDS = 20.0         # cli.train at int8 on-device acting
+QUANT_TRAIN_ARGS = ["--network.inference_dtype=int8",
+                    "--telemetry.quant_probe_interval=4"]
+
+
+def _quantiles(xs) -> dict:
+    xs = sorted(xs)
+    if not xs:
+        return {"n": 0}
+    return {"n": len(xs), "median": round(statistics.median(xs), 4),
+            "p90": round(xs[int(0.9 * (len(xs) - 1))], 4),
+            "max": round(xs[-1], 4)}
+
+
+def _ingest_run(dev, k_ingest: int, k: int, bench_default: float) -> dict:
+    """One cli.train run of 10(a): thread actors, the CUDA "auto" path,
+    ``replay.ingest_batch_blocks`` = ``k_ingest``. Checks cuda, finite
+    losses, and that every block an actor sent is committed or still
+    queued (the staged counters at zero); returns the report."""
+    import tempfile
+    import torch
+    from r2d2_tpu_torch.cli import train
+    from r2d2_tpu_torch.config import Config
+    batch = Config().replay.batch_size
+    state = {"calls": 0, "marks": [], "parts": [], "host_s": {},
+             "steps": []}
+
+    def hook(stack):
+        state["calls"] += 1
+        n = state["calls"]
+        state["marks"].append(time.perf_counter())
+        state["parts"].append(dict(state["host_s"]))
+        steps = stack.learner.training_steps
+        if n == 1:
+            state["stack"] = stack
+            state["warmup_s"] = time.perf_counter() - state["launched"]
+            for obj, name in ((stack.learner, "drain"),
+                              (stack.learner, "_step_fn"),
+                              (stack.learner, "publish"),
+                              (stack.learner, "flush_metrics"),
+                              (stack, "supervise")):
+                _time_calls(obj, name, state["host_s"])
+        if n == 2:
+            torch.cuda.synchronize()
+            state["start"] = (time.perf_counter(), steps)
+            state["mid_at"] = (state["start"][0] + state["close"]) / 2
+        elif "start" in state and "end" not in state:
+            now = time.perf_counter()
+            if "mid" not in state and now >= state["mid_at"]:
+                torch.cuda.synchronize()
+                state["mid"] = (time.perf_counter(), steps)
+            elif now >= state["close"]:
+                torch.cuda.synchronize()
+                state["end"] = (time.perf_counter(), steps,
+                                stack.learner.env_steps, n)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as d:
+        state["launched"] = time.perf_counter()
+        state["close"] = state["launched"] + INGEST_SECONDS - 2.0
+        summary = train.main(INGEST_ARGS + [
+            f"--replay.ingest_batch_blocks={k_ingest}",
+            f"--max-seconds={INGEST_SECONDS}", f"--runtime.save_dir={d}"],
+            dispatch_hook=hook)
+        records = [json.loads(x) for x in open(os.path.join(
+            d, "metrics_player0.jsonl")) if x.strip()]
+    label = f"ingest_batch_blocks={k_ingest}"
+    check("mid" in state and "end" in state,
+          f"cli.train {label}: {state['calls']} dispatches, too few")
+    stack = state["stack"]
+    learner = stack.learner
+    check(summary["device"].startswith("cuda"), summary["device"])
+    check(summary["steps"] > 0 and all(math.isfinite(x)
+                                        for x in summary["losses"]),
+          f"cli.train {label}: no steps or a non-finite loss")
+    check(learner._ingest_k == k_ingest, f"K {learner._ingest_k}")
+    sent = stack.queue._q.unfinished_tasks    # every put (no task_done)
+    left = stack.queue.qsize()
+    check(learner._staged_blocks == 0 and learner._staged_env_steps == 0
+          and learner.ring.total_adds == sent - left
+          == summary["blocks_ingested"],
+          f"cli.train {label}: {learner.ring.total_adds} blocks committed, "
+          f"{sent} sent, {left} left in the queue, staged "
+          f"{learner._staged_blocks}")
+    (t0, s0), (tm, sm) = state["start"], state["mid"]
+    t1, s1, _, _ = state["end"]
+    rate = batch * (s1 - s0) / (t1 - t0)
+    halves = [batch * (sm - s0) / (tm - t0), batch * (s1 - sm) / (t1 - tm)]
+    drains = [r["ingest_blocks_per_drain"] for r in records
+              if r.get("ingest_blocks_per_drain")]
+    report = dict(
+        ingest_batch_blocks=k_ingest, steps_per_dispatch=k,
+        seq_updates_per_s=rate, halves=halves,
+        of_bench_default=rate / bench_default, bench_default=bench_default,
+        window_s=t1 - t0, warmup_s=state["warmup_s"],
+        blocks_committed=learner.ring.total_adds, blocks_left=left,
+        env_steps=summary["env_steps"],
+        host_s={n: round(v, 3) for n, v in state["host_s"].items()},
+        commit_ms=_quantiles(learner.ingest_ms["commit"]),
+        stage_ms=_quantiles(learner.ingest_ms["stage"]),
+        blocks_per_drain=drains,
+        queue_depth=[r["ingest"]["queue_depth"] for r in records
+                     if "ingest" in r],
+        drain_latency_ms=[r["ingest_drain_latency_ms"] for r in records
+                          if r.get("ingest_drain_latency_ms")],
+        **_interval_stats(state))
+    print(f"ingest A/B, cli.train {label} (thread actors, K={k}): "
+          + json.dumps(report), flush=True)
+    return report
+
+
+def phase_ingest(dev, k: int, bench_default: float) -> dict:
+    """10(a): the per-block drain against the stager at K=8 in one call;
+    returns {K: report} and prints which setting was faster beyond the
+    spread of the halves of each run's window."""
+    reports = {ki: _ingest_run(dev, ki, k, bench_default)
+               for ki in INGEST_KS}
+    one, eight = reports[INGEST_KS[0]], reports[INGEST_KS[1]]
+    faster = (INGEST_KS[1] if min(eight["halves"]) > max(one["halves"])
+              else INGEST_KS[0] if min(one["halves"]) > max(eight["halves"])
+              else None)
+    print(f"ingest A/B: K=1 {one['seq_updates_per_s']:.2f} seq-updates/s "
+          f"(halves {one['halves']}), K=8 {eight['seq_updates_per_s']:.2f} "
+          f"(halves {eight['halves']}); faster beyond the halves' spread: "
+          f"{faster if faster is not None else 'neither'}", flush=True)
+    return reports
+
+
+def phase_recovery_learner(dev) -> dict:
+    """10(b), part 1: a learner on the card at the reference widths
+    (capacity 100,000, the CUDA "auto" K) fills its replay, takes a
+    dispatch, saves, snapshots and takes another (its graph's capture and
+    replay); a second learner resumed from that checkpoint and snapshot
+    holds the same replay tensors and its first dispatch (eager) gives the
+    same losses, bit for bit. Also printed: the per-block ingest's host ms
+    with no actor thread beside it."""
+    import tempfile
+    import torch
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.replay.snapshot import read_manifest
+    from r2d2_tpu_torch.runtime.learner_loop import Learner
+    from r2d2_tpu_torch.tools import bench
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recovery_") as d:
+        cfg = bench.reference_config(**{
+            "runtime.save_dir": d, "runtime.save_interval": 0,
+            "runtime.snapshot_interval": 10 ** 9})
+        net = NetworkApply(18, cfg.network, cfg.env.frame_stack,
+                           cfg.env.frame_height, cfg.env.frame_width, dev)
+        first = Learner(cfg, net)
+        ingest_ms = []
+        for block in bench.synthetic_blocks(cfg, RECOVERY_BLOCKS, seed=9):
+            t0 = time.perf_counter()
+            first.ingest(block)
+            ingest_ms.append((time.perf_counter() - t0) * 1e3)
+        first.step()
+        ckpt = first.save(1)
+        torch.cuda.synchronize()
+        first.snapshot_replay()
+        capture_ms = first.snapshot_capture_ms[-1]
+        check(first._snap_writer.drain(300.0), "the snapshot write hung")
+        first._snap_writer.check()
+        meta = read_manifest(d, 0)
+        check(meta is not None and meta["total_adds"] == RECOVERY_BLOCKS,
+              f"manifest {meta}")
+        want = {n: t.clone() for n, t in vars(first.replay_state).items()
+                if torch.is_tensor(t)}
+        twin = first.step()["loss"].clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = Learner(cfg.replace(**{"runtime.resume": ckpt}), net)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(resumed._restores == 1
+              and resumed._restored_blocks == RECOVERY_BLOCKS,
+              "the resumed learner restored no snapshot")
+        for name, value in want.items():
+            check(torch.equal(getattr(resumed.replay_state, name), value),
+                  f"restored replay {name} differs")
+        check(resumed.replay_state.block_ptr == first.replay_state.block_ptr
+              and vars(resumed.ring) == vars(first.ring), "ring differs")
+        got = resumed.step()["loss"]
+        check(torch.equal(got, twin), f"resumed losses {got.tolist()} != "
+              f"the twin's {twin.tolist()}")
+        first.stop_background()
+        resumed.stop_background()
+    report = dict(capture_host_ms=capture_ms, write_s=meta["write_s"],
+                  payload_bytes=meta["payload_bytes"], restore_s=restore_s,
+                  losses=twin.tolist(),
+                  # a per-block ingest's host ms with no actor thread
+                  # beside it (10(a)'s runs have two)
+                  ingest_host_ms_alone=_quantiles(ingest_ms[1:]))
+    print("recovery, reference widths: the resumed learner's losses equal "
+          "its twin's bit for bit, the replay tensors equal; "
+          + json.dumps(report), flush=True)
+    del first, resumed, want
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_supervised_kill(dev) -> dict:
+    """10(b), part 2: cli.train --runtime.auto_resume=true (thread actors,
+    reference widths) as a process; once its first snapshot is committed
+    the child (learner.pid) is SIGKILLed; the supervisor relaunches it from
+    the newest checkpoint, it restores the replay and trains on cuda."""
+    import signal
+    import tempfile
+    from r2d2_tpu_torch.replay.snapshot import read_manifest
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_supervised_") as d:
+        out_path = os.path.join(d, "stdout.txt")
+        metrics = os.path.join(d, "metrics_player0.jsonl")
+        t_launch = time.time()
+        with open(out_path, "w") as out, \
+                open(os.path.join(d, "stderr.txt"), "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "r2d2_tpu_torch.cli.train",
+                 "--runtime.auto_resume=true",
+                 f"--runtime.snapshot_interval={SUPERVISED_SNAPSHOT_INTERVAL}",
+                 "--runtime.save_interval=100000", "--runtime.log_interval=1",
+                 "--actor-mode=thread", "--env.game_name=Fake",
+                 "--replay.capacity=100000",
+                 f"--max-seconds={SUPERVISED_SECONDS}",
+                 f"--runtime.save_dir={d}"], stdout=out, stderr=err)
+        try:
+            meta = None
+            while meta is None and time.time() - t_launch \
+                    < SUPERVISED_KILL_BY_S and proc.poll() is None:
+                time.sleep(0.2)
+                meta = read_manifest(d, 0)
+            check(meta is not None, "no snapshot committed by "
+                  f"{SUPERVISED_KILL_BY_S} s: "
+                  + open(os.path.join(d, "stderr.txt")).read()[-3000:])
+            child = int(open(os.path.join(d, "learner.pid")).read())
+            check(child != proc.pid, "learner.pid names the supervisor")
+            os.kill(child, signal.SIGKILL)
+            t_kill = time.time()
+            first_dispatch = None
+            while proc.poll() is None:
+                time.sleep(0.2)
+                if first_dispatch is None and os.path.exists(metrics):
+                    for line in open(metrics):
+                        r = json.loads(line) if line.strip() else {}
+                        if (r.get("recovery", {}).get("restores") == 1
+                                and r.get("training_speed", 0) > 0):
+                            first_dispatch = time.time() - t_kill
+                            break
+            proc.wait(timeout=SUPERVISED_SECONDS + 120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        stdout = open(out_path).read().splitlines()
+        stderr = open(os.path.join(d, "stderr.txt")).read()
+        check(proc.returncode == 0, f"supervised cli.train exit "
+              f"{proc.returncode}: {stderr[-3000:]}")
+        summaries = [json.loads(x) for x in stdout if x.startswith("{")]
+        check(summaries and summaries[-1] == {"supervised": True,
+                                              "restarts": 1},
+              f"supervisor summary {summaries[-1:]}")
+        child_summary = [x for x in summaries if "steps" in x]
+        check(len(child_summary) == 1
+              and child_summary[0]["device"].startswith("cuda")
+              and child_summary[0]["steps"] > 0
+              and math.isfinite(child_summary[0]["final_loss"]),
+              f"the relaunched child's summary {child_summary}")
+        records = [json.loads(x) for x in open(metrics) if x.strip()]
+        restored = [r["recovery"] for r in records
+                    if r.get("recovery", {}).get("restores") == 1]
+        check(restored and restored[0]["restored_blocks"] > 0
+              and restored[0]["supervisor"]["restarts"] == 1,
+              f"no restore in the relaunched records: {records[-1:]}")
+    report = dict(killed_after_s=t_kill - t_launch,
+                  first_snapshot=dict(step=meta["step"],
+                                      payload_bytes=meta["payload_bytes"],
+                                      write_s=meta["write_s"],
+                                      total_adds=meta["total_adds"]),
+                  restored_blocks=restored[0]["restored_blocks"],
+                  first_dispatch_after_kill_s=first_dispatch,
+                  relaunched_steps=child_summary[0]["steps"],
+                  relaunched_snapshots=restored[-1]["snapshot"])
+    print("supervised cli.train, child SIGKILLed after its first snapshot: "
+          "relaunched, replay restored, trained on cuda; "
+          + json.dumps(report), flush=True)
+    return report
+
+
+def phase_quant_segment_vs_cpu(dev) -> None:
+    """10(c), part 1: a small int8 segment (gridworld, "td" priorities) on
+    the card against the port's CPU int8 segment from the same weights
+    and draws, the card's twin computing in f32 (the CPU's type): actions
+    and integer fields equal, float fields within ANAKIN_ATOL. Then the
+    card's bf16-compute twin on the CPU segment's end states, by phase
+    9b's rule (greedy agreement outside the tie band, |dQ| within 5% of
+    the Q scale)."""
+    import dataclasses
+    import torch
+    from r2d2_tpu_torch.actor.anakin import _forward_inputs, init_act_carry
+    cfg = _tiny_config().replace(**{
+        "env.game_name": "Grid", "env.grid_size": 4, "env.episode_len": 40,
+        "actor.on_device": True, "actor.anakin_lanes": 8,
+        "actor.anakin_priority": "td", "network.inference_dtype": "int8"})
+    gen = torch.Generator().manual_seed(12)
+    env, spec, _, act = _anakin_parts(cfg, torch.device("cpu"), 8, 0)
+    reset = env.reset_draws(8, gen)
+    draws = [act.draw(gen) for _ in range(2)]
+    runs = []
+    _reset_counts()
+    for device in (torch.device("cpu"), dev):
+        env, spec, twin, act = _anakin_parts(cfg, device, 8, 0,
+                                             compute_dtype=torch.float32)
+        carry = init_act_carry(env, spec, 8, reset_draws=reset.to(device))
+        out = []
+        for dr in draws:
+            carry, blocks, stats = act(twin, carry, 1, draws=_to(dr, device))
+            out.append((blocks, carry.hidden, stats))
+        runs.append(out)
+    check(_counts()["int8_linear"] > 0, "the card's int8 segment launched "
+          "no int8_linear")
+    worst = 0.0
+    for (cb, ch, cs), (gb, gh, gs) in zip(*runs):
+        for f in dataclasses.fields(cb):
+            a, b = getattr(cb, f.name), getattr(gb, f.name).cpu()
+            if a.is_floating_point():
+                err = float(torch.nan_to_num(a - b).abs().max())
+                worst = max(worst, err)
+                check(err <= ANAKIN_ATOL and torch.equal(a.isnan(),
+                                                         b.isnan()),
+                      f"int8 segment {f.name}: max abs {err}")
+            else:
+                check(torch.equal(a, b), f"int8 segment {f.name} differs")
+        worst = max(worst, float((ch - gh.cpu()).abs().max()))
+        check(abs(float(cs["quant_dq"]) - float(gs["quant_dq"])) <= 1e-4,
+              "probe dq")
+    # the bf16-compute twin (the fused loop's) against the CPU's Q
+    _, _, twin16, _ = _anakin_parts(cfg, dev, 8, 0)
+    _, _, twin_cpu, _ = _anakin_parts(cfg, torch.device("cpu"), 8, 0)
+    agree = total = 0
+    dq_max = qscale = 0.0
+    for _, _, stats in runs[0]:
+        state = stats["end_state"]
+        obs, one_hot = _forward_inputs(state[0], state[1], act.action_dim)
+        with torch.no_grad():
+            q_cpu = twin_cpu.quant(obs, one_hot, state[2])[0][:, 0]
+            q_card = twin16.quant(obs.to(dev), one_hot.to(dev),
+                                  state[2].to(dev))[0][:, 0].float().cpu()
+        dq = float((q_card - q_cpu).abs().max())
+        dq_max, qscale = max(dq_max, dq), max(qscale,
+                                              float(q_cpu.abs().max()))
+        top2 = q_cpu.sort(dim=-1).values[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 2.0 * dq
+        agree += int((q_card.argmax(-1) == q_cpu.argmax(-1))[clear].sum())
+        total += int(clear.sum())
+    check(total == 0 or agree == total, f"agreement {agree}/{total}")
+    check(dq_max <= 0.05 * max(qscale, 1e-3), f"|dQ| {dq_max} of {qscale}")
+    print(f"int8 on-device acting, small segments (Grid, td, 8 lanes): "
+          f"card (f32-compute twin) vs CPU: actions and integer fields "
+          f"equal, float fields max abs {worst:.3e}; bf16-compute twin vs "
+          f"CPU on the end states: greedy agreement {agree}/{total} outside "
+          f"the tie band, max |dQ| {dq_max:.3e} of Q scale {qscale:.3e}",
+          flush=True)
+
+
+def phase_ingest_recovery_quant(dev, k: int, bench_default: float,
+                                bench_fused: float, f32_segment_ms: float
+                                ) -> dict:
+    """Phase 10 (see the module docstring). Returns the int8 fused run's
+    launch counts."""
+    phase_ingest(dev, k, bench_default)
+    phase_recovery_learner(dev)
+    phase_supervised_kill(dev)
+    phase_quant_segment_vs_cpu(dev)
+    int8_ms, _ = phase_anakin_graph(dev, "int8")
+    print(f"acting segment ms at the reference widths, this call: f32 "
+          f"{f32_segment_ms:.3f} (phase 8), int8 {int8_ms:.3f} "
+          f"({int8_ms / f32_segment_ms:.3f}x)", flush=True)
+    launches, records = phase_anakin_train(
+        dev, k, bench_fused, int8_ms, extra=QUANT_TRAIN_ARGS,
+        seconds=QUANT_TRAIN_SECONDS, label="int8")
+    quant = [r["quant"] for r in records if "quant" in r]
+    check(quant and sum(q["probes"] for q in quant) > 0,
+          f"no probe in the int8 run's quant blocks: {quant}")
+    print(f"int8 fused loop quant blocks: {json.dumps(quant)}", flush=True)
+    return launches
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2660,8 +3130,8 @@ def main(argv) -> int:
     phase_learnability(dev)
     done("learnability")
     phase_anakin_vs_cpu(dev)
-    segment_ms = phase_anakin_graph(dev)
-    anakin = phase_anakin_train(
+    segment_ms, _ = phase_anakin_graph(dev)
+    anakin, _ = phase_anakin_train(
         dev, resolved_k,
         reference["fused", resolved_k]["median_seq_updates_per_s"],
         segment_ms)
@@ -2672,6 +3142,12 @@ def main(argv) -> int:
                             ["median_seq_updates_per_s"])
     serve_launches = serving["serve_launches"]
     done("serving")
+    anakin_quant = phase_ingest_recovery_quant(
+        dev, resolved_k,
+        reference["default", resolved_k]["median_seq_updates_per_s"],
+        reference["fused", resolved_k]["median_seq_updates_per_s"],
+        segment_ms)
+    done("ingest, recovery, quantized on-device acting")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}
@@ -2688,18 +3164,22 @@ def main(argv) -> int:
                     anakin_launches=(0 if name.endswith("_padded")
                                      else anakin[name]),
                     serve_launches=(0 if name.endswith("_padded")
-                                    else serve_launches[name]))
+                                    else serve_launches[name]),
+                    anakin_quant_launches=(0 if name.endswith("_padded")
+                                           else anakin_quant[name]))
                for name, r in timings.items()]
     kernels.append(dict(
         name="int8_linear", route="cuda", source=KERNEL_SOURCES["quant_kernels"],
         replaces=REPLACES["int8_linear"],
-        launches=serve_launches["int8_linear"],
+        launches=(serve_launches["int8_linear"]
+                  + anakin_quant["int8_linear"]),
         max_abs_err=serving["max_abs_err"], ms=serving["ms"],
         b2b_ms=serving["b2b_ms"], plain_ms=serving["plain_ms"],
         bound_ms=serving["bound_ms"], bound_by=serving["bound_by"],
         library_ms=serving["library_ms"], host_path_launches=0,
         orchestrated_launches=0, anakin_launches=0,
-        serve_launches=serve_launches["int8_linear"]))
+        serve_launches=serve_launches["int8_linear"],
+        anakin_quant_launches=anakin_quant["int8_linear"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

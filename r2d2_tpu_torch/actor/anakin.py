@@ -34,6 +34,16 @@ Random numbers are drawn per segment (``draw_segment``) from an explicit
 ``torch.Generator``, which the CUDA graph registers, so every replay draws
 anew. A caller may inject the draws instead: the parity tests hand in the
 numbers JAX's key splits give, and the comparison is exact.
+
+Quantized acting (``network.inference_dtype`` "bf16" or "int8"): every
+policy forward of the segment, the bootstrap one included, runs the
+publish-time twin (an ``actor/policy.py InferenceTwin``: the dense layers
+through ``int8_linear`` on the card) in place of the learner's module.
+The accuracy probe (max |Q_f32 - Q_quant| and the greedy agreement over
+the lanes, on the end-of-segment state before the reset) is
+``quant_probe``; the graphed segment leaves that state in static tensors
+and runs the probe after a replay, outside the graph, every
+``telemetry.quant_probe_interval``-th segment.
 """
 
 import dataclasses
@@ -45,6 +55,9 @@ import torch
 import torch.nn.functional as F
 
 from r2d2_tpu_torch.models.network import NetworkApply, action_one_hot
+from r2d2_tpu_torch.ops.launch_counts import (add_launch_counts,
+                                              captured_launches,
+                                              launch_counts)
 from r2d2_tpu_torch.replay.device_replay import write_rows
 from r2d2_tpu_torch.replay.structs import Block, ReplaySpec, ReplayState
 
@@ -296,19 +309,47 @@ def emit_blocks(spec: ReplaySpec, gamma: float, priority,
     return blocks, new_tails
 
 
+def _forward_inputs(carry_stack, last_action, action_dim: int):
+    """The T=1 window over the normalized frame stack and the one-hot last
+    action, as the host policy feeds its forward."""
+    stacked = (carry_stack.float() / 255.0).permute(0, 2, 3, 1)
+    return stacked[:, None], action_one_hot(last_action, action_dim)[:, None]
+
+
+@torch.no_grad()
+def quant_probe(twin, end_state, action_dim: int) -> Dict[str, torch.Tensor]:
+    """The quantized forward's accuracy probe on one segment's
+    end-of-segment state ``(cur_stack, last_action, hidden)`` before the
+    reset: the twin's Q against its true-f32 reference module's, as device
+    scalars {"quant_dq": max |dQ|, "quant_agree": greedy agreement}."""
+    cur_stack, last_action, hidden = end_state
+    obs, one_hot = _forward_inputs(cur_stack, last_action, action_dim)
+    qq = twin.quant(obs, one_hot, hidden)[0][:, 0]
+    qf = twin.f32(obs, one_hot, hidden)[0][:, 0].float()
+    return {"quant_dq": (qf - qq).abs().max(),
+            "quant_agree": (qf.argmax(dim=-1) == qq.argmax(dim=-1)
+                            ).float().mean()}
+
+
 def make_act_core(env, net: NetworkApply, spec: ReplaySpec, *,
-                  gamma: float, priority, priority_eta: float = 0.9):
+                  gamma: float, priority, priority_eta: float = 0.9,
+                  quant_probe_on: bool = True):
     """The acting segment, the JAX package's ``make_act_core``:
 
         core(module, carry, weight_version, eps, report, lanes, draws)
             -> (carry, blocks, stats)
 
     ``module``: the network the forward runs (the learner's, by
-    reference); ``eps`` (N,) f32 and ``report`` (N,) bool per lane;
-    ``lanes`` (N,) int32 or None; ``draws`` a SegmentDraws. Nothing is
-    read back to the host, so the call captures into a CUDA graph. The
-    returned carry holds new tensors; ``stats`` are device scalars
-    (episodes ended, episodes reported, their return sum)."""
+    reference), or at a quantized ``network.inference_dtype`` the
+    ``InferenceTwin`` whose twin every forward runs; ``eps`` (N,) f32 and
+    ``report`` (N,) bool per lane; ``lanes`` (N,) int32 or None; ``draws``
+    a SegmentDraws. Nothing is read back to the host, so the call captures
+    into a CUDA graph. The returned carry holds new tensors; ``stats`` are
+    device scalars (episodes ended, episodes reported, their return sum).
+    Quantized, ``stats`` also holds ``end_state``, the pre-reset state the
+    probe reads, and with ``quant_probe_on`` the probe's two scalars (JAX
+    runs the probe inside its program; a graphed segment passes False and
+    probes outside the graph)."""
     td_priority = isinstance(priority, str)
     if td_priority and priority != "td":
         raise ValueError(f"priority must be a positive float or 'td'; got "
@@ -324,11 +365,13 @@ def make_act_core(env, net: NetworkApply, spec: ReplaySpec, *,
             f"env.episode_len {env.episode_len} must be a multiple of "
             f"block_length {spec.block_length}")
 
+    quant = net.config.inference_dtype != "f32"
+
     def forward(module, carry_stack, last_action, hidden):
-        stacked = (carry_stack.float() / 255.0).permute(0, 2, 3, 1)
-        return module(stacked[:, None],
-                      action_one_hot(last_action, action_dim)[:, None],
-                      hidden)
+        obs, one_hot = _forward_inputs(carry_stack, last_action, action_dim)
+        if quant:
+            return module.quant(obs, one_hot, hidden)
+        return module(obs, one_hot, hidden)
 
     @torch.no_grad()
     def core(module, carry: ActCarry, weight_version, eps: torch.Tensor,
@@ -398,6 +441,11 @@ def make_act_core(env, net: NetworkApply, spec: ReplaySpec, *,
             "reported_episodes": done_rep.sum(),
             "reported_return_sum": torch.where(done_rep, ep_rets, 0.0).sum(),
         }
+        if quant:
+            stats["end_state"] = (cur_stack, last_action, hidden)
+            if quant_probe_on:
+                stats.update(quant_probe(module, stats["end_state"],
+                                         action_dim))
         return new, blocks, stats
 
     return core
@@ -415,7 +463,7 @@ class AnakinAct:
     def __init__(self, env, net: NetworkApply, spec: ReplaySpec, *,
                  num_lanes: int, epsilons: Sequence[float], gamma: float,
                  priority, near_greedy_eps: float,
-                 priority_eta: float = 0.9):
+                 priority_eta: float = 0.9, quant_probe_on: bool = True):
         eps_list = [float(e) for e in epsilons]
         if len(eps_list) != num_lanes:
             raise ValueError(f"need one epsilon per lane: got "
@@ -429,9 +477,11 @@ class AnakinAct:
                                    device=device)
         self.lanes = torch.arange(num_lanes, dtype=torch.int32,
                                   device=device)
+        self.quant = net.config.inference_dtype != "f32"
         self.core = make_act_core(env, net, spec, gamma=gamma,
                                   priority=priority,
-                                  priority_eta=priority_eta)
+                                  priority_eta=priority_eta,
+                                  quant_probe_on=quant_probe_on)
 
     def draw(self, generator: Optional[torch.Generator]) -> SegmentDraws:
         return draw_segment(self.env, self.num_lanes, self.spec.block_length,
@@ -463,8 +513,11 @@ class ActSegment:
     draws, the segment, the ring write and the accumulation, with the
     generator registered so that each replay draws anew, and replays it;
     every later call replays it and raises if a tensor it reads (the
-    network's parameters, the replay) has moved. On the CPU every call is
-    eager. ``blocks`` and ``draws`` hold the newest segment's."""
+    network's parameters or the quantized twin's, the replay) has moved.
+    A replay adds the kernel launches its capture counted (the int8
+    segment's ``int8_linear``). On the CPU every call is eager.
+    ``blocks`` and ``draws`` hold the newest segment's, ``end_state`` its
+    pre-reset state when the forward is quantized (``probe``)."""
 
     def __init__(self, act: AnakinAct, module, carry: ActCarry,
                  spec: ReplaySpec, replay_state: ReplayState,
@@ -487,10 +540,12 @@ class ActSegment:
         self.calls = self.replays = 0
         self.blocks: Optional[Block] = None
         self.draws: Optional[SegmentDraws] = None
+        self.end_state: Optional[tuple] = None
         self.addresses: Dict[str, int] = {}
-        self._outputs: Optional[Tuple[Block, SegmentDraws]] = None
+        self.launches: Dict[str, int] = {}      # a replay's, by kernel
+        self._outputs: Optional[tuple] = None
 
-    def _run(self) -> Tuple[Block, SegmentDraws]:
+    def _run(self) -> tuple:
         draws = self.act.draw(self.generator)
         carry, blocks, stats = self.act(self.module, self.carry,
                                         self.weight_version, draws=draws)
@@ -499,13 +554,18 @@ class ActSegment:
         assign_(self.carry, carry)
         for name in STATS:
             self.totals[name] += stats[name]
-        return blocks, draws
+        return blocks, draws, stats.get("end_state")
 
     def _read(self) -> Dict[str, int]:
         """Addresses of what the graph reads and writes beyond its own
-        tensors: the parameters and the replay."""
-        out = {f"params.{n}": p.data_ptr()
-               for n, p in self.module.named_parameters()}
+        tensors: the weights (the parameters, or the twin's tensors) and
+        the replay."""
+        if self.act.quant:
+            out = {f"twin.{i}": t.data_ptr()
+                   for i, t in enumerate(self.module.tensors())}
+        else:
+            out = {f"params.{n}": p.data_ptr()
+                   for n, p in self.module.named_parameters()}
         out.update({f"replay.{n}": v.data_ptr()
                     for n, v in vars(self.replay_state).items()
                     if torch.is_tensor(v)})
@@ -514,8 +574,15 @@ class ActSegment:
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        stream = torch.cuda.Stream()
+        with captured_launches(stream) as counted, \
+                torch.cuda.graph(graph, stream=stream,
+                                 capture_error_mode="thread_local"):
             self._outputs = self._run()
+        # the capture launched nothing: a replay adds these
+        self.launches = {name: counted.get(name, 0)
+                         for name in launch_counts()}
+        add_launch_counts({name: -n for name, n in self.launches.items()})
         self.graph = graph
         self.addresses = self._read()
 
@@ -525,13 +592,13 @@ class ActSegment:
         self.weight_version.fill_(int(weight_version))
         self.block_ptr.fill_(self.replay_state.block_ptr)
         if not self.cuda or eager:
-            self.blocks, self.draws = self._run()
+            self.blocks, self.draws, self.end_state = self._run()
         elif self.calls == 0:
             current = torch.cuda.current_stream()
             side = torch.cuda.Stream()
             side.wait_stream(current)
             with torch.cuda.stream(side):
-                self.blocks, self.draws = self._run()
+                self.blocks, self.draws, self.end_state = self._run()
             current.wait_stream(side)
         else:
             if self.graph is None:
@@ -543,12 +610,19 @@ class ActSegment:
                                    f"have moved since its capture: "
                                    f"{moved[:8]}")
             self.graph.replay()
+            add_launch_counts(self.launches)
             self.replays += 1
-            self.blocks, self.draws = self._outputs
+            self.blocks, self.draws, self.end_state = self._outputs
         self.replay_state.block_ptr = ((self.replay_state.block_ptr
                                         + self.act.num_lanes)
                                        % self.spec.num_blocks)
         self.calls += 1
+
+    def probe(self) -> Dict[str, float]:
+        """The accuracy probe on the newest segment's pre-reset state,
+        eagerly on the current stream (a quantized forward only)."""
+        stats = quant_probe(self.module, self.end_state, self.act.action_dim)
+        return {name: float(v) for name, v in stats.items()}
 
     def take_stats(self) -> Dict[str, float]:
         """The accumulated stats since the last take (one sync), zeroed."""

@@ -17,6 +17,12 @@ Extra (non-config) flags:
     --device=NAME                 "cuda" (default; raises without one) or
                                   "cpu"
 
+``--runtime.auto_resume=true`` trains in a child process of a supervisor
+(runtime/supervisor.py) that relaunches a dead child from its newest
+checkpoint, with ``--runtime.snapshot_interval=N`` restoring the replay
+from ``{save_dir}/replay_player0.npz`` too; the child prints the summary,
+the supervisor then ``{"supervised": true, "restarts": N}``.
+
 Checkpoints land in ``runtime.save_dir`` as ``{game}{k}_player0`` (k =
 step // save_interval; the step-0 one first, the final one on any clean
 stop), the log in ``train_player0.log`` beside them. The last line printed
@@ -68,10 +74,31 @@ def _summary(stack, device, seconds: float) -> dict:
     }
 
 
-def main(argv=None, dispatch_hook=None) -> dict:
-    from r2d2_tpu_torch.config import Config, parse_overrides
+def run(cfg, *, actor_mode: str = "process", max_steps=None,
+        max_seconds=None, device=None, dispatch_hook=None) -> dict:
+    """Train ``cfg`` on ``device`` (None = CUDA) and print the summary as
+    the last line; returns it, with every flushed loss."""
     from r2d2_tpu_torch.runtime.orchestrator import train
     from r2d2_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+
+    def log(record: dict) -> None:
+        print(" | ".join(f"{k}={v}" for k, v in record.items()
+                         if v is not None), flush=True)
+
+    t0 = time.time()
+    stack = train(cfg, max_training_steps=max_steps, max_seconds=max_seconds,
+                  actor_mode=actor_mode, device=device, log_fn=log,
+                  dispatch_hook=dispatch_hook)
+    summary = _summary(stack, device, time.time() - t0)
+    print(json.dumps({k: v for k, v in summary.items() if k != "losses"}),
+          flush=True)
+    return summary
+
+
+def main(argv=None, dispatch_hook=None) -> dict:
+    from r2d2_tpu_torch.config import Config, parse_overrides
 
     argv = list(sys.argv[1:] if argv is None else argv)
     flags = {"actor-mode": "process", "max-steps": None,
@@ -84,24 +111,22 @@ def main(argv=None, dispatch_hook=None) -> dict:
         else:
             rest.append(arg)
     cfg = parse_overrides(Config(), rest)
-    device = resolve_device(flags["device"])
-
-    def log(record: dict) -> None:
-        print(" | ".join(f"{k}={v}" for k, v in record.items()
-                         if v is not None), flush=True)
-
-    t0 = time.time()
-    stack = train(cfg,
-                  max_training_steps=(int(flags["max-steps"])
-                                      if flags["max-steps"] else None),
-                  max_seconds=(float(flags["max-seconds"])
-                               if flags["max-seconds"] else None),
-                  actor_mode=flags["actor-mode"], device=device,
-                  log_fn=log, dispatch_hook=dispatch_hook)
-    summary = _summary(stack, device, time.time() - t0)
-    print(json.dumps({k: v for k, v in summary.items() if k != "losses"}),
-          flush=True)
-    return summary
+    max_steps = int(flags["max-steps"]) if flags["max-steps"] else None
+    max_seconds = (float(flags["max-seconds"]) if flags["max-seconds"]
+                   else None)
+    if cfg.runtime.auto_resume:
+        # a supervised child trains; this process never touches CUDA
+        from r2d2_tpu_torch.runtime.supervisor import supervise_train
+        restarts = supervise_train(cfg, actor_mode=flags["actor-mode"],
+                                   max_steps=max_steps,
+                                   max_seconds=max_seconds,
+                                   device=flags["device"])
+        summary = {"supervised": True, "restarts": restarts}
+        print(json.dumps(summary), flush=True)
+        return summary
+    return run(cfg, actor_mode=flags["actor-mode"], max_steps=max_steps,
+               max_seconds=max_seconds, device=flags["device"],
+               dispatch_hook=dispatch_hook)
 
 
 if __name__ == "__main__":

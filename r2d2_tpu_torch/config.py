@@ -2,12 +2,10 @@
 optim, actor and runtime sections of the JAX package's config, with the
 same field names and defaults, so a ``--section.field=value`` override
 means the same thing in both packages. Only the fields the port reads are
-here: a setting of a part the port does not have yet
-(``--replay.ingest_batch_blocks=8``, ``--runtime.snapshot_interval=N``,
-``--mesh.dp=2``, ...) is refused as an unknown field instead of being
-ignored, and a value the port cannot honour yet (``serve.servers > 1``,
-a quantized ``actor.on_device`` forward) is refused naming the item that
-brings it.
+here: a setting of a part the port does not have yet (``--mesh.dp=2``,
+``--fleet.replay_shards=2``, ...) is refused as an unknown field instead
+of being ignored, and a value the port cannot honour yet
+(``serve.servers > 1``) is refused naming the item that brings it.
 
 The tri-state knobs ("on"/"off"/"auto") resolve for the device the port
 runs on, never for a TPU:
@@ -45,6 +43,10 @@ runs on, never for a TPU:
 * ``replay.pallas_exact_gather``: the 84x84 -> 96x128 storage pad that
   Mosaic's tile rule needed. A CUDA copy does not need it, so "auto" = off
   on every device; "on" still gives the padded layout.
+* ``replay.ingest_batch_blocks``: blocks a stager thread pops, stages in
+  pinned memory and copies to the card ahead of one ``replay_add_many``
+  commit (runtime/learner_loop.py). -1 = ``CUDA_AUTO``'s value on CUDA,
+  1 (the per-block drain) on the CPU.
 """
 
 from __future__ import annotations
@@ -62,11 +64,17 @@ INFERENCE_DTYPES = ("f32", "bf16", "int8")   # network.inference_dtype
 # the reference shape (PERF.md section 5): the fused scan against the loop
 # (single DQN), and K=4, the fewest steps a dispatch within 1% of the
 # fastest. fused_double_unroll stays off: an interleaved unroll measured
-# no faster than the two unrolls, which both settings now run. The CPU
-# resolves them to off, off and 1.
+# no faster than the two unrolls, which both settings now run.
+# ingest_batch_blocks: per-block (1) against the stager at 8, orchestrated
+# seq-updates/s with two thread actors (chip_smoke.py phase 10(a)'s runs,
+# H100 80GB HBM3 at 700 W, in turns 1, 8, 8, 1 in one call): 1 at
+# 8,858.87 and 9,833.88, 8 at 9,322.99 and 9,255.80, so 8 is not faster
+# beyond the spread and "auto" stays 1 (PERF.md section 5). The CPU
+# resolves them to off, off, 1 and 1.
 CUDA_AUTO = {"network.pallas_lstm": True,
              "optim.fused_double_unroll": False,
-             "runtime.steps_per_dispatch": 4}
+             "runtime.steps_per_dispatch": 4,
+             "replay.ingest_batch_blocks": 1}
 
 
 @dataclass(frozen=True)
@@ -131,14 +139,28 @@ class ReplayConfig:
     learning_starts: int = 1_000
     pallas_sample_gather: str = "auto"
     pallas_exact_gather: str = "auto"
-    # blocks the learner pops from the feeder queue per drain, in the
-    # training loop and the orchestrator's warm-up loop alike
+    # blocks a stager thread pops and stages for one replay_add_many
+    # commit (K > 1), or the per-block drain (1); -1 = auto
+    # (resolved_ingest_batch_blocks). Host placement always drains per
+    # block: its ingest is a numpy copy, not a device write.
+    ingest_batch_blocks: int = -1
+    # blocks the learner pops from the feeder queue per drain (committed
+    # per drain on the pipelined path), in the training loop and the
+    # orchestrator's warm-up loop alike
     drain_max_blocks: int = 32
     # rate limiter: ingestion pauses once env_steps > learning_starts +
     # ratio * train_steps (0 = unthrottled); the synchronous trainer
     # collects exactly this many env steps per dispatch
     max_env_steps_per_train_step: float = 0.0
     placement: str = "device"       # or "host"
+
+    def resolved_ingest_batch_blocks(self, device) -> int:
+        """A value > 0 as given; -1: CUDA_AUTO's on CUDA, 1 on the CPU."""
+        if self.ingest_batch_blocks > 0:
+            return self.ingest_batch_blocks
+        if _device_type(device) == "cuda":
+            return CUDA_AUTO["replay.ingest_batch_blocks"]
+        return 1
 
 
 @dataclass(frozen=True)
@@ -287,6 +309,19 @@ class RuntimeConfig:
     # one diagnostic dump when no block arrives for this long (0 = off)
     ingest_stall_timeout_s: float = 300.0
     keep_checkpoints: int = 0        # newest K kept per player; 0 = all
+    # learner steps between durable replay snapshots
+    # ({save_dir}/replay_player{p}.npz + .json, replay/snapshot.py), written
+    # by a background thread from a cut taken between dispatches; 0 = off
+    # (no files, no "recovery" record block)
+    snapshot_interval: int = 0
+    # on runtime.resume, reload the newest committed replay snapshot beside
+    # the checkpoint (ring, tree, pointer, sampling generator) before the
+    # first dispatch; off restores the checkpoint only
+    restore_replay: bool = True
+    # cli.train runs training as a child process of a supervisor
+    # (runtime/supervisor.py) that relaunches a dead child from its newest
+    # checkpoint on the restart_* / max_restarts_per_window ladder
+    auto_resume: bool = False
 
     def resolved_steps_per_dispatch(self, device) -> int:
         """A value > 0 as given; otherwise the bench's winner on CUDA and 1
@@ -326,10 +361,32 @@ class Config:
         if self.replay.placement not in PLACEMENTS:
             raise ValueError(f"replay.placement must be one of {PLACEMENTS}"
                              f"; got {self.replay.placement!r}")
+        if self.replay.ingest_batch_blocks == 0 or \
+                self.replay.ingest_batch_blocks < -1:
+            raise ValueError(
+                f"replay.ingest_batch_blocks ({self.replay.ingest_batch_blocks})"
+                " must be -1 (auto) or >= 1")
+        if self.replay.ingest_batch_blocks > self.num_blocks:
+            raise ValueError(
+                f"replay.ingest_batch_blocks ({self.replay.ingest_batch_blocks})"
+                f" must be <= num_blocks ({self.num_blocks}): replay_add_many"
+                " scatter rows would alias in the ring")
         if self.replay.drain_max_blocks < 1:
             raise ValueError(
                 f"replay.drain_max_blocks ({self.replay.drain_max_blocks}) "
                 "must be >= 1")
+        if self.runtime.snapshot_interval < 0:
+            raise ValueError(
+                f"runtime.snapshot_interval "
+                f"({self.runtime.snapshot_interval}) must be >= 0 "
+                "(learner steps between replay snapshots; 0 disables)")
+        if (self.runtime.snapshot_interval
+                and self.replay.placement == "host"):
+            raise ValueError(
+                "runtime.snapshot_interval requires the device replay "
+                "(replay.placement='device'): the host-replay numpy twin "
+                "has no snapshot plane yet — set snapshot_interval=0 or "
+                "switch placement")
         if not 1 <= self.actor.envs_per_actor <= 100:
             raise ValueError(
                 f"actor.envs_per_actor ({self.actor.envs_per_actor}) must be "
@@ -354,12 +411,6 @@ class Config:
                 f"telemetry.quant_probe_interval "
                 f"({self.telemetry.quant_probe_interval}) must be >= 0 (0 "
                 "disables the accuracy probe)")
-        if actor.on_device and net.inference_dtype != "f32":
-            raise ValueError(
-                f"network.inference_dtype={net.inference_dtype!r} with "
-                "actor.on_device=true is not ported yet: the quantized "
-                "branch of the on-device acting segment is the rest of "
-                "ROADMAP item A.5")
         if actor.inference not in ("local", "server"):
             raise ValueError(f"actor.inference ({actor.inference!r}) must be "
                              "'local' or 'server'")

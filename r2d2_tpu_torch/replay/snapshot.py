@@ -1,0 +1,402 @@
+"""Durable replay snapshots, the plain (single replay) path of the JAX
+package's ``replay/snapshot.py``.
+
+The replay is the expensive state of an R2D2 run: the weights come back
+from any checkpoint in seconds, the ring took millions of env steps to
+fill. A snapshot holds every ``ReplayState`` leaf (storage rings, sum
+tree, ring pointer, weight-version and lane stamps), the host's
+``RingAccountant`` mirror and the caller's extras (the learner's env-step
+counter and its sampling generator's state), and restores them bit for
+bit into a freshly built replay of the same geometry.
+
+The cut: ``capture_plain`` runs between learner dispatches, the point
+where blocks commit, so a snapshot never splits a ring write. On the card
+every leaf is copied into pinned host memory on the current stream (the
+learner's) without a host sync, and an event marks the copies' end; the
+writer thread waits on that event before it serializes, so the train loop
+pays only the launch of the copies. The copies queue behind the
+dispatches already issued, so the cut is the state those dispatches
+leave.
+
+Disk format: one ``.npz`` payload and one ``.json`` manifest a player,
+each written to a temporary name and renamed into place; the manifest's
+rename is the commit point. A loader that finds a manifest whose payload
+size matches reads a complete snapshot; a crash mid-write leaves the
+previous pair. ``SnapshotWriter`` serializes on a background thread, the
+newest submitted cut winning.
+
+The replay service's shards, their spill pages and cursors
+(``capture_service`` and ``restore_service`` in the JAX package) wait for
+the port of the fleet.
+"""
+
+import json
+import os
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+SNAPSHOT_VERSION = 1
+
+# ReplaySpec fields a snapshot must agree on to be loadable: everything
+# that shapes the state tensors or the sampling
+_SPEC_FIELDS = ("num_blocks", "seqs_per_block", "block_length", "burn_in",
+                "learning", "forward", "frame_stack", "frame_height",
+                "frame_width", "hidden_dim", "batch_size", "prio_exponent",
+                "is_exponent", "exact_gather")
+
+# ReplayState's leaves, in JAX's order; block_ptr is a host int here and
+# a () int32 leaf in the file, as JAX stores it
+_LEAVES = ("tree", "obs", "last_action", "hidden", "action", "reward",
+           "gamma", "burn_in_steps", "learning_steps", "forward_steps",
+           "seq_start", "weight_version", "block_ptr", "lane")
+
+
+def snapshot_paths(save_dir: str, player_idx: int):
+    """(payload, manifest) paths of one player's rolling snapshot."""
+    base = os.path.join(save_dir, f"replay_player{player_idx}")
+    return base + ".npz", base + ".json"
+
+
+def _spec_fingerprint(spec) -> dict:
+    return {f: getattr(spec, f) for f in _SPEC_FIELDS}
+
+
+def _check_spec(snap: dict, spec) -> None:
+    got, want = snap["spec"], _spec_fingerprint(spec)
+    if got != want:
+        diff = {k: (got.get(k), want[k]) for k in want
+                if got.get(k) != want[k]}
+        raise ValueError(
+            f"replay snapshot spec mismatch {diff} (snapshot, current) — "
+            "the snapshot belongs to a different replay geometry")
+
+
+def _state_to_host(state) -> dict:
+    """ReplayState -> {leaf: host tensor or array}. A CUDA leaf is copied
+    into new pinned memory without blocking the host (``wait_ready``
+    before reading it); a CPU leaf is cloned."""
+    out = {}
+    for name in _LEAVES:
+        leaf = getattr(state, name)
+        if name == "block_ptr":
+            out[name] = np.asarray(int(leaf), np.int32)
+        elif leaf.is_cuda:
+            host = torch.empty(leaf.shape, dtype=leaf.dtype,
+                               pin_memory=True)
+            host.copy_(leaf, non_blocking=True)
+            out[name] = host
+        else:
+            out[name] = leaf.detach().clone()
+    return out
+
+
+def _capture_ring(ring) -> dict:
+    return {
+        "ptr": int(ring.ptr),
+        "total_adds": int(ring.total_adds),
+        "buffer_steps": int(ring.buffer_steps),
+        "slot_steps": [int(s) for s in ring.slot_steps],
+        "slot_versions": [int(v) for v in ring.slot_versions],
+    }
+
+
+def capture_plain(spec, state, ring, step: int,
+                  extra: Optional[dict] = None) -> dict:
+    """A cut of one device replay and its RingAccountant mirror, taken
+    between dispatches. ``extra``: JSON-serializable caller state that
+    rides the snapshot. On the card the leaves are still being copied
+    when this returns: ``wait_ready`` (``write_snapshot`` calls it) waits
+    for the copies."""
+    leaves = _state_to_host(state)
+    ready = None
+    if state.obs.is_cuda:
+        ready = torch.cuda.Event()
+        ready.record()
+    return {
+        "version": SNAPSHOT_VERSION,
+        "kind": "plain",
+        "step": int(step),
+        "spec": _spec_fingerprint(spec),
+        "extra": dict(extra or {}),
+        "shards": [{"state": leaves, "ring": _capture_ring(ring)}],
+        "ready": ready,
+    }
+
+
+def wait_ready(snap: dict) -> dict:
+    """Wait for a capture's copies to land, then hold its leaves as numpy
+    arrays (views of the host tensors). Returns ``snap``."""
+    ready = snap.pop("ready", None)
+    if ready is not None:
+        ready.synchronize()
+    for shard in snap["shards"]:
+        shard["state"] = {name: (leaf.numpy() if torch.is_tensor(leaf)
+                                 else np.asarray(leaf))
+                          for name, leaf in shard["state"].items()}
+    return snap
+
+
+def _restore_ring(ring, cap: dict) -> None:
+    ring.ptr = int(cap["ptr"])
+    ring.total_adds = int(cap["total_adds"])
+    ring.buffer_steps = int(cap["buffer_steps"])
+    ring.slot_steps = [int(s) for s in cap["slot_steps"]]
+    ring.slot_versions = [int(v) for v in cap["slot_versions"]]
+
+
+def restore_plain(spec, state, ring, snap: dict):
+    """Load a plain cut into ``state`` (copied into its tensors, whose
+    addresses stay) and ``ring`` (overwritten); returns ``state``."""
+    if snap.get("kind") != "plain":
+        raise ValueError(f"snapshot kind {snap.get('kind')!r} is not a "
+                         "plain replay snapshot")
+    _check_spec(snap, spec)
+    leaves = snap["shards"][0]["state"]
+    if set(leaves) != set(_LEAVES):
+        raise ValueError(f"replay snapshot leaf set {sorted(leaves)} != "
+                         f"expected {sorted(_LEAVES)}")
+    with torch.no_grad():
+        for name in _LEAVES:
+            if name == "block_ptr":
+                continue
+            dst = getattr(state, name)
+            src = torch.as_tensor(np.asarray(leaves[name]))
+            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"replay snapshot leaf {name}: {tuple(src.shape)} "
+                    f"{src.dtype}, the replay holds {tuple(dst.shape)} "
+                    f"{dst.dtype}")
+            dst.copy_(src)
+    state.block_ptr = int(np.asarray(leaves["block_ptr"]))
+    _restore_ring(ring, snap["shards"][0]["ring"])
+    return state
+
+
+def _flatten_payload(snap: dict) -> dict:
+    """Every array goes into the npz; scalars and structure stay in the
+    manifest."""
+    arrays = {}
+    for j, shard in enumerate(snap["shards"]):
+        p = f"s{j}."
+        for name, arr in shard["state"].items():
+            arrays[p + "state." + name] = arr
+        arrays[p + "ring.slot_steps"] = np.asarray(
+            shard["ring"]["slot_steps"], np.int64)
+        arrays[p + "ring.slot_versions"] = np.asarray(
+            shard["ring"]["slot_versions"], np.int64)
+    return arrays
+
+
+def _manifest_meta(snap: dict, payload_name: str, payload_bytes: int,
+                   duration_s: float) -> dict:
+    return {
+        "version": snap["version"],
+        "kind": snap["kind"],
+        "step": snap["step"],
+        "spec": snap["spec"],
+        "extra": snap["extra"],
+        "payload": payload_name,
+        "payload_bytes": payload_bytes,
+        "written_at": time.time(),
+        "write_s": round(duration_s, 6),
+        "total_adds": sum(s["ring"]["total_adds"] for s in snap["shards"]),
+        "shards": [{
+            "state_leaves": sorted(shard["state"]),
+            "ring": {k: shard["ring"][k]
+                     for k in ("ptr", "total_adds", "buffer_steps")},
+        } for shard in snap["shards"]],
+    }
+
+
+def write_snapshot(snap: dict, save_dir: str, player_idx: int) -> dict:
+    """Persist one snapshot atomically: the payload, then the manifest,
+    whose rename commits. Returns the manifest (bytes, seconds, step,
+    written_at)."""
+    os.makedirs(save_dir, exist_ok=True)
+    payload_path, manifest_path = snapshot_paths(save_dir, player_idx)
+    t0 = time.perf_counter()
+    wait_ready(snap)
+    arrays = _flatten_payload(snap)
+    tmp = payload_path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, payload_path)
+    payload_bytes = os.path.getsize(payload_path)
+    meta = _manifest_meta(snap, os.path.basename(payload_path),
+                          payload_bytes, time.perf_counter() - t0)
+    tmp = manifest_path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, manifest_path)
+    return meta
+
+
+def _read_meta(manifest_path: str) -> Optional[dict]:
+    try:
+        with open(manifest_path) as f:
+            return json.load(f)
+    except (json.JSONDecodeError, OSError):
+        return None
+
+
+def _payload_matches(payload_path: str, meta: dict) -> bool:
+    return (os.path.exists(payload_path)
+            and os.path.getsize(payload_path) == meta.get("payload_bytes"))
+
+
+def load_snapshot(save_dir: str, player_idx: int) -> Optional[dict]:
+    """A committed snapshot in ``capture_plain``'s shape (numpy leaves);
+    None when there is none, or when the payload is missing or its size
+    disagrees with the manifest (a torn write: nothing consistent is
+    left)."""
+    payload_path, manifest_path = snapshot_paths(save_dir, player_idx)
+    if not os.path.exists(manifest_path):
+        return None
+    with open(manifest_path) as f:
+        meta = json.load(f)
+    if meta.get("version") != SNAPSHOT_VERSION:
+        raise ValueError(
+            f"replay snapshot version {meta.get('version')} != "
+            f"{SNAPSHOT_VERSION} at {manifest_path}")
+    if not _payload_matches(payload_path, meta):
+        return None
+    snap = {key: meta[key] for key in ("version", "kind", "step", "spec")}
+    snap["extra"] = meta.get("extra", {})
+    snap["shards"] = []
+    with np.load(payload_path) as data:
+        for j, entry in enumerate(meta["shards"]):
+            p = f"s{j}."
+            snap["shards"].append({
+                "state": {name: data[p + "state." + name]
+                          for name in entry["state_leaves"]},
+                "ring": {
+                    **entry["ring"],
+                    "slot_steps": data[p + "ring.slot_steps"].tolist(),
+                    "slot_versions":
+                        data[p + "ring.slot_versions"].tolist(),
+                },
+            })
+    return snap
+
+
+def read_manifest(save_dir: str, player_idx: int) -> Optional[dict]:
+    """The manifest alone, without loading the payload: the cheap probe.
+    None as for ``load_snapshot``."""
+    payload_path, manifest_path = snapshot_paths(save_dir, player_idx)
+    if not os.path.exists(manifest_path):
+        return None
+    meta = _read_meta(manifest_path)
+    if meta is None or not _payload_matches(payload_path, meta):
+        return None
+    return meta
+
+
+class SnapshotWriter:
+    """Writes submitted cuts on a background thread. Latest wins: a cut
+    submitted while another waits replaces it (counted in ``dropped``).
+    A failed write is raised at the next ``submit``, so a run whose
+    snapshots cannot land fails instead of pretending durability."""
+
+    def __init__(self, save_dir: str, player_idx: int):
+        self.save_dir = save_dir
+        self.player_idx = player_idx
+        self._pending: Optional[dict] = None
+        self._writing = False
+        self._cond = threading.Condition()
+        self._stop = False
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        # read by the recovery block; guarded by _cond
+        self.count = 0
+        self.dropped = 0
+        self.last_meta: Optional[dict] = None
+
+    def _raise_error(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def submit(self, snap: dict) -> None:
+        """Queue one cut for writing, starting the thread on first use."""
+        with self._cond:
+            self._raise_error()
+            if self._pending is not None:
+                self.dropped += 1
+            self._pending = snap
+            if self._thread is None:
+                self._stop = False
+                self._thread = threading.Thread(
+                    target=self._loop, daemon=True,
+                    name=f"replay-snapshot-p{self.player_idx}")
+                self._thread.start()
+            self._cond.notify_all()
+
+    def _loop(self) -> None:
+        while True:
+            with self._cond:
+                while self._pending is None and not self._stop:
+                    self._cond.wait(timeout=0.25)
+                if self._pending is None:
+                    return
+                snap, self._pending = self._pending, None
+                self._writing = True
+            try:
+                meta = write_snapshot(snap, self.save_dir, self.player_idx)
+            except BaseException as e:      # raised at the next submit
+                with self._cond:
+                    self._error = e
+                    self._writing = False
+                    self._cond.notify_all()
+                continue
+            with self._cond:
+                self.count += 1
+                self.last_meta = meta
+                self._writing = False
+                self._cond.notify_all()
+
+    def write_now(self, snap: dict) -> dict:
+        """Write synchronously (a clean stop: the process is about to
+        exit). A cut still waiting is replaced by this newer one."""
+        with self._cond:
+            self._raise_error()
+            if self._pending is not None:
+                self._pending = None
+                self.dropped += 1
+            while self._writing:
+                self._cond.wait(timeout=0.25)
+        meta = write_snapshot(snap, self.save_dir, self.player_idx)
+        with self._cond:
+            self.count += 1
+            self.last_meta = meta
+        return meta
+
+    def drain(self, timeout: float = 10.0) -> bool:
+        """Wait until no cut is waiting or being written; False on
+        timeout."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while self._pending is not None or self._writing:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cond.wait(timeout=min(left, 0.25))
+        return True
+
+    def check(self) -> None:
+        """Raise a failed write now."""
+        with self._cond:
+            self._raise_error()
+
+    def stop(self, join_timeout: float = 10.0) -> None:
+        """Write what is waiting, then end the thread (idempotent)."""
+        self.drain(join_timeout)
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=join_timeout)
+            self._thread = None

@@ -19,8 +19,17 @@ than one dispatch stale. Blocks are stamped with a pseudo publish count
 that advances every ``runtime.weight_publish_interval`` learner steps,
 the clock a weight service would have ticked.
 
+At a quantized ``network.inference_dtype`` the segment acts with the
+publish-time twin (an ``InferenceTwin``), rebuilt from the learner's
+weights only when the pseudo publish count ticks and adopted into the
+storage the segment's graph reads (``load_``, every address kept), on the
+loop's stream between the learner's dispatch and the next segment. Every
+``telemetry.quant_probe_interval``-th segment the probe runs after it,
+outside the graph; the record gains a ``quant`` block.
+
 Host work is bookkeeping at segment cadence (N blocks, N * L env steps at
-a time): ring accounting, the rate limiter, the metrics, checkpoints.
+a time): ring accounting, the rate limiter, the metrics, checkpoints and
+replay snapshots (``runtime.snapshot_interval``, the ``recovery`` block).
 Episode counts and returns are summed on the card and read at log time.
 The loop is single-threaded, so given its seeds it is deterministic on
 the CPU; the collect:learn interleave is set by
@@ -34,9 +43,12 @@ from typing import Callable, Optional
 import torch
 
 from r2d2_tpu_torch.actor.anakin import ActSegment, AnakinAct, init_act_carry
+from r2d2_tpu_torch.actor.policy import InferenceTwin
 from r2d2_tpu_torch.config import Config, apex_epsilon
 from r2d2_tpu_torch.envs.factory import create_device_env
-from r2d2_tpu_torch.models.network import NetworkApply
+from r2d2_tpu_torch.models.network import (NetworkApply,
+                                           make_inference_bundle)
+from r2d2_tpu_torch.telemetry.quant import QuantStats
 from r2d2_tpu_torch.runtime.learner_loop import Learner
 from r2d2_tpu_torch.runtime.metrics import TrainMetrics
 from r2d2_tpu_torch.utils.device import configure_numerics, resolve_device
@@ -55,6 +67,10 @@ class AnakinStack:
         self.learner = learner
         self.metrics = metrics
         self.segment = segment
+        # quantized acting: the twin's adoptions (host ms each, the
+        # rebuild and the copy into the segment's storage) and the probe
+        self.twin_ms: list = []
+        self.quant_stats = None
         self.snapshots = None
         self.processes: list = []
         self.threads: list = []
@@ -88,6 +104,8 @@ def run_anakin_train(cfg: Config, *, max_training_steps: Optional[int] = None,
     metrics = TrainMetrics(0, cfg.runtime.save_dir,
                            resume=bool(cfg.runtime.resume))
     learner = Learner(cfg, net, metrics=metrics)
+    if cfg.runtime.snapshot_interval > 0:
+        metrics.set_recovery(learner.recovery_block)
     spec = learner.spec
     seg_steps = spec.block_length          # learning steps a lane-block
     pub_interval = max(cfg.runtime.weight_publish_interval, 1)
@@ -104,20 +122,54 @@ def run_anakin_train(cfg: Config, *, max_training_steps: Optional[int] = None,
                     gamma=cfg.optim.gamma,
                     priority=cfg.actor.anakin_priority,
                     near_greedy_eps=cfg.actor.near_greedy_eps,
-                    priority_eta=cfg.optim.priority_eta)
+                    priority_eta=cfg.optim.priority_eta,
+                    quant_probe_on=False)
     generator = torch.Generator(device=device).manual_seed(
         cfg.runtime.seed + 17)
     carry = init_act_carry(env, spec, num_lanes, generator=generator)
-    segment = ActSegment(act, learner.train_state.params, carry, spec,
-                         learner.replay_state, generator)
+    quant = cfg.network.inference_dtype != "f32"
+    probe_interval = cfg.telemetry.quant_probe_interval
+    twin, quant_stats, adopted = None, None, {"pub": 1}
+    if quant:
+        # the publication at stamp 1, as a weight service starts
+        with torch.no_grad():
+            twin = InferenceTwin(net, make_inference_bundle(
+                net, learner.train_state.params, 1), device)
+        quant_stats = QuantStats(cfg.network.inference_dtype, probe_interval)
+        quant_stats.on_stamp(1)
+        metrics.set_quant(quant_stats.interval_block)
+    segment = ActSegment(act, twin if quant else learner.train_state.params,
+                         carry, spec, learner.replay_state, generator)
     stack = AnakinStack(cfg, learner, metrics, segment)
+    stack.quant_stats = quant_stats
     segments_since_flush = 0
+    segments = 0
+
+    def adopt_twin(pc: int) -> None:
+        """Rebuild the twin from the learner's weights when the pseudo
+        publish count has ticked, into the storage the graph reads; the
+        copies queue on this stream behind the learner's dispatch."""
+        if not quant or adopted["pub"] == pc:
+            return
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            twin.load_(make_inference_bundle(net, learner.train_state.params,
+                                             pc))
+        stack.twin_ms.append((time.perf_counter() - t0) * 1e3)
+        adopted["pub"] = pc
+        quant_stats.on_stamp(pc)
 
     def act_segment() -> None:
-        nonlocal segments_since_flush
+        nonlocal segments_since_flush, segments
         t0 = time.time()
         wv = publish_count()
+        adopt_twin(wv)
         stack.segment.run(wv)
+        segments += 1
+        if quant and probe_interval > 0 and segments % probe_interval == 0:
+            probe = stack.segment.probe()
+            quant_stats.on_probe(probe["quant_dq"], probe["quant_agree"],
+                                 lanes=num_lanes)
         for _ in range(num_lanes):
             learner.ring.advance(seg_steps, wv)
             metrics.on_block(seg_steps, None)
@@ -148,6 +200,7 @@ def run_anakin_train(cfg: Config, *, max_training_steps: Optional[int] = None,
     deadline = start + max_seconds if max_seconds else None
     max_steps = max_training_steps or cfg.optim.training_steps
     last_log = start
+    final_error = None
     try:
         if cfg.runtime.save_interval:
             learner.save(0)
@@ -182,7 +235,11 @@ def run_anakin_train(cfg: Config, *, max_training_steps: Optional[int] = None,
         try:
             if cfg.runtime.save_interval:
                 learner.save_final()
-        except Exception:
+        except Exception as e:
             logging.getLogger(__name__).exception("final checkpoint failed")
+            final_error = e
         stack.close()
+    if final_error is not None:
+        raise RuntimeError("the final checkpoint or replay snapshot failed"
+                           ) from final_error
     return stack

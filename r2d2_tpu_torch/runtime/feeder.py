@@ -25,7 +25,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from r2d2_tpu_torch.replay.structs import Block
+from r2d2_tpu_torch.replay.structs import Block, stack_blocks
 
 
 def put_patient(q, block: Block, should_stop, poll: float = 0.5,
@@ -412,6 +412,40 @@ class BlockQueue:
             except queue_mod.Empty:
                 break
         return out
+
+    def drain_stacked(self, max_items: int = 16, out=None):
+        """Non-blocking pop of up to ``max_items`` blocks as one stacked
+        Block (a leading K axis on every field) and its count K; (None, 0)
+        when the queue is empty. ``out``: {field: array with a leading
+        axis >= max_items} to write the rows into (the stager's pinned
+        staging buffers); the Block then holds views of its first K rows.
+        The shm ring copies straight from its slots; other backends pop
+        per block and copy each block's fields into row k."""
+        fn = getattr(self._q, "drain_stacked", None)
+        if fn is not None:
+            return fn(max_items, out=out)
+        blocks = self.drain(max_items)
+        if not blocks:
+            return None, 0
+        if out is None:
+            return stack_blocks(blocks), len(blocks)
+        k = len(blocks)
+        for name, arr in out.items():
+            for i, blk in enumerate(blocks):
+                arr[i] = getattr(blk, name)
+        return Block(**{name: arr[:k] for name, arr in out.items()}), k
+
+    def drain_groups(self, group: int, max_groups: int = 4):
+        """Non-blocking drain as a list of stacked groups of up to
+        ``group`` blocks each, in arrival order: [(stacked, k), ...]; []
+        when the queue is empty."""
+        groups = []
+        for _ in range(max(int(max_groups), 1)):
+            stacked, k = self.drain_stacked(group)
+            if k == 0:
+                break
+            groups.append((stacked, k))
+        return groups
 
     def qsize(self) -> int:
         """Best-effort depth; -1 when the backend cannot say."""

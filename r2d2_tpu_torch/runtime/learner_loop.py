@@ -1,8 +1,22 @@
 """The learner: the train state, the replay, block ingestion with its rate
 limiter, the training gate, one dispatch of learner steps per call, weight
-publication and checkpoints at interval boundaries, and the metrics
-flush, the JAX package's ``Learner`` without its telemetry, snapshots,
-replay service and pipelined ingestion stager.
+publication, checkpoints and replay snapshots at interval boundaries, and
+the metrics flush, the JAX package's ``Learner`` without its telemetry
+and replay service.
+
+Ingestion under device placement is per block (``replay.ingest_batch_blocks``
+= 1: ``drain`` pops and ring-writes each block on the main thread) or
+pipelined (K > 1): a stager thread pops what the feeder holds, rounded
+down to a power of two up to K, into one of three pinned staging slots
+(the shm ring copies straight from its slots), adds the blocks to the
+staged counters, starts the slot's copy to the card on a stream of its
+own and queues the batch (depth 2). ``drain`` commits queued batches on
+the main thread, between dispatches: the current stream waits for the
+copy's event, one ``replay_add_many`` writes the K blocks into the
+replay's own tensors (the learner's CUDA graph keeps its addresses), an
+event marks the commit, and the slot goes back to the stager, whose next
+copy into it waits for that event. Staged blocks count toward the rate
+limiter's budget, so the stager stops popping once collection is ahead.
 
 Under ``replay.placement="device"`` the replay lives on the device and a
 dispatch is ``runtime.steps_per_dispatch`` fused learner steps (one CUDA
@@ -24,9 +38,19 @@ stays at most ``MAX_AHEAD`` dispatches ahead (an event a dispatch), so a
 time bound ends with a short device tail and the step counter tells the
 truth. Losses stay on the device until ``flush_metrics`` (one sync per
 log interval) moves them to the metrics and to ``losses``.
+
+Crash recovery (``runtime.snapshot_interval`` > 0, device placement): at
+each interval boundary the learner captures the replay between dispatches
+(replay/snapshot.py: copies into pinned memory on the learner's stream,
+no host sync) with its env-step counter and its sampling generator's
+state, and a writer thread serializes it beside the checkpoints. A
+learner built with ``runtime.resume`` and ``runtime.restore_replay``
+loads the newest committed snapshot before its first dispatch, so it
+samples what its uninterrupted twin would.
 """
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -42,20 +66,26 @@ from r2d2_tpu_torch.learner.train_step import (create_train_state,
                                                make_learner_step,
                                                make_multi_learner_step)
 from r2d2_tpu_torch.models.network import NetworkApply
-from r2d2_tpu_torch.replay.device_replay import replay_add, replay_init
+from r2d2_tpu_torch.replay.device_replay import (WRITTEN, replay_add,
+                                                 replay_add_many, replay_init)
 from r2d2_tpu_torch.replay.host_replay import HostReplay, batch_layout
+from r2d2_tpu_torch.replay.snapshot import (SnapshotWriter, capture_plain,
+                                            load_snapshot, restore_plain)
 from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, RingAccountant,
-                                           SampleBatch, batch_fields)
+                                           SampleBatch, batch_fields,
+                                           empty_block_np)
 from r2d2_tpu_torch.runtime.checkpoint import (apply_restore,
                                                prune_checkpoints,
                                                save_checkpoint)
 from r2d2_tpu_torch.runtime.metrics import TrainMetrics
+from r2d2_tpu_torch.runtime.supervisor import RESTARTS_ENV
 from r2d2_tpu_torch.utils.device import configure_numerics
 
 WRITEBACK_QUEUE = 64        # steps of priorities waiting for the host tree
 TIMINGS_KEPT = 4096         # per-batch sample and copy times kept
 LOSSES_KEPT = 100_000       # flushed per-step losses kept in ``losses``
 MAX_AHEAD = 2               # dispatches the host may run ahead of the card
+INGEST_QUEUE = 2            # staged batches waiting for their commit
 _TORCH_DTYPES = {np.uint8: torch.uint8, np.int32: torch.int32,
                  np.float32: torch.float32}
 
@@ -104,6 +134,48 @@ class _BatchPlacer:
             end.record()
         slot[2] = (start, end)
         return device_batch, idxes, snapshot, end
+
+
+class _IngestStaging:
+    """The stager's slots: INGEST_QUEUE + 1 of them (the queue's batches
+    and the one being filled), each K blocks of host buffers (pinned on
+    CUDA) and, on CUDA, K blocks of device buffers for the written fields,
+    allocated once. A slot's device buffers are written by its copy on
+    ``stream`` after the event of its last commit, and its host buffers
+    refilled only after its last copy has read them."""
+
+    def __init__(self, spec: ReplaySpec, k: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.free: queue.Queue = queue.Queue()
+        proto = empty_block_np(spec)
+        for _ in range(INGEST_QUEUE + 1):
+            host = {name: torch.empty((k,) + a.shape,
+                                      dtype=_TORCH_DTYPES[a.dtype.type],
+                                      pin_memory=self.cuda)
+                    for name, a in proto.items()}
+            self.free.put(_Slot(
+                arrays={name: t.numpy() for name, t in host.items()},
+                host=host,
+                dev=({name: torch.empty_like(host[name], device=device)
+                      for name in WRITTEN} if self.cuda else None)))
+
+    def blocks(self, slot: "_Slot", k: int) -> Block:
+        """The slot's first ``k`` blocks as the commit reads them: device
+        tensors for the written fields (on the CPU, the host buffers)."""
+        src = slot.dev if self.cuda else slot.host
+        fields = {name: a[:k] for name, a in slot.arrays.items()}
+        fields.update({name: src[name][:k] for name in WRITTEN})
+        return Block(**fields)
+
+
+class _Slot:
+    def __init__(self, arrays, host, dev):
+        self.arrays = arrays        # numpy views of ``host``
+        self.host = host
+        self.dev = dev
+        self.copied: Optional[torch.cuda.Event] = None
+        self.consumed: Optional[torch.cuda.Event] = None
 
 
 class Learner:
@@ -167,6 +239,40 @@ class Learner:
                 self._step_fn = make_learner_step(net, self.spec, cfg.optim,
                                                   use_double)
         self.env_steps = resumed_env_steps
+        # pipelined ingestion (device placement, K > 1): the stager thread,
+        # its slots and queue, and what it has popped but not committed
+        self._ingest_k = (1 if self.host_replay is not None else min(
+            cfg.replay.resolved_ingest_batch_blocks(self.device),
+            self.spec.num_blocks))
+        self.metrics.set_ingest_batching(self._ingest_k)
+        self._stager: Optional[threading.Thread] = None
+        self._staging: Optional[_IngestStaging] = None
+        self._ingest_stop = threading.Event()
+        self._ingest_q: queue.Queue = queue.Queue(maxsize=INGEST_QUEUE)
+        self._ingest_error: Optional[BaseException] = None
+        # false once a stop gave up committing: a parked stager then drops
+        # its batch instead of waiting for a commit
+        self._stager_may_put = True
+        self._staged_env_steps = 0
+        self._staged_blocks = 0
+        self._staged_lock = threading.Lock()
+        # host ms a staged batch (stager) and a commit (main thread)
+        self.ingest_ms = {"stage": deque(maxlen=TIMINGS_KEPT),
+                          "commit": deque(maxlen=TIMINGS_KEPT)}
+        # crash recovery: the snapshot writer, and what the record reports
+        self._snap_writer: Optional[SnapshotWriter] = None
+        self._restores = 0
+        self._restored_blocks = 0
+        # host ms of each capture (the record reports the newest)
+        self.snapshot_capture_ms: deque = deque(maxlen=TIMINGS_KEPT)
+        # adds committed at the newest snapshot: what a crash would lose
+        self._snap_adds = 0
+        if self.host_replay is None:
+            if cfg.runtime.snapshot_interval > 0:
+                self._snap_writer = SnapshotWriter(cfg.runtime.save_dir,
+                                                   player_idx)
+            if cfg.runtime.resume and cfg.runtime.restore_replay:
+                self._restore_replay_snapshot()
         self._last_saved_step = self.train_state.step
         # the rate limiter's budget counts from this process's start: a
         # resumed run restores large counters over an empty ring
@@ -180,6 +286,36 @@ class Learner:
         # host milliseconds of the newest publish calls and saves
         self.publish_ms: deque = deque(maxlen=TIMINGS_KEPT)
         self.save_ms: deque = deque(maxlen=TIMINGS_KEPT)
+
+    def _restore_replay_snapshot(self) -> None:
+        """Load the newest committed replay snapshot beside the
+        checkpoint: the replay's tensors (copied in place), the ring
+        accountant, the sampling generator and the env-step counter (the
+        later of the checkpoint's and the snapshot's). No snapshot: the
+        checkpoint alone is restored."""
+        snap = load_snapshot(self.cfg.runtime.save_dir, self.player_idx)
+        if snap is None:
+            return
+        restore_plain(self.spec, self.replay_state, self.ring, snap)
+        state = snap["extra"].get("generator_state")
+        if state is not None:
+            gen = self.train_state.generator
+            state = torch.tensor(state, dtype=torch.uint8)
+            if state.numel() == gen.get_state().numel():
+                gen.set_state(state)
+            else:
+                logging.getLogger(__name__).warning(
+                    "the replay snapshot's sampling generator state was "
+                    "saved on another device type; keeping the "
+                    "checkpoint's")
+        self._restores = 1
+        self._restored_blocks = sum(s["ring"]["total_adds"]
+                                    for s in snap["shards"])
+        self._snap_adds = self.ring.total_adds
+        env_steps = snap["extra"].get("env_steps")
+        if env_steps is not None:
+            self.env_steps = max(self.env_steps, int(env_steps))
+        self.metrics.set_buffer_size(self.ring.buffer_steps)
 
     @property
     def dropped_priority_updates(self) -> int:
@@ -210,14 +346,22 @@ class Learner:
     def ingestion_paused(self) -> bool:
         """Rate limiter (replay.max_env_steps_per_train_step): true once
         collection is ahead of learning by the budget; blocks left in the
-        bounded queue then park the actors. Never true while the training
-        gate is closed: only ingestion can open it."""
+        bounded queue then park the actors. Staged blocks count as
+        collected, in the budget and in the gate alike: they commit at the
+        next drain whatever happens. Never true while the training gate is
+        closed: only ingestion can open it."""
         ratio = self.cfg.replay.max_env_steps_per_train_step
-        if ratio <= 0 or not self.ready:
+        if ratio <= 0:
+            return False
+        with self._staged_lock:
+            staged_steps = self._staged_env_steps
+            staged_blocks = self._staged_blocks
+        if not self._gate_open(staged_blocks, staged_steps):
             return False
         budget = (self.cfg.replay.learning_starts + ratio * max(
             self.train_state.step - self._ratio_step_base, 1))
-        return self.env_steps - self._ratio_env_base >= budget
+        return (self.env_steps + staged_steps
+                - self._ratio_env_base) >= budget
 
     def _note_pause(self, paused: bool) -> None:
         if paused:
@@ -230,7 +374,11 @@ class Learner:
     def drain(self, queue, max_items: Optional[int] = None) -> int:
         """Move up to ``max_items`` (replay.drain_max_blocks) blocks from
         the feeder queue into the replay, unless the rate limiter pauses
-        ingestion. Returns the blocks ingested."""
+        ingestion. Pipelined (K > 1): commit up to replay.drain_max_blocks
+        of what the stager has staged, starting it on the first call.
+        Returns the blocks ingested."""
+        if self._ingest_k > 1:
+            return self._drain_pipelined(queue)
         if max_items is None:
             max_items = self.cfg.replay.drain_max_blocks
         paused = self.ingestion_paused
@@ -245,10 +393,182 @@ class Learner:
             self.metrics.on_ingest_drain(len(blocks), time.time() - t0)
         return len(blocks)
 
+    # -- pipelined ingestion: the stager thread and the commit --
+
+    def _drain_pipelined(self, feeder) -> int:
+        if self._ingest_error is not None:
+            raise RuntimeError("ingest stager thread died"
+                               ) from self._ingest_error
+        if self._stager is None or not self._stager.is_alive():
+            self._start_stager(feeder)
+        committed = 0
+        # the per-drain cap of the per-block path: a producer ahead of the
+        # learner cannot keep this loop from training
+        while committed < self.cfg.replay.drain_max_blocks:
+            try:
+                item = self._ingest_q.get_nowait()
+            except queue.Empty:
+                break
+            committed += self._commit_staged(*item)
+        self.metrics.set_ingest_queue_depth(self._ingest_q.qsize())
+        return committed
+
+    def _commit_staged(self, slot: _Slot, k: int, metas, t_pop: float
+                       ) -> int:
+        """One replay_add_many of a staged batch on the current stream,
+        after its copy; then the ring, env-step, metric and staged-counter
+        accounting the per-block path does block by block."""
+        t0 = time.perf_counter()
+        staging = self._staging
+        if staging.cuda:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(slot.copied)
+        replay_add_many(self.spec, self.replay_state,
+                        staging.blocks(slot, k))
+        if staging.cuda:
+            slot.consumed = torch.cuda.Event()
+            slot.consumed.record(current)
+        staging.free.put(slot)
+        total = 0
+        for learning, ret, wv in metas:
+            self.ring.advance(learning, wv)
+            self.metrics.on_block(learning, ret)
+            total += learning
+        self.env_steps += total
+        with self._staged_lock:
+            self._staged_env_steps -= total
+            self._staged_blocks -= k
+        self.metrics.set_buffer_size(self.ring.buffer_steps)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.ingest_ms["commit"].append(ms)
+        self.metrics.on_ingest_commit(ms)
+        self.metrics.on_ingest_drain(k, time.time() - t_pop)
+        return k
+
+    def _stage(self, feeder, want: int) -> bool:
+        """Pop up to ``want`` blocks into a free slot, count them as
+        staged, start their copy and queue the batch. False if the feeder
+        was empty or the stager is stopping."""
+        staging = self._staging
+        while True:
+            try:
+                slot = staging.free.get(timeout=0.2)
+                break
+            except queue.Empty:
+                if self._ingest_stop.is_set():
+                    return False
+        t_pop = time.time()
+        t0 = time.perf_counter()
+        if slot.copied is not None:
+            slot.copied.synchronize()    # its last copy has read the rows
+        stacked, k = feeder.drain_stacked(want, out=slot.arrays)
+        if k == 0:
+            staging.free.put(slot)
+            return False
+        learning = stacked.learning_steps.sum(axis=1).astype(np.int64)
+        rets = stacked.sum_reward
+        wvs = stacked.weight_version
+        metas = [(int(learning[i]),
+                  None if np.isnan(rets[i]) else float(rets[i]),
+                  int(wvs[i])) for i in range(k)]
+        with self._staged_lock:
+            self._staged_env_steps += int(learning.sum())
+            self._staged_blocks += k
+        if staging.cuda:
+            with torch.cuda.stream(staging.stream):
+                if slot.consumed is not None:
+                    staging.stream.wait_event(slot.consumed)
+                for name in WRITTEN:
+                    slot.dev[name][:k].copy_(slot.host[name][:k],
+                                             non_blocking=True)
+                slot.copied = torch.cuda.Event()
+                slot.copied.record(staging.stream)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.ingest_ms["stage"].append(ms)
+        self.metrics.on_ingest_stage(ms)
+        # a full queue is back-pressure, not staging work: untimed
+        while True:
+            try:
+                self._ingest_q.put((slot, k, metas, t_pop), timeout=0.2)
+                return True
+            except queue.Full:
+                if self._ingest_stop.is_set() and not self._stager_may_put:
+                    return True
+
+    def _start_stager(self, feeder) -> None:
+        if self._staging is None:
+            self._staging = _IngestStaging(self.spec, self._ingest_k,
+                                           self.device)
+        self._ingest_stop.clear()
+        self._stager_may_put = True
+
+        def stage_loop():
+            try:
+                while not self._ingest_stop.is_set():
+                    paused = self.ingestion_paused
+                    self._note_pause(paused)
+                    if paused:
+                        time.sleep(0.002)
+                        continue
+                    # what is queued now, rounded down to a power of two:
+                    # batches grow under load on their own, while a full
+                    # staging queue lets the feeder accumulate
+                    avail = feeder.qsize()
+                    if avail == 0:
+                        time.sleep(0.001)
+                        continue
+                    want = self._ingest_k
+                    if 0 < avail < want:
+                        want = 1 << (avail.bit_length() - 1)
+                    if not self._stage(feeder, want):
+                        time.sleep(0.001)
+            except BaseException as e:      # raised by _drain_pipelined
+                self._ingest_error = e
+
+        self._stager = threading.Thread(
+            target=stage_loop, daemon=True,
+            name=f"learner-ingest-stager-p{self.player_idx}")
+        self._stager.start()
+
+    def _stop_stager(self, join_timeout: float) -> List[str]:
+        """Stop the stager and commit every batch it staged, so each
+        popped block lands; returns the name of a stager still running."""
+        if self._stager is None:
+            return []
+        self._ingest_stop.set()
+        deadline = time.monotonic() + join_timeout
+        try:
+            while True:
+                while True:
+                    try:
+                        item = self._ingest_q.get_nowait()
+                    except queue.Empty:
+                        break
+                    self._commit_staged(*item)
+                if not self._stager.is_alive() \
+                        or time.monotonic() >= deadline:
+                    break
+                self._stager.join(timeout=0.05)
+        except Exception:
+            logging.getLogger(__name__).exception(
+                "committing the staged batches at shutdown failed")
+        if self._stager.is_alive():
+            self._stager_may_put = False
+            return [self._stager.name]
+        self._stager = None
+        return []
+
+    def _gate_open(self, extra_blocks: int = 0, extra_steps: int = 0
+                   ) -> bool:
+        """The training gate's condition, shared by ``ready`` (committed
+        blocks) and the rate limiter (committed and staged)."""
+        return (self.ring.buffer_steps + extra_steps
+                >= self.cfg.replay.learning_starts)
+
     @property
     def ready(self) -> bool:
         """Training gate: replay.learning_starts buffered learning steps."""
-        return self.ring.buffer_steps >= self.cfg.replay.learning_starts
+        return self._gate_open()
 
     @property
     def training_steps(self) -> int:
@@ -289,7 +609,64 @@ class Learner:
         if rt.save_interval and (step // rt.save_interval
                                  > prev // rt.save_interval):
             self.save(step // rt.save_interval)
+        if (self._snap_writer is not None
+                and step // rt.snapshot_interval
+                > prev // rt.snapshot_interval):
+            self.snapshot_replay()
         return metrics
+
+    # -- crash recovery --
+
+    def _capture_replay(self) -> dict:
+        """A cut of the replay at the commit boundary between dispatches,
+        with the env-step counter and the sampling generator's state (the
+        checkpoint's generator state is older: the cut's is what the next
+        dispatch draws from)."""
+        extra = {"env_steps": int(self.env_steps),
+                 "generator_state":
+                     self.train_state.generator.get_state().tolist()}
+        return capture_plain(self.spec, self.replay_state, self.ring,
+                             self.train_state.step, extra)
+
+    def snapshot_replay(self) -> None:
+        """Capture one snapshot and hand it to the writer thread; the loop
+        pays the capture's host time (on the card: the launch of the
+        copies into pinned memory)."""
+        if self._snap_writer is None:
+            return
+        t0 = time.perf_counter()
+        snap = self._capture_replay()
+        self.snapshot_capture_ms.append((time.perf_counter() - t0) * 1e3)
+        self._snap_writer.submit(snap)
+        self._snap_adds = self.ring.total_adds
+
+    def recovery_block(self) -> Optional[dict]:
+        """The record's ``recovery`` block (JAX's keys), None with the
+        plane off. ``lost_blocks_est``: adds committed since the newest
+        snapshot, what a crash now would cost."""
+        if self._snap_writer is None:
+            return None
+        w = self._snap_writer
+        meta = w.last_meta
+        return {
+            "snapshot": {
+                "count": w.count,
+                "dropped": w.dropped,
+                "age_s": (round(time.time() - meta["written_at"], 3)
+                          if meta else None),
+                "bytes": meta["payload_bytes"] if meta else None,
+                "write_s": meta["write_s"] if meta else None,
+                "capture_s": (round(self.snapshot_capture_ms[-1] / 1e3, 6)
+                              if self.snapshot_capture_ms else 0.0),
+                "step": meta["step"] if meta else None,
+            },
+            "restores": self._restores,
+            "restored_blocks": self._restored_blocks,
+            "lost_blocks_est": max(0, self.ring.total_adds
+                                   - self._snap_adds),
+            "supervisor": {"restarts": int(os.environ.get(
+                RESTARTS_ENV, "0"))},
+        }
 
     def flush_metrics(self) -> None:
         """Move the dispatches' device losses to the host (one sync for
@@ -320,12 +697,17 @@ class Learner:
     def save_final(self) -> Optional[str]:
         """The checkpoint of a clean stop, one index past the current
         periodic slot so it sorts newest; a no-op without save_interval or
-        when the current step is already saved."""
+        when the current step is already saved. With snapshots on, a
+        replay snapshot is written beside it, synchronously."""
         rt = self.cfg.runtime
         if (not rt.save_interval
                 or self.train_state.step <= self._last_saved_step):
             return None
-        return self.save(self.train_state.step // rt.save_interval + 1)
+        path = self.save(self.train_state.step // rt.save_interval + 1)
+        if self._snap_writer is not None:
+            self._snap_writer.write_now(self._capture_replay())
+            self._snap_adds = self.ring.total_adds
+        return path
 
     def run(self, queue, should_stop: Callable[[], bool],
             max_steps: Optional[int] = None,
@@ -402,14 +784,23 @@ class Learner:
             self._bg_threads.append(t)
 
     def stop_background(self, join_timeout: float = 10.0) -> None:
-        """Stop the host-placement threads: drain the prefetch queue so a
-        thread parked in a full-queue put sees the stop, join each within
-        ``join_timeout`` seconds, and warn about any still running. A
-        no-op under device placement."""
+        """Stop the learner's threads: the snapshot writer after what is
+        waiting has been written; the ingest stager, committing what it
+        staged; the host-placement threads, draining the prefetch queue so
+        a thread parked in a full-queue put sees the stop. Each is joined
+        within ``join_timeout`` seconds; any still running is warned
+        about."""
+        stuck = []
+        if self._snap_writer is not None:
+            self._snap_writer.stop(join_timeout)
+        stuck += self._stop_stager(join_timeout)
         if self.host_replay is None:
+            if stuck:
+                logging.getLogger(__name__).warning(
+                    "learner background threads did not exit within "
+                    "%.1fs: %s", join_timeout, stuck)
             return
         self._bg_stop.set()
-        stuck = []
         for t in self._bg_threads:
             deadline = time.monotonic() + join_timeout
             while t.is_alive() and time.monotonic() < deadline:

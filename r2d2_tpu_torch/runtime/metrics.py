@@ -4,9 +4,11 @@ without its telemetry blocks: the reference's log lines in
 JSON record per log interval in ``metrics_player{p}.jsonl`` with the
 record's core keys (throughput, ingestion, worker health, dropped
 priority updates) and, from the on-device acting loop, its ``anakin``
-block; with the policy server a ``serving`` block and at a quantized
-inference dtype a ``quant`` block (the JAX package's keys). Without them
-the record is what it was.
+block; with the policy server a ``serving`` block, at a quantized
+inference dtype a ``quant`` block (the JAX package's keys), with the
+ingest stager (``replay.ingest_batch_blocks`` > 1) an ``ingest`` block
+and with replay snapshots a ``recovery`` block. Without them the record
+is what it was.
 
 ``log_dir=None`` keeps everything in memory: no file is written (what a
 bare ``Learner`` gets).
@@ -70,6 +72,15 @@ class TrainMetrics:
         # interval-block providers: called once a record, None = none
         self._serving: Optional[Callable[[], Optional[dict]]] = None
         self._quant: Optional[Callable[[], dict]] = None
+        self._recovery: Optional[Callable[[], Optional[dict]]] = None
+        # the ingest stager's block (set_ingest_batching): K, the staging
+        # queue's depth, and per interval its batches and host ms
+        self._ingest_k = 1
+        self.ingest_queue_depth = 0
+        self._stage_batches = 0
+        self._stage_ms = 0.0
+        self._commit_batches = 0
+        self._commit_ms = 0.0
 
     # -- feed points --
 
@@ -102,6 +113,32 @@ class TrainMetrics:
     def set_quant(self, provider: Callable[[], dict]) -> None:
         """The quantized forward's ``quant`` block provider."""
         self._quant = provider
+
+    def set_recovery(self, provider: Callable[[], Optional[dict]]) -> None:
+        """The crash-recovery block provider (``Learner.recovery_block``;
+        a None block is left out of the record)."""
+        self._recovery = provider
+
+    def set_ingest_batching(self, k: int) -> None:
+        """The stager's batch size: K > 1 adds the ``ingest`` block."""
+        self._ingest_k = int(k)
+
+    def set_ingest_queue_depth(self, depth: int) -> None:
+        """Staged batches waiting for their commit."""
+        self.ingest_queue_depth = int(depth)
+
+    def on_ingest_stage(self, ms: float) -> None:
+        """One staged batch: the stager's host ms (pop, stack into pinned
+        memory, launch of the copy)."""
+        with self._ingest_lock:
+            self._stage_batches += 1
+            self._stage_ms += float(ms)
+
+    def on_ingest_commit(self, ms: float) -> None:
+        """One committed batch: the main thread's host ms for it."""
+        with self._ingest_lock:
+            self._commit_batches += 1
+            self._commit_ms += float(ms)
 
     def on_train_step(self, loss: float) -> None:
         """Per learner step."""
@@ -201,10 +238,24 @@ class TrainMetrics:
                     if self._ingest_drains else None),
                 "ingest_pause_time": round(self._ingest_pause_time, 3),
             })
+            if self._ingest_k > 1:
+                record["ingest"] = {
+                    "batch_blocks": self._ingest_k,
+                    "queue_depth": self.ingest_queue_depth,
+                    "staged_batches": self._stage_batches,
+                    "stage_ms": (round(self._stage_ms / self._stage_batches,
+                                       3) if self._stage_batches else None),
+                    "committed_batches": self._commit_batches,
+                    "commit_ms": (round(self._commit_ms
+                                        / self._commit_batches, 3)
+                                  if self._commit_batches else None),
+                }
             self._ingest_drains = 0
             self._ingest_blocks = 0
             self._ingest_latency_sum = 0.0
             self._ingest_pause_time = 0.0
+            self._stage_batches = self._commit_batches = 0
+            self._stage_ms = self._commit_ms = 0.0
         if self._anakin is not None:
             record["anakin"] = self._anakin
             self._anakin = None
@@ -214,6 +265,10 @@ class TrainMetrics:
                 record["serving"] = block
         if self._quant is not None:
             record["quant"] = self._quant()
+        if self._recovery is not None:
+            block = self._recovery()
+            if block is not None:
+                record["recovery"] = block
         if self._jsonl_path:
             with open(self._jsonl_path, "a") as f:
                 f.write(json.dumps(record) + "\n")

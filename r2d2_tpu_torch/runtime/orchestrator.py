@@ -14,6 +14,13 @@ Actor modes:
     segment, blocks through the native shm ring
     (``runtime.shm_transport``; a ``multiprocessing.Queue`` with it off).
 
+With ``replay.ingest_batch_blocks`` > 1 the learner's stager thread pops
+the queue (runtime/learner_loop.py), and the warm-up's ``drain`` commits
+what it staged, as the training loop's does. With
+``runtime.snapshot_interval`` the record gains the learner's ``recovery``
+block; a failed final checkpoint or snapshot fails the run once every
+actor is reaped.
+
 The learner publishes through a ``SnapshotPublisher``: a device-side
 snapshot on the step's stream, the host copy and the write on a thread of
 their own, so actors only ever read host snapshots. At a quantized
@@ -75,6 +82,8 @@ class PlayerStack:
                                     resume=bool(cfg.runtime.resume))
         self.learner = Learner(cfg, self.net, player_idx=player_idx,
                                metrics=self.metrics)
+        if cfg.runtime.snapshot_interval > 0:
+            self.metrics.set_recovery(self.learner.recovery_block)
         self.n_slots = cfg.actor.num_actors
         self.threads: List[threading.Thread] = []
         self.processes: List[mp.Process] = []
@@ -410,6 +419,7 @@ def train(cfg: Config, *, max_training_steps: Optional[int] = None,
             else mp.get_context("spawn").Event())
     prev_handlers = {}
     st: Optional[PlayerStack] = None
+    final_error: Optional[Exception] = None
     try:
         if threading.current_thread() is threading.main_thread():
             def _on_signal(signum, frame):
@@ -478,13 +488,18 @@ def train(cfg: Config, *, max_training_steps: Optional[int] = None,
             try:
                 if cfg.runtime.save_interval:
                     st.learner.save_final()
-            except Exception:
+            except Exception as e:
                 logging.getLogger(__name__).exception(
                     "final checkpoint for player %d failed", st.player_idx)
+                final_error = e
             st.close()
         for sig, handler in prev_handlers.items():
             try:
                 signal.signal(sig, handler)
             except (ValueError, OSError):
                 pass
+    if final_error is not None:
+        # the actors are reaped and the segments unlinked: now fail the run
+        raise RuntimeError("the final checkpoint or replay snapshot failed"
+                           ) from final_error
     return st

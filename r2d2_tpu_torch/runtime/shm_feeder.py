@@ -128,6 +128,34 @@ class ShmBlockRing:
         lib.ring_commit_pop(self._base, pos)
         return Block(**out)
 
+    def drain_stacked(self, max_items: int = 16, out=None
+                      ) -> Tuple[Optional[Block], int]:
+        """Non-blocking pop of up to ``max_items`` blocks into one stacked
+        Block (a leading K axis on every field) and its count K; (None, 0)
+        when the ring is empty. Each field streams from its ring slot
+        straight into row k of one contiguous array: ``out``'s (the
+        caller's buffers, e.g. pinned staging memory, a leading axis >=
+        max_items) or arrays allocated here at the first pop. The Block
+        holds views of the first K rows."""
+        lib = self._ensure()
+        k = 0
+        for _ in range(max_items):
+            pos = int(lib.ring_reserve_pop(self._base))
+            if pos < 0:
+                break
+            if out is None:
+                out = {f.name: np.empty((max_items,) + f.shape, f.dtype)
+                       for f in self._fields}
+            slot = self._slot_view(lib, pos)
+            for f in self._fields:
+                raw = slot[f.offset:f.offset + f.nbytes]
+                out[f.name][k] = raw.view(f.dtype).reshape(f.shape)
+            lib.ring_commit_pop(self._base, pos)
+            k += 1
+        if k == 0:
+            return None, 0
+        return Block(**{name: arr[:k] for name, arr in out.items()}), k
+
     def get(self, timeout: Optional[float] = None) -> Block:
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:

@@ -339,6 +339,139 @@ def test_act_core_matches_jax_with_injected_draws(game, priority="td"):
         assert int(stats["episodes"]) == (n if seg == 1 else 0)
 
 
+def test_int8_act_core_matches_jax_with_injected_draws():
+    """At network.inference_dtype int8, every forward of the segment (the
+    step forwards and the "td" bootstrap) runs the publish-time twin:
+    three segments of three lanes from the same weights and JAX's draws,
+    the port's core (the twin an InferenceTwin of the same bundle) against
+    JAX's ``make_act_core`` on the bundle. The carry (hidden atol 1e-5),
+    every block field (hidden atol 1e-5; the "td" priorities rtol/atol
+    1e-5; the rest as in emit_blocks), the stats (rtol 1e-6), and the
+    probe's max |dQ| within 1e-5 and its greedy agreement exactly JAX's
+    (tests/test_torch_quant.py's probe rule)."""
+    from r2d2_tpu.models.network import make_inference_bundle as j_bundle
+    from r2d2_tpu_torch.actor.policy import InferenceTwin
+    from r2d2_tpu_torch.models.network import make_inference_bundle
+    over = {"network.inference_dtype": "int8"}
+    cfg, jcfg = small_cfg(**over), jax_cfg(**over)
+    n, wv = 3, 7
+    jenv = create_jax_env(jcfg.env)
+    env = create_device_env(cfg.env, "cpu")
+    spec = ReplaySpec.from_config(cfg, "cpu")
+    jspec = JReplaySpec.from_config(jcfg)
+    jnet, net = _jax_net(jcfg, env.action_dim), _port_net(cfg,
+                                                          env.action_dim)
+    jparams = jnet.init(jax.random.PRNGKey(0))
+    twin = InferenceTwin(net, make_inference_bundle(
+        net, _module_from(net, jparams).state_dict(), 1), "cpu")
+    eps = [apex_epsilon(i, n, 0.4, 7.0) for i in range(n)]
+    jcore = jax.jit(janakin.make_act_core(
+        jenv, jnet, jspec, num_lanes=n, gamma=0.997, priority="td"))
+    core = make_act_core(env, net, spec, gamma=0.997, priority="td")
+    report = [e <= 0.02 for e in eps]
+    jbundle = j_bundle(jnet, jparams, 1)
+
+    key = jax.random.PRNGKey(1)
+    jcarry = janakin.init_act_carry(jenv, jspec, n, key)
+    k_env, _ = jax.random.split(key)
+    carry = init_act_carry(env, spec, n, reset_draws=_jax_reset_draws(
+        jenv, jax.random.split(k_env, n)))
+    for seg in range(3):
+        draws, _ = _jax_segment_draws(jenv, jcarry.key, n,
+                                      spec.block_length, env.action_dim)
+        jcarry, jblocks, jstats = jcore(
+            jbundle, jcarry, np.int32(wv), jnp.asarray(eps, jnp.float32),
+            jnp.asarray(report), jnp.arange(n, dtype=jnp.int32))
+        carry, blocks, stats = core(
+            twin, carry, torch.tensor(wv), torch.tensor(eps),
+            torch.tensor(report), torch.arange(n, dtype=torch.int32), draws)
+        _check_carry(carry, jcarry)
+        check_blocks(blocks, jax.tree_util.tree_map(np.asarray, jblocks),
+                     priority_rtol=1e-5, priority_atol=1e-5,
+                     hidden_atol=1e-5)
+        assert set(jstats) == set(stats) - {"end_state"}
+        for name in ("episodes", "reported_episodes",
+                     "reported_return_sum"):
+            np.testing.assert_allclose(float(stats[name]),
+                                       float(jstats[name]), rtol=1e-6,
+                                       err_msg=name)
+        assert abs(float(stats["quant_dq"])
+                   - float(jstats["quant_dq"])) <= 1e-5
+        assert float(stats["quant_agree"]) == float(jstats["quant_agree"])
+
+
+def test_int8_act_segment_probes_outside_its_graph_and_adopts_in_place():
+    """The quantized ActSegment: its core carries no probe (the graph's),
+    ``probe()`` after a run equals the in-core probe of the same segment
+    (eager twin, the same carry and draws), and a new twin adopted with
+    ``load_`` keeps every address the segment reads."""
+    from r2d2_tpu_torch.actor.policy import InferenceTwin
+    from r2d2_tpu_torch.models.network import make_inference_bundle
+    cfg = small_cfg(**{"network.inference_dtype": "int8"})
+    env = create_device_env(cfg.env, "cpu")
+    spec = ReplaySpec.from_config(cfg, "cpu")
+    net = _port_net(cfg, env.action_dim)
+    module = net.init(0)
+    twin = InferenceTwin(net, make_inference_bundle(net, module, 1), "cpu")
+    kw = dict(num_lanes=3, epsilons=[0.4, 0.1, 0.01], gamma=0.997,
+              priority="td", near_greedy_eps=0.02)
+    act = AnakinAct(env, net, spec, quant_probe_on=False, **kw)
+    probing = AnakinAct(env, net, spec, **kw)
+    gen = torch.Generator().manual_seed(3)
+    carry = init_act_carry(env, spec, 3, generator=gen)
+    twin_carry = dataclasses.replace(carry, **{
+        f.name: getattr(carry, f.name).clone()
+        for f in dataclasses.fields(carry) if f.name != "env_state"})
+    twin_carry.env_state = dataclasses.replace(carry.env_state, **{
+        f.name: getattr(carry.env_state, f.name).clone()
+        for f in dataclasses.fields(carry.env_state)})
+    seg = ActSegment(act, twin, carry, spec, tdr.replay_init(spec, "cpu"),
+                     gen)
+    draws = act.draw(torch.Generator().manual_seed(4))
+    _, _, stats = probing(twin, twin_carry, 1, draws=draws)
+    seg.act.draw = lambda generator: draws
+    seg.run(1)
+    assert "quant_dq" not in act.core(
+        twin, twin_carry, torch.tensor(1), act.eps, act.report, act.lanes,
+        draws)[2]
+    probe = seg.probe()
+    assert np.isfinite(probe["quant_dq"])
+    assert probe["quant_dq"] == float(stats["quant_dq"])
+    assert probe["quant_agree"] == float(stats["quant_agree"])
+    before = seg._read()
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.01)
+    twin.load_(make_inference_bundle(net, module, 2))
+    assert seg._read() == before and twin.stamp == 2
+
+
+def test_int8_fused_loop_trains_with_a_quant_block(tmp_path):
+    """cli.train --actor.on_device=true --network.inference_dtype=int8 on
+    the CPU: it trains, the twin is re-adopted as the pseudo publish count
+    ticks (the quant block's publish stamp advances), the probe runs every
+    telemetry.quant_probe_interval-th segment."""
+    cfg = small_cfg(**{
+        "network.inference_dtype": "int8",
+        "telemetry.quant_probe_interval": 2,
+        "replay.capacity": 400, "replay.learning_starts": 60,
+        "actor.anakin_lanes": 2, "env.episode_len": 20,
+        "replay.block_length": 10, "replay.batch_size": 4,
+        "runtime.save_dir": str(tmp_path), "runtime.log_interval": 0.0,
+        "runtime.weight_publish_interval": 2,
+    })
+    records = []
+    stack = orchestrator.train(cfg, max_training_steps=8, max_seconds=120,
+                               device="cpu", log_fn=records.append)
+    lr = stack.learner
+    assert lr.training_steps >= 8 and all(np.isfinite(lr.losses))
+    quant = [r["quant"] for r in records]
+    assert quant and all(q["dtype"] == "int8" for q in quant)
+    assert sum(q["probes"] for q in quant) == stack.segment.calls // 2 >= 2
+    assert stack.twin_ms and max(q["publish_stamp"] for q in quant) >= 2
+    assert all(q["dq_max"] is None or q["dq_max"] < 1.0 for q in quant)
+
+
 # ---- the ring write, the report filter ----------------------------------
 
 
@@ -458,11 +591,14 @@ def test_config_knobs_roundtrip_and_cli():
                 "--actor.fault_spec=x"):
         with pytest.raises(SystemExit):
             parse_overrides(Config(), [arg])
-    # a quantized forward on the device is refused, naming the item
-    with pytest.raises(ValueError, match="A.5"):
-        parse_overrides(Config(), [
+    # a quantized forward on the device is accepted (the twin acts)
+    for dtype in ("int8", "bf16"):
+        quant = parse_overrides(Config(), [
             "--actor.on_device=true", "--replay.block_length=120",
-            "--replay.capacity=120000", "--network.inference_dtype=int8"])
+            "--replay.capacity=120000",
+            f"--network.inference_dtype={dtype}"])
+        assert quant.actor.on_device
+        assert quant.network.inference_dtype == dtype
 
 
 def test_config_validates_on_device_preconditions():

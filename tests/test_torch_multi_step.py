@@ -183,9 +183,10 @@ def test_dispatch_equals_single_steps_exactly(use_double):
 
 def test_runtime_and_unroll_settings():
     """--runtime.steps_per_dispatch parses; -1 resolves to 1 on the CPU and
-    to the bench's winner on CUDA; prefetch_batches parses; fields of
-    parts of the JAX config the port does not have yet are refused. pallas_lstm and fused_double_unroll "auto": off on the
-    CPU, CUDA_AUTO's choice on CUDA."""
+    to the bench's winner on CUDA; prefetch_batches,
+    runtime.snapshot_interval and replay.ingest_batch_blocks parse.
+    pallas_lstm and fused_double_unroll "auto": off on the CPU,
+    CUDA_AUTO's choice on CUDA."""
     cfg = parse_overrides(Config(), ["--runtime.steps_per_dispatch=4",
                                      "--optim.fused_double_unroll=on"])
     assert cfg.runtime.steps_per_dispatch == 4
@@ -200,10 +201,10 @@ def test_runtime_and_unroll_settings():
         "cpu") == 8
     assert parse_overrides(Config(), ["--runtime.prefetch_batches=2"]
                            ).runtime.prefetch_batches == 2
-    for knob in ("--runtime.snapshot_interval=5",
-                 "--replay.ingest_batch_blocks=8"):
-        with pytest.raises(SystemExit, match="unknown field"):
-            parse_overrides(Config(), [knob])
+    knobs = parse_overrides(Config(), ["--runtime.snapshot_interval=5",
+                                       "--replay.ingest_batch_blocks=8"])
+    assert knobs.runtime.snapshot_interval == 5
+    assert knobs.replay.ingest_batch_blocks == 8
     for resolve, name in ((resolve_pallas_lstm, "network.pallas_lstm"),
                           (resolve_fused_double_unroll,
                            "optim.fused_double_unroll")):
@@ -402,7 +403,8 @@ def test_bench_choices_follow_its_pairs():
     assert auto["network.pallas_lstm"]["value"] is False
     assert CUDA_AUTO == {"network.pallas_lstm": True,
                          "optim.fused_double_unroll": False,
-                         "runtime.steps_per_dispatch": 4}
+                         "runtime.steps_per_dispatch": 4,
+                         "replay.ingest_batch_blocks": 1}
 
 
 def test_device_union_counts_overlap_once():
