@@ -171,7 +171,30 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      cuda, quant blocks with probes, and a profiled window whose kernel
      names equal the wrappers' counts, int8_linear's included (these go
      into the ``kernels`` line as ``anakin_quant_launches``, and into
-     int8_linear's ``launches``). The script's total time is printed.
+     int8_linear's ``launches``).
+ 11. data parallel (parallel/, runtime/data_parallel.py; the card's
+     machine has one GPU, so no figure here is a multi-GPU speed): (a) a
+     one-rank NCCL world at the reference shape (bf16, every kernel of
+     the single-DQN step, K=DP_K): the data-parallel step is one CUDA
+     graph with the NCCL all-reduce captured in it, and equals its eager
+     twin and make_multi_learner_step bit for bit over three dispatches
+     from one seed, replay and jitter; seq-updates/s of the sharded and
+     the unsharded dispatch in turns in this call; a profiled window of
+     the sharded graph whose kernel names equal the wrappers' counts
+     (``sharded_nccl_launches`` in the ``kernels`` line counts every
+     sharded dispatch of this part); (b) two gloo ranks sharing the card
+     against two CPU ranks on the same dp=2 step (small f32; rtol 1e-4),
+     the card ranks bit-equal; (c) orchestrator.train with mesh.dp=2,
+     both ranks on the card over gloo, for DP_SECONDS at the reference
+     widths, with thread actors (--network.pallas_lstm=on
+     --network.use_double=true: every kernel) and with on-device acting
+     (64 lanes, 32 a shard): finite losses on cuda, each rank's launches
+     those of its steps, equal steps, bit-equal train states
+     across the ranks, blocks round-robined, the anakin block's dp 2 and
+     imbalance 1.0, no rank left running (the launch counts of every rank
+     of both runs go into the ``kernels`` line as ``sharded_launches``).
+     The card's name and power limit are printed beside its numbers.
+     The script's total time is printed.
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
 The last line is {"ok": true, "device": {...}}. ``--profile`` adds a
@@ -182,6 +205,7 @@ checks that no copy kernel (an index cast) runs right before the
 gather.
 """
 
+import concurrent.futures
 import json
 import math
 import os
@@ -280,7 +304,7 @@ ANAKIN_CFG = {"actor.on_device": True, "replay.block_length": 120,
 ANAKIN_ARGS = ["--actor.on_device=true", "--env.game_name=Fake",
                "--replay.capacity=99960", "--replay.block_length=120",
                "--env.episode_len=120", "--network.pallas_lstm=auto"]
-ANAKIN_SECONDS = 40.0              # the fused trainer's run
+ANAKIN_SECONDS = 30.0              # the fused trainer's run
 # card vs CPU on small f32 segments: f32 sums in other orders on the card
 ANAKIN_ATOL = 1e-5
 BACK_TO_BACK = 20                  # launches enqueued ahead of the card
@@ -2665,7 +2689,7 @@ def phase_serving(dev, k, bench_default: float) -> dict:
 # ---------------------------------------------------------------------------
 # phase 10: pipelined ingest, crash recovery, quantized on-device acting
 
-INGEST_SECONDS = 22.0              # each cli.train run of the ingest A/B
+INGEST_SECONDS = 17.0              # each cli.train run of the ingest A/B
 INGEST_KS = (1, 8)                 # replay.ingest_batch_blocks, in turn
 INGEST_ARGS = ["--actor-mode=thread", "--env.game_name=Fake",
                "--replay.capacity=100000", "--runtime.save_interval=0",
@@ -2674,7 +2698,7 @@ RECOVERY_BLOCKS = 12               # reference-width blocks of the twin test
 SUPERVISED_SECONDS = 55.0          # the supervised run's bound
 SUPERVISED_SNAPSHOT_INTERVAL = 100  # learner steps between its snapshots
 SUPERVISED_KILL_BY_S = 48.0        # its first snapshot must land by then
-QUANT_TRAIN_SECONDS = 20.0         # cli.train at int8 on-device acting
+QUANT_TRAIN_SECONDS = 16.0         # cli.train at int8 on-device acting
 QUANT_TRAIN_ARGS = ["--network.inference_dtype=int8",
                     "--telemetry.quant_probe_interval=4"]
 
@@ -3057,6 +3081,329 @@ def phase_ingest_recovery_quant(dev, k: int, bench_default: float,
     return launches
 
 
+DP_K = 4                           # 11(a)'s steps a dispatch
+DP_WINDOW = 64                     # steps a timed window of 11(a)
+DP_WINDOWS = 2                     # rounds of turns (u, s, s, u)
+DP_SECONDS = 24.0                  # each two-rank cli.train run of 11(c)
+
+
+def _dp_check_case(dev_names, case):
+    """tools/dp_check.py rank_steps on two gloo ranks on ``dev_names``."""
+    from r2d2_tpu_torch.parallel.mesh import run_ranks
+    from r2d2_tpu_torch.tools import dp_check
+    return run_ranks(dp_check.rank_steps, 2, case, devices=dev_names,
+                     backend="gloo", timeout_s=300)
+
+
+def phase_dp_nccl(dev, base, spec, rs) -> dict:
+    """Phase 11(a): a one-rank NCCL world at the reference shape (bf16,
+    bench's "fused" path: every kernel of the single-DQN step), K=DP_K.
+    The data-parallel step (one CUDA graph with the all-reduce captured
+    in it), its eager twin (the same body, the hook's NCCL all-reduce on
+    the current stream) and make_multi_learner_step, from one seed, each
+    on its own copy of one replay, with the same injected jitter: three
+    dispatches (the graphs' eager warm-up, their capture, a replay), the
+    losses, grad norms, params and tree bit-equal. Then seq-updates/s of
+    the sharded and the unsharded dispatch in turns (DP_WINDOWS rounds of
+    DP_WINDOW-step windows: unsharded, sharded, sharded, unsharded), and
+    one profiled window of the sharded graph whose kernel names equal the
+    wrappers' counts. Returns the sharded step's launch counts."""
+    import torch
+    from r2d2_tpu_torch.config import MeshConfig
+    from r2d2_tpu_torch.learner.train_step import (_make_step_body,
+                                                   create_train_state,
+                                                   eager_steps,
+                                                   make_multi_learner_step)
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.parallel.mesh import (close_mesh, make_mesh,
+                                              rendezvous)
+    from r2d2_tpu_torch.parallel.sharded import (GradMean,
+                                                 make_sharded_learner_step)
+    from r2d2_tpu_torch.tools import bench
+    cfg = base.replace(**bench.PATHS["fused"])
+    use_double = cfg.network.use_double
+    batch = spec.batch_size
+    mesh = make_mesh(MeshConfig(dp=1), [dev], "nccl",
+                     init_method=rendezvous())
+    sharded_launches = dict.fromkeys(_counts(), 0)
+    try:
+        net = NetworkApply(bench.ACTION_DIM, cfg.network,
+                           cfg.env.frame_stack, cfg.env.frame_height,
+                           cfg.env.frame_width, dev)
+        names = ("graph", "eager", "multi")
+        states = {n: create_train_state(net, cfg.optim, 0, use_double)
+                  for n in names}
+        replays = {n: _clone_replay(rs) for n in names}
+        reduce = GradMean(mesh)
+        reduce.attach(states["eager"].params)
+        steps = {
+            "graph": make_sharded_learner_step(net, spec, cfg.optim,
+                                               use_double, mesh, DP_K),
+            "eager": eager_steps(_make_step_body(
+                net, spec, cfg.optim, use_double, reduce=reduce), DP_K),
+            "multi": make_multi_learner_step(net, spec, cfg.optim,
+                                             use_double, DP_K)}
+        check(steps["graph"].graphed, "NCCL: the sharded step is not a graph")
+
+        def run(name, uniform=None):
+            before = _counts()
+            out = steps[name](states[name], replays[name], uniform)[2]
+            if name == "graph":
+                for k, n in _counts().items():
+                    sharded_launches[k] += n - before[k]
+            return out
+
+        uniforms = torch.rand((3, DP_K, batch),
+                              generator=torch.Generator().manual_seed(6)
+                              ).to(dev)
+        for d, u in enumerate(uniforms):
+            out = {n: run(n, u) for n in names}
+            for other in ("eager", "multi"):
+                for metric in ("loss", "grad_norm", "mean_q"):
+                    check(torch.equal(out["graph"][metric],
+                                      out[other][metric]),
+                          f"11a dispatch {d}: {metric} graph "
+                          f"{out['graph'][metric].tolist()} vs {other} "
+                          f"{out[other][metric].tolist()}")
+                for (pn, p), q in zip(
+                        states["graph"].params.named_parameters(),
+                        states[other].params.parameters()):
+                    check(torch.equal(p, q), f"11a dispatch {d}: param {pn}"
+                          f" differs from {other}'s")
+                check(torch.equal(replays["graph"].tree,
+                                  replays[other].tree),
+                      f"11a dispatch {d}: tree differs from {other}'s")
+            print(f"11a dispatch {d}: sharded graph = its eager twin = "
+                  f"make_multi_learner_step bit for bit; losses "
+                  f"{out['graph']['loss'].tolist()}", flush=True)
+        check(getattr(steps["graph"]._dispatch, "graph", None) is not None,
+              "the sharded step captured no graph")
+        rates = {"graph": [], "multi": []}
+        for name in ["multi", "graph", "graph", "multi"] * DP_WINDOWS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_WINDOW // DP_K):
+                run(name)
+            torch.cuda.synchronize()
+            rates[name].append(batch * DP_WINDOW
+                               / (time.perf_counter() - t0))
+        want = _want_launches(bench.PATHS["fused"], PROFILE_DISPATCHES
+                              * DP_K)
+        for _ in range(PROFILE_TRIES):
+            before = _counts()
+            prof, wall_ms = bench.profile_steps(lambda: run("graph"),
+                                                PROFILE_DISPATCHES)
+            counted = {k: n - before[k] for k, n in _counts().items()}
+            seen = _profiled_kernel_counts(prof)
+            if not _lost_events(seen, want):
+                break
+        check(seen == counted == want, f"11a: the profile shows {seen}, "
+              f"counted {counted}, want {want}")
+        nccl = sorted({e.name[:80] for e in bench.device_kernels(prof)
+                       if "nccl" in e.name.lower()})
+        busy = bench.device_busy_ms(prof)
+        sharded = statistics.median(rates["graph"])
+        unsharded = statistics.median(rates["multi"])
+        report = {
+            "k": DP_K, "path": "fused", "window_steps": DP_WINDOW,
+            "sharded_seq_updates_per_s": rates["graph"],
+            "unsharded_seq_updates_per_s": rates["multi"],
+            "sharded_over_unsharded": sharded / unsharded,
+            "profiled_ms_per_step": wall_ms / (PROFILE_DISPATCHES * DP_K),
+            "device_busy_ms_per_step": busy / (PROFILE_DISPATCHES * DP_K),
+            "nccl_kernels_seen": nccl, "launches": counted,
+            "flat_grad_mb": reduce.flat.numel() * 4 / 1e6}
+        print("11a one-rank NCCL data-parallel step at the reference shape "
+              f"({_card()}): " + json.dumps(report), flush=True)
+        del steps, states, replays, reduce
+        torch.cuda.synchronize()
+    finally:
+        close_mesh()
+    return sharded_launches
+
+
+def _card() -> str:
+    from r2d2_tpu_torch.tools import bench
+    return bench.card_line()
+
+
+def phase_dp_gloo_card_vs_cpu(dev) -> None:
+    """Phase 11(b): two gloo ranks sharing the card against two CPU ranks
+    on the same dp=2 computation (tools/dp_check.py rank_steps: the small
+    f32 shape, two shards filled round-robin, the same weights and
+    per-rank jitter, one dispatch of K=2, eager): the losses and each
+    shard's tree within rtol 1e-4 (phase 4's card = CPU rule, over its
+    two steps), the
+    card ranks' train states bit-equal (the digest), every kernel of the
+    path launched on the card ranks and none on the CPU's."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.replay import device_replay as tdr
+    from r2d2_tpu_torch.replay.structs import ReplaySpec, stack_blocks
+    from r2d2_tpu_torch.replay.synthetic import make_synthetic_block
+    from r2d2_tpu_torch.tools import dp_check
+    cfg = _tiny_config().replace(**{"network.pallas_lstm": "on"})
+    cpu = torch.device("cpu")
+    spec = ReplaySpec.from_config(cfg, cpu)
+    rng = np.random.default_rng(8)
+    shards = []
+    for s in range(2):
+        state = tdr.replay_init(spec, cpu)
+        tdr.replay_add_many(spec, state, stack_blocks(
+            [make_synthetic_block(spec, rng) for _ in range(4)]))
+        shards.append(dp_check.numpy_state(state))
+    net = NetworkApply(18, cfg.network, cfg.env.frame_stack,
+                       cfg.env.frame_height, cfg.env.frame_width, cpu)
+    params = {n: v.numpy() for n, v in net.init(0).state_dict().items()}
+    k, dispatches = 2, 1        # two steps: phase 4's horizon
+    case = {"spec": dataclasses.asdict(spec), "action_dim": 18,
+            "network": dataclasses.asdict(cfg.network),
+            "optim": dataclasses.asdict(cfg.optim), "params": params,
+            "shards": shards, "k": k, "dispatches": dispatches,
+            "jitter": rng.random((2, dispatches, k, spec.batch_size),
+                                 dtype=np.float32)}
+    t0 = time.perf_counter()
+    # the two worlds at once: four spawned ranks, two rendezvous
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        card, cpu_runs = pool.map(lambda names: _dp_check_case(names, case),
+                                  ([str(dev)] * 2, ["cpu"] * 2))
+    check(card[0]["digest"] == card[1]["digest"],
+          "11b: the card ranks' train states differ")
+    check(not card[0]["graphed"], "11b: a gloo step claims a graph")
+    worst = {"loss": 0.0, "grad_norm": 0.0, "tree": 0.0, "params": 0.0}
+    for r in range(2):
+        for d in range(dispatches):
+            got, want = card[r]["trace"][d], cpu_runs[r]["trace"][d]
+            np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+            np.testing.assert_allclose(got["tree"], want["tree"], rtol=1e-4,
+                                       atol=1e-6)
+            for name in ("loss", "grad_norm"):
+                worst[name] = max(worst[name], float(np.max(
+                    np.abs(got[name] - want[name]) / np.abs(want[name]))))
+            worst["tree"] = max(worst["tree"], float(np.max(
+                np.abs(got["tree"] - want["tree"]))))
+            worst["params"] = max(worst["params"], max(
+                float(np.max(np.abs(v - want["params"][n])))
+                for n, v in got["params"].items()))
+        want_launches = _want_launches({"network.pallas_lstm": "on"},
+                                       k * dispatches)
+        check(card[r]["launches"] == want_launches,
+              f"11b rank {r}: launches {card[r]['launches']}")
+        check(not any(cpu_runs[r]["launches"].values()),
+              "11b: a CPU rank launched a kernel")
+    print(f"11b two gloo ranks on one card vs two CPU ranks (small f32, "
+          f"K={k} x {dispatches}): losses max rel {worst['loss']:.3e}, "
+          f"grad norms max rel {worst['grad_norm']:.3e}, tree max abs "
+          f"{worst['tree']:.3e}, params max abs "
+          f"{worst['params']:.3e}; card ranks bit-equal; "
+          f"{time.perf_counter() - t0:.1f} s (spawn included)", flush=True)
+
+
+def _dp_children() -> list:
+    import multiprocessing as mp
+    return [p for p in mp.active_children() if p.name.startswith("dp-rank")]
+
+
+def phase_dp_loop(dev, label: str, args) -> dict:
+    """Phase 11(c): orchestrator.train with mesh.dp=2, both ranks on the
+    card over gloo (mesh_devices, mesh_backend), for DP_SECONDS at the
+    reference widths: losses finite on cuda, both ranks at the same step
+    with bit-equal train states, the blocks round-robined (actor-fed:
+    shard counts differ by <= 1; on-device: equal), each rank's kernel
+    launches those of its steps, an on-device run's anakin blocks with
+    dp 2 and imbalance 1.0, and no rank process left. Returns the launch
+    counts summed over the ranks."""
+    import tempfile
+    import torch
+    from r2d2_tpu_torch.config import (Config, parse_overrides,
+                                       resolve_pallas_lstm)
+    from r2d2_tpu_torch.runtime import orchestrator
+    records = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as d:
+        cfg = parse_overrides(Config(), [
+            "--env.game_name=Fake", "--replay.capacity=100000",
+            "--mesh.dp=2", "--runtime.save_interval=0",
+            "--runtime.log_interval=5", f"--runtime.save_dir={d}", *args])
+        marks = []
+
+        def hook(stack):
+            # rank 0's dispatches, each ending on the host: gloo's
+            # all-reduce on CUDA tensors waits for its copy back
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), stack.learner.training_steps))
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        stack = orchestrator.train(
+            cfg, max_seconds=DP_SECONDS, actor_mode="thread", device=dev,
+            log_fn=records.append, dispatch_hook=hook,
+            mesh_devices=[dev, dev], mesh_backend="gloo")
+        seconds = time.perf_counter() - t0
+    learner = stack.learner
+    losses = learner.losses
+    reports = learner.shard_reports
+    check(learner.device.type == "cuda" and losses
+          and all(math.isfinite(x) for x in losses),
+          f"11c {label}: no finite losses on cuda")
+    check(len(reports) == 2 and reports[0]["steps"] == reports[1]["steps"]
+          == learner.training_steps, f"11c {label}: steps {reports}")
+    check(reports[0]["state_sha256"] == reports[1]["state_sha256"],
+          f"11c {label}: the ranks' train states differ")
+    blocks = [r["shard_blocks"] for r in reports]
+    check(abs(blocks[0] - blocks[1]) <= (0 if cfg.actor.on_device else 1)
+          and min(blocks) > 0, f"11c {label}: shard blocks {blocks}")
+    check(not _dp_children(), f"11c {label}: a rank is still running")
+    total = {k: sum(r["launches"][k] for r in reports)
+             for k in reports[0]["launches"]}
+    overrides = {"network.use_double": cfg.network.use_double,
+                 "network.pallas_lstm": "on" if resolve_pallas_lstm(
+                     cfg.network.pallas_lstm, dev) else "off"}
+    for r in reports:
+        check(r["launches"] == _want_launches(overrides, r["steps"]),
+              f"11c {label} rank {r['rank']}: launches {r['launches']} for "
+              f"{r['steps']} steps")
+    anakin = [x["anakin"] for x in records if x.get("anakin")]
+    if cfg.actor.on_device:
+        check(anakin and all(a["dp"] == 2 and a["shard_imbalance"] == 1.0
+                             for a in anakin),
+              f"11c {label}: anakin blocks {anakin}")
+    check(len(marks) >= 3, f"11c {label}: {len(marks)} dispatches")
+    (ta, sa), (tb, sb) = marks[1], marks[-1]
+    report = {"steps": learner.training_steps, "run_s": seconds,
+              "first_dispatch_s": marks[0][0] - t0,
+              "window_s": tb - ta, "window_steps": sb - sa,
+              "ms_per_step": (tb - ta) * 1e3 / (sb - sa),
+              "global_seq_updates_per_s": (2 * cfg.replay.batch_size
+                                           * (sb - sa) / (tb - ta)),
+              "shard_blocks": blocks, "env_steps": learner.env_steps,
+              "final_loss": losses[-1], "launches_all_ranks": total,
+              "anakin": anakin[-1] if anakin else None}
+    print(f"11c two Learner ranks on one card over gloo ({label}, "
+          f"{_card()}): " + json.dumps(report), flush=True)
+    return total
+
+
+def phase_data_parallel(dev) -> dict:
+    """Phase 11 (see the module docstring). Returns the launch counts of
+    the sharded paths: "nccl" (11a's graphed step), "loop" (11c's runs,
+    every rank)."""
+    import torch
+    base, spec, rs, _ = phase_reference_replay(dev)
+    nccl = phase_dp_nccl(dev, base, spec, rs)
+    del rs
+    torch.cuda.empty_cache()
+    phase_dp_gloo_card_vs_cpu(dev)
+    loop = dict.fromkeys(nccl, 0)
+    for label, args in (("thread actors, pallas_lstm on, double DQN",
+                         FUSED_ARGS),
+                        ("on-device acting", ANAKIN_ARGS)):
+        for k, n in phase_dp_loop(dev, label, args).items():
+            loop[k] += n
+    return {"nccl": nccl, "loop": loop}
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3148,6 +3495,8 @@ def main(argv) -> int:
         reference["fused", resolved_k]["median_seq_updates_per_s"],
         segment_ms)
     done("ingest, recovery, quantized on-device acting")
+    sharded = phase_data_parallel(dev)
+    done("data parallel")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}
@@ -3166,7 +3515,11 @@ def main(argv) -> int:
                     serve_launches=(0 if name.endswith("_padded")
                                     else serve_launches[name]),
                     anakin_quant_launches=(0 if name.endswith("_padded")
-                                           else anakin_quant[name]))
+                                           else anakin_quant[name]),
+                    sharded_launches=(0 if name.endswith("_padded")
+                                      else sharded["loop"][name]),
+                    sharded_nccl_launches=(0 if name.endswith("_padded")
+                                           else sharded["nccl"][name]))
                for name, r in timings.items()]
     kernels.append(dict(
         name="int8_linear", route="cuda", source=KERNEL_SOURCES["quant_kernels"],
@@ -3179,7 +3532,9 @@ def main(argv) -> int:
         library_ms=serving["library_ms"], host_path_launches=0,
         orchestrated_launches=0, anakin_launches=0,
         serve_launches=serve_launches["int8_linear"],
-        anakin_quant_launches=anakin_quant["int8_linear"]))
+        anakin_quant_launches=anakin_quant["int8_linear"],
+        sharded_launches=sharded["loop"]["int8_linear"],
+        sharded_nccl_launches=sharded["nccl"]["int8_linear"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -61,7 +61,8 @@ from r2d2_tpu_torch.ops.launch_counts import (add_launch_counts,
 from r2d2_tpu_torch.replay.device_replay import write_rows
 from r2d2_tpu_torch.replay.structs import Block, ReplaySpec, ReplayState
 
-STATS = ("episodes", "reported_episodes", "reported_return_sum")
+STATS = ("episodes", "reported_episodes", "reported_return_sum",
+         "env_steps")
 
 
 @dataclass
@@ -458,12 +459,15 @@ class AnakinAct:
     ``generator`` unless ``draws`` are injected. ``eps`` is the Ape-X
     ladder over the lanes; ``report`` marks the lanes at eps <=
     near_greedy_eps, whose episode returns are reported (the host loop's
-    filter); ``lanes`` stamps each block with its lane's ladder index."""
+    filter); ``lanes`` stamps each block with its lane's ladder index,
+    ``lane_base + i`` (a data-parallel rank's slice of the global ladder
+    starts at its ``lane_base``)."""
 
     def __init__(self, env, net: NetworkApply, spec: ReplaySpec, *,
                  num_lanes: int, epsilons: Sequence[float], gamma: float,
                  priority, near_greedy_eps: float,
-                 priority_eta: float = 0.9, quant_probe_on: bool = True):
+                 priority_eta: float = 0.9, quant_probe_on: bool = True,
+                 lane_base: int = 0):
         eps_list = [float(e) for e in epsilons]
         if len(eps_list) != num_lanes:
             raise ValueError(f"need one epsilon per lane: got "
@@ -475,8 +479,8 @@ class AnakinAct:
                                 device=device)
         self.report = torch.tensor([e <= near_greedy_eps for e in eps_list],
                                    device=device)
-        self.lanes = torch.arange(num_lanes, dtype=torch.int32,
-                                  device=device)
+        self.lanes = torch.arange(lane_base, lane_base + num_lanes,
+                                  dtype=torch.int32, device=device)
         self.quant = net.config.inference_dtype != "f32"
         self.core = make_act_core(env, net, spec, gamma=gamma,
                                   priority=priority,
@@ -535,7 +539,9 @@ class ActSegment:
                                                device=device),
                        "reported_episodes": torch.zeros(
                            (), dtype=torch.int64, device=device),
-                       "reported_return_sum": torch.zeros((), device=device)}
+                       "reported_return_sum": torch.zeros((), device=device),
+                       "env_steps": torch.zeros((), dtype=torch.int64,
+                                                device=device)}
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.calls = self.replays = 0
         self.blocks: Optional[Block] = None
@@ -552,6 +558,7 @@ class ActSegment:
         rows = (self.block_ptr + self.offsets) % self.spec.num_blocks
         write_rows(self.spec, self.replay_state, rows, blocks)
         assign_(self.carry, carry)
+        stats["env_steps"] = blocks.learning_steps.sum()
         for name in STATS:
             self.totals[name] += stats[name]
         return blocks, draws, stats.get("end_state")

@@ -9,6 +9,14 @@ card (runtime/anakin_loop.py; --actor-mode has no meaning there).
         --actor-mode=thread --max-steps=20 --env.frame_height=24 ...
     python -m r2d2_tpu_torch.cli.train --env.game_name=Fake \
         --actor.on_device=true --replay.block_length=120 --max-seconds=60
+    python -m r2d2_tpu_torch.cli.train --env.game_name=Fake --mesh.dp=8 \
+        --max-seconds=60
+
+``--mesh.dp=N`` trains data-parallel on N GPUs (-1: every visible one):
+this process is rank 0 and spawns the other ranks
+(runtime/data_parallel.py); with ``--device=cpu`` the ranks are CPU
+processes over gloo. The summary's ``shards`` holds every rank's final
+report.
 
 Extra (non-config) flags:
     --actor-mode=thread|process   actor execution mode (default: process)
@@ -70,6 +78,10 @@ def _summary(stack, device, seconds: float) -> dict:
         "actors_alive": sum(1 for w in workers if w.is_alive()),
         "shm_segments": stack.segment_names,
         "served": served,
+        # data parallel: every rank's final report (steps, blocks in its
+        # shard, the train state's digest, launch counts); None on one
+        # device
+        "shards": learner.shard_reports,
         "losses": losses,
     }
 

@@ -1,11 +1,12 @@
 """Configuration of the PyTorch port: the env, network, sequence, replay,
-optim, actor and runtime sections of the JAX package's config, with the
-same field names and defaults, so a ``--section.field=value`` override
+optim, actor, runtime and mesh sections of the JAX package's config, with
+the same field names and defaults, so a ``--section.field=value`` override
 means the same thing in both packages. Only the fields the port reads are
-here: a setting of a part the port does not have yet (``--mesh.dp=2``,
-``--fleet.replay_shards=2``, ...) is refused as an unknown field instead
-of being ignored, and a value the port cannot honour yet
-(``serve.servers > 1``) is refused naming the item that brings it.
+here: a setting of a part the port does not have yet
+(``--fleet.replay_shards=2``, ``--mesh.multihost=true``, ...) is refused as
+an unknown field instead of being ignored, and a value the port cannot
+honour yet (``serve.servers > 1``, ``mesh.mp > 1``) is refused naming the
+item that brings it.
 
 The tri-state knobs ("on"/"off"/"auto") resolve for the device the port
 runs on, never for a TPU:
@@ -47,6 +48,9 @@ runs on, never for a TPU:
   pinned memory and copies to the card ahead of one ``replay_add_many``
   commit (runtime/learner_loop.py). -1 = ``CUDA_AUTO``'s value on CUDA,
   1 (the per-block drain) on the CPU.
+* ``mesh.dp``: data-parallel ranks, one process and one GPU each
+  (``parallel/``); -1 = every visible GPU (``torch.cuda.device_count()``),
+  so 1 on a one-card machine, which runs the unsharded path.
 """
 
 from __future__ import annotations
@@ -221,6 +225,28 @@ class ActorConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Data-parallel layout of the learner, the JAX package's ``MeshConfig``
+    on one host: ``dp`` ranks, one process and one GPU each, in a
+    ``torch.distributed`` process group (``parallel/mesh.py``). Each rank
+    holds a replay shard and a replica of the train state; one all-reduce
+    of the gradient a step keeps the replicas equal (``parallel/sharded.py``).
+
+    ``dp``: 1 = the unsharded path; N > 1 = N ranks; -1 = every visible
+    device. ``mp`` (tensor parallel) is kept for the JAX package's
+    spelling and must be 1. Under ``replay.placement="host"`` no dp path
+    is taken whatever ``dp`` says, as in the JAX package, whose host
+    placement builds its step before it looks at the mesh."""
+
+    dp: int = 1
+    mp: int = 1
+
+    def resolved_dp(self, n_devices: int) -> int:
+        mp = max(self.mp, 1)
+        return self.dp if self.dp > 0 else max(n_devices // mp, 1)
+
+
+@dataclass(frozen=True)
 class TelemetryConfig:
     """The telemetry fields the port reads."""
 
@@ -344,6 +370,7 @@ class Config:
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def __post_init__(self):
         if self.replay.block_length % self.sequence.learning_steps != 0:
@@ -394,6 +421,25 @@ class Config:
                 "window (runtime.seed + 100*actor_idx + lane)")
         self._check_envs_and_acting()
         self._check_inference()
+        self._check_mesh()
+
+    def _check_mesh(self) -> None:
+        """What the port's data-parallel path cannot honour yet, refused
+        naming the item that brings it (ROADMAP A.4)."""
+        mesh = self.mesh
+        if mesh.mp > 1:
+            raise ValueError(
+                f"mesh.mp={mesh.mp}: tensor parallelism is "
+                "parallel/tensor_parallel.py, ROADMAP item A.4 (not ported); "
+                "the port runs data-parallel meshes only (mesh.dp), on-device "
+                "acting included")
+        # mesh.dp=-1 resolves at run time; the launcher checks it again
+        if (self.runtime.snapshot_interval > 0 and mesh.dp > 1
+                and self.replay.placement == "device"):
+            raise ValueError(
+                f"runtime.snapshot_interval with mesh.dp={mesh.dp}: replay "
+                "snapshots of a sharded replay are ROADMAP item A.4 (not "
+                "ported); set runtime.snapshot_interval=0 or mesh.dp=1")
 
     def _check_inference(self) -> None:
         """The quantized plane's and the policy server's rules, the JAX
@@ -515,12 +561,23 @@ class Config:
                 "fixed block_length-step blocks, so episode ends must land "
                 "on block boundaries (the host path's emit-on-done "
                 "semantics)")
-        if actor.anakin_lanes > self.num_blocks:
+        dp = self.mesh.dp
+        if dp > 1 and actor.anakin_lanes % dp != 0:
             raise ValueError(
-                f"actor.anakin_lanes ({actor.anakin_lanes}) must be <= "
-                f"num_blocks ({self.num_blocks}): each segment writes one "
-                "block per lane in one ring write, whose rows must not "
-                "alias; grow replay.capacity or lower the lane count")
+                f"actor.anakin_lanes ({actor.anakin_lanes}) must be "
+                f"divisible by mesh.dp ({dp}): the acting segment partitions "
+                "the lanes into equal per-shard groups (anakin_lanes % dp == "
+                "0); adjust actor.anakin_lanes or mesh.dp")
+        # mesh.dp=-1 (every device) resolves at run time; the loop checks
+        # both rules again against the resolved dp there
+        per_shard = actor.anakin_lanes // dp if dp > 1 else actor.anakin_lanes
+        if per_shard > self.num_blocks:
+            raise ValueError(
+                f"actor.anakin_lanes ({actor.anakin_lanes}) must leave each "
+                f"shard's lane group ({per_shard}) <= num_blocks "
+                f"({self.num_blocks}): each segment writes one block per "
+                "lane in one ring write, whose rows must not alias; grow "
+                "replay.capacity or lower the lane count")
 
     @property
     def seqs_per_block(self) -> int:
@@ -571,7 +628,15 @@ _SECTION_TYPES = {"env": EnvConfig, "network": NetworkConfig,
                   "sequence": SequenceConfig, "replay": ReplayConfig,
                   "optim": OptimConfig, "actor": ActorConfig,
                   "runtime": RuntimeConfig, "telemetry": TelemetryConfig,
-                  "serve": ServeConfig}
+                  "serve": ServeConfig, "mesh": MeshConfig}
+
+# fields of the JAX package's config whose part the port does not have:
+# still unknown fields, refused naming the item that brings them
+NOT_PORTED = {
+    ("mesh", name): "multi-host training is parallel/multihost.py, ROADMAP "
+                    "item A.4 (not ported)"
+    for name in ("multihost", "coordinator_address", "num_processes",
+                 "process_id")}
 
 
 def _parse_setting(setting, field_name: str):
@@ -714,7 +779,9 @@ def parse_overrides(cfg: Config, argv: List[str]) -> Config:
             raise SystemExit(f"unknown config section {section!r}")
         matching = {f.name: f for f in dataclasses.fields(getattr(cfg, section))}
         if fname not in matching:
-            raise SystemExit(f"unknown field {fname!r} in section {section!r}")
+            why = NOT_PORTED.get((section, fname))
+            raise SystemExit(f"unknown field {fname!r} in section {section!r}"
+                             + (f": {why}" if why else ""))
         dotted[key] = _coerce(key, raw, matching[fname].type)
     return cfg.replace(**dotted) if dotted else cfg
 

@@ -184,12 +184,15 @@ def make_loss_fn(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
 
 
 def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
-                     use_double: bool):
+                     use_double: bool, reduce: Optional[Callable] = None):
     """``train(train_state, batch) -> metrics``: one step's device work on
     a sampled batch, all of it in place (loss, clip + Adam, the step
     counter and the hard target sync); ``metrics["priorities"]`` holds the
     batch's (B,) new priorities. The host mirror ``step`` is the caller's
-    to advance."""
+    to advance. ``reduce(grads, loss, mean_abs_td, mean_q) -> (loss,
+    mean_abs_td, mean_q)``, between the backward and the clip: the
+    data-parallel mean over ranks (parallel/sharded.py ``GradMean``), in
+    place on the gradients; None on a single device."""
     loss_fn = make_loss_fn(net, spec, optim, use_double)
     interval = optim.target_net_update_interval
 
@@ -198,6 +201,10 @@ def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
         ts.opt.zero_grad(set_to_none=False)
         loss.backward()
         grads = [p.grad for p in ts.params.parameters()]
+        loss = loss.detach()
+        if reduce is not None:
+            loss, aux["mean_abs_td"], aux["mean_q"] = reduce(
+                grads, loss, aux["mean_abs_td"], aux["mean_q"])
         grad_norm = clip_by_global_norm_(grads, optim.grad_norm)
         ts.opt.step()
 
@@ -209,7 +216,7 @@ def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
                 for t, p in zip(ts.target_params.parameters(),
                                 ts.params.parameters()):
                     torch.where(sync, p, t, out=t)
-        return {"loss": loss.detach(), "mean_abs_td": aux["mean_abs_td"],
+        return {"loss": loss, "mean_abs_td": aux["mean_abs_td"],
                 "mean_q": aux["mean_q"], "grad_norm": grad_norm,
                 "priorities": aux["priorities"]}
 
@@ -217,12 +224,12 @@ def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
 
 
 def _make_step_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
-                    use_double: bool):
+                    use_double: bool, reduce: Optional[Callable] = None):
     """``body(train_state, replay_state, uniform) -> metrics``: sample,
     train, and write the priorities back, right after the sample they
     belong to. ``uniform``: the (B,) sampling jitter, or None to draw it
-    from the train state's generator."""
-    train = _make_train_body(net, spec, optim, use_double)
+    from the train state's generator. ``reduce``: ``_make_train_body``'s."""
+    train = _make_train_body(net, spec, optim, use_double, reduce)
 
     def body(ts: TrainState, rs: ReplayState,
              uniform: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -302,11 +309,17 @@ def make_multi_learner_step(net: NetworkApply, spec: ReplaySpec,
     body = _make_step_body(net, spec, optim, use_double)
     if net.device.type == "cuda":
         return GraphedSteps(body, steps_per_dispatch, spec.batch_size)
+    return eager_steps(body, steps_per_dispatch)
+
+
+def eager_steps(body: Callable, steps: int):
+    """``multi(train_state, replay_state, uniform=None)``: ``steps`` eager
+    calls of a step body, the metrics stacked to (K,)."""
 
     def multi(ts: TrainState, rs: ReplayState,
               uniform: Optional[torch.Tensor] = None):
         per_step = []
-        for k in range(steps_per_dispatch):
+        for k in range(steps):
             per_step.append(body(ts, rs, None if uniform is None
                                  else uniform[k]))
             ts.step += 1

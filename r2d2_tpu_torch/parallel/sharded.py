@@ -1,0 +1,360 @@
+"""The data-parallel learner, the JAX package's ``parallel/sharded.py``
+(its manual-dp ``shard_map`` path) over ``torch.distributed``, one process
+a rank (``parallel/mesh.py``):
+
+  * Each rank holds one replay shard (``num_blocks`` blocks, its own sum
+    tree and ring pointer) on its device. Rank 0 feeds blocks round-robin:
+    block k of a batch goes to shard ``(start_shard + k) % dp``; the batch
+    is broadcast and each rank writes its own blocks in feed order, so
+    every shard's pointer advances as under per-block adds. Sampling and
+    the priority write-back stay local to the shard.
+  * Params and optimizer state are replicated: each rank computes the
+    gradient of its own ``batch_size`` sequences and one all-reduce mean
+    makes the clip and the Adam update identical everywhere (the global
+    batch is ``dp * batch_size``). The clip acts on the reduced gradient,
+    as optax's ``tx.update`` does after JAX's ``pmean``; ``loss``,
+    ``mean_abs_td`` and ``mean_q`` ride the same all-reduce, ``grad_norm``
+    is the reduced gradient's.
+  * Each rank draws its own sampling jitter from its own generator
+    (``shard_seed``), the counterpart of ``fold_in(key, shard)``.
+  * On-device acting: rank s acts lanes ``[s*lps, (s+1)*lps)`` of the
+    global epsilon ladder (``lps = num_lanes / dp``), stamps them with
+    their global lane index and writes its blocks into its own shard, with
+    no cross-shard traffic; its stats are gathered to rank 0.
+
+The inner computation is the single-device step's
+(``learner/train_step.py``): the all-reduce enters through the hook
+between its backward and its clip, which the unsharded path leaves empty.
+"""
+
+import hashlib
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from r2d2_tpu_torch.actor.anakin import AnakinAct, init_act_carry
+from r2d2_tpu_torch.config import OptimConfig
+from r2d2_tpu_torch.learner.train_step import (GraphedSteps, TrainState,
+                                               _make_step_body, eager_steps)
+from r2d2_tpu_torch.models.network import NetworkApply
+from r2d2_tpu_torch.parallel.mesh import Mesh
+from r2d2_tpu_torch.replay.device_replay import (WRITTEN, replay_add_many,
+                                                 replay_init, replay_size)
+from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, ReplayState,
+                                           empty_block_np, stack_blocks)
+
+_METRIC_SLOTS = ("loss", "mean_abs_td", "mean_q")
+
+
+def shard_seed(seed: int, rank: int) -> int:
+    """Rank ``rank``'s generator seed from a run's ``seed``: rank 0 keeps
+    it (a one-rank mesh draws what the unsharded path draws), the others
+    get streams of their own."""
+    return seed + rank * (1 << 32)
+
+
+# -- replay ---------------------------------------------------------------
+
+
+def sharded_replay_init(spec: ReplaySpec, mesh: Mesh) -> ReplayState:
+    """This rank's replay shard, on its device."""
+    return replay_init(spec, mesh.device)
+
+
+def _wire_layout(spec: ReplaySpec):
+    """The written fields of one block as (name, shape, numpy dtype, torch
+    dtype, offset, bytes) in a byte row, and the row's length: the 4-byte
+    fields first, the uint8 frames last, the row padded to 4 bytes, so
+    every field's offset is aligned."""
+    proto = empty_block_np(spec)
+    names = sorted(WRITTEN, key=lambda n: (-proto[n].itemsize,
+                                           WRITTEN.index(n)))
+    layout, off = [], 0
+    for name in names:
+        a = proto[name]
+        dtype = {np.float32: torch.float32, np.int32: torch.int32,
+                 np.uint8: torch.uint8}[a.dtype.type]
+        layout.append((name, a.shape, a.dtype, dtype, off, a.nbytes))
+        off += a.nbytes
+    return layout, -(-off // 4) * 4
+
+
+def _pack(layout, row: int, blocks: Block, device: torch.device
+          ) -> torch.Tensor:
+    """K stacked blocks (numpy or tensors) -> one (K, row) uint8 tensor on
+    ``device``: the broadcast's one buffer."""
+    if torch.is_tensor(blocks.priority):
+        k = blocks.priority.shape[0]
+        parts = [getattr(blocks, name).to(device, dtype).reshape(k, -1)
+                 .contiguous().view(torch.uint8)
+                 for name, _, _, dtype, _, _ in layout]
+        pad = row - sum(p.shape[1] for p in parts)
+        if pad:
+            parts.append(torch.zeros((k, pad), dtype=torch.uint8,
+                                     device=device))
+        return torch.cat(parts, dim=1)
+    k = int(np.shape(blocks.priority)[0])
+    host = np.zeros((k, row), np.uint8)
+    for name, _, np_dtype, _, off, nbytes in layout:
+        a = np.ascontiguousarray(getattr(blocks, name), dtype=np_dtype)
+        host[:, off:off + nbytes] = a.reshape(k, -1).view(np.uint8)
+    buf = torch.from_numpy(host)
+    if device.type == "cuda":
+        return buf.pin_memory().to(device, non_blocking=True)
+    return buf.to(device)
+
+
+def _unpack(layout, buf: torch.Tensor) -> Block:
+    """(K, row) bytes -> K stacked blocks of tensors on ``buf``'s device
+    (the fields a ring write reads)."""
+    k = buf.shape[0]
+    fields = {name: buf[:, off:off + nbytes].contiguous().view(dtype)
+              .reshape((k,) + tuple(shape))
+              for name, shape, _, dtype, off, nbytes in layout}
+    return Block(num_sequences=None, sum_reward=None, **fields)
+
+
+def own_blocks(k: int, start_shard: int, mesh: Mesh) -> List[int]:
+    """Which of a batch's ``k`` blocks go to this rank's shard."""
+    return [i for i in range(k) if (start_shard + i) % mesh.dp == mesh.rank]
+
+
+def make_sharded_replay_add_many(spec: ReplaySpec, mesh: Mesh):
+    """``add_many(state, blocks, start_shard, k=None) -> state``: ring-write
+    K stacked blocks round-robin over the dp shards, equal to K sequential
+    ``make_sharded_replay_add`` calls starting at ``start_shard``. Rank 0
+    passes the blocks and broadcasts them (one buffer); the other ranks
+    pass ``blocks=None`` and ``k``. Block i goes to shard
+    ``(start_shard + i) % dp``; each rank writes its own blocks, in feed
+    order, with one ``replay_add_many``, so its ring pointer advances as
+    under per-block adds. Every rank must call it, in the same order."""
+    layout, row = _wire_layout(spec)
+
+    def add_many(state: ReplayState, blocks: Optional[Block],
+                 start_shard: int, k: Optional[int] = None) -> ReplayState:
+        if mesh.leader:
+            buf = _pack(layout, row, blocks, mesh.device)
+        else:
+            buf = torch.empty((k, row), dtype=torch.uint8,
+                              device=mesh.device)
+        dist.broadcast(buf, src=0, group=mesh.group)
+        mine = own_blocks(buf.shape[0], start_shard, mesh)
+        if mine:
+            idx = torch.tensor(mine, device=buf.device)
+            replay_add_many(spec, state, _unpack(layout, buf[idx]))
+        return state
+
+    return add_many
+
+
+def make_sharded_replay_add(spec: ReplaySpec, mesh: Mesh):
+    """``add(state, block, shard_idx) -> state``: ring-write one block (rank
+    0's; None elsewhere) into shard ``shard_idx``; the K=1 case of
+    ``make_sharded_replay_add_many``."""
+    add_many = make_sharded_replay_add_many(spec, mesh)
+
+    def add(state: ReplayState, block: Optional[Block], shard_idx: int
+            ) -> ReplayState:
+        stacked = None if block is None else stack_blocks([block])
+        return add_many(state, stacked, shard_idx, 1)
+
+    return add
+
+
+def sharded_buffer_steps(state: ReplayState, mesh: Mesh) -> int:
+    """Learning steps stored over every shard (a collective)."""
+    total = replay_size(state).to(torch.float64).reshape(1)
+    dist.all_reduce(total, group=mesh.group)
+    return int(total.item())
+
+
+# -- the learner step -------------------------------------------------------
+
+
+class GradMean:
+    """The hook between the step's backward and its clip: the mean over the
+    ranks of the gradient and of the three metric scalars, in one
+    all-reduce. The parameters' ``.grad`` are views of one flat f32 buffer
+    allocated once (``attach``), so the collective is one call and a CUDA
+    graph's addresses hold."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.flat: Optional[torch.Tensor] = None
+        self.numel = 0
+
+    def attach(self, module: torch.nn.Module) -> None:
+        params = list(module.parameters())
+        if any(p.dtype != torch.float32 for p in params):
+            raise ValueError("the flat gradient buffer holds f32 parameters "
+                             "only")
+        self.numel = sum(p.numel() for p in params)
+        self.flat = torch.zeros(self.numel + len(_METRIC_SLOTS),
+                                dtype=torch.float32, device=params[0].device)
+        off = 0
+        for p in params:
+            p.grad = self.flat[off:off + p.numel()].view_as(p)
+            off += p.numel()
+
+    def __call__(self, grads: Sequence[torch.Tensor], loss: torch.Tensor,
+                 mean_abs_td: torch.Tensor, mean_q: torch.Tensor):
+        flat, n = self.flat, self.numel
+        if flat is None or grads[0].data_ptr() != flat.data_ptr():
+            raise RuntimeError("the gradients are not the flat buffer's views"
+                               " (attach() before the first step)")
+        flat[n:].copy_(torch.stack([loss, mean_abs_td, mean_q]).float())
+        dist.all_reduce(flat, group=self.mesh.group)
+        if self.mesh.dp > 1:
+            flat.mul_(1.0 / self.mesh.dp)
+        out = flat[n:].clone()
+        return out[0], out[1], out[2]
+
+
+def _train_state_tensors(ts: TrainState) -> List[torch.Tensor]:
+    """Every tensor of a train state that the replicas share, in one order
+    on every rank."""
+    out = [ts.step_count] + list(ts.params.parameters())
+    if ts.target_params is not ts.params:
+        out += list(ts.target_params.parameters())
+    for p in ts.params.parameters():
+        state = ts.opt.state.get(p, {})
+        out += [state[key] for key in sorted(state)
+                if torch.is_tensor(state[key])]
+    return out
+
+
+def state_digest(ts: TrainState) -> str:
+    """sha256 of the replicated train state's bytes: equal on every rank
+    while the replicas are bit-equal."""
+    h = hashlib.sha256()
+    for t in _train_state_tensors(ts):
+        h.update(t.detach().reshape(-1).cpu().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def broadcast_train_state(ts: TrainState, mesh: Mesh) -> None:
+    """Rank 0's params, target, optimizer state and step to every rank, so
+    the replicas start bit-equal (a resumed run's too)."""
+    with torch.no_grad():
+        for t in _train_state_tensors(ts):
+            dist.broadcast(t, src=0, group=mesh.group)
+    ts.step = int(ts.step_count.item())
+
+
+class ShardedLearnerStep:
+    """``step(train_state, replay_shard, uniform=None) -> (train_state,
+    replay_shard, metrics)``: K = ``steps`` data-parallel learner steps a
+    dispatch on this rank's shard, every rank calling it in lockstep.
+    ``uniform``: this rank's (K, B) jitter ((B,) at K = 1), else drawn
+    from the train state's generator. Metrics are stacked to (K,), scalars
+    at K = 1, as the JAX package's step gives them.
+
+    The first call attaches the flat gradient buffer and broadcasts rank
+    0's train state. The backend picks the dispatch, which the step
+    states in ``graphed``: with NCCL on CUDA the K steps and their
+    all-reduces are one CUDA graph (``GraphedSteps``: the first dispatch
+    eager, which also brings up NCCL's communicator before the capture);
+    with gloo, which a graph cannot capture (it stages through the host),
+    the K steps run eagerly."""
+
+    def __init__(self, net: NetworkApply, spec: ReplaySpec,
+                 optim: OptimConfig, use_double: bool, mesh: Mesh,
+                 steps: int):
+        if steps < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1; got {steps}")
+        self.mesh, self.steps = mesh, steps
+        self.reduce = GradMean(mesh)
+        body = _make_step_body(net, spec, optim, use_double,
+                               reduce=self.reduce)
+        self.graphed = mesh.backend == "nccl"
+        self._dispatch = (GraphedSteps(body, steps, spec.batch_size)
+                          if self.graphed else eager_steps(body, steps))
+        self._started = False
+
+    def __call__(self, ts: TrainState, rs: ReplayState,
+                 uniform: Optional[torch.Tensor] = None):
+        if not self._started:
+            self.reduce.attach(ts.params)
+            broadcast_train_state(ts, self.mesh)
+            self._started = True
+        if uniform is not None and uniform.dim() == 1:
+            uniform = uniform[None]
+        ts, rs, metrics = self._dispatch(ts, rs, uniform)
+        if self.steps == 1:
+            metrics = {name: v[0] for name, v in metrics.items()}
+        return ts, rs, metrics
+
+
+def make_sharded_learner_step(net: NetworkApply, spec: ReplaySpec,
+                              optim: OptimConfig, use_double: bool,
+                              mesh: Mesh, steps_per_dispatch: int = 1
+                              ) -> ShardedLearnerStep:
+    """The data-parallel step (``ShardedLearnerStep``): the single-device
+    step's sampling, loss and write-back per shard, one all-reduce mean of
+    the gradient, then clip and Adam; the target sync is the single
+    step's, on the replicated step counter."""
+    return ShardedLearnerStep(net, spec, optim, use_double, mesh,
+                              steps_per_dispatch)
+
+
+# -- on-device acting --------------------------------------------------------
+
+
+def _lane_group_size(num_lanes: int, dp: int) -> int:
+    if num_lanes % dp != 0:
+        raise ValueError(
+            f"anakin lanes ({num_lanes}) must divide evenly across the "
+            f"mesh's dp={dp} shards (lanes % dp == 0)")
+    return num_lanes // dp
+
+
+def init_sharded_act_carry(env, spec: ReplaySpec, num_lanes: int, mesh: Mesh,
+                           *, generator: Optional[torch.Generator] = None,
+                           reset_draws: Optional[torch.Tensor] = None):
+    """This rank's carry: fresh episodes in its ``num_lanes / dp`` lanes,
+    reset from ``generator`` (the rank's own) or injected draws."""
+    lps = _lane_group_size(num_lanes, mesh.dp)
+    return init_act_carry(env, spec, lps, generator=generator,
+                          reset_draws=reset_draws)
+
+
+def make_sharded_anakin_act(env, net: NetworkApply, spec: ReplaySpec, *,
+                            mesh: Mesh, num_lanes: int, epsilons,
+                            gamma: float, priority, near_greedy_eps: float,
+                            priority_eta: float = 0.9,
+                            quant_probe_on: bool = True) -> AnakinAct:
+    """This rank's acting segment: lanes ``[s*lps, (s+1)*lps)`` of the
+    ``num_lanes``-wide ladder ``epsilons`` (rank s = ``mesh.rank``), its
+    blocks stamped with those global lane indices. Its blocks go into the
+    rank's own shard (``ActSegment`` over ``sharded_replay_init``'s
+    state), so dp changes where lanes run, never the exploration
+    schedule."""
+    eps = [float(e) for e in epsilons]
+    if len(eps) != num_lanes:
+        raise ValueError(
+            f"need one epsilon per GLOBAL lane: got {len(eps)} for "
+            f"{num_lanes} lanes (the ladder spans all shards)")
+    lps = _lane_group_size(num_lanes, mesh.dp)
+    if lps > spec.num_blocks:
+        raise ValueError(
+            f"per-shard lane group ({lps} = {num_lanes} lanes / "
+            f"dp={mesh.dp}) must be <= num_blocks ({spec.num_blocks}): each "
+            "segment writes one block per lane into the shard's ring, whose "
+            "rows must not alias")
+    s = mesh.rank
+    return AnakinAct(env, net, spec, num_lanes=lps,
+                     epsilons=eps[s * lps:(s + 1) * lps], gamma=gamma,
+                     priority=priority, near_greedy_eps=near_greedy_eps,
+                     priority_eta=priority_eta, quant_probe_on=quant_probe_on,
+                     lane_base=s * lps)
+
+
+def gather_objects(obj, mesh: Mesh) -> list:
+    """Every rank's ``obj`` (picklable), by rank, on every rank: the shards'
+    stats and reports, over the host group."""
+    out = [None] * mesh.dp
+    dist.all_gather_object(out, obj, group=mesh.ctrl_group)
+    return out

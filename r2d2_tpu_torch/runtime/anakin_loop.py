@@ -1,5 +1,5 @@
 """The fused act+train loop of on-device acting, the counterpart of the JAX
-package's ``runtime/anakin_loop.py`` at one device (``mesh.dp`` = 1).
+package's ``runtime/anakin_loop.py``.
 
 The orchestrator (runtime/orchestrator.py) runs actors on host CPUs,
 blocks crossing a queue, weights crossing a weight service. With
@@ -27,6 +27,15 @@ loop's stream between the learner's dispatch and the next segment. Every
 ``telemetry.quant_probe_interval``-th segment the probe runs after it,
 outside the graph; the record gains a ``quant`` block.
 
+With ``mesh.dp`` > 1 every rank runs this loop's acting and learning on
+its own device (runtime/data_parallel.py starts the ranks): rank s acts
+its lane group (lanes ``[s*lps, (s+1)*lps)`` of the global epsilon ladder,
+parallel/sharded.py ``make_sharded_anakin_act``) and writes straight into
+its replay shard, with no separate commit; the learner's step is the
+data-parallel one. Rank 0 decides when to act, train, save and stop and
+announces each to the followers (``Learner.command``); the record's
+``anakin`` block carries the per-shard stats, gathered to rank 0.
+
 Host work is bookkeeping at segment cadence (N blocks, N * L env steps at
 a time): ring accounting, the rate limiter, the metrics, checkpoints and
 replay snapshots (``runtime.snapshot_interval``, the ``recovery`` block).
@@ -42,16 +51,25 @@ from typing import Callable, Optional
 
 import torch
 
-from r2d2_tpu_torch.actor.anakin import ActSegment, AnakinAct, init_act_carry
+from r2d2_tpu_torch.actor.anakin import ActSegment
 from r2d2_tpu_torch.actor.policy import InferenceTwin
 from r2d2_tpu_torch.config import Config, apex_epsilon
 from r2d2_tpu_torch.envs.factory import create_device_env
 from r2d2_tpu_torch.models.network import (NetworkApply,
                                            make_inference_bundle)
+from r2d2_tpu_torch.parallel.mesh import Mesh
+from r2d2_tpu_torch.parallel.sharded import (gather_objects,
+                                             init_sharded_act_carry,
+                                             make_sharded_anakin_act,
+                                             shard_seed)
 from r2d2_tpu_torch.telemetry.quant import QuantStats
-from r2d2_tpu_torch.runtime.learner_loop import Learner
+from r2d2_tpu_torch.runtime.data_parallel import data_parallel
+from r2d2_tpu_torch.runtime.learner_loop import OP_USER, Learner
 from r2d2_tpu_torch.runtime.metrics import TrainMetrics
 from r2d2_tpu_torch.utils.device import configure_numerics, resolve_device
+
+OP_ACT = OP_USER            # rank 0's command: a segments at version b
+OP_STATS = OP_USER + 1      # gather every shard's stats to rank 0
 
 
 class AnakinStack:
@@ -81,33 +99,126 @@ class AnakinStack:
         self.metrics.close()
 
 
+class _FusedParts:
+    """What every rank of the fused loop builds on its device: the env,
+    the network, the learner (data-parallel with a mesh), this rank's
+    acting segment over its replay shard and, at a quantized inference
+    dtype, the twin the segment acts with."""
+
+    def __init__(self, cfg: Config, device: torch.device,
+                 mesh: Optional[Mesh], metrics: Optional[TrainMetrics]):
+        num_lanes = cfg.actor.anakin_lanes
+        self.env = env = create_device_env(cfg.env, device)
+        self.net = net = NetworkApply(env.action_dim, cfg.network,
+                                      cfg.env.frame_stack,
+                                      cfg.env.frame_height,
+                                      cfg.env.frame_width, device)
+        self.learner = learner = Learner(cfg, net, metrics=metrics,
+                                         mesh=mesh)
+        spec = learner.spec
+        # the ladder spans the global lane count whatever the mesh: dp
+        # changes where lanes run, never the exploration schedule
+        epsilons = [apex_epsilon(i, num_lanes, cfg.actor.base_eps,
+                                 cfg.actor.eps_alpha)
+                    for i in range(num_lanes)]
+        one = mesh or Mesh(dp=1, rank=0, device=device, backend="")
+        act = make_sharded_anakin_act(
+            env, net, spec, mesh=one, num_lanes=num_lanes,
+            epsilons=epsilons, gamma=cfg.optim.gamma,
+            priority=cfg.actor.anakin_priority,
+            near_greedy_eps=cfg.actor.near_greedy_eps,
+            priority_eta=cfg.optim.priority_eta, quant_probe_on=False)
+        generator = torch.Generator(device=device).manual_seed(
+            shard_seed(cfg.runtime.seed + 17, one.rank))
+        carry = init_sharded_act_carry(env, spec, num_lanes, one,
+                                       generator=generator)
+        self.quant = cfg.network.inference_dtype != "f32"
+        self.twin, self.adopted = None, 1
+        self.twin_ms: list = []
+        self.quant_stats: Optional[QuantStats] = None
+        if self.quant:
+            # the publication at stamp 1, as a weight service starts
+            with torch.no_grad():
+                self.twin = InferenceTwin(net, make_inference_bundle(
+                    net, learner.train_state.params, 1), device)
+        self.segment = ActSegment(
+            act, self.twin if self.quant else learner.train_state.params,
+            carry, spec, learner.replay_state, generator)
+
+    def act(self, wv: int) -> None:
+        """One segment at pseudo publish count ``wv``: the twin rebuilt
+        from the learner's weights when the count has ticked, into the
+        storage the graph reads (its copies queue on this stream behind
+        the learner's dispatch), then the segment."""
+        if self.quant and self.adopted != wv:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                self.twin.load_(make_inference_bundle(
+                    self.net, self.learner.train_state.params, wv))
+            self.twin_ms.append((time.perf_counter() - t0) * 1e3)
+            self.adopted = wv
+            if self.quant_stats is not None:
+                self.quant_stats.on_stamp(wv)
+        self.segment.run(wv)
+        self.learner.shard_blocks += self.segment.act.num_lanes
+
+
+def follow_anakin(cfg: Config, mesh: Mesh) -> None:
+    """A follower rank of the fused loop: its parts, then rank 0's
+    commands (act, gather the stats, and the learner's own) until the
+    stop."""
+    parts = _FusedParts(cfg, mesh.device, mesh, None)
+
+    def act(n: int, wv: int) -> None:
+        for _ in range(n):
+            parts.act(wv)
+
+    try:
+        parts.learner.follow({
+            OP_ACT: act,
+            OP_STATS: lambda a, b: gather_objects(
+                parts.segment.take_stats(), mesh)})
+    finally:
+        parts.learner.stop_background()
+
+
 def run_anakin_train(cfg: Config, *, max_training_steps: Optional[int] = None,
                      max_seconds: Optional[float] = None, device=None,
                      log_fn: Optional[Callable[[dict], None]] = None,
                      dispatch_hook: Optional[Callable[[AnakinStack], None]]
-                     = None) -> AnakinStack:
+                     = None, mesh_devices=None, mesh_backend=None
+                     ) -> AnakinStack:
     """Run the fused loop until ``max_training_steps`` learner steps
     (optim.training_steps) or ``max_seconds``; returns the stack, closed,
     its learner holding the final state: the contract of
     ``orchestrator.train``, which delegates here when ``actor.on_device``
     is set. ``device``: CUDA by default (raises without one).
     ``dispatch_hook`` is called after every learner dispatch with the
-    stack."""
+    stack. ``mesh.dp`` > 1: this process is rank 0 of the ranks
+    runtime/data_parallel.py starts (``mesh_devices``/``mesh_backend`` as
+    ``data_parallel`` takes them)."""
     if not cfg.actor.on_device:
         raise ValueError("run_anakin_train requires actor.on_device=True")
     device = resolve_device(device)
     configure_numerics()
+    with data_parallel(cfg, device, mesh_devices, mesh_backend) as mesh:
+        return _lead(cfg, mesh.device if mesh else device, mesh,
+                     max_training_steps, max_seconds, log_fn, dispatch_hook)
+
+
+def _lead(cfg: Config, device: torch.device, mesh: Optional[Mesh],
+          max_training_steps, max_seconds, log_fn, dispatch_hook
+          ) -> AnakinStack:
+    """Rank 0's loop (the only rank's on one device)."""
     num_lanes = cfg.actor.anakin_lanes
-    env = create_device_env(cfg.env, device)
-    net = NetworkApply(env.action_dim, cfg.network, cfg.env.frame_stack,
-                       cfg.env.frame_height, cfg.env.frame_width, device)
+    dp = mesh.dp if mesh is not None else 1
     metrics = TrainMetrics(0, cfg.runtime.save_dir,
                            resume=bool(cfg.runtime.resume))
-    learner = Learner(cfg, net, metrics=metrics)
+    parts = _FusedParts(cfg, device, mesh, metrics)
+    learner, segment = parts.learner, parts.segment
     if cfg.runtime.snapshot_interval > 0:
         metrics.set_recovery(learner.recovery_block)
-    spec = learner.spec
-    seg_steps = spec.block_length          # learning steps a lane-block
+    seg_steps = learner.spec.block_length  # learning steps a lane-block
     pub_interval = max(cfg.runtime.weight_publish_interval, 1)
 
     def publish_count() -> int:
@@ -116,60 +227,32 @@ def run_anakin_train(cfg: Config, *, max_training_steps: Optional[int] = None,
         # (1 = the initial weights)
         return 1 + learner.training_steps // pub_interval
 
-    epsilons = [apex_epsilon(i, num_lanes, cfg.actor.base_eps,
-                             cfg.actor.eps_alpha) for i in range(num_lanes)]
-    act = AnakinAct(env, net, spec, num_lanes=num_lanes, epsilons=epsilons,
-                    gamma=cfg.optim.gamma,
-                    priority=cfg.actor.anakin_priority,
-                    near_greedy_eps=cfg.actor.near_greedy_eps,
-                    priority_eta=cfg.optim.priority_eta,
-                    quant_probe_on=False)
-    generator = torch.Generator(device=device).manual_seed(
-        cfg.runtime.seed + 17)
-    carry = init_act_carry(env, spec, num_lanes, generator=generator)
-    quant = cfg.network.inference_dtype != "f32"
     probe_interval = cfg.telemetry.quant_probe_interval
-    twin, quant_stats, adopted = None, None, {"pub": 1}
-    if quant:
-        # the publication at stamp 1, as a weight service starts
-        with torch.no_grad():
-            twin = InferenceTwin(net, make_inference_bundle(
-                net, learner.train_state.params, 1), device)
-        quant_stats = QuantStats(cfg.network.inference_dtype, probe_interval)
+    quant_stats = None
+    if parts.quant:
+        quant_stats = parts.quant_stats = QuantStats(
+            cfg.network.inference_dtype, probe_interval)
         quant_stats.on_stamp(1)
         metrics.set_quant(quant_stats.interval_block)
-    segment = ActSegment(act, twin if quant else learner.train_state.params,
-                         carry, spec, learner.replay_state, generator)
     stack = AnakinStack(cfg, learner, metrics, segment)
     stack.quant_stats = quant_stats
+    stack.twin_ms = parts.twin_ms
     segments_since_flush = 0
     segments = 0
-
-    def adopt_twin(pc: int) -> None:
-        """Rebuild the twin from the learner's weights when the pseudo
-        publish count has ticked, into the storage the graph reads; the
-        copies queue on this stream behind the learner's dispatch."""
-        if not quant or adopted["pub"] == pc:
-            return
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            twin.load_(make_inference_bundle(net, learner.train_state.params,
-                                             pc))
-        stack.twin_ms.append((time.perf_counter() - t0) * 1e3)
-        adopted["pub"] = pc
-        quant_stats.on_stamp(pc)
 
     def act_segment() -> None:
         nonlocal segments_since_flush, segments
         t0 = time.time()
         wv = publish_count()
-        adopt_twin(wv)
-        stack.segment.run(wv)
+        if mesh is not None:
+            learner.command(OP_ACT, 1, wv)
+        parts.act(wv)
         segments += 1
-        if quant and probe_interval > 0 and segments % probe_interval == 0:
-            probe = stack.segment.probe()
+        if (parts.quant and probe_interval > 0
+                and segments % probe_interval == 0):
+            probe = segment.probe()
             quant_stats.on_probe(probe["quant_dq"], probe["quant_agree"],
-                                 lanes=num_lanes)
+                                 lanes=num_lanes // dp)
         for _ in range(num_lanes):
             learner.ring.advance(seg_steps, wv)
             metrics.on_block(seg_steps, None)
@@ -183,16 +266,23 @@ def run_anakin_train(cfg: Config, *, max_training_steps: Optional[int] = None,
         if not segments_since_flush:
             return
         stats = segment.take_stats()
-        reported = int(stats["reported_episodes"])
-        metrics.on_episodes(reported, stats["reported_return_sum"])
-        env_steps = segments_since_flush * num_lanes * seg_steps
+        shards = [stats]
+        if mesh is not None:
+            learner.command(OP_STATS)
+            shards = gather_objects(stats, mesh)
+        reported = [int(s["reported_episodes"]) for s in shards]
+        returns = [s["reported_return_sum"] for s in shards]
+        metrics.on_episodes(sum(reported), sum(returns))
+        env_steps = [int(s["env_steps"]) for s in shards]
+        lo = min(env_steps)
         metrics.set_anakin({
-            "dp": 1, "lanes_per_shard": num_lanes,
-            "shard_env_steps": [env_steps],
-            "shard_episodes": [int(stats["episodes"])],
-            "shard_reported_episodes": [reported],
-            "shard_return_sum": [round(stats["reported_return_sum"], 4)],
-            "shard_imbalance": 1.0,
+            "dp": dp, "lanes_per_shard": num_lanes // dp,
+            "shard_env_steps": env_steps,
+            "shard_episodes": [int(s["episodes"]) for s in shards],
+            "shard_reported_episodes": reported,
+            "shard_return_sum": [round(r, 4) for r in returns],
+            "shard_imbalance": (round(max(env_steps) / lo, 4) if lo > 0
+                                else None),
         })
         segments_since_flush = 0
 

@@ -32,9 +32,12 @@ def _cpu_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 def save_checkpoint(save_dir: str, game: str, index: int, player: int,
                     train_state, env_steps: int,
-                    config_json: Optional[str] = None) -> str:
+                    config_json: Optional[str] = None,
+                    generators: Optional[List[torch.Tensor]] = None) -> str:
     """Write ``train_state`` (a ``TrainState``) as checkpoint ``index``;
-    returns its path."""
+    returns its path. ``generators``: every data-parallel rank's sampling
+    generator state, by rank (rank 0 writes the replicated state and
+    these)."""
     path = _checkpoint_path(save_dir, game, index, player)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {
@@ -45,6 +48,8 @@ def save_checkpoint(save_dir: str, game: str, index: int, player: int,
         "env_steps": int(env_steps),
         "generator": train_state.generator.get_state(),
     }
+    if generators is not None:
+        payload["generators"] = list(generators)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -138,11 +143,13 @@ def load_pretrain(path: str, module: torch.nn.Module) -> None:
     _load_module(module, state, path)
 
 
-def resume_training_state(path: str, train_state) -> int:
+def resume_training_state(path: str, train_state, rank: int = 0) -> int:
     """Full resume into ``train_state`` in place: params, target params,
-    optimizer state, step and the sampling generator. Returns env_steps.
-    Call before the first step is captured: the optimizer's load replaces
-    its state tensors."""
+    optimizer state, step and the sampling generator (data-parallel rank
+    ``rank``'s, where the checkpoint holds every rank's; a rank the
+    checkpoint has none for keeps its own). Returns env_steps. Call before
+    the first step is captured: the optimizer's load replaces its state
+    tensors."""
     restored = restore_checkpoint(path)
     _load_module(train_state.params, restored["params"], path)
     if train_state.target_params is not train_state.params:
@@ -151,8 +158,18 @@ def resume_training_state(path: str, train_state) -> int:
     train_state.opt.load_state_dict(restored["opt_state"])
     train_state.step = int(restored["step"])
     train_state.step_count.fill_(train_state.step)
+    generators = restored.get("generators")
+    if generators is not None and rank < len(generators):
+        state = generators[rank]
+    elif rank == 0:
+        state = restored["generator"]
+    else:
+        logging.getLogger(__name__).warning(
+            "%s holds no sampling generator for rank %d; it keeps its own",
+            path, rank)
+        return int(restored["env_steps"])
     try:
-        train_state.generator.set_state(restored["generator"])
+        train_state.generator.set_state(state)
     except RuntimeError:
         # a generator of another device type keeps a state of another size
         logging.getLogger(__name__).warning(
@@ -161,16 +178,17 @@ def resume_training_state(path: str, train_state) -> int:
     return int(restored["env_steps"])
 
 
-def apply_restore(runtime_cfg, train_state) -> int:
+def apply_restore(runtime_cfg, train_state, rank: int = 0) -> int:
     """The one resume/warm-start policy: ``runtime.resume`` restores the
-    full state, ``runtime.pretrain`` the weights (and copies them into the
-    target); neither is a no-op. Returns the resumed env_steps."""
+    full state (rank ``rank``'s generator), ``runtime.pretrain`` the
+    weights (and copies them into the target); neither is a no-op.
+    Returns the resumed env_steps."""
     if runtime_cfg.resume and runtime_cfg.pretrain:
         raise ValueError(
             "runtime.resume and runtime.pretrain are mutually exclusive: "
             "resume restores the full training state")
     if runtime_cfg.resume:
-        return resume_training_state(runtime_cfg.resume, train_state)
+        return resume_training_state(runtime_cfg.resume, train_state, rank)
     if runtime_cfg.pretrain:
         load_pretrain(runtime_cfg.pretrain, train_state.params)
         if train_state.target_params is not train_state.params:

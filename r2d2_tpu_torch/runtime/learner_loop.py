@@ -39,6 +39,22 @@ time bound ends with a short device tail and the step counter tells the
 truth. Losses stay on the device until ``flush_metrics`` (one sync per
 log interval) moves them to the metrics and to ``losses``.
 
+Data parallel (``mesh.dp`` > 1, device placement; a ``Mesh`` from
+parallel/mesh.py): each rank's learner holds one replay shard and a replica
+of the train state, and the ranks run in lockstep by construction. Rank 0
+decides everything (what to ingest, when to step, save and stop) and
+announces each action to its followers with one small control message on
+the host group (``command``) before the action's collectives; a follower
+runs ``follow()``, which issues the same collectives in the same order.
+Blocks go round-robin over the shards (``make_sharded_replay_add`` per
+block, ``make_sharded_replay_add_many`` a staged batch, whose broadcast
+the main thread issues at commit time); the gate also waits for a block in
+every shard. Publication, checkpoints, metrics and the log are rank 0's:
+the params are replicated bit-equal, so nothing is lost. A checkpoint
+holds every rank's sampling generator state. No thread but the main one
+issues a collective. Host placement takes no dp path, as in the JAX
+package.
+
 Crash recovery (``runtime.snapshot_interval`` > 0, device placement): at
 each interval boundary the learner captures the replay between dispatches
 (replay/snapshot.py: copies into pinned memory on the learner's stream,
@@ -59,6 +75,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from r2d2_tpu_torch.config import Config
 from r2d2_tpu_torch.learner.train_step import (create_train_state,
@@ -66,6 +83,13 @@ from r2d2_tpu_torch.learner.train_step import (create_train_state,
                                                make_learner_step,
                                                make_multi_learner_step)
 from r2d2_tpu_torch.models.network import NetworkApply
+from r2d2_tpu_torch.ops.launch_counts import launch_counts
+from r2d2_tpu_torch.parallel.sharded import (gather_objects,
+                                             make_sharded_learner_step,
+                                             make_sharded_replay_add_many,
+                                             own_blocks, shard_seed,
+                                             sharded_replay_init,
+                                             state_digest)
 from r2d2_tpu_torch.replay.device_replay import (WRITTEN, replay_add,
                                                  replay_add_many, replay_init)
 from r2d2_tpu_torch.replay.host_replay import HostReplay, batch_layout
@@ -73,7 +97,7 @@ from r2d2_tpu_torch.replay.snapshot import (SnapshotWriter, capture_plain,
                                             load_snapshot, restore_plain)
 from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, RingAccountant,
                                            SampleBatch, batch_fields,
-                                           empty_block_np)
+                                           empty_block_np, stack_blocks)
 from r2d2_tpu_torch.runtime.checkpoint import (apply_restore,
                                                prune_checkpoints,
                                                save_checkpoint)
@@ -86,6 +110,12 @@ TIMINGS_KEPT = 4096         # per-batch sample and copy times kept
 LOSSES_KEPT = 100_000       # flushed per-step losses kept in ``losses``
 MAX_AHEAD = 2               # dispatches the host may run ahead of the card
 INGEST_QUEUE = 2            # staged batches waiting for their commit
+# rank 0's commands to its followers (data parallel): (op, a, b)
+OP_ADD = 1                  # a blocks starting at shard b
+OP_STEP = 2                 # one dispatch
+OP_SAVE = 3                 # gather the sampling generators (rank 0 saves)
+OP_STOP = 4                 # gather the final reports and leave
+OP_USER = 16                # and up: a caller's handlers (the fused loop)
 _TORCH_DTYPES = {np.uint8: torch.uint8, np.int32: torch.int32,
                  np.float32: torch.float32}
 
@@ -181,23 +211,46 @@ class _Slot:
 class Learner:
     def __init__(self, cfg: Config, net: NetworkApply,
                  seed: Optional[int] = None, *, player_idx: int = 0,
-                 metrics: Optional[TrainMetrics] = None):
+                 metrics: Optional[TrainMetrics] = None, mesh=None):
         """``seed``: runtime.seed by default, offset by 1000 a player.
         ``metrics``: an in-memory ``TrainMetrics`` by default (no files).
         ``runtime.resume``/``pretrain`` load here, before any step is
-        captured."""
+        captured. ``mesh``: this rank's ``parallel.mesh.Mesh`` of a
+        data-parallel run (device placement; rank 0 drives, the others
+        ``follow()``); None = one device."""
         configure_numerics()
         self.cfg = cfg
         self.net = net
         self.player_idx = player_idx
         self.device = net.device
         self.spec = ReplaySpec.from_config(cfg, self.device)
+        if mesh is not None and cfg.replay.placement == "host":
+            raise ValueError("replay.placement='host' takes no data-parallel"
+                             " path: build the Learner without a mesh")
+        if mesh is None and cfg.mesh.dp > 1 \
+                and cfg.replay.placement == "device":
+            raise ValueError(
+                f"mesh.dp={cfg.mesh.dp}: a data-parallel Learner needs its "
+                "rank's Mesh (parallel/mesh.py make_mesh; cli.train "
+                "--mesh.dp=N starts the ranks)")
+        if mesh is not None and cfg.runtime.snapshot_interval > 0:
+            raise ValueError(
+                "runtime.snapshot_interval with a data-parallel mesh: "
+                "snapshots of a sharded replay are ROADMAP item A.4 (not "
+                "ported)")
+        self.mesh = mesh
         seed = (cfg.runtime.seed if seed is None else seed) \
             + 1000 * player_idx
         use_double = cfg.network.use_double
         self.train_state = create_train_state(net, cfg.optim, seed,
                                               use_double)
-        resumed_env_steps = apply_restore(cfg.runtime, self.train_state)
+        rank = 0
+        if mesh is not None:
+            rank = mesh.rank
+            self.train_state.generator.manual_seed(shard_seed(seed + 1,
+                                                              rank))
+        resumed_env_steps = apply_restore(cfg.runtime, self.train_state,
+                                          rank=rank)
         self.metrics = metrics or TrainMetrics(player_idx, log_dir=None)
         # wired by the orchestrator: publish(params module)
         self.publish: Optional[Callable] = None
@@ -226,6 +279,17 @@ class Learner:
             # (on CUDA) its copy's device ms
             self.timings = {"sample_ms": deque(maxlen=TIMINGS_KEPT),
                             "h2d_ms": deque(maxlen=TIMINGS_KEPT)}
+        elif mesh is not None:
+            self.replay_state = sharded_replay_init(self.spec, mesh)
+            # rank 0 accounts for every shard: dp rings of num_blocks
+            self.ring = RingAccountant(self.spec.num_blocks * mesh.dp)
+            self.steps_per_dispatch = \
+                cfg.runtime.resolved_steps_per_dispatch(self.device)
+            self._step_fn = make_sharded_learner_step(
+                net, self.spec, cfg.optim, use_double, mesh,
+                self.steps_per_dispatch)
+            self._sharded_add_many = make_sharded_replay_add_many(self.spec,
+                                                                  mesh)
         else:
             self.replay_state = replay_init(self.spec, self.device)
             self.ring = RingAccountant(self.spec.num_blocks)
@@ -239,6 +303,14 @@ class Learner:
                 self._step_fn = make_learner_step(net, self.spec, cfg.optim,
                                                   use_double)
         self.env_steps = resumed_env_steps
+        # data parallel: the shard the next block goes to (rank 0), the
+        # blocks written into this rank's shard, the final reports of every
+        # rank (rank 0, after the stop) and whether a collective failed
+        self._next_shard = 0
+        self.shard_blocks = 0
+        self.shard_reports: Optional[List[dict]] = None
+        self._mesh_failed = False
+        self._followers_released = False
         # pipelined ingestion (device placement, K > 1): the stager thread,
         # its slots and queue, and what it has popped but not committed
         self._ingest_k = (1 if self.host_replay is not None else min(
@@ -334,6 +406,9 @@ class Learner:
         learning = int(np.asarray(block.learning_steps).sum())
         if self.host_replay is not None:
             self.host_replay.add(block)     # advances the shared accountant
+        elif self.mesh is not None:
+            self._add_to_shards(stack_blocks([block]), 1)
+            self.ring.advance(learning, int(np.asarray(block.weight_version)))
         else:
             replay_add(self.spec, self.replay_state, block)
             self.ring.advance(learning, int(np.asarray(block.weight_version)))
@@ -423,8 +498,11 @@ class Learner:
         if staging.cuda:
             current = torch.cuda.current_stream(self.device)
             current.wait_event(slot.copied)
-        replay_add_many(self.spec, self.replay_state,
-                        staging.blocks(slot, k))
+        if self.mesh is not None:
+            self._add_to_shards(staging.blocks(slot, k), k)
+        else:
+            replay_add_many(self.spec, self.replay_state,
+                            staging.blocks(slot, k))
         if staging.cuda:
             slot.consumed = torch.cuda.Event()
             slot.consumed.record(current)
@@ -562,13 +640,96 @@ class Learner:
                    ) -> bool:
         """The training gate's condition, shared by ``ready`` (committed
         blocks) and the rate limiter (committed and staged)."""
+        if (self.mesh is not None
+                and self.ring.total_adds + extra_blocks < self.mesh.dp):
+            return False
         return (self.ring.buffer_steps + extra_steps
                 >= self.cfg.replay.learning_starts)
 
     @property
     def ready(self) -> bool:
-        """Training gate: replay.learning_starts buffered learning steps."""
+        """Training gate: replay.learning_starts buffered learning steps;
+        under a data-parallel mesh also a block in every shard (sampling
+        an empty shard's tree gives NaN importance weights)."""
         return self._gate_open()
+
+    # -- data parallel: rank 0's commands and the followers' loop --
+
+    def command(self, op: int, a: int = 0, b: int = 0) -> None:
+        """Rank 0: announce an action to the followers, ahead of its
+        collectives."""
+        if self._mesh_failed:
+            raise RuntimeError("a collective of this data-parallel run "
+                               "failed earlier")
+        msg = torch.tensor([op, a, b], dtype=torch.int64)
+        try:
+            dist.broadcast(msg, src=0, group=self.mesh.ctrl_group)
+        except Exception:
+            self._mesh_failed = True
+            raise
+
+    def _add_to_shards(self, blocks: Block, k: int) -> None:
+        """Rank 0: K stacked blocks round-robin over the shards from
+        ``_next_shard``, announced first."""
+        self.command(OP_ADD, k, self._next_shard)
+        self._shard_add(blocks, k, self._next_shard)
+        self._next_shard = (self._next_shard + k) % self.mesh.dp
+
+    def _shard_add(self, blocks: Optional[Block], k: int, start: int
+                   ) -> None:
+        try:
+            self._sharded_add_many(self.replay_state, blocks, start, k)
+        except Exception:
+            self._mesh_failed = True
+            raise
+        self.shard_blocks += len(own_blocks(k, start, self.mesh))
+
+    def _report(self) -> dict:
+        """This rank's part of the final reports."""
+        return {"rank": self.mesh.rank, "device": str(self.device),
+                "steps": self.train_state.step,
+                "shard_blocks": self.shard_blocks,
+                "state_sha256": state_digest(self.train_state),
+                "launches": launch_counts()}
+
+    def release_followers(self) -> None:
+        """Rank 0: the stop, once; every rank's final report is gathered
+        into ``shard_reports``. Skipped after a failed collective (the
+        launcher kills the followers then)."""
+        if (self.mesh is None or not self.mesh.leader
+                or self._followers_released or self._mesh_failed):
+            return
+        self._followers_released = True
+        self.command(OP_STOP)
+        self.shard_reports = gather_objects(self._report(), self.mesh)
+
+    def follow(self, handlers: Optional[dict] = None) -> int:
+        """A follower's loop: run rank 0's commands, issuing the same
+        collectives in the same order, until its stop. ``handlers``: the
+        caller's ops (>= OP_USER) as ``op -> fn(a, b)``. Returns the
+        learner steps taken."""
+        if self.mesh is None or self.mesh.leader:
+            raise ValueError("follow() is a follower rank's loop")
+        handlers = handlers or {}
+        msg = torch.zeros(3, dtype=torch.int64)
+        while True:
+            dist.broadcast(msg, src=0, group=self.mesh.ctrl_group)
+            op, a, b = msg.tolist()
+            if op == OP_ADD:
+                self._shard_add(None, a, b)
+            elif op == OP_STEP:
+                self._dispatch()
+            elif op == OP_SAVE:
+                gather_objects(self.train_state.generator.get_state(),
+                               self.mesh)
+            elif op == OP_STOP:
+                self.shard_reports = gather_objects(self._report(),
+                                                    self.mesh)
+                return self.train_state.step
+            elif op in handlers:
+                handlers[op](a, b)
+            else:
+                raise RuntimeError(f"unknown command {op} from rank 0")
 
     @property
     def training_steps(self) -> int:
@@ -583,21 +744,10 @@ class Learner:
         placement, whose host replay draws its own. Publishes and saves
         when an interval boundary falls inside the dispatch."""
         prev = self.train_state.step
-        if self.host_replay is not None:
-            if uniform is not None:
-                raise ValueError("host placement samples on the host: no "
-                                 "jitter to inject")
-            metrics = self._host_step_once()
-        else:
-            self.train_state, self.replay_state, metrics = self._step_fn(
-                self.train_state, self.replay_state, uniform)
+        if self.mesh is not None:
+            self.command(OP_STEP)
+        metrics = self._dispatch(uniform)
         self._pending_losses.append(metrics["loss"])
-        if self.device.type == "cuda":
-            done = torch.cuda.Event(blocking=True)
-            done.record()
-            self._in_flight.append(done)
-            while len(self._in_flight) > MAX_AHEAD:
-                self._in_flight.popleft().synchronize()
         step = self.train_state.step
         rt = self.cfg.runtime
         if (self.publish is not None
@@ -613,6 +763,30 @@ class Learner:
                 and step // rt.snapshot_interval
                 > prev // rt.snapshot_interval):
             self.snapshot_replay()
+        return metrics
+
+    def _dispatch(self, uniform: Optional[torch.Tensor] = None) -> dict:
+        """One dispatch of learner steps, at most MAX_AHEAD ahead of the
+        card."""
+        if self.host_replay is not None:
+            if uniform is not None:
+                raise ValueError("host placement samples on the host: no "
+                                 "jitter to inject")
+            metrics = self._host_step_once()
+        else:
+            try:
+                self.train_state, self.replay_state, metrics = \
+                    self._step_fn(self.train_state, self.replay_state,
+                                  uniform)
+            except Exception:
+                self._mesh_failed = self.mesh is not None
+                raise
+        if self.device.type == "cuda":
+            done = torch.cuda.Event(blocking=True)
+            done.record()
+            self._in_flight.append(done)
+            while len(self._in_flight) > MAX_AHEAD:
+                self._in_flight.popleft().synchronize()
         return metrics
 
     # -- crash recovery --
@@ -685,10 +859,16 @@ class Learner:
         runtime.keep_checkpoints."""
         t0 = time.perf_counter()
         rt = self.cfg.runtime
+        generators = None
+        if self.mesh is not None:
+            self.command(OP_SAVE)
+            generators = gather_objects(
+                self.train_state.generator.get_state(), self.mesh)
         self._last_saved_step = self.train_state.step
         path = save_checkpoint(rt.save_dir, self.cfg.env.game_name, index,
                                self.player_idx, self.train_state,
-                               self.env_steps, config_json=self.cfg.to_json())
+                               self.env_steps, config_json=self.cfg.to_json(),
+                               generators=generators)
         prune_checkpoints(rt.save_dir, self.cfg.env.game_name,
                           self.player_idx, rt.keep_checkpoints)
         self.save_ms.append((time.perf_counter() - t0) * 1e3)
@@ -794,6 +974,7 @@ class Learner:
         if self._snap_writer is not None:
             self._snap_writer.stop(join_timeout)
         stuck += self._stop_stager(join_timeout)
+        self.release_followers()
         if self.host_replay is None:
             if stuck:
                 logging.getLogger(__name__).warning(

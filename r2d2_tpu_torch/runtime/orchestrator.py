@@ -51,6 +51,7 @@ from r2d2_tpu_torch.runtime.actor_loop import (instrument_block_sink,
                                                make_actor_env,
                                                make_actor_policy)
 from r2d2_tpu_torch.runtime.actor_main import actor_process_main
+from r2d2_tpu_torch.runtime.data_parallel import data_parallel
 from r2d2_tpu_torch.runtime.feeder import (BlockQueue, HeartbeatBoard,
                                            IngestStallDetector,
                                            RingRecoveryScheduler,
@@ -72,7 +73,7 @@ class PlayerStack:
     actors."""
 
     def __init__(self, cfg: Config, player_idx: int, action_dim: int,
-                 device):
+                 device, mesh=None):
         self.cfg = cfg
         self.player_idx = player_idx
         self.net = NetworkApply(action_dim, cfg.network, cfg.env.frame_stack,
@@ -81,7 +82,7 @@ class PlayerStack:
         self.metrics = TrainMetrics(player_idx, cfg.runtime.save_dir,
                                     resume=bool(cfg.runtime.resume))
         self.learner = Learner(cfg, self.net, player_idx=player_idx,
-                               metrics=self.metrics)
+                               metrics=self.metrics, mesh=mesh)
         if cfg.runtime.snapshot_interval > 0:
             self.metrics.set_recovery(self.learner.recovery_block)
         self.n_slots = cfg.actor.num_actors
@@ -391,7 +392,8 @@ class PlayerStack:
 def train(cfg: Config, *, max_training_steps: Optional[int] = None,
           max_seconds: Optional[float] = None, actor_mode: str = "thread",
           device=None, log_fn: Optional[Callable[[dict], None]] = None,
-          dispatch_hook: Optional[Callable[[PlayerStack], None]] = None
+          dispatch_hook: Optional[Callable[[PlayerStack], None]] = None,
+          mesh_devices=None, mesh_backend: Optional[str] = None
           ) -> PlayerStack:
     """Run the system until ``max_training_steps`` learner steps
     (optim.training_steps), ``max_seconds``, or SIGTERM/SIGINT; returns
@@ -400,13 +402,22 @@ def train(cfg: Config, *, max_training_steps: Optional[int] = None,
     is called after every learner dispatch with the stack. With
     ``actor.on_device`` the fused act+train loop runs instead
     (runtime/anakin_loop.py), before any env, actor, queue or weight
-    service is built; ``actor_mode`` has no meaning there."""
+    service is built; ``actor_mode`` has no meaning there.
+
+    ``mesh.dp`` > 1: this process is rank 0 of a data-parallel run
+    (runtime/data_parallel.py starts the other ranks, one GPU each by
+    default; ``mesh_devices``/``mesh_backend`` place them explicitly, as
+    ``parallel.mesh.make_mesh`` takes them). It keeps the actors, the
+    weight service and the log; a stop (deadline, signal, max steps)
+    reaches every rank through its commands, and every rank is gone when
+    this returns or raises."""
     if cfg.actor.on_device:
         from r2d2_tpu_torch.runtime import anakin_loop
         return anakin_loop.run_anakin_train(
             cfg, max_training_steps=max_training_steps,
             max_seconds=max_seconds, device=device, log_fn=log_fn,
-            dispatch_hook=dispatch_hook)
+            dispatch_hook=dispatch_hook, mesh_devices=mesh_devices,
+            mesh_backend=mesh_backend)
     if actor_mode not in ("thread", "process"):
         raise ValueError(f"actor_mode must be 'thread' or 'process'; got "
                          f"{actor_mode!r}")
@@ -415,6 +426,16 @@ def train(cfg: Config, *, max_training_steps: Optional[int] = None,
     probe = create_env(cfg.env, seed=cfg.runtime.seed)
     action_dim = probe.action_space.n
     probe.close()
+    with data_parallel(cfg, device, mesh_devices, mesh_backend) as mesh:
+        return _lead(cfg, mesh.device if mesh else device, mesh, action_dim,
+                     max_training_steps, max_seconds, actor_mode, log_fn,
+                     dispatch_hook)
+
+
+def _lead(cfg: Config, device, mesh, action_dim: int, max_training_steps,
+          max_seconds, actor_mode: str, log_fn, dispatch_hook
+          ) -> PlayerStack:
+    """The run's one player on rank 0 (the only rank on one device)."""
     stop = (threading.Event() if actor_mode == "thread"
             else mp.get_context("spawn").Event())
     prev_handlers = {}
@@ -437,7 +458,7 @@ def train(cfg: Config, *, max_training_steps: Optional[int] = None,
                 except (ValueError, OSError):
                     pass
 
-        st = PlayerStack(cfg, 0, action_dim, device)
+        st = PlayerStack(cfg, 0, action_dim, device, mesh=mesh)
         if actor_mode == "thread":
             st.start_actors_threads(stop)
         else:

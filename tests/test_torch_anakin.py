@@ -587,7 +587,7 @@ def test_config_knobs_roundtrip_and_cli():
     assert parse_overrides(Config(), ["--actor.anakin_priority=0.5"]
                            ).actor.anakin_priority == 0.5
     # knobs of parts the port does not have stay unknown fields
-    for arg in ("--mesh.dp=2", "--multiplayer.enabled=true",
+    for arg in ("--mesh.multihost=true", "--multiplayer.enabled=true",
                 "--actor.fault_spec=x"):
         with pytest.raises(SystemExit):
             parse_overrides(Config(), [arg])
