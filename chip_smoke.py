@@ -194,6 +194,32 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      imbalance 1.0, no rank left running (the launch counts of every rank
      of both runs go into the ``kernels`` line as ``sharded_launches``).
      The card's name and power limit are printed beside its numbers.
+ 12. multi-host lockstep training (parallel/multihost.py; one GPU here,
+     so no figure is a multi-host or multi-GPU speed): (a) one controller,
+     an NCCL world of one, at the reference shape (bf16, bench's "fused"
+     path, K=MH_K): the lockstep core with the sharded step (one CUDA
+     graph of K steps, the all-reduce inside) against its eager twin over
+     three dispatches from the same blocks and jitter, bit for bit; the
+     host-placement sharded external-batch step (one CUDA graph of the
+     step, BatchMean's all-reduce inside) against its eager twin over
+     MH_HOST_STEPS host-sampled batches, bit for bit; then
+     train_multihost with thread actors for MH_SECONDS with the rank-0
+     replay snapshot twin on: finite losses, launches those of its steps,
+     seq-updates/s over a synced window beside bench "fused" K=4 of this
+     call, the host ms of an iteration's all-reduce, the snapshot written
+     and loaded into a fresh replay; (b) the scripted lockstep core
+     (tools/mh_check.py) at the small f32 shape, two gloo ranks on the
+     card against two CPU ranks (rtol 1e-4 at two steps), card ranks
+     bit-equal; (c) two controllers, each its own interpreter from the
+     port's launcher, sharing the card over gloo at the reference widths
+     with thread actors, device placement on fused_double and host
+     placement: after MH_RUN_S seconds of training SIGTERM to controller
+     1, both exit 0 on the same iteration and step with bit-equal train
+     states, each shard fed by its own actors, each controller's launches
+     those of its steps, no process left; ms a step and global
+     seq-updates/s printed as gloo staging through one host. Every
+     launch of phase 12 on the card, all controllers, goes into the
+     ``kernels`` line as ``multihost_launches``.
      The script's total time is printed.
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
@@ -304,7 +330,7 @@ ANAKIN_CFG = {"actor.on_device": True, "replay.block_length": 120,
 ANAKIN_ARGS = ["--actor.on_device=true", "--env.game_name=Fake",
                "--replay.capacity=99960", "--replay.block_length=120",
                "--env.episode_len=120", "--network.pallas_lstm=auto"]
-ANAKIN_SECONDS = 30.0              # the fused trainer's run
+ANAKIN_SECONDS = 26.0              # the fused trainer's run
 # card vs CPU on small f32 segments: f32 sums in other orders on the card
 ANAKIN_ATOL = 1e-5
 BACK_TO_BACK = 20                  # launches enqueued ahead of the card
@@ -1829,7 +1855,10 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
                 state.pop("prof").__exit__(None, None, None)
         check("window" in state and "end" in state, f"cli.train {label}: "
               f"only {state['calls']} dispatches, fewer than the profiled "
-              "window or too few to reach the timed window's end")
+              "window or too few to reach the timed window's end (timed "
+              f"window ended at dispatch {state.get('end', (0,) * 4)[3]}, "
+              f"traces taken {len(state.get('tries', []))}, window from "
+              f"dispatch {state.get('window_start')})")
         steps = summary["steps"]
         check(summary["device"].startswith("cuda"), summary["device"])
         check(len(summary["losses"]) == steps
@@ -3404,6 +3433,448 @@ def phase_data_parallel(dev) -> dict:
     return {"nccl": nccl, "loop": loop}
 
 
+MH_K = 4                           # 12(a)'s steps a dispatch
+MH_SECONDS = 16.0                  # 12(a)'s one-controller run
+MH_SNAPSHOT_INTERVAL = 512         # 12(a)'s replay snapshots (the twin)
+MH_SYNC_EVERY = 8                  # 12(a): dispatches between synced marks
+MH_HOST_STEPS = 3                  # 12(a): host-placement graph vs eager
+MH_RUN_S = 24.0                    # each 12(c) run, from its first steps
+MH_START_S = 150.0                 # 12(c): the controllers' start-up bound
+MH_COLLECTIVE_S = 120.0            # 12(c): a collective's wait
+
+
+def _mh_mesh(dev):
+    from r2d2_tpu_torch.config import MeshConfig
+    from r2d2_tpu_torch.parallel.mesh import init_distributed
+    return init_distributed(MeshConfig(multihost=True), dev, "nccl")
+
+
+def phase_mh_core_graph(dev) -> None:
+    """Phase 12(a), first part: the lockstep core of one controller (an
+    NCCL world of one) at the reference shape (bf16, bench's "fused"
+    path, K=MH_K), fed the same four blocks and jitter twice: with the
+    sharded step (one CUDA graph of K steps, the hook's all-reduce inside)
+    and with its eager twin (the same body and hook, no graph). Three
+    dispatches (the graph's eager warm-up, its capture, a replay): losses,
+    grad norms, params and the shard's tree bit-equal, the gate and the
+    counters equal."""
+    import torch
+    from r2d2_tpu_torch.learner.train_step import (_make_step_body,
+                                                   create_train_state,
+                                                   eager_steps)
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.parallel.mesh import close_mesh
+    from r2d2_tpu_torch.parallel.multihost import LockstepCore
+    from r2d2_tpu_torch.parallel.sharded import (GradMean,
+                                                 make_sharded_learner_step,
+                                                 sharded_replay_init)
+    from r2d2_tpu_torch.replay.structs import ReplaySpec
+    from r2d2_tpu_torch.tools import bench
+    cfg = bench.reference_config(**bench.PATHS["fused"])
+    spec = ReplaySpec.from_config(cfg, dev)
+    blocks = bench.synthetic_blocks(cfg, 4, seed=12)
+    mesh = _mh_mesh(dev)
+    try:
+        net = NetworkApply(bench.ACTION_DIM, cfg.network,
+                           cfg.env.frame_stack, cfg.env.frame_height,
+                           cfg.env.frame_width, dev)
+        use_double = cfg.network.use_double
+        graph_step = make_sharded_learner_step(net, spec, cfg.optim,
+                                               use_double, mesh, MH_K)
+        check(graph_step.graphed, "12a: NCCL step is not a graph")
+        reduce = GradMean(mesh)
+        ts_eager = create_train_state(net, cfg.optim, 0, use_double)
+        reduce.attach(ts_eager.params)
+        cores = {
+            "graph": LockstepCore(
+                mesh, create_train_state(net, cfg.optim, 0, use_double),
+                graph_step, MH_K, learning_starts=cfg.replay.learning_starts,
+                ratio=0.0, rs=sharded_replay_init(spec, mesh), spec=spec),
+            "eager": LockstepCore(
+                mesh, ts_eager, eager_steps(_make_step_body(
+                    net, spec, cfg.optim, use_double, reduce=reduce), MH_K),
+                MH_K, learning_starts=cfg.replay.learning_starts, ratio=0.0,
+                rs=sharded_replay_init(spec, mesh), spec=spec)}
+        uniforms = torch.rand((5, MH_K, spec.batch_size),
+                              generator=torch.Generator().manual_seed(12)
+                              ).to(dev)
+        script = blocks + [None]          # ready at the third block
+        dispatches = 0
+        for it, block in enumerate(script):
+            out = {n: c.iterate(block, 0, uniforms[it])
+                   for n, c in cores.items()}
+            check(out["graph"]["info"] == out["eager"]["info"]
+                  and out["graph"]["stepped"] == out["eager"]["stepped"],
+                  f"12a iteration {it}: {out}")
+            if not out["graph"]["stepped"]:
+                continue
+            dispatches += 1
+            g, e = out["graph"]["metrics"], out["eager"]["metrics"]
+            for metric in ("loss", "grad_norm", "mean_q"):
+                check(torch.equal(g[metric], e[metric]),
+                      f"12a dispatch {dispatches}: {metric} "
+                      f"{g[metric].tolist()} vs {e[metric].tolist()}")
+            for (pn, p), q in zip(
+                    cores["graph"].ts.params.named_parameters(),
+                    cores["eager"].ts.params.parameters()):
+                check(torch.equal(p, q), f"12a: param {pn} differs")
+            check(torch.equal(cores["graph"].rs.tree,
+                              cores["eager"].rs.tree), "12a: tree differs")
+        check(dispatches == 3, f"12a: {dispatches} dispatches")
+        check(getattr(graph_step._dispatch, "graph", None) is not None,
+              "12a: the sharded step captured no graph")
+        print(f"12a lockstep core, one NCCL controller, reference shape, "
+              f"fused K={MH_K}: {dispatches} dispatches graph = eager twin "
+              f"bit for bit (losses {g['loss'].tolist()}), the K-step "
+              f"graph captured whole with the all-reduce inside", flush=True)
+        del cores, graph_step, reduce, ts_eager
+        torch.cuda.synchronize()
+    finally:
+        close_mesh()
+
+
+def phase_mh_host_graph(dev) -> dict:
+    """Phase 12(a), host placement: one controller's sharded external-batch
+    step (an NCCL world of one, the reference shape, bench's "host" path),
+    one CUDA graph of the step with BatchMean's weighted all-reduce
+    inside, against its eager twin (make_external_batch_step with the
+    same hook, graphed=False) on the same MH_HOST_STEPS host-sampled
+    batches (the graph's eager warm-up, its capture, a replay): losses,
+    grad norms, mean Q, priorities and params bit-equal, each kernel of
+    the host path launched once a step on each side. Returns the
+    launches."""
+    import torch
+    from r2d2_tpu_torch.learner.train_step import (create_train_state,
+                                                   make_external_batch_step)
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.parallel.mesh import close_mesh
+    from r2d2_tpu_torch.parallel.sharded import (
+        BatchMean, make_sharded_external_batch_step)
+    from r2d2_tpu_torch.replay.structs import ReplaySpec
+    from r2d2_tpu_torch.tools import bench
+    cfg = bench.reference_config(**bench.PATHS[bench.HOST_PATH])
+    spec = ReplaySpec.from_config(cfg, dev)
+    batches = _host_batches(cfg, bench.synthetic_blocks(cfg, 4, seed=13),
+                            MH_HOST_STEPS, seed=13)
+    mesh = _mh_mesh(dev)
+    try:
+        net = NetworkApply(bench.ACTION_DIM, cfg.network,
+                           cfg.env.frame_stack, cfg.env.frame_height,
+                           cfg.env.frame_width, dev)
+        use_double = cfg.network.use_double
+        graph_step = make_sharded_external_batch_step(
+            net, spec, cfg.optim, use_double, mesh)
+        check(graph_step.graphed, "12a host: NCCL step is not a graph")
+        reduce = BatchMean(mesh)
+        ts = {name: create_train_state(net, cfg.optim, 0, use_double)
+              for name in ("graph", "eager")}
+        reduce.attach(ts["eager"].params)
+        steps = {"graph": graph_step,
+                 "eager": make_external_batch_step(
+                     net, spec, cfg.optim, use_double, reduce=reduce,
+                     graphed=False)}
+        _reset_counts()
+        for i, batch in enumerate(batches):
+            m = {}
+            for name, step in steps.items():
+                ts[name], m[name] = step(ts[name], _device_batch(batch, dev))
+            for metric in ("loss", "grad_norm", "mean_q", "priorities"):
+                check(torch.equal(m["graph"][metric], m["eager"][metric]),
+                      f"12a host step {i}: {metric} "
+                      f"{m['graph'][metric].float().max().item()} vs "
+                      f"{m['eager'][metric].float().max().item()}")
+            for (pn, p), q in zip(ts["graph"].params.named_parameters(),
+                                  ts["eager"].params.parameters()):
+                check(torch.equal(p, q), f"12a host step {i}: param {pn} "
+                      "differs")
+        counted = _counts()
+        want = {n: 2 * c for n, c in
+                _want_host_launches(cfg, MH_HOST_STEPS).items()}
+        check(counted == want, f"12a host: launches {counted}, want {want}")
+        check(graph_step._step.graph is not None
+              and ts["graph"].step == ts["eager"].step == MH_HOST_STEPS,
+              "12a host: the sharded external step captured no graph")
+        print(f"12a host placement, one NCCL controller, reference shape: "
+              f"{MH_HOST_STEPS} sharded external-batch steps graph = eager "
+              f"twin bit for bit (loss {m['graph']['loss'].item()}), the "
+              f"step's graph captured with BatchMean's all-reduce inside",
+              flush=True)
+        del steps, graph_step, reduce, ts, m
+        torch.cuda.synchronize()
+    finally:
+        close_mesh()
+    return counted
+
+
+def phase_mh_one_controller(dev, bench_fused: float) -> dict:
+    """Phase 12(a), second part: train_multihost as a job of one
+    controller on the card (NCCL world of one), reference widths, thread
+    actors, bench's "fused" path, K=MH_K, replay snapshots every
+    MH_SNAPSHOT_INTERVAL steps (the rank-0 twin), for MH_SECONDS:
+    finite losses, launches those of its steps, seq-updates/s over a
+    synced window (a sync every MH_SYNC_EVERY dispatches) beside bench
+    ``fused`` K=4 of this call, the host ms of an iteration's all-reduce,
+    and the twin's snapshot written and loaded into a fresh replay.
+    Returns the run's launch counts."""
+    import tempfile
+    import torch
+    from r2d2_tpu_torch.parallel.multihost import train_multihost
+    from r2d2_tpu_torch.replay.device_replay import replay_init
+    from r2d2_tpu_torch.replay.snapshot import load_snapshot, restore_plain
+    from r2d2_tpu_torch.replay.structs import ReplaySpec, RingAccountant
+    from r2d2_tpu_torch.tools import bench
+    marks = []
+
+    def hook(core):
+        if not marks or (core.ts.step // MH_K) % MH_SYNC_EVERY == 0:
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), core.ts.step))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as d:
+        cfg = bench.reference_config(**bench.PATHS["fused"], **{
+            "mesh.multihost": True, "runtime.steps_per_dispatch": MH_K,
+            "runtime.snapshot_interval": MH_SNAPSHOT_INTERVAL,
+            "runtime.save_interval": 0, "runtime.log_interval": 5.0,
+            "runtime.save_dir": d})
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = train_multihost(cfg, max_seconds=MH_SECONDS,
+                              actor_mode="thread", device=dev,
+                              backend="nccl", dispatch_hook=hook)
+        seconds = time.perf_counter() - t0
+        counted = _counts()
+        snap = load_snapshot(d, 0)
+        check(snap is not None and snap["kind"] == "plain"
+              and snap["step"] == out["step"],
+              f"12a: the twin's snapshot {snap and snap.get('step')}")
+        spec = ReplaySpec.from_config(cfg, dev)
+        ring = RingAccountant(spec.num_blocks)
+        restore_plain(spec, replay_init(spec, dev), ring, snap)
+        check(ring.total_adds == out["shard_blocks"] > 0,
+              f"12a: the snapshot holds {ring.total_adds} adds")
+        del snap
+    losses = out["losses"]
+    check(out["graphed"] and losses and all(math.isfinite(x)
+                                            for x in losses),
+          "12a: no finite losses from the graphed step")
+    want = _want_launches(bench.PATHS["fused"], out["step"])
+    check(counted == want, f"12a: launches {counted}, want {want}")
+    check(len(marks) >= 3, f"12a: {len(marks)} synced marks")
+    (ta, sa), (tb, sb) = marks[1], marks[-1]
+    rate = cfg.replay.batch_size * (sb - sa) / (tb - ta)
+    coll = out["collective_ms"]
+    report = {"k": MH_K, "steps": out["step"], "run_s": seconds,
+              "window_steps": sb - sa, "window_s": tb - ta,
+              "seq_updates_per_s": rate, "bench_fused_k4": bench_fused,
+              "over_bench": rate / bench_fused,
+              "iterations": out["iterations"],
+              "collective_ms_median": statistics.median(coll),
+              "collective_ms_p90": sorted(coll)[int(0.9 * (len(coll) - 1))],
+              "shard_blocks": out["shard_blocks"],
+              "snapshot_step": out["step"], "final_loss": losses[-1]}
+    print(f"12a one controller (NCCL world of one, {_card()}): "
+          + json.dumps(report), flush=True)
+    return counted
+
+
+def phase_mh_card_vs_cpu(dev) -> dict:
+    """Phase 12(b): the scripted lockstep core (tools/mh_check.py
+    rank_core: ingest, gate, one K=2 dispatch, stop) at the small f32
+    shape with pallas_lstm on, two gloo ranks sharing the card against two
+    CPU ranks on the same blocks, weights and jitter: every iteration's
+    counters equal, losses and each shard's tree within rtol 1e-4 (phase
+    4's rule, its two steps), the card ranks bit-equal, every kernel of
+    the path launched on them and none on the CPU's. Returns the card
+    ranks' launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.parallel.mesh import run_ranks
+    from r2d2_tpu_torch.replay.structs import ReplaySpec
+    from r2d2_tpu_torch.replay.synthetic import make_synthetic_block
+    from r2d2_tpu_torch.tools import mh_check
+    cfg = _tiny_config().replace(**{"network.pallas_lstm": "on"})
+    cpu = torch.device("cpu")
+    spec = ReplaySpec.from_config(cfg, cpu)
+    rng = np.random.default_rng(12)
+    pattern = [(0,), (1,), (0, 1), (0, 1)]       # ready at iteration 2
+    arrivals = [[[make_synthetic_block(spec, rng)] if r in ranks else []
+                 for r in range(2)] for ranks in pattern]
+    stops = [[0, 0], [0, 0], [0, 0], [1, 0]]
+    net = NetworkApply(18, cfg.network, cfg.env.frame_stack,
+                       cfg.env.frame_height, cfg.env.frame_width, cpu)
+    k = 2
+    case = {"spec": dataclasses.asdict(spec), "action_dim": 18,
+            "network": dataclasses.asdict(cfg.network),
+            "optim": dataclasses.asdict(cfg.optim),
+            "params": {n: v.numpy()
+                       for n, v in net.init(0).state_dict().items()},
+            "k": k, "arrivals": arrivals, "stops": stops,
+            "jitter": rng.random((2, 1, k, spec.batch_size),
+                                 dtype=np.float32),
+            "learning_starts": 60, "ratio": 0.0}
+    t0 = time.perf_counter()
+
+    def world(names):
+        return run_ranks(mh_check.rank_core, 2, case, devices=names,
+                         backend="gloo", timeout_s=300)
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        card, cpu_runs = pool.map(world, ([str(dev)] * 2, ["cpu"] * 2))
+    check(card[0]["digest"] == card[1]["digest"],
+          "12b: the card ranks' train states differ")
+    worst = {"loss": 0.0, "tree": 0.0}
+    want = _want_launches({"network.pallas_lstm": "on"}, k)
+    for r in range(2):
+        got, ref = card[r], cpu_runs[r]
+        check(got["stopped_at"] == ref["stopped_at"] == 3
+              and len(got["dispatches"]) == len(ref["dispatches"]) == 1,
+              f"12b rank {r}: stopped at {got['stopped_at']}, "
+              f"{len(got['dispatches'])} dispatches")
+        check([t["info"] for t in got["trace"]]
+              == [t["info"] for t in ref["trace"]], f"12b rank {r}: info")
+        g, c = got["dispatches"][0], ref["dispatches"][0]
+        np.testing.assert_allclose(g["loss"], c["loss"], rtol=1e-4)
+        np.testing.assert_allclose(g["tree"], c["tree"], rtol=1e-4,
+                                   atol=1e-6)
+        worst["loss"] = max(worst["loss"], float(np.max(
+            np.abs(g["loss"] - c["loss"]) / np.abs(c["loss"]))))
+        worst["tree"] = max(worst["tree"], float(np.max(
+            np.abs(g["tree"] - c["tree"]))))
+        check(got["launches"] == want, f"12b rank {r}: launches "
+              f"{got['launches']}, want {want}")
+        check(not any(ref["launches"].values()),
+              "12b: a CPU rank launched a kernel")
+    print(f"12b scripted lockstep core, two gloo ranks on one card vs two "
+          f"CPU ranks (small f32, pallas_lstm on, K={k}): losses max rel "
+          f"{worst['loss']:.3e}, tree max abs {worst['tree']:.3e}; card "
+          f"ranks bit-equal, both stopped at iteration 3; "
+          f"{time.perf_counter() - t0:.1f} s (spawn included)", flush=True)
+    return {n: sum(card[r]["launches"][n] for r in range(2))
+            for n in want}
+
+
+def _mh_training_steps(save_dir: str) -> int:
+    """Rank 0's newest logged learner steps (0 before its first record)."""
+    path = os.path.join(save_dir, "metrics_player0.jsonl")
+    try:
+        with open(path) as f:
+            lines = f.read().strip().splitlines()
+    except OSError:
+        return 0
+    return json.loads(lines[-1])["training_steps"] if lines else 0
+
+
+def phase_mh_loop(label: str, placement: str, overrides) -> dict:
+    """Phase 12(c): two controllers, each its own interpreter started by
+    the port's launcher (parallel/multihost.py ControllerProcesses), both
+    on the card over gloo, reference widths, two thread actors each; once
+    rank 0 has logged learner steps, MH_RUN_S seconds of training, then
+    SIGTERM to controller 1. Both exit 0 on the same iteration at the same
+    step with bit-equal train states (controller 1 names the signal),
+    each shard took blocks from its own actors, each controller's launches
+    those of its steps, no process left. Returns both controllers'
+    launches."""
+    import signal
+    import tempfile
+    from r2d2_tpu_torch.config import Config, parse_overrides
+    from r2d2_tpu_torch.parallel.multihost import (ControllerProcesses,
+                                                   demo_argv, read_digests)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as d:
+        # a record a second: the first learner steps show within one
+        argv_of = demo_argv(2, d, max_steps=0,
+                            max_seconds=MH_START_S + 2 * MH_RUN_S,
+                            placement=placement, device="cuda",
+                            backend="gloo", reference=True, threads=2,
+                            collective_timeout=MH_COLLECTIVE_S,
+                            overrides=["--runtime.log_interval=1",
+                                       *overrides])
+        t0 = time.perf_counter()
+        with ControllerProcesses(argv_of, 2) as ctl:
+            while _mh_training_steps(d) == 0:
+                check(all(p.poll() is None for p in ctl.procs),
+                      f"12c {label}: a controller exited early "
+                      f"{[p.poll() for p in ctl.procs]}")
+                check(time.perf_counter() - t0 < MH_START_S,
+                      f"12c {label}: no learner steps in {MH_START_S} s")
+                time.sleep(0.5)
+            t_train = time.perf_counter()
+            while time.perf_counter() - t_train < MH_RUN_S:
+                check(all(p.poll() is None for p in ctl.procs),
+                      f"12c {label}: a controller exited mid-run")
+                time.sleep(0.5)
+            ctl.procs[1].send_signal(signal.SIGTERM)
+            rcs = ctl.wait(time.monotonic() + 90.0)
+        seconds = time.perf_counter() - t0
+        check(rcs == [0, 0], f"12c {label}: exit codes {rcs}")
+        check(all(p.poll() is not None for p in ctl.procs),
+              f"12c {label}: a controller is still running")
+        recs = read_digests(d, 2)
+    check(recs[0]["step"] == recs[1]["step"] > 0
+          and recs[0]["iterations"] == recs[1]["iterations"]
+          and recs[0]["digest"] == recs[1]["digest"],
+          f"12c {label}: steps {[r['step'] for r in recs]}, iterations "
+          f"{[r['iterations'] for r in recs]}, digests differ or not")
+    check([r["stop_reason"] for r in recs] == ["", "signal"],
+          f"12c {label}: stop reasons {[r['stop_reason'] for r in recs]}")
+    check(all(r["shard_blocks"] > 0 for r in recs),
+          f"12c {label}: shard blocks {[r['shard_blocks'] for r in recs]}")
+    check(recs[0]["losses_finite"] and recs[0]["device"].startswith("cuda"),
+          f"12c {label}: losses not finite on cuda")
+    cfg = parse_overrides(Config(), list(overrides))
+    for r in recs:
+        want = (_want_host_launches(cfg, r["step"]) if placement == "host"
+                else _want_launches({"network.use_double":
+                                     cfg.network.use_double,
+                                     "network.pallas_lstm": "on"},
+                                    r["step"]))
+        check(r["launches"] == want, f"12c {label} rank {r['rank']}: "
+              f"launches {r['launches']}, want {want}")
+    check(len(recs[0]["dispatch_marks"]) == 2,
+          f"12c {label}: dispatch marks {recs[0]['dispatch_marks']}")
+    (ta, sa), (tb, sb) = recs[0]["dispatch_marks"]
+    batch = cfg.replay.batch_size * (2 if placement == "device" else 1)
+    report = {"steps": recs[0]["step"], "run_s": seconds,
+              "iterations": recs[0]["iterations"],
+              "window_steps": sb - sa, "window_s": tb - ta,
+              "ms_per_step": (tb - ta) * 1e3 / max(sb - sa, 1),
+              "global_seq_updates_per_s": batch * (sb - sa) / (tb - ta),
+              "global_batch": batch,
+              "shard_blocks": [r["shard_blocks"] for r in recs],
+              "local_env_steps": [r["local_env_steps"] for r in recs],
+              "collective_ms_median": [r["collective_ms_median"]
+                                       for r in recs]}
+    print(f"12c two controllers sharing one card over gloo ({label}, "
+          f"{_card()}; gloo staging through one host, not scaling): "
+          + json.dumps(report), flush=True)
+    return {n: sum(r["launches"][n] for r in recs)
+            for n in recs[0]["launches"]}
+
+
+def phase_multihost(dev, bench_fused: float) -> dict:
+    """Phase 12 (see the module docstring). Returns the launch counts of
+    every part, every controller."""
+    total = dict.fromkeys(_counts(), 0)
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    _reset_counts()
+    phase_mh_core_graph(dev)
+    add(_counts())
+    add(phase_mh_host_graph(dev))
+    add(phase_mh_one_controller(dev, bench_fused))
+    add(phase_mh_card_vs_cpu(dev))
+    add(phase_mh_loop("device placement, fused_double", "device",
+                      ["--network.use_double=true",
+                       "--network.pallas_lstm=on"]))
+    add(phase_mh_loop("host placement, pallas_lstm on", "host",
+                      ["--network.pallas_lstm=on"]))
+    return total
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3497,6 +3968,9 @@ def main(argv) -> int:
     done("ingest, recovery, quantized on-device acting")
     sharded = phase_data_parallel(dev)
     done("data parallel")
+    multihost = phase_multihost(
+        dev, reference["fused", resolved_k]["median_seq_updates_per_s"])
+    done("multi-host")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}
@@ -3519,7 +3993,9 @@ def main(argv) -> int:
                     sharded_launches=(0 if name.endswith("_padded")
                                       else sharded["loop"][name]),
                     sharded_nccl_launches=(0 if name.endswith("_padded")
-                                           else sharded["nccl"][name]))
+                                           else sharded["nccl"][name]),
+                    multihost_launches=(0 if name.endswith("_padded")
+                                        else multihost[name]))
                for name, r in timings.items()]
     kernels.append(dict(
         name="int8_linear", route="cuda", source=KERNEL_SOURCES["quant_kernels"],
@@ -3534,7 +4010,11 @@ def main(argv) -> int:
         serve_launches=serve_launches["int8_linear"],
         anakin_quant_launches=anakin_quant["int8_linear"],
         sharded_launches=sharded["loop"]["int8_linear"],
-        sharded_nccl_launches=sharded["nccl"]["int8_linear"]))
+        sharded_nccl_launches=sharded["nccl"]["int8_linear"],
+        multihost_launches=multihost["int8_linear"]))
+    check(all(multihost[name] > 0 for name in (
+        "gather_windows", "stack_frames", "lstm_fwd", "lstm_bwd")),
+        f"phase 12 launched {multihost}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

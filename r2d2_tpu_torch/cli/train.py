@@ -19,11 +19,19 @@ processes over gloo. The summary's ``shards`` holds every rank's final
 report.
 
 Extra (non-config) flags:
-    --actor-mode=thread|process   actor execution mode (default: process)
+    --actor-mode=thread|process   actor execution mode (default: process;
+                                  thread under --mesh.multihost)
     --max-steps=N                 stop after N learner steps
     --max-seconds=S               wall-clock bound
     --device=NAME                 "cuda" (default; raises without one) or
                                   "cpu"
+
+``--mesh.multihost=true --mesh.num_processes=N`` runs this process as one
+controller of a multi-host job (parallel/multihost.py): start the same
+command once a card, each with its ``--mesh.process_id`` and ``--device``
+(``cuda:N``), all with one ``--mesh.coordinator_address=HOST:PORT``
+(rank 0's host); thread actors by default there. The summary is this
+controller's.
 
 ``--runtime.auto_resume=true`` trains in a child process of a supervisor
 (runtime/supervisor.py) that relaunches a dead child from its newest
@@ -109,11 +117,33 @@ def run(cfg, *, actor_mode: str = "process", max_steps=None,
     return summary
 
 
+def run_multihost(cfg, *, actor_mode: str = "thread", max_steps=None,
+                  max_seconds=None, device=None) -> dict:
+    """This process as one controller of a multi-host job; prints its
+    summary as the last line and returns it."""
+    from r2d2_tpu_torch.parallel.multihost import train_multihost
+
+    def log(record: dict) -> None:
+        print(" | ".join(f"{k}={v}" for k, v in record.items()
+                         if v is not None), flush=True)
+
+    out = train_multihost(cfg, max_training_steps=max_steps,
+                          max_seconds=max_seconds, actor_mode=actor_mode,
+                          log_fn=log, device=device)
+    summary = {"multihost": True,
+               **{k: v for k, v in out.items()
+                  if k not in ("train_state", "losses", "collective_ms")}}
+    losses = out["losses"]
+    summary["final_loss"] = losses[-1] if losses else None
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
 def main(argv=None, dispatch_hook=None) -> dict:
     from r2d2_tpu_torch.config import Config, parse_overrides
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    flags = {"actor-mode": "process", "max-steps": None,
+    flags = {"actor-mode": None, "max-steps": None,
              "max-seconds": None, "device": None}
     rest = []
     for arg in argv:
@@ -129,14 +159,20 @@ def main(argv=None, dispatch_hook=None) -> dict:
     if cfg.runtime.auto_resume:
         # a supervised child trains; this process never touches CUDA
         from r2d2_tpu_torch.runtime.supervisor import supervise_train
-        restarts = supervise_train(cfg, actor_mode=flags["actor-mode"],
+        restarts = supervise_train(cfg,
+                                   actor_mode=flags["actor-mode"] or "process",
                                    max_steps=max_steps,
                                    max_seconds=max_seconds,
                                    device=flags["device"])
         summary = {"supervised": True, "restarts": restarts}
         print(json.dumps(summary), flush=True)
         return summary
-    return run(cfg, actor_mode=flags["actor-mode"], max_steps=max_steps,
+    if cfg.mesh.multihost and cfg.mesh.num_processes > 1:
+        return run_multihost(cfg, actor_mode=flags["actor-mode"] or "thread",
+                             max_steps=max_steps, max_seconds=max_seconds,
+                             device=flags["device"])
+    return run(cfg, actor_mode=flags["actor-mode"] or "process",
+               max_steps=max_steps,
                max_seconds=max_seconds, device=flags["device"],
                dispatch_hook=dispatch_hook)
 

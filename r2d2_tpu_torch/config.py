@@ -236,7 +236,11 @@ class MeshConfig:
     device. ``mp`` (tensor parallel) is kept for the JAX package's
     spelling and must be 1. Under ``replay.placement="host"`` no dp path
     is taken whatever ``dp`` says, as in the JAX package, whose host
-    placement builds its step before it looks at the mesh."""
+    placement builds its step before it looks at the mesh.
+
+    ``multihost``: the multi-controller trainer, where each controller
+    owns one card, its actors and its replay shard and the controllers
+    run in lockstep (parallel/multihost.py)."""
 
     dp: int = 1
     mp: int = 1
@@ -244,6 +248,14 @@ class MeshConfig:
     def resolved_dp(self, n_devices: int) -> int:
         mp = max(self.mp, 1)
         return self.dp if self.dp > 0 else max(n_devices // mp, 1)
+    # Multi-host (parallel/multihost.py): one controller process a card,
+    # each with its own actors and replay shard, joined over
+    # tcp://coordinator_address; num_processes controllers, this one
+    # process_id. dp is then num_processes (or -1 for it).
+    multihost: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: int = 1
+    process_id: int = 0
 
 
 @dataclass(frozen=True)
@@ -433,13 +445,45 @@ class Config:
                 "parallel/tensor_parallel.py, ROADMAP item A.4 (not ported); "
                 "the port runs data-parallel meshes only (mesh.dp), on-device "
                 "acting included")
+        if mesh.multihost:
+            self._check_multihost()
         # mesh.dp=-1 resolves at run time; the launcher checks it again
         if (self.runtime.snapshot_interval > 0 and mesh.dp > 1
-                and self.replay.placement == "device"):
+                and self.replay.placement == "device"
+                and not mesh.multihost):
             raise ValueError(
                 f"runtime.snapshot_interval with mesh.dp={mesh.dp}: replay "
                 "snapshots of a sharded replay are ROADMAP item A.4 (not "
                 "ported); set runtime.snapshot_interval=0 or mesh.dp=1")
+
+    def _check_multihost(self) -> None:
+        """The multi-controller trainer's rules (parallel/multihost.py):
+        one controller a card, so dp is the controller count; the
+        combinations the JAX package refuses, refused in its words."""
+        mesh = self.mesh
+        if mesh.num_processes < 1:
+            raise ValueError(f"mesh.num_processes ({mesh.num_processes}) "
+                             "must be >= 1")
+        if not 0 <= mesh.process_id < mesh.num_processes:
+            raise ValueError(
+                f"mesh.process_id ({mesh.process_id}) must be in [0, "
+                f"mesh.num_processes={mesh.num_processes})")
+        if mesh.dp not in (-1, mesh.num_processes):
+            raise ValueError(
+                f"mesh.dp={mesh.dp} with mesh.multihost: each controller "
+                "drives one card, so mesh.dp must equal mesh.num_processes "
+                f"({mesh.num_processes}) or be -1")
+        if self.actor.on_device:
+            raise ValueError(
+                "actor.on_device is single-controller only (the fused loop "
+                "is not integrated with the lockstep multihost trainer "
+                "yet) — unset mesh.multihost")
+        if self.actor.inference == "server":
+            raise ValueError(
+                "actor.inference='server' is single-host for now: the "
+                "multihost lockstep fleet wires its own weight distribution"
+                " — routing its actors through a serve transport is the "
+                "router/fleet item, ROADMAP A.6")
 
     def _check_inference(self) -> None:
         """The quantized plane's and the policy server's rules, the JAX
@@ -630,15 +674,6 @@ _SECTION_TYPES = {"env": EnvConfig, "network": NetworkConfig,
                   "runtime": RuntimeConfig, "telemetry": TelemetryConfig,
                   "serve": ServeConfig, "mesh": MeshConfig}
 
-# fields of the JAX package's config whose part the port does not have:
-# still unknown fields, refused naming the item that brings them
-NOT_PORTED = {
-    ("mesh", name): "multi-host training is parallel/multihost.py, ROADMAP "
-                    "item A.4 (not ported)"
-    for name in ("multihost", "coordinator_address", "num_processes",
-                 "process_id")}
-
-
 def _parse_setting(setting, field_name: str):
     """"on" -> True, "off" -> False, "auto" -> None (legacy bools and their
     CLI spellings accepted, as in the JAX package)."""
@@ -724,7 +759,8 @@ def check_decode_layout(optim: OptimConfig) -> None:
                          f"'nhwc'; got {optim.pallas_decode_layout!r}")
 
 
-_SCALARS = {"bool": bool, "int": int, "float": float, "str": str}
+_SCALARS = {"bool": bool, "int": int, "float": float, "str": str,
+            "Optional[str]": str}
 
 
 def _coerce(key: str, value: str, annotation: str) -> Any:
@@ -779,9 +815,8 @@ def parse_overrides(cfg: Config, argv: List[str]) -> Config:
             raise SystemExit(f"unknown config section {section!r}")
         matching = {f.name: f for f in dataclasses.fields(getattr(cfg, section))}
         if fname not in matching:
-            why = NOT_PORTED.get((section, fname))
-            raise SystemExit(f"unknown field {fname!r} in section {section!r}"
-                             + (f": {why}" if why else ""))
+            raise SystemExit(f"unknown field {fname!r} in section "
+                             f"{section!r}")
         dotted[key] = _coerce(key, raw, matching[fname].type)
     return cfg.replace(**dotted) if dotted else cfg
 

@@ -177,6 +177,9 @@ def make_loss_fn(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
                                                  optim.priority_eta),
             "mean_abs_td": abs_td.sum() / num_valid,
             "mean_q": (q_chosen.detach() * mask).sum() / num_valid,
+            # the learning steps the means divide by (unclamped): the
+            # weight of this batch in a mean over several
+            "valid_steps": mask.sum().detach(),
         }
         return loss, aux
 
@@ -189,10 +192,11 @@ def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
     a sampled batch, all of it in place (loss, clip + Adam, the step
     counter and the hard target sync); ``metrics["priorities"]`` holds the
     batch's (B,) new priorities. The host mirror ``step`` is the caller's
-    to advance. ``reduce(grads, loss, mean_abs_td, mean_q) -> (loss,
-    mean_abs_td, mean_q)``, between the backward and the clip: the
-    data-parallel mean over ranks (parallel/sharded.py ``GradMean``), in
-    place on the gradients; None on a single device."""
+    to advance. ``reduce(grads, loss, mean_abs_td, mean_q, valid_steps)
+    -> (loss, mean_abs_td, mean_q)``, between the backward and the clip:
+    the data-parallel mean over ranks (parallel/sharded.py ``GradMean``,
+    or ``BatchMean`` for one batch split over the ranks), in place on the
+    gradients; None on a single device."""
     loss_fn = make_loss_fn(net, spec, optim, use_double)
     interval = optim.target_net_update_interval
 
@@ -204,7 +208,8 @@ def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
         loss = loss.detach()
         if reduce is not None:
             loss, aux["mean_abs_td"], aux["mean_q"] = reduce(
-                grads, loss, aux["mean_abs_td"], aux["mean_q"])
+                grads, loss, aux["mean_abs_td"], aux["mean_q"],
+                aux["valid_steps"])
         grad_norm = clip_by_global_norm_(grads, optim.grad_norm)
         ts.opt.step()
 
@@ -262,7 +267,9 @@ def make_learner_step(net: NetworkApply, spec: ReplaySpec,
 
 
 def make_external_batch_step(net: NetworkApply, spec: ReplaySpec,
-                             optim: OptimConfig, use_double: bool):
+                             optim: OptimConfig, use_double: bool,
+                             reduce: Optional[Callable] = None,
+                             graphed: Optional[bool] = None):
     """The step of host-placement replay (``replay.placement="host"``): the
     batch is sampled on the host (``replay/host_replay.py``) and copied to
     the device by the caller. ``step(train_state, batch) -> (train_state,
@@ -275,9 +282,13 @@ def make_external_batch_step(net: NetworkApply, spec: ReplaySpec,
     call copies the given device batch into the static one on the current
     stream, which must be able to read it, and replays the graph; the
     first call runs eagerly as the capture's warm-up and counts as a step,
-    the second captures."""
-    train = _make_train_body(net, spec, optim, use_double)
-    if net.device.type == "cuda":
+    the second captures. ``reduce``: ``_make_train_body``'s (the sharded
+    external step, parallel/sharded.py); ``graphed``: False runs it eagerly
+    on CUDA too (a collective a graph cannot capture), None = on CUDA."""
+    train = _make_train_body(net, spec, optim, use_double, reduce)
+    if graphed is None:
+        graphed = net.device.type == "cuda"
+    if graphed:
         return GraphedSteps(train, 1, spec.batch_size, batch_input=True)
 
     def step(ts: TrainState, batch: SampleBatch):

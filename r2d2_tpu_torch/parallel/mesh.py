@@ -14,6 +14,10 @@ learner's tensors (the gradient all-reduce, the block broadcast) and
 gathered stats and reports), so a follower waiting for its next command
 holds no device stream.
 
+A multi-host job (parallel/multihost.py) has no single controller: each
+controller process joins with ``init_distributed`` over a tcp rendezvous,
+as ``jax.distributed.initialize`` does.
+
 The launcher (``RankProcesses``, ``run_ranks``) follows loopback.py: pick a
 rendezvous, spawn the ranks with the ``spawn`` context from an importable
 function, wait on one shared deadline, and kill the survivors on any exit
@@ -25,6 +29,7 @@ import datetime
 import multiprocessing as mp
 import os
 import queue
+import socket
 import tempfile
 import time
 import traceback
@@ -55,6 +60,15 @@ class Mesh:
     @property
     def leader(self) -> bool:
         return self.rank == 0
+
+    # a multi-host job's names: one controller process a rank
+    @property
+    def process_id(self) -> int:
+        return self.rank
+
+    @property
+    def num_processes(self) -> int:
+        return self.dp
 
 
 def cuda_devices() -> List[torch.device]:
@@ -108,6 +122,50 @@ def make_mesh(cfg: Optional[MeshConfig] = None,
     ctrl = None if backend == "gloo" else dist.new_group(backend="gloo")
     return Mesh(dp=dp, rank=rank, device=device, backend=backend,
                 ctrl_group=ctrl)
+
+
+def pick_coordinator() -> str:
+    """A free loopback ``host:port`` for a job's tcp rendezvous."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def init_distributed(cfg: MeshConfig, device, backend: Optional[str] = None,
+                     timeout_s: float = COLLECTIVE_TIMEOUT_S) -> Mesh:
+    """Join a multi-host job as controller ``cfg.process_id`` of
+    ``cfg.num_processes`` over ``tcp://{cfg.coordinator_address}`` (a free
+    loopback port for a job of one) and return its ``Mesh``: one rank a
+    controller, on ``device``. ``backend``: NCCL on CUDA and gloo on the
+    CPU by default; gloo on CUDA only when asked for (several controllers
+    sharing one card). A CUDA device that is not there raises."""
+    if not cfg.multihost:
+        raise ValueError("init_distributed joins a multi-host job: set "
+                         "mesh.multihost")
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"controller {cfg.process_id} was given "
+                               f"{device} but finds no CUDA device")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    address = cfg.coordinator_address
+    if address is None:
+        if cfg.num_processes > 1:
+            raise ValueError("mesh.coordinator_address is required for "
+                             f"mesh.num_processes={cfg.num_processes}")
+        address = pick_coordinator()
+    if dist.is_initialized():
+        raise RuntimeError("this process is already in a process group")
+    dist.init_process_group(
+        backend, init_method=f"tcp://{address}",
+        world_size=cfg.num_processes, rank=cfg.process_id,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    ctrl = None if backend == "gloo" else dist.new_group(backend="gloo")
+    return Mesh(dp=cfg.num_processes, rank=cfg.process_id, device=device,
+                backend=backend, ctrl_group=ctrl)
 
 
 def close_mesh() -> None:

@@ -27,6 +27,7 @@ The inner computation is the single-device step's
 between its backward and its clip, which the unsharded path leaves empty.
 """
 
+import dataclasses
 import hashlib
 from typing import List, Optional, Sequence
 
@@ -37,13 +38,15 @@ import torch.distributed as dist
 from r2d2_tpu_torch.actor.anakin import AnakinAct, init_act_carry
 from r2d2_tpu_torch.config import OptimConfig
 from r2d2_tpu_torch.learner.train_step import (GraphedSteps, TrainState,
-                                               _make_step_body, eager_steps)
+                                               _make_step_body, eager_steps,
+                                               make_external_batch_step)
 from r2d2_tpu_torch.models.network import NetworkApply
 from r2d2_tpu_torch.parallel.mesh import Mesh
 from r2d2_tpu_torch.replay.device_replay import (WRITTEN, replay_add_many,
                                                  replay_init, replay_size)
 from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, ReplayState,
-                                           empty_block_np, stack_blocks)
+                                           SampleBatch, empty_block_np,
+                                           stack_blocks)
 
 _METRIC_SLOTS = ("loss", "mean_abs_td", "mean_q")
 
@@ -185,30 +188,62 @@ class GradMean:
         self.flat: Optional[torch.Tensor] = None
         self.numel = 0
 
+    SLOTS = len(_METRIC_SLOTS)      # the scalars behind the gradient
+
     def attach(self, module: torch.nn.Module) -> None:
         params = list(module.parameters())
         if any(p.dtype != torch.float32 for p in params):
             raise ValueError("the flat gradient buffer holds f32 parameters "
                              "only")
         self.numel = sum(p.numel() for p in params)
-        self.flat = torch.zeros(self.numel + len(_METRIC_SLOTS),
+        self.flat = torch.zeros(self.numel + self.SLOTS,
                                 dtype=torch.float32, device=params[0].device)
         off = 0
         for p in params:
             p.grad = self.flat[off:off + p.numel()].view_as(p)
             off += p.numel()
 
-    def __call__(self, grads: Sequence[torch.Tensor], loss: torch.Tensor,
-                 mean_abs_td: torch.Tensor, mean_q: torch.Tensor):
-        flat, n = self.flat, self.numel
-        if flat is None or grads[0].data_ptr() != flat.data_ptr():
+    def _check(self, grads: Sequence[torch.Tensor]) -> None:
+        if self.flat is None or grads[0].data_ptr() != self.flat.data_ptr():
             raise RuntimeError("the gradients are not the flat buffer's views"
                                " (attach() before the first step)")
+
+    def __call__(self, grads: Sequence[torch.Tensor], loss: torch.Tensor,
+                 mean_abs_td: torch.Tensor, mean_q: torch.Tensor,
+                 valid_steps: Optional[torch.Tensor] = None):
+        self._check(grads)
+        flat, n = self.flat, self.numel
         flat[n:].copy_(torch.stack([loss, mean_abs_td, mean_q]).float())
         dist.all_reduce(flat, group=self.mesh.group)
         if self.mesh.dp > 1:
             flat.mul_(1.0 / self.mesh.dp)
         out = flat[n:].clone()
+        return out[0], out[1], out[2]
+
+
+class BatchMean(GradMean):
+    """The hook of one global batch split over the ranks (host placement:
+    rank r trains on its ``B/dp`` rows): the loss and its means divide by
+    the learning steps of the whole batch, as the JAX package's GSPMD
+    external step computes them over the global batch. Each rank's
+    gradient and scalars are weighted by its own valid steps, summed with
+    the weights in one all-reduce, and divided by the weights' sum (at
+    least one, the loss's clamp)."""
+
+    SLOTS = len(_METRIC_SLOTS) + 1          # the three scalars, the weight
+
+    def __call__(self, grads: Sequence[torch.Tensor], loss: torch.Tensor,
+                 mean_abs_td: torch.Tensor, mean_q: torch.Tensor,
+                 valid_steps: Optional[torch.Tensor] = None):
+        self._check(grads)
+        flat, n = self.flat, self.numel
+        w = valid_steps.float()
+        flat[n:].copy_(torch.stack([loss.float() * w, mean_abs_td.float() * w,
+                                    mean_q.float() * w, w]))
+        flat[:n].mul_(w)
+        dist.all_reduce(flat, group=self.mesh.group)
+        flat[:-1].div_(flat[-1].clamp(min=1.0))
+        out = flat[n:-1].clone()
         return out[0], out[1], out[2]
 
 
@@ -298,6 +333,48 @@ def make_sharded_learner_step(net: NetworkApply, spec: ReplaySpec,
     step's, on the replicated step counter."""
     return ShardedLearnerStep(net, spec, optim, use_double, mesh,
                               steps_per_dispatch)
+
+
+class ShardedExternalBatchStep:
+    """``step(train_state, batch) -> (train_state, metrics)``: the
+    external-batch step of host placement across the ranks, each on its
+    own ``B/dp`` rows of one global batch (``BatchMean``); the priorities
+    in ``metrics["priorities"]`` are this rank's rows, for its own host
+    replay. As ``ShardedLearnerStep``: the first call attaches the flat
+    gradient buffer and broadcasts rank 0's train state; NCCL on CUDA runs
+    one CUDA graph of the step, gloo runs it eagerly."""
+
+    def __init__(self, net: NetworkApply, spec: ReplaySpec,
+                 optim: OptimConfig, use_double: bool, mesh: Mesh):
+        if spec.batch_size % mesh.dp:
+            raise ValueError(
+                f"replay.batch_size={spec.batch_size} is not divisible by "
+                f"mesh dp={mesh.dp} — the batch axis cannot shard evenly")
+        self.mesh = mesh
+        self.local_batch = spec.batch_size // mesh.dp
+        self.reduce = BatchMean(mesh)
+        local = dataclasses.replace(spec, batch_size=self.local_batch)
+        self.graphed = mesh.backend == "nccl"
+        self._step = make_external_batch_step(net, local, optim, use_double,
+                                              reduce=self.reduce,
+                                              graphed=self.graphed)
+        self._started = False
+
+    def __call__(self, ts: TrainState, batch: SampleBatch):
+        if not self._started:
+            self.reduce.attach(ts.params)
+            broadcast_train_state(ts, self.mesh)
+            self._started = True
+        return self._step(ts, batch)
+
+
+def make_sharded_external_batch_step(net: NetworkApply, spec: ReplaySpec,
+                                     optim: OptimConfig, use_double: bool,
+                                     mesh: Mesh) -> ShardedExternalBatchStep:
+    """Host placement's data-parallel step (``ShardedExternalBatchStep``),
+    the counterpart of the JAX package's GSPMD external-batch step over a
+    dp-sharded global batch: ``batch`` is this rank's ``B/dp`` rows."""
+    return ShardedExternalBatchStep(net, spec, optim, use_double, mesh)
 
 
 # -- on-device acting --------------------------------------------------------

@@ -13,11 +13,17 @@ import os
 
 def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
                        epsilon: float, shm_name: str, queue, stop_event,
-                       health_board=None, serve_spec=None) -> None:
+                       health_board=None, serve_spec=None,
+                       health_slot=None, total_actors=None) -> None:
     """``serve_spec`` (``actor.inference="server"``): the policy server's
     rung, {"transport": "shm", "request_ring", "action_dim", "hidden_dim",
     "reply_slots"} or {"transport": "socket", "host", "port"}; the actor
-    is then a thin client with no weights and no weight subscriber."""
+    is then a thin client with no weights and no weight subscriber.
+    ``health_slot``: the heartbeat board's slot (``actor_idx`` by
+    default); ``total_actors``: the fleet the ladder spreads over
+    (``actor.num_actors`` by default; a multi-host controller's actors
+    are global actors of every controller's fleet)."""
+    slot = actor_idx if health_slot is None else health_slot
     # a respawn booting after the parent unlinked the segments exits quietly
     if stop_event.is_set():
         return
@@ -68,13 +74,14 @@ def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
     # the subscriber hands over a fresh copy per poll: no second copy
     policy, run_loop = make_actor_policy(cfg, net, params, actor_idx, seed,
                                          epsilon=epsilon, copy_updates=False,
+                                         total_actors=total_actors,
                                          serve_channel=serve_channel,
                                          should_stop=stop_event.is_set)
-    beat = ((lambda: health_board.touch(actor_idx))
+    beat = ((lambda: health_board.touch(slot))
             if health_board is not None else None)
     sink = instrument_block_sink(
         lambda b: put_patient(queue, b, stop_event.is_set, beat=beat),
-        actor_idx, board=health_board,
+        slot, board=health_board,
         # the publication the actor acts with: the subscriber's, or the
         # server's riding each reply
         weight_version=((lambda: policy.weight_version) if sub is None

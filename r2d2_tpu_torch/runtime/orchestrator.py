@@ -5,7 +5,9 @@ training begins once the replay holds ``replay.learning_starts`` steps;
 the loop logs every ``runtime.log_interval`` seconds and supervises the
 actors every ``runtime.supervise_interval_s``.
 
-Actor modes:
+The actors, their weight service, block queue and supervision are an
+``ActorPool``; a multi-host controller runs one over its share of the
+fleet (parallel/multihost.py). Actor modes:
   * "thread"  actors are threads of this process with CPU policies; they
     read weights from an in-process store and put blocks on a
     ``queue.Queue``.
@@ -68,57 +70,237 @@ from r2d2_tpu_torch.utils.device import configure_numerics, resolve_device
 JOIN_S = 5.0                # a worker's join before terminate/kill
 
 
-class PlayerStack:
-    """One player's learner, metrics, weight service, block queue and
-    actors."""
+class ActorPool:
+    """One player's actors with their weight service, block queue and
+    supervision. Actor i is the fleet's global actor ``actor_base + i`` of
+    ``total_actors``: its Ape-X epsilon, seed, env and lanes. One host
+    runs the whole fleet (``actor_base`` 0, ``total_actors`` =
+    ``actor.num_actors``); a multi-host controller runs its share
+    (parallel/multihost.py). Heartbeat slot i is actor i's.
 
-    def __init__(self, cfg: Config, player_idx: int, action_dim: int,
-                 device, mesh=None):
+    ``open_threads``/``open_processes`` build the weight service and the
+    queue, ``spawn_actors`` starts one actor a slot; ``close`` (after the
+    stop event is set) reaps them and unlinks every segment."""
+
+    def __init__(self, cfg: Config, net, player_idx: int = 0, *,
+                 actor_base: int = 0, total_actors: Optional[int] = None,
+                 quant_stats=None):
         self.cfg = cfg
+        self.net = net
         self.player_idx = player_idx
-        self.net = NetworkApply(action_dim, cfg.network, cfg.env.frame_stack,
-                                cfg.env.frame_height, cfg.env.frame_width,
-                                device)
-        self.metrics = TrainMetrics(player_idx, cfg.runtime.save_dir,
-                                    resume=bool(cfg.runtime.resume))
-        self.learner = Learner(cfg, self.net, player_idx=player_idx,
-                               metrics=self.metrics, mesh=mesh)
-        if cfg.runtime.snapshot_interval > 0:
-            self.metrics.set_recovery(self.learner.recovery_block)
         self.n_slots = cfg.actor.num_actors
+        self.actor_base = actor_base
+        self.total_actors = total_actors or self.n_slots
+        self.quant_stats = quant_stats
         self.threads: List[threading.Thread] = []
         self.processes: List[mp.Process] = []
         self._seen_dead: set = set()
         self._ring_recovery = RingRecoveryScheduler()
-        self._stall = IngestStallDetector(cfg.runtime.ingest_stall_timeout_s)
         self.heartbeats = HeartbeatBoard(self.n_slots)
-        # the shared-memory segments this stack creates (close unlinks)
+        # the shared-memory segments this pool creates (close unlinks)
         self.segment_names = [self.heartbeats.name]
         self.health = WorkerHealth.from_runtime(self.n_slots, self.heartbeats,
                                                 cfg.runtime)
         self.store: Optional[InProcWeightStore] = None
         self.publisher: Optional[WeightPublisher] = None
-        self.snapshots: Optional[SnapshotPublisher] = None
         self.queue: Optional[BlockQueue] = None
         self._stop = None
         self._ctx = None
-        # the quantized plane: the publish-time quantizer (None at "f32")
-        # and the probe's aggregator, shared by thread actors and the
-        # server
-        self._prepare = make_publish_preparer(self.net)
-        self.quant_stats = None
+        # served actors (PlayerStack's policy server): thread actors'
+        # in-process endpoint, process actors' rung to it
+        self.serve_endpoint = self.serve_stats = None
+        self._serve_spec = None
+
+    def open_threads(self, stop: threading.Event, initial) -> None:
+        """Thread actors' weight store, ``initial`` its first publication,
+        and queue; ``stop`` ends every actor."""
+        self.store = InProcWeightStore(initial)
+        self.queue = BlockQueue(use_mp=False)
+        self._stop = stop
+
+    def open_processes(self, stop_event, initial, shm_spec) -> None:
+        """Process actors' weight segment and queue (the native shm ring of
+        ``shm_spec`` with ``runtime.shm_transport``)."""
+        cfg = self.cfg
+        self._ctx = mp.get_context("spawn")
+        self.publisher = WeightPublisher(initial)
+        self.segment_names.append(self.publisher.name)
+        self.queue = BlockQueue(
+            use_mp=True, ctx=self._ctx,
+            shm_spec=shm_spec if cfg.runtime.shm_transport else None)
+        if cfg.runtime.shm_transport:
+            self.segment_names.append(self.queue._q.name)
+        self._stop = stop_event
+
+    def publication(self):
+        """(publish, publish_count) of the weight service."""
+        if self.publisher is not None:
+            return (self.publisher.publish,
+                    lambda: self.publisher.publish_count)
+        return self.store.publish, lambda: self.store.publish_count
+
+    def spawn_actors(self) -> None:
+        if self._ctx is not None:
+            workers, spawn = self.processes, self._spawn_process_actor
+        else:
+            workers, spawn = self.threads, self._spawn_thread_actor
+        for i in range(self.n_slots):
+            workers.append(spawn(i))
+
+    def _spawn_thread_actor(self, i: int) -> threading.Thread:
+        cfg = self.cfg
+        gidx = self.actor_base + i
+        seed = cfg.runtime.seed + 10_000 * self.player_idx + 100 * gidx
+        # create_env through this module's symbol: tests monkeypatch it
+        env = make_actor_env(cfg, self.player_idx, gidx, seed,
+                             env_factory=create_env)
+        # the watchdog cannot kill a thread: it sets this event and
+        # abandons the incarnation
+        cancel = threading.Event()
+
+        def should_stop(cancel=cancel):
+            return self._stop.is_set() or cancel.is_set()
+
+        served = self.serve_endpoint is not None
+        # the current snapshot, fresh on a respawn too (adopted: its
+        # version is the stamp until the next poll)
+        policy, run_loop = make_actor_policy(
+            cfg, self.net,
+            None if served else self.store.current(reader_id=i), gidx, seed,
+            total_actors=self.total_actors,
+            serve_channel=self.serve_endpoint.connect() if served else None,
+            serve_stats=self.serve_stats, should_stop=should_stop,
+            quant_stats=self.quant_stats)
+        self.heartbeats.reset_slot(i)
+        sink = instrument_block_sink(
+            lambda b: self.queue.put_patient(
+                b, should_stop, beat=lambda: self.heartbeats.touch(i)),
+            i, board=self.heartbeats,
+            # served: the server's publication, riding each reply
+            weight_version=((lambda: policy.weight_version) if served
+                            else (lambda: self.store.reader_version(i))),
+            lane_base=gidx * cfg.actor.envs_per_actor)
+
+        def loop():
+            try:
+                run_loop(cfg, env, policy, block_sink=sink,
+                         weight_poll=((lambda: None) if served
+                                      else (lambda: self.store.poll(i))),
+                         should_stop=should_stop)
+            except Exception:
+                if not should_stop():
+                    raise
+            finally:
+                if served:
+                    policy.close()
+
+        t = threading.Thread(target=loop, daemon=True,
+                             name=f"actor-p{self.player_idx}-{gidx}")
+        t.health_cancel = cancel
+        t.start()
+        return t
+
+    def _spawn_process_actor(self, i: int) -> mp.Process:
+        cfg = self.cfg
+        gidx = self.actor_base + i
+        eps = apex_epsilon(gidx, self.total_actors, cfg.actor.base_eps,
+                           cfg.actor.eps_alpha)
+        self.heartbeats.reset_slot(i)
+        p = self._ctx.Process(
+            target=actor_process_main,
+            args=(cfg.to_dict(), self.player_idx, gidx, eps,
+                  self.publisher.name, self.queue._q, self._stop),
+            kwargs={"health_board": self.heartbeats, "health_slot": i,
+                    "total_actors": self.total_actors,
+                    "serve_spec": self._serve_spec},
+            daemon=True, name=f"actor-p{self.player_idx}-{gidx}")
+        p.start()
+        return p
+
+    def _respawn(self, i: int):
+        """Slot i's next actor, of the pool's mode."""
+        if self._ctx is not None:
+            return self._spawn_process_actor(i)
+        return self._spawn_thread_actor(i)
+
+    def supervise(self) -> int:
+        """One health pass: respawn dead actors (with
+        runtime.restart_dead_actors), kill and respawn hung ones, apply
+        the backoff and the breaker, and reclaim the shm ring slots of dead
+        producers (whether or not they respawn). Returns the restarts."""
+        if self._stop is None or self._stop.is_set():
+            return 0
+        processes = self._ctx is not None
+        restarted = supervise_workers(
+            self.processes if processes else self.threads, self._seen_dead,
+            respawn=(self._respawn if self.cfg.runtime.restart_dead_actors
+                     else None),
+            ring=self._ring_recovery if processes else None,
+            health=self.health)
+        self.health.ring_slots_recovered += self._ring_recovery.tick(
+            self.queue)
+        return restarted
+
+    def close(self) -> None:
+        """Close the weight service, stop and reap every actor, and unlink
+        every segment. Set the stop event first."""
+        if self.publisher is not None:
+            self.publisher.close()
+        deadline = time.monotonic() + JOIN_S
+        while (any(p.is_alive() for p in self.processes)
+               and time.monotonic() < deadline):
+            # a child may wait on a full queue: drain it while they exit
+            if self.queue is not None:
+                self.queue.drain(64)
+            for p in self.processes:
+                p.join(timeout=0.05)
+        for p in self.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=2.0)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=2.0)
+        for t in self.threads:
+            t.join(timeout=JOIN_S)
+        if self.queue is not None:
+            self.queue.close()
+        self.heartbeats.close()
+
+
+class PlayerStack(ActorPool):
+    """One player's learner, metrics, weight service, block queue and
+    actors (the whole fleet: ``ActorPool``), and its policy server."""
+
+    def __init__(self, cfg: Config, player_idx: int, action_dim: int,
+                 device, mesh=None):
+        net = NetworkApply(action_dim, cfg.network, cfg.env.frame_stack,
+                           cfg.env.frame_height, cfg.env.frame_width, device)
+        self.metrics = TrainMetrics(player_idx, cfg.runtime.save_dir,
+                                    resume=bool(cfg.runtime.resume))
+        self.learner = Learner(cfg, net, player_idx=player_idx,
+                               metrics=self.metrics, mesh=mesh)
+        if cfg.runtime.snapshot_interval > 0:
+            self.metrics.set_recovery(self.learner.recovery_block)
+        # the quantized plane: the probe's aggregator, shared by thread
+        # actors and the server
+        quant_stats = None
         if cfg.network.inference_dtype != "f32":
             from r2d2_tpu_torch.telemetry import QuantStats
-            self.quant_stats = QuantStats(cfg.network.inference_dtype,
-                                          cfg.telemetry.quant_probe_interval)
-            self.metrics.set_quant(self.quant_stats.interval_block)
+            quant_stats = QuantStats(cfg.network.inference_dtype,
+                                     cfg.telemetry.quant_probe_interval)
+            self.metrics.set_quant(quant_stats.interval_block)
+        super().__init__(cfg, net, player_idx, quant_stats=quant_stats)
+        self._stall = IngestStallDetector(cfg.runtime.ingest_stall_timeout_s)
+        self.snapshots: Optional[SnapshotPublisher] = None
+        # the publish-time quantizer (None at "f32")
+        self._prepare = make_publish_preparer(self.net)
         # the serving plane: the endpoint and the stats outlive a server;
         # in-process clients share the stats, so the serving block's
         # latency is the clients' round trip
-        self.serve_stats = self.serve_endpoint = self.serve_server = None
+        self.serve_server = None
         self._serve_transport = None
         self._serve_sub: Optional[WeightSubscriber] = None
-        self._serve_spec = None
         if cfg.actor.inference == "server":
             from r2d2_tpu_torch.serve import InprocEndpoint, ServingStats
             self.serve_stats = ServingStats()
@@ -133,7 +315,8 @@ class PlayerStack:
         module = self.learner.train_state.params
         return module if self._prepare is None else self._prepare(module, 1)
 
-    def _wire_publish(self, publish: Callable, publish_count) -> None:
+    def _wire_publish(self) -> None:
+        publish, publish_count = self.publication()
         self.snapshots = SnapshotPublisher(publish,
                                            self.learner.train_state.params,
                                            net=self.net,
@@ -152,99 +335,28 @@ class PlayerStack:
             weight_version=weight_version, stats=self.serve_stats,
             client_timed=client_timed, quant_stats=self.quant_stats).start()
 
-
     # -- thread actors --
 
     def start_actors_threads(self, stop: threading.Event) -> None:
-        self.store = InProcWeightStore(self._initial_payload())
-        self._wire_publish(self.store.publish,
-                           lambda: self.store.publish_count)
-        self.queue = BlockQueue(use_mp=False)
-        self._stop = stop
+        self.open_threads(stop, self._initial_payload())
+        self._wire_publish()
         if self.serve_endpoint is not None:
             # the server reads the store under a reader id of its own
             self._start_serve_server(
                 lambda: self.store.poll("serve"),
                 lambda: self.store.reader_version("serve"),
                 client_timed=True)
-        for i in range(self.n_slots):
-            self._spawn_thread_actor(i)
-
-    def _spawn_thread_actor(self, i: int) -> threading.Thread:
-        cfg = self.cfg
-        seed = cfg.runtime.seed + 10_000 * self.player_idx + 100 * i
-        # create_env through this module's symbol: tests monkeypatch it
-        env = make_actor_env(cfg, self.player_idx, i, seed,
-                             env_factory=create_env)
-        # the watchdog cannot kill a thread: it sets this event and
-        # abandons the incarnation
-        cancel = threading.Event()
-
-        def should_stop(cancel=cancel):
-            return self._stop.is_set() or cancel.is_set()
-
-        served = self.serve_endpoint is not None
-        # the current snapshot, fresh on a respawn too (adopted: its
-        # version is the stamp until the next poll)
-        policy, run_loop = make_actor_policy(
-            cfg, self.net,
-            None if served else self.store.current(reader_id=i), i, seed,
-            total_actors=self.n_slots,
-            serve_channel=self.serve_endpoint.connect() if served else None,
-            serve_stats=self.serve_stats, should_stop=should_stop,
-            quant_stats=self.quant_stats)
-        self.heartbeats.reset_slot(i)
-        sink = instrument_block_sink(
-            lambda b: self.queue.put_patient(
-                b, should_stop, beat=lambda: self.heartbeats.touch(i)),
-            i, board=self.heartbeats,
-            # served: the server's publication, riding each reply
-            weight_version=((lambda: policy.weight_version) if served
-                            else (lambda: self.store.reader_version(i))),
-            lane_base=i * cfg.actor.envs_per_actor)
-
-        def loop():
-            try:
-                run_loop(cfg, env, policy, block_sink=sink,
-                         weight_poll=((lambda: None) if served
-                                      else (lambda: self.store.poll(i))),
-                         should_stop=should_stop)
-            except Exception:
-                if not should_stop():
-                    raise
-            finally:
-                if served:
-                    policy.close()
-
-        t = threading.Thread(target=loop, daemon=True,
-                             name=f"actor-p{self.player_idx}-{i}")
-        t.health_cancel = cancel
-        t.start()
-        if i < len(self.threads):
-            self.threads[i] = t
-        else:
-            self.threads.append(t)
-        return t
+        self.spawn_actors()
 
     # -- process actors --
 
     def start_actors_processes(self, stop_event) -> None:
-        cfg = self.cfg
-        self._ctx = mp.get_context("spawn")
-        self.publisher = WeightPublisher(self._initial_payload())
-        self._wire_publish(self.publisher.publish,
-                           lambda: self.publisher.publish_count)
-        self.queue = BlockQueue(
-            use_mp=True, ctx=self._ctx,
-            shm_spec=self.learner.spec if cfg.runtime.shm_transport else None)
-        self.segment_names.append(self.publisher.name)
-        if cfg.runtime.shm_transport:
-            self.segment_names.append(self.queue._q.name)
-        self._stop = stop_event
+        self.open_processes(stop_event, self._initial_payload(),
+                            self.learner.spec)
+        self._wire_publish()
         if self.serve_endpoint is not None:
             self._start_serve_transport()
-        for i in range(self.n_slots):
-            self._spawn_process_actor(i)
+        self.spawn_actors()
 
     def _start_serve_transport(self) -> None:
         """Process actors' rung to the server in this process: the shm
@@ -289,46 +401,14 @@ class PlayerStack:
         self._start_serve_server(sub.poll, lambda: sub.publish_count,
                                  client_timed=False)
 
-    def _spawn_process_actor(self, i: int) -> mp.Process:
-        cfg = self.cfg
-        eps = apex_epsilon(i, self.n_slots, cfg.actor.base_eps,
-                           cfg.actor.eps_alpha)
-        self.heartbeats.reset_slot(i)
-        p = self._ctx.Process(
-            target=actor_process_main,
-            args=(cfg.to_dict(), self.player_idx, i, eps,
-                  self.publisher.name, self.queue._q, self._stop),
-            kwargs={"health_board": self.heartbeats,
-                    "serve_spec": self._serve_spec},
-            daemon=True, name=f"actor-p{self.player_idx}-{i}")
-        p.start()
-        if i < len(self.processes):
-            self.processes[i] = p
-        else:
-            self.processes.append(p)
-        return p
-
     # -- supervision --
 
     def supervise(self) -> int:
-        """One health pass: respawn dead actors (with
-        runtime.restart_dead_actors), kill and respawn hung ones, apply
-        the backoff and the breaker, reclaim shm ring slots of dead
-        producers (whether or not they respawn), run the stall detector,
-        and put the counters into the metrics. Returns the restarts."""
+        """The pool's health pass, then the stall detector; the counters go
+        into the metrics. Returns the restarts."""
         if self._stop is None or self._stop.is_set():
             return 0
-        restart = self.cfg.runtime.restart_dead_actors
-        restarted = supervise_workers(
-            self.threads, self._seen_dead,
-            respawn=self._spawn_thread_actor if restart else None,
-            health=self.health)
-        restarted += supervise_workers(
-            self.processes, self._seen_dead,
-            respawn=self._spawn_process_actor if restart else None,
-            ring=self._ring_recovery, health=self.health)
-        self.health.ring_slots_recovered += self._ring_recovery.tick(
-            self.queue)
+        restarted = super().supervise()
         workers = self.processes or self.threads
         self._stall.check(
             self.metrics.ingest_blocks_total,
@@ -351,41 +431,20 @@ class PlayerStack:
         }
 
     def close(self) -> None:
-        """Stop the learner's threads, write out queued publications, stop
-        and reap every actor, and unlink every segment. Set the stop
-        event first."""
+        """Stop the learner's threads, write out queued publications, then
+        the pool's close (actors reaped, segments unlinked); the server
+        last, so an actor still in an exchange gets its reply. Set the
+        stop event first."""
         self.learner.stop_background()
         if self.snapshots is not None:
             self.snapshots.close()
-        if self.publisher is not None:
-            self.publisher.close()
-        deadline = time.monotonic() + JOIN_S
-        while (any(p.is_alive() for p in self.processes)
-               and time.monotonic() < deadline):
-            # a child may wait on a full queue: drain it while they exit
-            if self.queue is not None:
-                self.queue.drain(64)
-            for p in self.processes:
-                p.join(timeout=0.05)
-        for p in self.processes:
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=2.0)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=2.0)
-        for t in self.threads:
-            t.join(timeout=JOIN_S)
-        # the server last: an actor still in an exchange gets its reply
+        super().close()
         if self.serve_server is not None:
             self.serve_server.stop()
         if self._serve_transport is not None:
             self._serve_transport.close()
         if self._serve_sub is not None:
             self._serve_sub.close()
-        if self.queue is not None:
-            self.queue.close()
-        self.heartbeats.close()
         self.metrics.close()
 
 

@@ -64,6 +64,11 @@ def supervise_train(cfg, *, actor_mode: str = "process",
     from r2d2_tpu_torch.runtime.checkpoint import latest_checkpoint
     from r2d2_tpu_torch.runtime.feeder import WorkerHealth
 
+    if cfg.mesh.multihost and cfg.mesh.num_processes > 1:
+        raise NotImplementedError(
+            "runtime.auto_resume supervises the single-host train() child; "
+            "multihost jobs are supervised by their cluster scheduler — "
+            "rely on runtime.resume + the rank-0 snapshot twin instead")
     ctx = mp.get_context("spawn")
     # one slot and no heartbeat board: the child's liveness is its process
     health = WorkerHealth.from_runtime(1, None, cfg.runtime)

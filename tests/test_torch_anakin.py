@@ -587,10 +587,15 @@ def test_config_knobs_roundtrip_and_cli():
     assert parse_overrides(Config(), ["--actor.anakin_priority=0.5"]
                            ).actor.anakin_priority == 0.5
     # knobs of parts the port does not have stay unknown fields
-    for arg in ("--mesh.multihost=true", "--multiplayer.enabled=true",
-                "--actor.fault_spec=x"):
+    for arg in ("--multiplayer.enabled=true", "--actor.fault_spec=x"):
         with pytest.raises(SystemExit):
             parse_overrides(Config(), [arg])
+    # multihost is a field now: on-device acting under it is refused, as
+    # the JAX package refuses it
+    with pytest.raises(ValueError, match="single-controller only"):
+        parse_overrides(Config(), [
+            "--actor.on_device=true", "--replay.block_length=120",
+            "--replay.capacity=120000", "--mesh.multihost=true"])
     # a quantized forward on the device is accepted (the twin acts)
     for dtype in ("int8", "bf16"):
         quant = parse_overrides(Config(), [

@@ -177,8 +177,9 @@ def test_make_mesh_refuses_more_ranks_than_devices():
 
 def test_mesh_config_roundtrip_and_refusals():
     """--mesh.dp parses and round-trips with JAX's meaning of -1; mp > 1,
-    snapshots under dp > 1 and the multi-host fields are refused naming
-    ROADMAP A.4; host placement and dp 1 / -1 on one device take the
+    snapshots under dp > 1 are refused naming ROADMAP A.4, the multi-host
+    fields parse and what they leave out is refused naming its item; host
+    placement and dp 1 / -1 on one device take the
     unsharded path."""
     cfg = parse_overrides(Config(), ["--mesh.dp=2"])
     assert cfg.mesh == MeshConfig(dp=2, mp=1)
@@ -191,10 +192,18 @@ def test_mesh_config_roundtrip_and_refusals():
     with pytest.raises(ValueError, match="snapshot.*A.4"):
         parse_overrides(Config(), ["--mesh.dp=2",
                                    "--runtime.snapshot_interval=10"])
-    for arg in ("--mesh.multihost=true", "--mesh.coordinator_address=x:1",
-                "--mesh.num_processes=2", "--mesh.process_id=1"):
-        with pytest.raises(SystemExit, match="multihost.py.*A.4"):
-            parse_overrides(Config(), [arg])
+    # the multi-host fields parse (parallel/multihost.py); what it leaves
+    # out is refused naming its item
+    mh = ["--mesh.multihost=true", "--mesh.coordinator_address=x:1",
+          "--mesh.num_processes=2", "--mesh.process_id=1", "--mesh.dp=2"]
+    parsed = parse_overrides(Config(), mh)
+    assert parsed.mesh == MeshConfig(dp=2, multihost=True,
+                                     coordinator_address="x:1",
+                                     num_processes=2, process_id=1)
+    for extra, match in ((["--mesh.mp=2"], "tensor_parallel.*A.4"),
+                         (["--actor.inference=server"], "A.6")):
+        with pytest.raises(ValueError, match=match):
+            parse_overrides(Config(), mh + extra)
     cpu = torch.device("cpu")
     host = cfg.replace(**{"replay.placement": "host"})
     assert resolved_dp(host, [cpu, cpu]) == 1

@@ -397,9 +397,9 @@ def test_supervisor_crash_loop_breaker(tmp_path, monkeypatch):
 
 def test_cli_routes_auto_resume_and_refuses_multihost(tmp_path, monkeypatch):
     """cli.train hands --runtime.auto_resume to the supervisor (the child
-    gets the device flag); a multihost job is refused before any child
-    starts: the port's config has no mesh section (the cluster's
-    scheduler supervises such jobs in the JAX package)."""
+    gets the device flag); the supervisor refuses a multi-process
+    multihost job before any child starts (the cluster's scheduler
+    supervises such jobs, as in the JAX package)."""
     from r2d2_tpu_torch.cli import train
     calls = _patch_ctx(monkeypatch, [0])
     out = train.main(["--runtime.auto_resume=true", "--device=cpu",
@@ -407,7 +407,7 @@ def test_cli_routes_auto_resume_and_refuses_multihost(tmp_path, monkeypatch):
                       f"--runtime.save_dir={tmp_path}"])
     assert out == {"supervised": True, "restarts": 0}
     assert calls[0][1:4] == ("thread", 3, None) and calls[0][5] == "cpu"
-    with pytest.raises(SystemExit, match="mesh"):
+    with pytest.raises(NotImplementedError, match="multihost"):
         train.main(["--runtime.auto_resume=true", "--mesh.multihost=true",
-                    "--mesh.num_processes=2"])
+                    "--mesh.num_processes=2", "--mesh.dp=2"])
     assert len(calls) == 1
