@@ -220,6 +220,39 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      seq-updates/s printed as gloo staging through one host. Every
      launch of phase 12 on the card, all controllers, goes into the
      ``kernels`` line as ``multihost_launches``.
+ 13. tensor, dp x mp and sequence parallelism (parallel/tensor_parallel.py,
+     sequence_parallel.py, dryrun.py; gloo ranks sharing the one card, so
+     no figure is a scaling number): (a) the tensor-parallel host-batch
+     step at the reference shape (bf16, fused scan, double DQN), dp=1 x
+     mp=2, against the unsharded step on the card from the same weights
+     and batches for TP_STEPS steps, within TP_REF_TOL (each leaf's
+     update against the unsharded one's among them, which a negative
+     control with the row's partial input gradients unsummed must
+     exceed); the largest sharded leaf half a rank; ms a step, the
+     largest differences, the control's and each rank's launches (K3,
+     K4, K4 lean, K5) printed; (b) the scripted
+     TP core (tools/dp_check.py rank_tp_external), small f32, dp=2 x mp=2:
+     four card ranks against four CPU ranks (losses rtol 1e-5), the card
+     ranks bit-equal; (c) the dp x mp device-replay step at the reference
+     widths in f32 (replay DPMP_BLOCKS blocks a shard): dp=2 x mp=2
+     against dp=2 x mp=1 from the same state and draws with JAX's bounds
+     (losses rtol 2e-5, params rtol 1e-4 atol 1e-6, trees rtol 1e-5), the
+     row's replay replicas bit-equal, K1 among its launches; (d)
+     make_sp_lstm, 5 stages x 4 microbatches over T=55, B=128, H=512,
+     f32, against the unsharded lean scan on the card within SP_ATOL, K4
+     lean once a microbatch a stage; (e) replay snapshots under dp=2, two
+     Learner ranks: the resumed learner's three losses equal the twin's
+     bit for bit, next_shard adopted, capture ms, write s and bytes
+     printed; (f) every run_tiny_* dryrun and the loopback multi-host
+     dryrun on the card; (g) the trainer's mp wiring, two Learner ranks
+     at dp=1 x mp=2 under each placement (host: rank 0 scatters each
+     batch): steps, a publish (the full network gathered), a gathered
+     checkpoint that a resumed pair restores bit for bit, the path's
+     kernels launched alike on both ranks; device placement also the
+     snapshot twin bit for bit. (a) to (g) run side by side (their
+     times are taken under each other's load). The launches go
+     into the ``kernels`` line as ``tp_launches`` (a, b, g),
+     ``dpmp_launches`` (c) and ``sp_launches`` (d).
      The script's total time is printed.
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
@@ -330,7 +363,7 @@ ANAKIN_CFG = {"actor.on_device": True, "replay.block_length": 120,
 ANAKIN_ARGS = ["--actor.on_device=true", "--env.game_name=Fake",
                "--replay.capacity=99960", "--replay.block_length=120",
                "--env.episode_len=120", "--network.pallas_lstm=auto"]
-ANAKIN_SECONDS = 26.0              # the fused trainer's run
+ANAKIN_SECONDS = 22.0              # the fused trainer's run
 # card vs CPU on small f32 segments: f32 sums in other orders on the card
 ANAKIN_ATOL = 1e-5
 BACK_TO_BACK = 20                  # launches enqueued ahead of the card
@@ -2312,7 +2345,7 @@ QUANT_BF16_ULP = 2.0 ** -7
 SERVE_LANES = (1, 8, 32)
 SERVE_LOAD_S = 4.0                 # each load window of cli.serve
 SERVE_STEPS = 200                  # served-vs-eager steps of 32 lanes
-SERVED_TRAIN_SECONDS = 15.0
+SERVED_TRAIN_SECONDS = 12.0
 SERVED_TRAIN_ARGS = ["--actor-mode=thread", "--actor.inference=server",
                      "--network.inference_dtype=int8",
                      "--env.game_name=Fake", "--replay.capacity=100000",
@@ -2718,7 +2751,7 @@ def phase_serving(dev, k, bench_default: float) -> dict:
 # ---------------------------------------------------------------------------
 # phase 10: pipelined ingest, crash recovery, quantized on-device acting
 
-INGEST_SECONDS = 17.0              # each cli.train run of the ingest A/B
+INGEST_SECONDS = 15.0              # each cli.train run of the ingest A/B
 INGEST_KS = (1, 8)                 # replay.ingest_batch_blocks, in turn
 INGEST_ARGS = ["--actor-mode=thread", "--env.game_name=Fake",
                "--replay.capacity=100000", "--runtime.save_interval=0",
@@ -2727,7 +2760,11 @@ RECOVERY_BLOCKS = 12               # reference-width blocks of the twin test
 SUPERVISED_SECONDS = 55.0          # the supervised run's bound
 SUPERVISED_SNAPSHOT_INTERVAL = 100  # learner steps between its snapshots
 SUPERVISED_KILL_BY_S = 48.0        # its first snapshot must land by then
-QUANT_TRAIN_SECONDS = 16.0         # cli.train at int8 on-device acting
+# its replay.learning_starts: training (and so the first snapshot) starts
+# after two reference-width blocks instead of the default 1,000 env steps,
+# which two thread actors took 15-20 s to fill on slower hosts
+SUPERVISED_LEARNING_STARTS = 200
+QUANT_TRAIN_SECONDS = 13.0         # cli.train at int8 on-device acting
 QUANT_TRAIN_ARGS = ["--network.inference_dtype=int8",
                     "--telemetry.quant_probe_interval=4"]
 
@@ -2942,6 +2979,7 @@ def phase_supervised_kill(dev) -> dict:
             proc = subprocess.Popen(
                 [sys.executable, "-m", "r2d2_tpu_torch.cli.train",
                  "--runtime.auto_resume=true",
+                 f"--replay.learning_starts={SUPERVISED_LEARNING_STARTS}",
                  f"--runtime.snapshot_interval={SUPERVISED_SNAPSHOT_INTERVAL}",
                  "--runtime.save_interval=100000", "--runtime.log_interval=1",
                  "--actor-mode=thread", "--env.game_name=Fake",
@@ -3875,6 +3913,537 @@ def phase_multihost(dev, bench_fused: float) -> dict:
     return total
 
 
+TP_STEPS = 3                       # 13(a), (b), (c): steps of each world
+TP_HOST_BLOCKS = 8                 # 13(a), (b): blocks of the host replay
+# 13(a)'s tolerance (PERF.md's predictions): the TP step in bf16 against
+# the unsharded one. Column-parallel layers may take other cuDNN/cuBLAS
+# algorithms (another f32 sum order, a bf16 ulp of 2^-8 in an output now
+# and then) and the partial input gradients are rounded to bf16 before
+# their sum. Adam moves an element at most ~lr (1e-4) a step whatever its
+# gradient, so a bound on the params alone would pass any backward: the
+# backward is held by "update_rel", each leaf's update over the steps
+# (final - initial params) against the unsharded update, relative in L2
+# norm, the largest over the leaves. A negative control (the row's partial
+# input gradients left unsummed, tools/dp_check.py rank_tp_external) must
+# exceed it.
+TP_REF_TOL = {"loss_rel": 2e-3, "params_abs": 1e-4, "update_rel": 3e-2,
+              "priorities_rel": 5e-2, "priorities_abs": 1e-3}
+DPMP_BLOCKS = 4                    # 13(c): blocks a shard (reduced depth)
+SP_SHAPE = (5, 4, 55, 128, 512)    # 13(d): stages, microbatches, T, B, H
+SP_ATOL = 2e-6                     # 13(d): f32, the fused scan's bound
+SNAP_CAPACITY = 4000               # 13(e): 10 reference blocks a shard
+PHASE13_TIMEOUT_S = 400.0          # a world's deadline
+
+
+def _ranks(fn, dp, *args, devices, mp=1):
+    """``fn(mesh, *args)`` on dp x mp gloo ranks on ``devices``."""
+    from r2d2_tpu_torch.parallel.mesh import run_ranks
+    return run_ranks(fn, dp, *args, mp=mp, devices=devices, backend="gloo",
+                     timeout_s=PHASE13_TIMEOUT_S)
+
+
+def _sum_launches(outs) -> dict:
+    return {k: sum(o["launches"][k] for o in outs) for k in _counts()}
+
+
+def _tp_case(cfg, msw: int, **extra) -> dict:
+    import dataclasses
+    import torch
+    from r2d2_tpu_torch.replay.structs import ReplaySpec
+    from r2d2_tpu_torch.tools import bench
+    spec = ReplaySpec.from_config(cfg, torch.device("cpu"))
+    return {"spec": dataclasses.asdict(spec), "action_dim": bench.ACTION_DIM,
+            "network": dataclasses.asdict(cfg.network),
+            "optim": dataclasses.asdict(cfg.optim), "init_seed": 0,
+            "min_shard_width": msw, **extra}
+
+
+def _check_half_features(outs, full: dict, label: str) -> str:
+    """The largest sharded leaf (of ``full``: name -> full shape) holds
+    half its features on every rank."""
+    import math
+    sharded = [n for n, s in outs[0]["shapes"].items()
+               if tuple(s) != tuple(full[n])]
+    check(sharded, f"{label}: no leaf sharded")
+    largest = max(sharded, key=lambda n: math.prod(full[n]))
+    for o in outs:
+        check(2 * math.prod(o["shapes"][largest]) == math.prod(full[largest]),
+              f"{label}: {largest} holds {o['shapes'][largest]} of "
+              f"{tuple(full[largest])}")
+    return f"{largest} {tuple(full[largest])} -> {outs[0]['shapes'][largest]}"
+
+
+def _update_rel(final, init, want) -> tuple:
+    """The largest relative L2 distance over the leaves between the update
+    ``final - init`` and ``want - init``, and its leaf."""
+    import numpy as np
+    worst, leaf = 0.0, None
+    for name in want:
+        du = np.asarray(final[name], np.float64) - init[name]
+        dw = np.asarray(want[name], np.float64) - init[name]
+        ref = float(np.linalg.norm(dw))
+        rel = float(np.linalg.norm(du - dw)) / max(ref, 1e-30)
+        if rel > worst or leaf is None:
+            worst, leaf = rel, name
+    return worst, leaf
+
+
+def phase_tp_reference(dev) -> dict:
+    """Phase 13(a): the tensor-parallel host-batch step at the reference
+    shape (B=128, 55-step windows, 84x84x4, cnn 1024, LSTM 512, dueling,
+    bf16, the fused scan with double DQN), dp=1 x mp=2: two gloo ranks
+    sharing the card against the unsharded external step on the card in
+    this process, from the same weights (seed 0) and host-sampled
+    batches, TP_STEPS steps: losses, priorities, the final params and each
+    leaf's update within TP_REF_TOL, the ranks' full params bit-equal, the
+    largest sharded leaf half on each rank, each rank's launches those of
+    its steps (K3, K4, K4 lean, K5; no gather: the host samples). The
+    same ranks then repeat the steps with the row's partial input
+    gradients unsummed (the negative control): its update distance must
+    exceed the bound. Returns the ranks' launches."""
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.learner.train_step import (create_train_state,
+                                                   make_external_batch_step)
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.replay.structs import ReplaySpec, SampleBatch
+    from r2d2_tpu_torch.tools import bench, dp_check
+    cfg = bench.reference_config(**{
+        **bench.PATHS["fused_double"],
+        "replay.capacity": TP_HOST_BLOCKS * 400})
+    case = _tp_case(cfg, 32, light=True, control=True,
+                    host_batches=(TP_HOST_BLOCKS, TP_STEPS, 13))
+    t0 = time.perf_counter()
+    outs = _ranks(dp_check.rank_tp_external, 1, case,
+                  devices=[str(dev)] * 2, mp=2)
+    world_s = time.perf_counter() - t0
+    net = NetworkApply(bench.ACTION_DIM, cfg.network, cfg.env.frame_stack,
+                       cfg.env.frame_height, cfg.env.frame_width, dev)
+    spec = ReplaySpec.from_config(cfg, torch.device("cpu"))
+    ts = create_train_state(net, cfg.optim, 0, True)
+    init = {n: p.double().cpu().numpy()
+            for n, p in ts.params.state_dict().items()}
+    step = make_external_batch_step(net, ReplaySpec.from_config(cfg, dev),
+                                    cfg.optim, True, graphed=False)
+    ref, ref_s = [], []
+    for fields in dp_check.host_batches(spec, TP_HOST_BLOCKS, TP_STEPS, 13):
+        batch = SampleBatch(**{n: torch.from_numpy(a).to(dev)
+                               for n, a in fields.items()})
+        t1 = time.perf_counter()
+        ts, m = step(ts, batch)
+        ref.append({k: v.float().cpu().numpy() for k, v in m.items()})
+        ref_s.append(time.perf_counter() - t1)
+    worst = {"loss_rel": 0.0, "priorities_abs": 0.0, "params_abs": 0.0}
+    check(outs[0]["trace"][-1]["params_sha"]
+          == outs[1]["trace"][-1]["params_sha"],
+          "13a: the ranks' full params differ")
+    for i, want in enumerate(ref):
+        got = outs[0]["trace"][i]
+        rel = abs(float(got["loss"]) - float(want["loss"])) / abs(
+            float(want["loss"]))
+        worst["loss_rel"] = max(worst["loss_rel"], rel)
+        check(rel <= TP_REF_TOL["loss_rel"], f"13a step {i}: loss "
+              f"{float(got['loss'])} vs {float(want['loss'])}")
+        np.testing.assert_allclose(got["priorities"], want["priorities"],
+                                   rtol=TP_REF_TOL["priorities_rel"],
+                                   atol=TP_REF_TOL["priorities_abs"])
+        worst["priorities_abs"] = max(worst["priorities_abs"], float(
+            np.max(np.abs(got["priorities"] - want["priorities"]))))
+    final = outs[0]["trace"][-1]["params"]
+    want_final = {n: p.float().cpu().numpy()
+                  for n, p in ts.params.state_dict().items()}
+    for name, p in want_final.items():
+        diff = float(np.max(np.abs(final[name] - p)))
+        worst["params_abs"] = max(worst["params_abs"], diff)
+        check(diff <= TP_REF_TOL["params_abs"],
+              f"13a: param {name} off by {diff}")
+    worst["update_rel"], worst["update_rel_leaf"] = _update_rel(
+        final, init, want_final)
+    check(worst["update_rel"] <= TP_REF_TOL["update_rel"],
+          f"13a: the update of {worst['update_rel_leaf']} off by "
+          f"{worst['update_rel']} (relative L2)")
+    control = {}
+    control["update_rel"], control["update_rel_leaf"] = _update_rel(
+        outs[0]["control_params"], init, want_final)
+    check(control["update_rel"] > TP_REF_TOL["update_rel"],
+          f"13a: the negative control (partial input gradients unsummed) "
+          f"passes the update bound: {control}")
+    largest = _check_half_features(outs, dict(net.param_specs), "13a")
+    want = _want_host_launches(cfg, TP_STEPS)
+    for r, o in enumerate(outs):
+        check(o["launches"] == want, f"13a rank {r}: launches "
+              f"{o['launches']}, want {want}")
+    ms = [1e3 * t["seconds"] for t in outs[0]["trace"]]
+    print(f"13a tensor parallel, host placement, dp=1 x mp=2, reference "
+          f"shape bf16 (fused scan, double DQN), two gloo ranks sharing "
+          f"one card vs the unsharded step on the card, both beside 13b-g "
+          f"({_card()}; gloo staging through one host, not a scaling "
+          f"number): "
+          + json.dumps({
+              "tp_ms_per_step": ms,
+              "unsharded_ms_per_step": [1e3 * s for s in ref_s],
+              "losses_tp": [float(t["loss"]) for t in outs[0]["trace"]],
+              "losses_unsharded": [float(m["loss"]) for m in ref],
+              "max_diff": worst, "tolerance": TP_REF_TOL,
+              "control_unsummed_input_grads": control,
+              "largest_sharded_leaf": largest,
+              "launches_per_rank": outs[0]["launches"],
+              "world_s": world_s}), flush=True)
+    return _sum_launches(outs)
+
+
+def phase_tp_card_vs_cpu(dev) -> dict:
+    """Phase 13(b): the scripted TP core (tools/dp_check.py
+    rank_tp_external) at the small f32 shape with the fused scan and
+    double DQN, dp=2 x mp=2, min_shard_width 8: four gloo ranks on the
+    card against four CPU ranks on the same weights and host batches,
+    TP_STEPS steps: losses rtol 1e-5, priorities rtol 1e-4 atol 1e-6,
+    every card rank's full params bit-equal; the card ranks' launches
+    those of their steps, none on the CPU's (the pattern of 12b). Returns
+    the card ranks' launches."""
+    import concurrent.futures
+    import numpy as np
+    from r2d2_tpu_torch.tools import dp_check
+    cfg = _tiny_config().replace(**{"network.pallas_lstm": "on",
+                                    "network.use_double": True})
+    case = _tp_case(cfg, 8, host_batches=(10, TP_STEPS, 5))
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        card, cpu = pool.map(
+            lambda names: _ranks(dp_check.rank_tp_external, 2, case,
+                                 devices=names, mp=2),
+            ([str(dev)] * 4, ["cpu"] * 4))
+    worst = 0.0
+    want = _want_host_launches(cfg, TP_STEPS)
+    for r in range(4):
+        for i in range(TP_STEPS):
+            g, c = card[r]["trace"][i], cpu[r]["trace"][i]
+            np.testing.assert_allclose(g["loss"], c["loss"], rtol=1e-5)
+            np.testing.assert_allclose(g["priorities"], c["priorities"],
+                                       rtol=1e-4, atol=1e-6)
+            worst = max(worst, float(abs(g["loss"] - c["loss"])
+                                     / abs(c["loss"])))
+            check(g["params_sha"] == card[0]["trace"][i]["params_sha"],
+                  f"13b step {i}: card rank {r}'s params differ")
+        check(card[r]["launches"] == want, f"13b rank {r}: launches "
+              f"{card[r]['launches']}, want {want}")
+        check(not any(cpu[r]["launches"].values()),
+              "13b: a CPU rank launched a kernel")
+    return {"report": f"13b scripted TP core, dp=2 x mp=2, four gloo ranks "
+                      f"on one card vs four CPU ranks (small f32, fused "
+                      f"scan, double DQN, {TP_STEPS} steps): losses max "
+                      f"rel {worst:.3e}, card ranks bit-equal; "
+                      f"{time.perf_counter() - t0:.1f} s",
+            "launches": _sum_launches(card)}
+
+
+def _dpmp_case(seed: int = 9):
+    """13(c)'s case: the reference widths in f32 with the fused scan and
+    double DQN, DPMP_BLOCKS blocks a shard round-robin (the port's CPU
+    replay, numpy fields), seed-0 weights, the same jitter."""
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.replay.device_replay import replay_add, replay_init
+    from r2d2_tpu_torch.replay.structs import ReplaySpec
+    from r2d2_tpu_torch.tools import bench, dp_check
+    cfg = bench.reference_config(**{
+        **bench.PATHS["fused_double"], "network.bf16": "off",
+        "replay.capacity": DPMP_BLOCKS * 400})
+    spec = ReplaySpec.from_config(cfg, torch.device("cpu"))
+    blocks = bench.synthetic_blocks(cfg, 2 * DPMP_BLOCKS, seed=seed)
+    shards = []
+    for d in range(2):
+        rs = replay_init(spec, torch.device("cpu"))
+        for block in blocks[d::2]:
+            replay_add(spec, rs, block)
+        state = dp_check.numpy_state(rs)
+        state["block_ptr"] = int(state["block_ptr"])
+        shards.append(state)
+    jitter = np.random.default_rng(seed).random(
+        (2, TP_STEPS, 1, spec.batch_size), dtype=np.float32)
+    return cfg, _tp_case(cfg, 32, shards=shards, jitter=jitter, k=1,
+                         dispatches=TP_STEPS, light=True)
+
+
+def _dpmp_compare(mp2, mp1, net) -> dict:
+    """13(c)'s checks with JAX's bounds (tests/test_parallel.py)."""
+    import numpy as np
+    worst = {"loss_rel": 0.0, "params_abs": 0.0, "tree_rel": 0.0}
+    for r, o in enumerate(mp2):
+        base = mp1[r // 2]
+        check(o["replay_digest"] == mp2[(r // 2) * 2]["replay_digest"],
+              f"13c rank {r}: its dp row's replay replicas differ")
+        check(o["trace"][-1]["params_sha"]
+              == mp2[0]["trace"][-1]["params_sha"],
+              f"13c rank {r}: full params differ")
+        for i in range(TP_STEPS):
+            g, w = o["trace"][i], base["trace"][i]
+            np.testing.assert_allclose(g["loss"], w["loss"], rtol=2e-5)
+            np.testing.assert_allclose(g["tree"], w["tree"], rtol=1e-5)
+            worst["loss_rel"] = max(worst["loss_rel"], float(np.max(
+                np.abs(g["loss"] - w["loss"]) / np.abs(w["loss"]))))
+            worst["tree_rel"] = max(worst["tree_rel"], float(np.max(
+                np.abs(g["tree"] - w["tree"]) / np.maximum(
+                    np.abs(w["tree"]), 1e-30))))
+    got, want = mp2[0]["trace"][-1]["params"], mp1[0]["trace"][-1]["params"]
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
+        worst["params_abs"] = max(worst["params_abs"], float(np.max(
+            np.abs(got[name] - want[name]))))
+    worst["largest_sharded_leaf"] = _check_half_features(
+        mp2, dict(net.param_specs), "13c")
+    return worst
+
+
+def phase_sp(dev) -> dict:
+    """Phase 13(d): make_sp_lstm with SP_SHAPE (5 stages, 4 microbatches
+    over T=55, B=128, H=512, f32) on five gloo ranks sharing the card,
+    against the unsharded lean scan (K4 lean) on the card from the same
+    seeded inputs: outputs and final carry within SP_ATOL on every stage;
+    each stage launches K4 lean once a microbatch. The sp run's seconds
+    (host clock) beside the unsharded scan's CUDA-event ms. Returns the
+    stages' launches."""
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.ops.lstm_kernels import lstm_fwd
+    from r2d2_tpu_torch.tools import dp_check
+    stages, micro, steps, batch, hidden = SP_SHAPE
+    inputs = (batch, steps, hidden, 21)
+    t0 = time.perf_counter()
+    outs = _ranks(dp_check.rank_sp_lstm, stages,
+                  {"microbatches": micro, "sp_inputs": inputs},
+                  devices=[str(dev)] * stages)
+    world_s = time.perf_counter() - t0
+    args = {k: v.to(dev) for k, v in dp_check.sp_inputs(*inputs).items()}
+    xpb = (args["x_proj"] + args["bias"]).transpose(0, 1).contiguous()
+    c0, h0 = args["carry0"][0].contiguous(), args["carry0"][1].contiguous()
+    before = _counts()
+    hseq, c_fin = lstm_fwd(xpb, args["w_rec"], c0, h0, save_residuals=False)
+    check(_counts()["lstm_fwd_lean"] == before["lstm_fwd_lean"] + 1,
+          "13d: the reference scan did not launch K4 lean")
+    scan_ms = cuda_ms(lambda: lstm_fwd(xpb, args["w_rec"], c0, h0,
+                                       save_residuals=False))
+    want_out = hseq.transpose(0, 1).cpu().numpy()
+    want_fin = torch.stack([c_fin, hseq[-1]]).cpu().numpy()
+    err = 0.0
+    for r, (out, fin, errors, _, launches) in enumerate(outs):
+        err = max(err, float(np.max(np.abs(out - want_out))),
+                  float(np.max(np.abs(fin - want_fin))))
+        check(len(errors) == 2 and all("not divisible" in e for e in errors),
+              f"13d stage {r}: {errors}")
+        check(launches["lstm_fwd_lean"] == micro
+              and launches["lstm_fwd"] == 0,
+              f"13d stage {r}: launches {launches}")
+    check(err <= SP_ATOL, f"13d: max abs err {err} > {SP_ATOL}")
+    print(f"13d sequence parallel, S={stages} stages x M={micro} "
+          f"microbatches, T={steps} B={batch} H={hidden} f32, five gloo "
+          f"ranks on one card ({_card()}): max abs err vs the unsharded "
+          f"lean scan {err:.3e} (bound {SP_ATOL}); K4 lean launches "
+          f"{stages * micro} ({micro} a stage); sp run "
+          f"{1e3 * max(o[3] for o in outs):.1f} ms host clock (the carry "
+          f"through the host between stages; beside 13a-c and e-g) vs one "
+          f"lean scan {scan_ms:.4f} ms (CUDA events); {world_s:.1f} s "
+          "with spawn", flush=True)
+    return _sum_launches([{"launches": o[4]} for o in outs])
+
+
+def _learner_world(dev, dp: int, mp: int, args, steps: int = 2,
+                   after: int = 3) -> list:
+    """tools/dp_check.py rank_snapshot_twin on dp x mp Learner ranks
+    sharing the card over gloo: the reference widths with the fused scan,
+    SNAP_CAPACITY, the config flags ``args``, five round-robin blocks,
+    ``steps`` steps, a publish, a checkpoint (and a snapshot when ``args``
+    turn them on), one more block and ``after`` steps; a learner resumed
+    from them takes the same block and ``after`` steps. Returns every
+    rank's result."""
+    import tempfile
+    from r2d2_tpu_torch.config import Config, parse_overrides
+    from r2d2_tpu_torch.tools import bench, dp_check
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_learner_") as d:
+        cfg = parse_overrides(Config(), [
+            "--env.game_name=Fake", f"--replay.capacity={SNAP_CAPACITY}",
+            f"--mesh.dp={dp}", f"--mesh.mp={mp}",
+            "--runtime.save_interval=0", "--runtime.steps_per_dispatch=1",
+            "--network.pallas_lstm=on", f"--runtime.save_dir={d}", *args])
+        blocks = bench.synthetic_blocks(cfg, 6, seed=31)
+        return _ranks(dp_check.rank_snapshot_twin, dp, {
+            "cfg": cfg.to_dict(), "action_dim": bench.ACTION_DIM,
+            "blocks": blocks[:5], "extra_block": blocks[5], "steps": steps,
+            "after": after, "cut": False}, devices=[str(dev)] * (dp * mp),
+            mp=mp)
+
+
+def phase_dp_snapshot(dev) -> str:
+    """Phase 13(e): replay snapshots under dp=2, two Learner ranks on the
+    card (``_learner_world``): a learner resumed from the checkpoint and
+    the snapshot adopts next_shard (1), publishes what was published at
+    the save, and its three losses equal the twin's bit for bit. Returns
+    the report line."""
+    t0 = time.perf_counter()
+    out = _learner_world(dev, 2, 1, ["--runtime.snapshot_interval=100000"]
+                         )[0]
+    check(out["restores"] == 1 and out["next_shard"] == 1,
+          f"13e: restores {out['restores']}, next_shard {out['next_shard']}")
+    check(out["resumed"] == out["twin"] and all(
+        math.isfinite(x) for x in out["twin"]),
+        f"13e: resumed {out['resumed']} vs twin {out['twin']}")
+    check(out["resumed_sha"] == out["published_sha"],
+          "13e: the resumed learner's params differ from the saved ones")
+    written = out["written"]
+    return (f"13e replay snapshots under dp=2, two Learner ranks on one card "
+            f"({_card()}): the resumed learner's next three losses "
+            f"{out['resumed']} equal the twin's bit for bit, next_shard 1 "
+            f"adopted; capture {out['capture_ms']:.3f} ms (host, both "
+            f"shards through the host group), write {written['write_s']} s, "
+            f"{written['payload_bytes']} bytes; "
+            f"{time.perf_counter() - t0:.1f} s with spawn")
+
+
+def phase_tp_learner(dev, placement: str) -> dict:
+    """Phase 13(g): the trainer's tensor-parallel wiring, two Learner
+    ranks at dp=1 x mp=2 on the card under ``placement``
+    (``_learner_world``, one step before the save and two after it, one
+    on host placement; host: rank 0's host replay, each batch scattered
+    to the row; device: the replicated replay, the snapshot of one
+    replica): every loss finite, the published network full while the
+    ranks hold half of the largest sharded leaf, the gathered checkpoint
+    restoring it bit for bit, both ranks launching the path's kernels (K1
+    on device placement only) alike; device placement also the snapshot
+    twin's losses bit-equal. Returns the report line and the ranks'
+    launches."""
+    t0 = time.perf_counter()
+    device = placement == "device"
+    outs = _learner_world(dev, 1, 2, (
+        ["--runtime.snapshot_interval=100000"] if device
+        else ["--replay.placement=host"]), steps=1, after=2 if device else 1)
+    out, label = outs[0], f"13g {placement} placement"
+    check(all(math.isfinite(x) for k in ("losses", "twin", "resumed")
+              for x in out[k]), f"{label}: losses {out}")
+    check(out["resumed_sha"] == out["published_sha"],
+          f"{label}: the resumed learner's params differ from the saved "
+          "ones")
+    largest = _check_half_features(outs, out["full_shapes"], label)
+    launches = [o["launches"] for o in outs]
+    path = ["stack_frames", "lstm_fwd", "lstm_bwd"] + (
+        ["gather_windows"] if device else [])
+    check(launches[0] == launches[1]
+          and all(launches[0][k] > 0 for k in path)
+          and (device or launches[0]["gather_windows"] == 0),
+          f"{label}: launches {launches}")
+    if device:
+        check(out["restores"] == 1 and out["resumed"] == out["twin"],
+              f"{label}: restores {out['restores']}, resumed "
+              f"{out['resumed']} vs twin {out['twin']}")
+    after = len(out["twin"])
+    return {"report": f"{label}, dp=1 x mp=2, two Learner ranks on one "
+                      f"card ({_card()}; reference widths, fused scan; one "
+                      f"step, a publish, a gathered checkpoint"
+                      + (", a snapshot" if device else "")
+                      + f", then {after} more; resumed: {after}): losses "
+                      f"{out['losses'] + out['twin']}, resumed "
+                      f"{out['resumed']}"
+                      + (" (the twin's bit for bit)" if device else "")
+                      + f"; {largest} a rank, published = restored; "
+                      f"launches a rank {launches[0]}; "
+                      f"{time.perf_counter() - t0:.1f} s with spawn",
+            "launches": _sum_launches(outs)}
+
+
+def dryrun_world(mesh, names) -> dict:
+    """Phase 13(f)'s rank function: the dryruns ``names``
+    (parallel/dryrun.py) one after another on this rank's world."""
+    from r2d2_tpu_torch.parallel import dryrun
+    return {name: getattr(dryrun, name)(mesh) for name in names}
+
+
+def phase_dryruns(dev) -> str:
+    """Phase 13(f): every run_tiny_* dryrun (parallel/dryrun.py) on gloo
+    ranks sharing the card (each asserts its own replicas and a finite
+    loss): the dp x mp ones and sp on a dp=2 x mp=2 world, the sharded
+    and the fused-LSTM steps on a dp=2 world; and the loopback
+    multi-host dryrun with two controller interpreters on the card over
+    gloo; the three side by side. Returns the report line."""
+    import concurrent.futures
+    from r2d2_tpu_torch.parallel.multihost_dryrun import launch
+    name = str(dev)
+    worlds = ((("run_tiny_device_mp_step", "run_tiny_tp_step",
+                "run_tiny_sp_step"), 2, 2),
+              (("run_tiny_sharded_step", "run_tiny_plstm_step"), 2, 1))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(_ranks, dryrun_world, dp, names,
+                            devices=[name] * dp * mp, mp=mp)
+                for names, dp, mp in worlds]
+        mh = pool.submit(launch, 2, "cuda", "gloo", PHASE13_TIMEOUT_S)
+        outs = [job.result() for job in jobs]
+        mh.result()
+    results = {}
+    for out in outs:
+        for fn in out[0]:
+            values = [rank[fn] for rank in out]
+            check(len(set(values)) == 1 and math.isfinite(values[0]),
+                  f"13f {fn}: {values}")
+            results[fn] = values[0]
+    return ("13f dryruns on the card: " + json.dumps(results)
+            + "; multihost ok")
+
+
+def phase_parallel_remainder(dev) -> dict:
+    """Phase 13 (see the module docstring): 13(a) to 13(g) side by side.
+    Returns the launch counts: "tp" (13a, 13b's card ranks and 13g's),
+    "dpmp" (13c's mp=2 ranks), "sp" (13d's stages)."""
+    import concurrent.futures
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.tools import bench, dp_check
+    t0 = time.perf_counter()
+    cfg, case = _dpmp_case()
+    with concurrent.futures.ThreadPoolExecutor(9) as pool:
+        jobs = {"a": pool.submit(phase_tp_reference, dev),
+                "c2": pool.submit(_ranks, dp_check.rank_steps, 2, case,
+                                  devices=[str(dev)] * 4, mp=2),
+                "c": pool.submit(_ranks, dp_check.rank_steps, 2, case,
+                                 devices=[str(dev)] * 2),
+                "b": pool.submit(phase_tp_card_vs_cpu, dev),
+                "d": pool.submit(phase_sp, dev),
+                "e": pool.submit(phase_dp_snapshot, dev),
+                "f": pool.submit(phase_dryruns, dev),
+                "g_device": pool.submit(phase_tp_learner, dev, "device"),
+                "g_host": pool.submit(phase_tp_learner, dev, "host")}
+        done = {k: j.result() for k, j in jobs.items()}
+    tp, mp2 = done["a"], done["c2"]
+    net = NetworkApply(bench.ACTION_DIM, cfg.network, cfg.env.frame_stack,
+                       cfg.env.frame_height, cfg.env.frame_width, dev)
+    worst = _dpmp_compare(mp2, done["c"], net)
+    want = _want_launches({"network.pallas_lstm": "on",
+                           "network.use_double": True}, TP_STEPS)
+    for r, o in enumerate(mp2):
+        check(o["launches"] == want, f"13c rank {r}: launches "
+              f"{o['launches']}, want {want}")
+    print(f"13c dp x mp device-replay step, dp=2 x mp=2 vs dp=2 x mp=1 "
+          f"(reference widths f32, fused scan, double DQN, replay "
+          f"{DPMP_BLOCKS} blocks a shard, {TP_STEPS} steps, the same "
+          f"state and draws; gloo ranks sharing one card beside 13a, b, "
+          f"d, e, f and g, {_card()}; not a scaling number): "
+          + json.dumps({
+              "mp2_ms_per_step": [1e3 * t["seconds"]
+                                  for t in mp2[0]["trace"]],
+              "mp1_ms_per_step": [1e3 * t["seconds"]
+                                  for t in done["c"][0]["trace"]],
+              "max_diff": worst, "bounds": "losses rtol 2e-5, params rtol "
+              "1e-4 atol 1e-6, trees rtol 1e-5",
+              "launches_per_rank": mp2[0]["launches"]}), flush=True)
+    print(done["b"]["report"], flush=True)
+    print(done["e"], flush=True)
+    print(done["f"], flush=True)
+    print(done["g_device"]["report"], flush=True)
+    print(done["g_host"]["report"], flush=True)
+    print(f"phase 13 {time.perf_counter() - t0:.1f} s", flush=True)
+    tp_total = {k: tp[k] + sum(done[j]["launches"][k]
+                               for j in ("b", "g_device", "g_host"))
+                for k in tp}
+    return {"tp": tp_total, "dpmp": _sum_launches(mp2), "sp": done["d"]}
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3971,6 +4540,8 @@ def main(argv) -> int:
     multihost = phase_multihost(
         dev, reference["fused", resolved_k]["median_seq_updates_per_s"])
     done("multi-host")
+    parallel = phase_parallel_remainder(dev)
+    done("tensor, dp x mp and sequence parallel")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}
@@ -3995,7 +4566,13 @@ def main(argv) -> int:
                     sharded_nccl_launches=(0 if name.endswith("_padded")
                                            else sharded["nccl"][name]),
                     multihost_launches=(0 if name.endswith("_padded")
-                                        else multihost[name]))
+                                        else multihost[name]),
+                    tp_launches=(0 if name.endswith("_padded")
+                                 else parallel["tp"][name]),
+                    dpmp_launches=(0 if name.endswith("_padded")
+                                   else parallel["dpmp"][name]),
+                    sp_launches=(0 if name.endswith("_padded")
+                                 else parallel["sp"][name]))
                for name, r in timings.items()]
     kernels.append(dict(
         name="int8_linear", route="cuda", source=KERNEL_SOURCES["quant_kernels"],
@@ -4011,10 +4588,18 @@ def main(argv) -> int:
         anakin_quant_launches=anakin_quant["int8_linear"],
         sharded_launches=sharded["loop"]["int8_linear"],
         sharded_nccl_launches=sharded["nccl"]["int8_linear"],
-        multihost_launches=multihost["int8_linear"]))
+        multihost_launches=multihost["int8_linear"],
+        tp_launches=parallel["tp"]["int8_linear"],
+        dpmp_launches=parallel["dpmp"]["int8_linear"],
+        sp_launches=parallel["sp"]["int8_linear"]))
     check(all(multihost[name] > 0 for name in (
         "gather_windows", "stack_frames", "lstm_fwd", "lstm_bwd")),
         f"phase 12 launched {multihost}")
+    scan = ("stack_frames", "lstm_fwd", "lstm_fwd_lean", "lstm_bwd")
+    check(all(parallel["tp"][n] > 0 for n in scan)
+          and all(parallel["dpmp"][n] > 0 for n in scan + ("gather_windows",))
+          and parallel["sp"]["lstm_fwd_lean"] > 0,
+          f"phase 13 launched {parallel}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

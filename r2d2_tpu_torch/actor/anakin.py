@@ -60,6 +60,7 @@ from r2d2_tpu_torch.ops.launch_counts import (add_launch_counts,
                                               launch_counts)
 from r2d2_tpu_torch.replay.device_replay import write_rows
 from r2d2_tpu_torch.replay.structs import Block, ReplaySpec, ReplayState
+from r2d2_tpu_torch.utils.device import gc_paused
 
 STATS = ("episodes", "reported_episodes", "reported_return_sum",
          "env_steps")
@@ -582,7 +583,7 @@ class ActSegment:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         stream = torch.cuda.Stream()
-        with captured_launches(stream) as counted, \
+        with gc_paused(), captured_launches(stream) as counted, \
                 torch.cuda.graph(graph, stream=stream,
                                  capture_error_mode="thread_local"):
             self._outputs = self._run()

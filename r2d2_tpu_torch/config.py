@@ -3,10 +3,12 @@ optim, actor, runtime and mesh sections of the JAX package's config, with
 the same field names and defaults, so a ``--section.field=value`` override
 means the same thing in both packages. Only the fields the port reads are
 here: a setting of a part the port does not have yet
-(``--fleet.replay_shards=2``, ``--mesh.multihost=true``, ...) is refused as
-an unknown field instead of being ignored, and a value the port cannot
-honour yet (``serve.servers > 1``, ``mesh.mp > 1``) is refused naming the
-item that brings it.
+(``--fleet.replay_shards=2``, ``--multiplayer.player_id=0``, ...) is
+refused as an unknown field instead of being ignored, and a value the port
+cannot honour yet is refused naming the item that brings it: ``mesh.mp >
+1`` under ``mesh.multihost`` (ROADMAP A.4) and ``serve.servers > 1``
+(A.6). ``actor.on_device`` with ``mesh.mp > 1`` is refused in the JAX
+package's words, as it refuses it.
 
 The tri-state knobs ("on"/"off"/"auto") resolve for the device the port
 runs on, never for a TPU:
@@ -49,8 +51,15 @@ runs on, never for a TPU:
   commit (runtime/learner_loop.py). -1 = ``CUDA_AUTO``'s value on CUDA,
   1 (the per-block drain) on the CPU.
 * ``mesh.dp``: data-parallel ranks, one process and one GPU each
-  (``parallel/``); -1 = every visible GPU (``torch.cuda.device_count()``),
-  so 1 on a one-card machine, which runs the unsharded path.
+  (``parallel/``); -1 = every visible GPU (``torch.cuda.device_count()``)
+  over ``mesh.mp``, so 1 on a one-card machine, which runs the unsharded
+  path.
+* ``mesh.mp``: tensor-parallel ranks a dp row (parallel/tensor_parallel.py),
+  under both placements; dp x mp ranks in all, one GPU each. Its
+  dispatches run eagerly on both backends (``learner/train_step.py
+  eager_steps``): gloo's collectives cannot be captured in a CUDA graph,
+  and an NCCL capture of the tensor-parallel step is ROADMAP item A.4
+  (not built). mp = 1 keeps its CUDA graphs.
 """
 
 from __future__ import annotations
@@ -233,10 +242,14 @@ class MeshConfig:
     of the gradient a step keeps the replicas equal (``parallel/sharded.py``).
 
     ``dp``: 1 = the unsharded path; N > 1 = N ranks; -1 = every visible
-    device. ``mp`` (tensor parallel) is kept for the JAX package's
-    spelling and must be 1. Under ``replay.placement="host"`` no dp path
-    is taken whatever ``dp`` says, as in the JAX package, whose host
-    placement builds its step before it looks at the mesh.
+    device over ``mp``. ``mp``: tensor parallelism, each dp row's ``mp``
+    ranks holding feature shards of the train state
+    (parallel/tensor_parallel.py); dp x mp ranks in all. Under
+    ``replay.placement="host"`` no dp path is taken at mp = 1 whatever
+    ``dp`` says, as in the JAX package, whose host placement builds its
+    step before it looks at the mesh; at mp > 1 host placement runs the
+    tensor-parallel external-batch step over the dp x mp mesh, rank 0
+    holding the host replay.
 
     ``multihost``: the multi-controller trainer, where each controller
     owns one card, its actors and its replay shard and the controllers
@@ -436,25 +449,11 @@ class Config:
         self._check_mesh()
 
     def _check_mesh(self) -> None:
-        """What the port's data-parallel path cannot honour yet, refused
-        naming the item that brings it (ROADMAP A.4)."""
-        mesh = self.mesh
-        if mesh.mp > 1:
-            raise ValueError(
-                f"mesh.mp={mesh.mp}: tensor parallelism is "
-                "parallel/tensor_parallel.py, ROADMAP item A.4 (not ported); "
-                "the port runs data-parallel meshes only (mesh.dp), on-device "
-                "acting included")
-        if mesh.multihost:
+        """The mesh's rules: the multi-controller trainer's under
+        ``mesh.multihost`` (on-device acting with mp > 1 is refused with
+        the acting rules, as in the JAX package)."""
+        if self.mesh.multihost:
             self._check_multihost()
-        # mesh.dp=-1 resolves at run time; the launcher checks it again
-        if (self.runtime.snapshot_interval > 0 and mesh.dp > 1
-                and self.replay.placement == "device"
-                and not mesh.multihost):
-            raise ValueError(
-                f"runtime.snapshot_interval with mesh.dp={mesh.dp}: replay "
-                "snapshots of a sharded replay are ROADMAP item A.4 (not "
-                "ported); set runtime.snapshot_interval=0 or mesh.dp=1")
 
     def _check_multihost(self) -> None:
         """The multi-controller trainer's rules (parallel/multihost.py):
@@ -468,6 +467,13 @@ class Config:
             raise ValueError(
                 f"mesh.process_id ({mesh.process_id}) must be in [0, "
                 f"mesh.num_processes={mesh.num_processes})")
+        if mesh.mp > 1:
+            raise ValueError(
+                f"mesh.mp={mesh.mp} with mesh.multihost: a controller drives "
+                "one card, and tensor parallelism across controllers (the "
+                "JAX package's GSPMD lockstep ingest) is ROADMAP item A.4 "
+                "(not ported); run mesh.mp on one host (cli.train "
+                "--mesh.mp) or set mesh.mp=1")
         if mesh.dp not in (-1, mesh.num_processes):
             raise ValueError(
                 f"mesh.dp={mesh.dp} with mesh.multihost: each controller "
@@ -605,6 +611,15 @@ class Config:
                 "fixed block_length-step blocks, so episode ends must land "
                 "on block boundaries (the host path's emit-on-done "
                 "semantics)")
+        if self.mesh.mp > 1:
+            raise ValueError(
+                "actor.on_device composes with data-parallel meshes "
+                "only: the fused acting scan runs per-shard lane "
+                "groups over mesh.dp, but model parallelism (mesh.mp "
+                f"= {self.mesh.mp}) shards the network's feature dims "
+                "through the GSPMD learner step, which the acting "
+                "scan does not run under — set mesh.mp=1 (mesh.dp > 1 "
+                "is fine) or actor.on_device=false")
         dp = self.mesh.dp
         if dp > 1 and actor.anakin_lanes % dp != 0:
             raise ValueError(

@@ -45,6 +45,7 @@ from r2d2_tpu_torch.ops.value import inverse_value_rescale, value_rescale
 from r2d2_tpu_torch.replay.device_replay import replay_sample
 from r2d2_tpu_torch.replay.structs import (ReplaySpec, ReplayState,
                                            SampleBatch, batch_fields)
+from r2d2_tpu_torch.utils.device import gc_paused
 
 
 METRICS = ("loss", "mean_abs_td", "mean_q", "grad_norm")
@@ -94,9 +95,16 @@ def create_train_state(net: NetworkApply, optim: OptimConfig, seed: int,
                       generator=generator)
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
-    """optax.clip_by_global_norm in place; returns the pre-clip norm."""
-    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+def clip_by_global_norm_(grads, max_norm: float,
+                         sq_norm: Optional[Callable] = None) -> torch.Tensor:
+    """optax.clip_by_global_norm in place; returns the pre-clip norm.
+    ``sq_norm(grads)``: the squared global norm where the gradients are
+    shards of it (tensor parallelism); the sum of their squares by
+    default."""
+    if sq_norm is None:
+        norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    else:
+        norm = torch.sqrt(sq_norm(grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -187,7 +195,8 @@ def make_loss_fn(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
 
 
 def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
-                     use_double: bool, reduce: Optional[Callable] = None):
+                     use_double: bool, reduce: Optional[Callable] = None,
+                     sq_norm: Optional[Callable] = None):
     """``train(train_state, batch) -> metrics``: one step's device work on
     a sampled batch, all of it in place (loss, clip + Adam, the step
     counter and the hard target sync); ``metrics["priorities"]`` holds the
@@ -195,8 +204,11 @@ def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
     to advance. ``reduce(grads, loss, mean_abs_td, mean_q, valid_steps)
     -> (loss, mean_abs_td, mean_q)``, between the backward and the clip:
     the data-parallel mean over ranks (parallel/sharded.py ``GradMean``,
-    or ``BatchMean`` for one batch split over the ranks), in place on the
-    gradients; None on a single device."""
+    or ``BatchMean`` for one batch split over the ranks; under tensor
+    parallelism ``TPGradients`` around it), in place on the gradients;
+    None on a single device. ``sq_norm``:
+    ``clip_by_global_norm_``'s (parallel/tensor_parallel.py
+    ``TPGradients.sq_norm``)."""
     loss_fn = make_loss_fn(net, spec, optim, use_double)
     interval = optim.target_net_update_interval
 
@@ -210,7 +222,7 @@ def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
             loss, aux["mean_abs_td"], aux["mean_q"] = reduce(
                 grads, loss, aux["mean_abs_td"], aux["mean_q"],
                 aux["valid_steps"])
-        grad_norm = clip_by_global_norm_(grads, optim.grad_norm)
+        grad_norm = clip_by_global_norm_(grads, optim.grad_norm, sq_norm)
         ts.opt.step()
 
         # hard target sync on the 1-based step counter, on the device
@@ -229,12 +241,14 @@ def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
 
 
 def _make_step_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
-                    use_double: bool, reduce: Optional[Callable] = None):
+                    use_double: bool, reduce: Optional[Callable] = None,
+                    sq_norm: Optional[Callable] = None):
     """``body(train_state, replay_state, uniform) -> metrics``: sample,
     train, and write the priorities back, right after the sample they
     belong to. ``uniform``: the (B,) sampling jitter, or None to draw it
-    from the train state's generator. ``reduce``: ``_make_train_body``'s."""
-    train = _make_train_body(net, spec, optim, use_double, reduce)
+    from the train state's generator. ``reduce``, ``sq_norm``:
+    ``_make_train_body``'s."""
+    train = _make_train_body(net, spec, optim, use_double, reduce, sq_norm)
 
     def body(ts: TrainState, rs: ReplayState,
              uniform: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -269,7 +283,8 @@ def make_learner_step(net: NetworkApply, spec: ReplaySpec,
 def make_external_batch_step(net: NetworkApply, spec: ReplaySpec,
                              optim: OptimConfig, use_double: bool,
                              reduce: Optional[Callable] = None,
-                             graphed: Optional[bool] = None):
+                             graphed: Optional[bool] = None,
+                             sq_norm: Optional[Callable] = None):
     """The step of host-placement replay (``replay.placement="host"``): the
     batch is sampled on the host (``replay/host_replay.py``) and copied to
     the device by the caller. ``step(train_state, batch) -> (train_state,
@@ -282,10 +297,11 @@ def make_external_batch_step(net: NetworkApply, spec: ReplaySpec,
     call copies the given device batch into the static one on the current
     stream, which must be able to read it, and replays the graph; the
     first call runs eagerly as the capture's warm-up and counts as a step,
-    the second captures. ``reduce``: ``_make_train_body``'s (the sharded
-    external step, parallel/sharded.py); ``graphed``: False runs it eagerly
-    on CUDA too (a collective a graph cannot capture), None = on CUDA."""
-    train = _make_train_body(net, spec, optim, use_double, reduce)
+    the second captures. ``reduce``, ``sq_norm``: ``_make_train_body``'s
+    (the sharded and the tensor-parallel external steps, parallel/);
+    ``graphed``: False runs it eagerly on CUDA too (a collective a graph
+    cannot capture), None = on CUDA."""
+    train = _make_train_body(net, spec, optim, use_double, reduce, sq_norm)
     if graphed is None:
         graphed = net.device.type == "cuda"
     if graphed:
@@ -501,7 +517,7 @@ class GraphedSteps:
         # and launch on their own streams while this thread captures; the
         # capture counts only the launches on its own stream
         stream = torch.cuda.Stream()
-        with captured_launches(stream) as counted, \
+        with gc_paused(), captured_launches(stream) as counted, \
                 torch.cuda.graph(graph, stream=stream,
                                  capture_error_mode="thread_local"):
             out = self._run(ts, rs)

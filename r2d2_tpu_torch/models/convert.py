@@ -30,6 +30,30 @@ _LAYOUT = {"conv": lambda t: t.permute(3, 2, 0, 1).contiguous(),
            "plain": lambda t: t}
 
 
+def leaf_kind(name: str) -> str:
+    """The layout change (``_LAYOUT``'s key) between port parameter
+    ``name`` and its flax leaf."""
+    if name.endswith(".bias") or name == "lstm.recurrent_kernel":
+        return "plain"
+    return "conv" if name.startswith("torso.convs.") else "dense"
+
+
+# the port dim that holds a flax leaf's trailing (output-feature) axis,
+# by kind: O of OIHW, out of (out, in), the last of a plain leaf
+OUT_DIM = {"conv": 0, "dense": 0, "plain": -1}
+
+
+def flax_shape(name: str, shape) -> tuple:
+    """The shape of port parameter ``name``'s flax leaf: HWIO for a conv
+    kernel, (in, out) for a Dense kernel, the same for a plain leaf."""
+    kind, shape = leaf_kind(name), tuple(shape)
+    if kind == "conv":
+        return (shape[2], shape[3], shape[1], shape[0])
+    if kind == "dense":
+        return (shape[1], shape[0])
+    return shape
+
+
 def _walk(params: Mapping, leaf) -> Dict[str, torch.Tensor]:
     """The flax tree's leaves by the port's names, ``leaf(x, kind)``
     converting each."""

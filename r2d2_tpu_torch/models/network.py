@@ -77,6 +77,30 @@ def _linear(x, layer: nn.Linear, dtype):
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+class LayerCalls:
+    """How the network's modules apply a dense layer and a conv and fetch
+    the LSTM's recurrent weights: the plain calls, every module's by
+    default (``calls``). The tensor-parallel view
+    (parallel/tensor_parallel.py ``TPNetwork``) gives its modules calls
+    that wrap the sharded layers in its collectives."""
+
+    def dense(self, x, layer: nn.Linear, dtype):
+        return _linear(x, layer, dtype)
+
+    def conv_relu(self, x, conv: nn.Conv2d, weight, stride, dtype):
+        """relu(conv(x)) on the NCHW view with ``weight`` and ``stride``
+        (the first conv's may be re-indexed for space-to-depth)."""
+        return F.relu(F.conv2d(x.to(dtype), weight.to(dtype),
+                               conv.bias.to(dtype), stride))
+
+    def recurrent(self, lstm: "HoistedLSTM", dtype):
+        """(recurrent kernel (H, 4H), bias (4H,)) in ``dtype``."""
+        return lstm.recurrent_kernel.to(dtype), lstm.bias.to(dtype)
+
+
+PLAIN_CALLS = LayerCalls()
+
+
 def input_layout(conv_layers: Sequence[Tuple[int, int, int]],
                  frame_height: int, frame_width: int) -> str:
     """The first conv's route: SPACE_TO_DEPTH when layer 0's kernel and
@@ -126,6 +150,8 @@ class ConvTorso(nn.Module):
     space-to-depth layout (O, 4K, k/2, k/2) (``network.space_to_depth=
     "on"``)."""
 
+    calls = PLAIN_CALLS
+
     def __init__(self, frame_stack: int, frame_hw: Tuple[int, int],
                  cnn_out_dim: int, conv_layers,
                  params_space_to_depth: bool = False):
@@ -164,10 +190,9 @@ class ConvTorso(nn.Module):
             if i == 0 and s2d and not self.params_space_to_depth:
                 weight = conv_weight_space_to_depth(weight)
                 stride = (stride[0] // 2, stride[1] // 2)
-            x = F.relu(F.conv2d(x.to(dtype), weight.to(dtype),
-                                conv.bias.to(dtype), stride))
+            x = self.calls.conv_relu(x, conv, weight, stride, dtype)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # (h, w, c)
-        return _linear(x, self.dense, dtype)
+        return self.calls.dense(x, self.dense, dtype)
 
 
 def lstm_cell_step(xp, c, h, w_rec, bias):
@@ -186,6 +211,8 @@ class HoistedLSTM(nn.Module):
     (B, H) x (H, 4H) recurrent matmul. ``fused``: a window of T > 1 runs as
     one fused scan (the actor's T=1 step stays on the loop)."""
 
+    calls = PLAIN_CALLS
+
     def __init__(self, input_dim: int, features: int, fused: bool = False):
         super().__init__()
         self.fused = fused
@@ -194,9 +221,8 @@ class HoistedLSTM(nn.Module):
         self.bias = nn.Parameter(torch.zeros(4 * features))
 
     def forward(self, carry, xs: torch.Tensor, dtype: torch.dtype):
-        x_proj = _linear(xs, self.input_proj, dtype)          # (B, T, 4H)
-        w_rec = self.recurrent_kernel.to(dtype)
-        bias = self.bias.to(dtype)
+        x_proj = self.calls.dense(xs, self.input_proj, dtype)  # (B, T, 4H)
+        w_rec, bias = self.calls.recurrent(self, dtype)
         c, h = carry
         if self.fused and xs.shape[1] > 1:
             xpb = (x_proj + bias).transpose(0, 1).contiguous()   # (T, B, 4H)
@@ -212,6 +238,8 @@ class HoistedLSTM(nn.Module):
 class DuelingHead(nn.Module):
     """q = v + a - mean(a), or a alone without dueling; Q in f32."""
 
+    calls = PLAIN_CALLS
+
     def __init__(self, hidden_dim: int, action_dim: int, use_dueling: bool):
         super().__init__()
         self.use_dueling = use_dueling
@@ -222,12 +250,13 @@ class DuelingHead(nn.Module):
             self.val_out = nn.Linear(hidden_dim, 1)
 
     def forward(self, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        adv = _linear(F.relu(_linear(h, self.adv_hidden, dtype)),
-                      self.adv_out, dtype)
+        dense = self.calls.dense
+        adv = dense(F.relu(dense(h, self.adv_hidden, dtype)), self.adv_out,
+                    dtype)
         if not self.use_dueling:
             return adv.float()
-        val = _linear(F.relu(_linear(h, self.val_hidden, dtype)),
-                      self.val_out, dtype)
+        val = dense(F.relu(dense(h, self.val_hidden, dtype)), self.val_out,
+                    dtype)
         return (val + adv - adv.mean(dim=-1, keepdim=True)).float()
 
 

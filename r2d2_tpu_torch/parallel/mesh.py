@@ -14,6 +14,13 @@ learner's tensors (the gradient all-reduce, the block broadcast) and
 gathered stats and reports), so a follower waiting for its next command
 holds no device stream.
 
+With tensor parallelism (``mesh.mp`` > 1) the world is a dp x mp grid,
+JAX's row-major ``(dp, mp)`` reshape of the devices: rank r has dp index
+``r // mp`` and mp index ``r % mp``. ``mp_group`` holds the ranks of one
+dp row (the tensor-parallel collectives, parallel/tensor_parallel.py),
+``dp_group`` the ranks with one mp index (the gradient mean over the data
+shards). At mp = 1 no group is made: ``dp_group`` is ``group``.
+
 A multi-host job (parallel/multihost.py) has no single controller: each
 controller process joins with ``init_distributed`` over a tcp rendezvous,
 as ``jax.distributed.initialize`` does.
@@ -26,7 +33,7 @@ path, so no rank is left blocked in a collective.
 
 import dataclasses
 import datetime
-import multiprocessing as mp
+import multiprocessing
 import os
 import queue
 import socket
@@ -48,7 +55,7 @@ KILL_GRACE_S = 5.0          # a killed rank's join
 
 @dataclasses.dataclass
 class Mesh:
-    """One rank's view of the data-parallel world."""
+    """One rank's view of the dp x mp world."""
 
     dp: int
     rank: int
@@ -56,10 +63,29 @@ class Mesh:
     backend: str
     group: Any = None           # the tensors' collectives (None = WORLD)
     ctrl_group: Any = None      # gloo, host messages (None = WORLD)
+    mp: int = 1
+    mp_group: Any = None        # this rank's dp row (mp > 1 only)
+    dp_group: Any = None        # this rank's mp index over the dp rows
+
+    def __post_init__(self):
+        if self.mp == 1:
+            self.dp_group = self.group
 
     @property
     def leader(self) -> bool:
         return self.rank == 0
+
+    @property
+    def world(self) -> int:
+        return self.dp * self.mp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.mp
+
+    @property
+    def mp_rank(self) -> int:
+        return self.rank % self.mp
 
     # a multi-host job's names: one controller process a rank
     @property
@@ -81,47 +107,61 @@ def make_mesh(cfg: Optional[MeshConfig] = None,
               init_method: Optional[str] = None,
               timeout_s: float = COLLECTIVE_TIMEOUT_S) -> Mesh:
     """This rank's ``Mesh``: ``cfg.dp`` resolved against ``devices`` (every
-    visible GPU by default), which must hold that many; rank r runs on
-    ``devices[r]``. ``backend``: "nccl" on CUDA and "gloo" on the CPU by
-    default. Explicit ``devices`` and ``backend`` are for tests and checks
-    that place several ranks on one device (over gloo: NCCL refuses two
-    ranks on one GPU). Joins the process group at ``init_method`` (a
-    ``file://`` or ``tcp://`` rendezvous) unless one is already up."""
+    visible GPU by default), times ``cfg.mp``, which ``devices`` must hold;
+    rank r runs on ``devices[r]``. ``backend``: "nccl" on CUDA and "gloo"
+    on the CPU by default. Explicit ``devices`` and ``backend`` are for
+    tests and checks that place several ranks on one device (over gloo:
+    NCCL refuses two ranks on one GPU). Joins the process group at
+    ``init_method`` (a ``file://`` or ``tcp://`` rendezvous) unless one is
+    already up."""
     cfg = cfg or MeshConfig()
     devices = [torch.device(d) for d in
                (cuda_devices() if devices is None else devices)]
+    mp = max(cfg.mp, 1)
     dp = cfg.resolved_dp(len(devices))
-    if dp > len(devices):
+    world = dp * mp
+    if world > len(devices):
         raise ValueError(
-            f"mesh.dp={cfg.dp} needs {dp} devices but only {len(devices)} "
-            "are available")
-    if not 0 <= rank < dp:
-        raise ValueError(f"rank {rank} outside a mesh of dp={dp}")
-    devices = devices[:dp]
+            f"mesh.dp={cfg.dp} x mesh.mp={cfg.mp} needs {world} devices but "
+            f"only {len(devices)} are available")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a mesh of dp={dp} x mp={mp}")
+    devices = devices[:world]
     device = devices[rank]
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
-    if backend == "nccl" and len(set(devices)) < dp:
+    if backend == "nccl" and len(set(devices)) < world:
         raise ValueError(
             f"NCCL needs one GPU a rank; devices {[str(d) for d in devices]}"
             " repeat one: use backend='gloo' to share a device")
     if device.type == "cuda":
         torch.cuda.set_device(device)
     if dist.is_initialized():
-        if (dist.get_world_size(), dist.get_rank()) != (dp, rank):
+        if (dist.get_world_size(), dist.get_rank()) != (world, rank):
             raise ValueError(
                 f"the process group has world size {dist.get_world_size()} "
-                f"and rank {dist.get_rank()}; the mesh wants {dp} and "
+                f"and rank {dist.get_rank()}; the mesh wants {world} and "
                 f"{rank}")
     else:
         if init_method is None:
             raise ValueError("no process group is up: pass init_method "
                              "(rendezvous())")
         dist.init_process_group(
-            backend, init_method=init_method, world_size=dp, rank=rank,
+            backend, init_method=init_method, world_size=world, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s))
     ctrl = None if backend == "gloo" else dist.new_group(backend="gloo")
-    return Mesh(dp=dp, rank=rank, device=device, backend=backend,
-                ctrl_group=ctrl)
+    mesh = Mesh(dp=dp, rank=rank, device=device, backend=backend,
+                ctrl_group=ctrl, mp=mp)
+    if mp > 1:
+        # every rank makes every group, in one order
+        for d in range(dp):
+            g = dist.new_group([d * mp + m for m in range(mp)])
+            if d == mesh.dp_rank:
+                mesh.mp_group = g
+        for m in range(mp):
+            g = dist.new_group([d * mp + m for d in range(dp)])
+            if m == mesh.mp_rank:
+                mesh.dp_group = g
+    return mesh
 
 
 def pick_coordinator() -> str:
@@ -190,7 +230,7 @@ class RankProcesses:
 
     def __init__(self, target: Callable, args_of: Callable[[int], tuple],
                  ranks: Sequence[int]):
-        self.ctx = mp.get_context("spawn")
+        self.ctx = multiprocessing.get_context("spawn")
         self.procs = [self.ctx.Process(target=target, args=(r,) + args_of(r),
                                        daemon=True, name=f"dp-rank{r}")
                       for r in ranks]
@@ -218,15 +258,16 @@ class RankProcesses:
             p.join(timeout=KILL_GRACE_S)
 
 
-def _rank_entry(rank: int, fn: Callable, dp: int, init_method: str,
-                devices, backend, args: tuple, results) -> None:
+def _rank_entry(rank: int, fn: Callable, dp: int, mp: int,
+                init_method: str, devices, backend, args: tuple,
+                results) -> None:
     """A spawned rank of ``run_ranks``: one intra-op thread (several ranks
     share the host's cores), the mesh, ``fn(mesh, *args)``, and its result
     or traceback on the results queue."""
     torch.set_num_threads(1)
     try:
-        mesh = make_mesh(MeshConfig(dp=dp), devices, backend, rank=rank,
-                         init_method=init_method)
+        mesh = make_mesh(MeshConfig(dp=dp, mp=mp), devices, backend,
+                         rank=rank, init_method=init_method)
         try:
             out = fn(mesh, *args)
         finally:
@@ -237,32 +278,34 @@ def _rank_entry(rank: int, fn: Callable, dp: int, init_method: str,
         raise
 
 
-def run_ranks(fn: Callable, dp: int, *args, devices=None,
+def run_ranks(fn: Callable, dp: int, *args, mp: int = 1, devices=None,
               backend: Optional[str] = None, timeout_s: float = 300.0,
               rendezvous_dir: Optional[str] = None) -> List[Any]:
-    """Run ``fn(mesh, *args)`` on ``dp`` spawned ranks (``fn`` importable,
-    its result picklable) and return the results by rank. Raises if a
-    rank fails or the shared deadline passes; every rank is gone when
-    this returns or raises."""
-    devices = list(devices if devices is not None else ["cpu"] * dp)
+    """Run ``fn(mesh, *args)`` on ``dp * mp`` spawned ranks (``fn``
+    importable, its result picklable) and return the results by rank.
+    Raises if a rank fails or the shared deadline passes; every rank is
+    gone when this returns or raises."""
+    world = dp * mp
+    devices = list(devices if devices is not None else ["cpu"] * world)
     init = rendezvous(rendezvous_dir)
-    results = mp.get_context("spawn").Queue()
+    results = multiprocessing.get_context("spawn").Queue()
     deadline = time.monotonic() + timeout_s
     got = {}
     try:
-        with RankProcesses(_rank_entry, lambda r: (fn, dp, init, devices,
-                                                   backend, args, results),
-                           range(dp)) as ranks:
+        with RankProcesses(_rank_entry, lambda r: (fn, dp, mp, init,
+                                                   devices, backend, args,
+                                                   results),
+                           range(world)) as ranks:
             # the results come before the joins: a child that wrote to a
             # queue exits only once the queue is read
-            while len(got) < dp:
+            while len(got) < world:
                 try:
                     rank, ok, out = results.get(timeout=0.5)
                 except queue.Empty:
                     if time.monotonic() > deadline:
                         raise TimeoutError(
-                            f"ranks {sorted(set(range(dp)) - set(got))} gave"
-                            f" no result within {timeout_s:.0f} s")
+                            f"ranks {sorted(set(range(world)) - set(got))}"
+                            f" gave no result within {timeout_s:.0f} s")
                     dead = [r for r, p in enumerate(ranks.procs)
                             if r not in got and p.exitcode not in (None, 0)]
                     if dead:
@@ -278,4 +321,4 @@ def run_ranks(fn: Callable, dp: int, *args, devices=None,
         path = init[len("file://"):]
         if os.path.exists(path):
             os.remove(path)
-    return [got[r] for r in range(dp)]
+    return [got[r] for r in range(world)]

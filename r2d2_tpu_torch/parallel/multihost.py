@@ -39,17 +39,24 @@ a controller (seed ``runtime.seed + 7919 * rank``), samples its
 ``make_lockstep_consensus`` in place of the ingest; priorities go back to
 the controller's own tree.
 
-Refused, each naming its item: ``mesh.mp > 1`` (tensor parallel, A.4),
-on-device acting and served actors under multihost (Config), and the
-fleet, telemetry and multiplayer planes, which the port's config does not
-have (A.6, A.7, A.9).
+Refused, each naming its item: ``mesh.mp > 1`` under multihost (ROADMAP
+A.4: a controller drives one card, so tensor parallelism across
+controllers needs the JAX package's GSPMD lockstep ingest and a
+controller that drives mp ranks; ``mesh.mp`` runs on one host through
+``cli.train``), on-device acting and served actors under multihost
+(Config; on-device acting with mp > 1 and ``serve.servers > 1`` are
+refused everywhere), and the fleet, telemetry and multiplayer planes,
+which the port's config does not have (A.6, A.7, A.9).
 
 Demo and validation, every controller its own interpreter on a loopback
 coordinator, parameter digests compared across controllers:
 
     python -m r2d2_tpu_torch.parallel.multihost --device=cpu
-    python -m r2d2_tpu_torch.parallel.multihost --device=cuda \\
-        --backend=gloo --reference     # two controllers sharing one card
+    python -m r2d2_tpu_torch.parallel.multihost --backend=gloo \\
+        --reference                    # two controllers sharing one card
+
+The controllers run on CUDA unless ``--device=cpu``; without a card the
+launcher raises before it starts any.
 """
 
 import logging
@@ -154,8 +161,11 @@ class LockstepIngest:
 def make_lockstep_ingest(spec: ReplaySpec, mesh) -> LockstepIngest:
     """One call a loop iteration: this controller's conditional shard write
     and the global counters with the stop consensus (``LockstepIngest``).
-    ``mesh.mp > 1`` (the JAX package's GSPMD ingest) is refused by Config:
-    tensor parallelism is ROADMAP item A.4."""
+    ``mesh.mp > 1`` under multihost (the JAX package's GSPMD ingest,
+    ``_make_gspmd_lockstep_ingest``, and its ``owned_dp_rows`` rule) is
+    refused by Config, naming ROADMAP item A.4: a controller here drives
+    one card. What else stays refused: on-device acting with mp > 1, and
+    ``serve.servers > 1`` (A.6)."""
     return LockstepIngest(spec, mesh)
 
 
@@ -334,6 +344,26 @@ def _install_stop_signals(stop) -> dict:
     return prev
 
 
+def snapshot_twin_on(rt, rank: int, nprocs: int, dp: int,
+                     host_mode: bool) -> bool:
+    """Whether controller ``rank`` keeps the crash-recovery twin: replay
+    snapshots where rank 0's shard is the whole replay (one controller,
+    device placement). Asked for in a wider job, it warns in the JAX
+    package's words and skips them: the job relies on checkpoint
+    resume."""
+    if rt.snapshot_interval <= 0 or rank != 0 or host_mode:
+        return False
+    if nprocs > 1 or dp > 1:
+        logging.getLogger(__name__).warning(
+            "runtime.snapshot_interval=%d: the rank-0 replay snapshot "
+            "twin needs a rank-0-addressable ring (nprocs=1, dp=1; got "
+            "nprocs=%d dp=%d) — replay snapshots are skipped, "
+            "checkpoint resume still works", rt.snapshot_interval,
+            nprocs, dp)
+        return False
+    return True
+
+
 def train_multihost(cfg: Config, *, max_training_steps: Optional[int] = None,
                     max_seconds: Optional[float] = None,
                     actor_mode: str = "thread",
@@ -441,31 +471,20 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
             ratio=cfg.replay.max_env_steps_per_train_step,
             rs=sharded_replay_init(spec, mesh), spec=spec)
 
-    # the crash-recovery twin: replay snapshots where rank 0's shard is
-    # the whole replay (one controller, device placement); wider jobs
-    # rely on checkpoint resume
     snap_writer = None
-    if rt.snapshot_interval > 0 and rank == 0 and not host_mode:
-        if nprocs > 1 or dp > 1:
-            logging.getLogger(__name__).warning(
-                "runtime.snapshot_interval=%d: the rank-0 replay snapshot "
-                "twin needs a rank-0-addressable ring (nprocs=1, dp=1; got "
-                "nprocs=%d dp=%d) — replay snapshots are skipped, "
-                "checkpoint resume still works", rt.snapshot_interval,
-                nprocs, dp)
-        else:
-            from r2d2_tpu_torch.replay.snapshot import (SnapshotWriter,
-                                                        load_snapshot,
-                                                        restore_plain)
-            snap_writer = SnapshotWriter(rt.save_dir or ".", 0)
-            if rt.resume and rt.restore_replay:
-                snap = load_snapshot(rt.save_dir or ".", 0)
-                if snap is not None and snap.get("kind") == "plain":
-                    restore_plain(spec, core.rs, core.ring, snap)
-                    logging.getLogger(__name__).warning(
-                        "rank-0 twin restored %d replay block(s) from the "
-                        "step-%s snapshot", core.ring.total_adds,
-                        snap.get("step"))
+    if snapshot_twin_on(rt, rank, nprocs, dp, host_mode):
+        from r2d2_tpu_torch.replay.snapshot import (SnapshotWriter,
+                                                    load_snapshot,
+                                                    restore_plain)
+        snap_writer = SnapshotWriter(rt.save_dir or ".", 0)
+        if rt.resume and rt.restore_replay:
+            snap = load_snapshot(rt.save_dir or ".", 0)
+            if snap is not None and snap.get("kind") == "plain":
+                restore_plain(spec, core.rs, core.ring, snap)
+                logging.getLogger(__name__).warning(
+                    "rank-0 twin restored %d replay block(s) from the "
+                    "step-%s snapshot", core.ring.total_adds,
+                    snap.get("step"))
 
     # -- this controller's actors: its share of the fleet --
     n_local = cfg.actor.num_actors
@@ -715,12 +734,13 @@ def _demo_worker(args) -> None:
 
 class ControllerProcesses:
     """The controllers of a loopback job, each its own interpreter
-    (``python -m r2d2_tpu_torch.parallel.multihost --process-id=r``), as
-    a second host's would be; a context manager that kills every survivor
+    (``python -m MODULE --process-id=r``, this module by default), as a
+    second host's would be; a context manager that kills every survivor
     on exit, whatever ends the block."""
 
     def __init__(self, argv_of: Callable[[int, str], List[str]],
-                 num_processes: int):
+                 num_processes: int,
+                 module: str = "r2d2_tpu_torch.parallel.multihost"):
         import subprocess
         import sys
 
@@ -733,8 +753,8 @@ class ControllerProcesses:
             [root] + [p for p in child_env.get("PYTHONPATH", "").split(
                 os.pathsep) if p])
         self.procs = [subprocess.Popen(
-            [sys.executable, "-m", "r2d2_tpu_torch.parallel.multihost",
-             *argv_of(pid, coordinator)], env=child_env)
+            [sys.executable, "-m", module, *argv_of(pid, coordinator)],
+            env=child_env)
             for pid in range(num_processes)]
 
     def __enter__(self) -> "ControllerProcesses":
@@ -781,7 +801,7 @@ class ControllerProcesses:
 def demo_argv(num_processes: int, save_dir: str, *, max_steps: int = 8,
               max_seconds: float = 0.0, resume: str = "",
               actor_mode: str = "thread", num_actors: int = 1,
-              placement: str = "device", device: str = "cpu",
+              placement: str = "device", device: str = "cuda",
               backend: str = "", reference: bool = False,
               collective_timeout: float = 0.0, threads: int = 1,
               overrides=()) -> Callable[[int, str], List[str]]:
@@ -819,6 +839,8 @@ def launch_demo(num_processes: int = 2, save_dir: Optional[str] = None,
     (``TMPDIR``), printed. Returns the per-rank records."""
     import glob
     import tempfile
+    from r2d2_tpu_torch.utils.device import resolve_device
+    resolve_device(kw.get("device", "cuda"))
     if save_dir is None:
         save_dir = tempfile.mkdtemp(prefix="r2d2_torch_multihost_")
         print(f"multihost train demo: save dir {save_dir}", flush=True)
@@ -868,10 +890,10 @@ def main(argv=None) -> None:
                    help="actors a controller")
     p.add_argument("--placement", choices=("device", "host"),
                    default="device")
-    p.add_argument("--device", default="cpu",
-                   help="cpu, cuda (controller r on cuda:r; every "
-                        "controller on the current card with gloo) or "
-                        "cuda:N")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default, raises without one; controller "
+                        "r on cuda:r, every controller on the current card "
+                        "with gloo), cuda:N or cpu")
     p.add_argument("--backend", default="",
                    help="nccl or gloo (gloo puts several controllers on one"
                         " card); default: nccl on CUDA, gloo on the CPU")

@@ -25,6 +25,15 @@ a rank (``parallel/mesh.py``):
 The inner computation is the single-device step's
 (``learner/train_step.py``): the all-reduce enters through the hook
 between its backward and its clip, which the unsharded path leaves empty.
+
+With ``mesh.mp`` > 1 the step is the counterpart of the JAX package's
+``_make_gspmd_learner_step``: the dp x mp grid of parallel/mesh.py, the
+replay shard of dp row d replicated bit for bit on its mp ranks (each
+writes the same blocks and draws the same jitter, from
+``shard_seed(seed, d)``), the train state feature-sharded over the row
+(parallel/tensor_parallel.py: the forward column-parallel, the clip's
+norm over the row), the gradient averaged over the ranks of one mp index
+(``mesh.dp_group``). Its dispatches run eagerly on either backend.
 """
 
 import dataclasses
@@ -46,7 +55,7 @@ from r2d2_tpu_torch.replay.device_replay import (WRITTEN, replay_add_many,
                                                  replay_init, replay_size)
 from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, ReplayState,
                                            SampleBatch, empty_block_np,
-                                           stack_blocks)
+                                           stack_blocks, torch_dtype)
 
 _METRIC_SLOTS = ("loss", "mean_abs_td", "mean_q")
 
@@ -66,31 +75,41 @@ def sharded_replay_init(spec: ReplaySpec, mesh: Mesh) -> ReplayState:
     return replay_init(spec, mesh.device)
 
 
-def _wire_layout(spec: ReplaySpec):
-    """The written fields of one block as (name, shape, numpy dtype, torch
-    dtype, offset, bytes) in a byte row, and the row's length: the 4-byte
-    fields first, the uint8 frames last, the row padded to 4 bytes, so
-    every field's offset is aligned."""
-    proto = empty_block_np(spec)
-    names = sorted(WRITTEN, key=lambda n: (-proto[n].itemsize,
-                                           WRITTEN.index(n)))
+def wire_layout(fields):
+    """``fields`` (name -> (shape, numpy dtype) of one row's item) as
+    (name, shape, numpy dtype, torch dtype, offset, bytes) in a byte row,
+    and the row's length: the 4-byte fields first (ties in ``fields``'
+    order), the uint8 ones last, the row padded to 4 bytes, so every
+    field's offset is aligned."""
+    order = list(fields)
+    names = sorted(order, key=lambda n: (-np.dtype(fields[n][1]).itemsize,
+                                         order.index(n)))
     layout, off = [], 0
     for name in names:
-        a = proto[name]
-        dtype = {np.float32: torch.float32, np.int32: torch.int32,
-                 np.uint8: torch.uint8}[a.dtype.type]
-        layout.append((name, a.shape, a.dtype, dtype, off, a.nbytes))
-        off += a.nbytes
+        shape, np_dtype = fields[name]
+        np_dtype = np.dtype(np_dtype)
+        nbytes = int(np.prod(shape, dtype=np.int64)) * np_dtype.itemsize
+        layout.append((name, tuple(shape), np_dtype, torch_dtype(np_dtype),
+                       off, nbytes))
+        off += nbytes
     return layout, -(-off // 4) * 4
 
 
-def _pack(layout, row: int, blocks: Block, device: torch.device
+def block_layout(spec: ReplaySpec):
+    """``wire_layout`` of one block's written fields."""
+    proto = empty_block_np(spec)
+    return wire_layout({name: (proto[name].shape, proto[name].dtype)
+                         for name in WRITTEN})
+
+
+def pack_rows(layout, row: int, items, k: int, device: torch.device
           ) -> torch.Tensor:
-    """K stacked blocks (numpy or tensors) -> one (K, row) uint8 tensor on
-    ``device``: the broadcast's one buffer."""
-    if torch.is_tensor(blocks.priority):
-        k = blocks.priority.shape[0]
-        parts = [getattr(blocks, name).to(device, dtype).reshape(k, -1)
+    """``items``' fields (numpy or tensors), each cut into ``k`` rows
+    along its leading elements (K stacked blocks; a batch's dp row
+    slices) -> one (k, row) uint8 tensor on ``device``: a collective's one
+    buffer."""
+    if torch.is_tensor(getattr(items, layout[0][0])):
+        parts = [getattr(items, name).to(device, dtype).reshape(k, -1)
                  .contiguous().view(torch.uint8)
                  for name, _, _, dtype, _, _ in layout]
         pad = row - sum(p.shape[1] for p in parts)
@@ -98,10 +117,9 @@ def _pack(layout, row: int, blocks: Block, device: torch.device
             parts.append(torch.zeros((k, pad), dtype=torch.uint8,
                                      device=device))
         return torch.cat(parts, dim=1)
-    k = int(np.shape(blocks.priority)[0])
     host = np.zeros((k, row), np.uint8)
     for name, _, np_dtype, _, off, nbytes in layout:
-        a = np.ascontiguousarray(getattr(blocks, name), dtype=np_dtype)
+        a = np.ascontiguousarray(getattr(items, name), dtype=np_dtype)
         host[:, off:off + nbytes] = a.reshape(k, -1).view(np.uint8)
     buf = torch.from_numpy(host)
     if device.type == "cuda":
@@ -109,19 +127,20 @@ def _pack(layout, row: int, blocks: Block, device: torch.device
     return buf.to(device)
 
 
-def _unpack(layout, buf: torch.Tensor) -> Block:
-    """(K, row) bytes -> K stacked blocks of tensors on ``buf``'s device
-    (the fields a ring write reads)."""
+def unpack_rows(layout, buf: torch.Tensor) -> dict:
+    """(K, row) bytes -> each field's K items stacked, by name, as tensors
+    on ``buf``'s device."""
     k = buf.shape[0]
-    fields = {name: buf[:, off:off + nbytes].contiguous().view(dtype)
-              .reshape((k,) + tuple(shape))
-              for name, shape, _, dtype, off, nbytes in layout}
-    return Block(num_sequences=None, sum_reward=None, **fields)
+    return {name: buf[:, off:off + nbytes].contiguous().view(dtype)
+            .reshape((k,) + tuple(shape))
+            for name, shape, _, dtype, off, nbytes in layout}
 
 
 def own_blocks(k: int, start_shard: int, mesh: Mesh) -> List[int]:
-    """Which of a batch's ``k`` blocks go to this rank's shard."""
-    return [i for i in range(k) if (start_shard + i) % mesh.dp == mesh.rank]
+    """Which of a batch's ``k`` blocks go to this rank's shard (its dp
+    row's: the row's mp ranks hold replicas of one shard)."""
+    return [i for i in range(k)
+            if (start_shard + i) % mesh.dp == mesh.dp_rank]
 
 
 def make_sharded_replay_add_many(spec: ReplaySpec, mesh: Mesh):
@@ -133,12 +152,13 @@ def make_sharded_replay_add_many(spec: ReplaySpec, mesh: Mesh):
     ``(start_shard + i) % dp``; each rank writes its own blocks, in feed
     order, with one ``replay_add_many``, so its ring pointer advances as
     under per-block adds. Every rank must call it, in the same order."""
-    layout, row = _wire_layout(spec)
+    layout, row = block_layout(spec)
 
     def add_many(state: ReplayState, blocks: Optional[Block],
                  start_shard: int, k: Optional[int] = None) -> ReplayState:
         if mesh.leader:
-            buf = _pack(layout, row, blocks, mesh.device)
+            buf = pack_rows(layout, row, blocks,
+                        int(np.shape(blocks.priority)[0]), mesh.device)
         else:
             buf = torch.empty((k, row), dtype=torch.uint8,
                               device=mesh.device)
@@ -146,7 +166,9 @@ def make_sharded_replay_add_many(spec: ReplaySpec, mesh: Mesh):
         mine = own_blocks(buf.shape[0], start_shard, mesh)
         if mine:
             idx = torch.tensor(mine, device=buf.device)
-            replay_add_many(spec, state, _unpack(layout, buf[idx]))
+            replay_add_many(spec, state, Block(
+                num_sequences=None, sum_reward=None,
+                **unpack_rows(layout, buf[idx])))
         return state
 
     return add_many
@@ -169,7 +191,7 @@ def make_sharded_replay_add(spec: ReplaySpec, mesh: Mesh):
 def sharded_buffer_steps(state: ReplayState, mesh: Mesh) -> int:
     """Learning steps stored over every shard (a collective)."""
     total = replay_size(state).to(torch.float64).reshape(1)
-    dist.all_reduce(total, group=mesh.group)
+    dist.all_reduce(total, group=mesh.dp_group)
     return int(total.item())
 
 
@@ -178,10 +200,10 @@ def sharded_buffer_steps(state: ReplayState, mesh: Mesh) -> int:
 
 class GradMean:
     """The hook between the step's backward and its clip: the mean over the
-    ranks of the gradient and of the three metric scalars, in one
-    all-reduce. The parameters' ``.grad`` are views of one flat f32 buffer
-    allocated once (``attach``), so the collective is one call and a CUDA
-    graph's addresses hold."""
+    dp ranks (``mesh.dp_group``) of the gradient and of the three metric
+    scalars, in one all-reduce. The parameters' ``.grad`` are views of one
+    flat f32 buffer allocated once (``attach``), so the collective is one
+    call and a CUDA graph's addresses hold."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
@@ -214,7 +236,7 @@ class GradMean:
         self._check(grads)
         flat, n = self.flat, self.numel
         flat[n:].copy_(torch.stack([loss, mean_abs_td, mean_q]).float())
-        dist.all_reduce(flat, group=self.mesh.group)
+        dist.all_reduce(flat, group=self.mesh.dp_group)
         if self.mesh.dp > 1:
             flat.mul_(1.0 / self.mesh.dp)
         out = flat[n:].clone()
@@ -241,7 +263,7 @@ class BatchMean(GradMean):
         flat[n:].copy_(torch.stack([loss.float() * w, mean_abs_td.float() * w,
                                     mean_q.float() * w, w]))
         flat[:n].mul_(w)
-        dist.all_reduce(flat, group=self.mesh.group)
+        dist.all_reduce(flat, group=self.mesh.dp_group)
         flat[:-1].div_(flat[-1].clamp(min=1.0))
         out = flat[n:-1].clone()
         return out[0], out[1], out[2]
@@ -271,11 +293,12 @@ def state_digest(ts: TrainState) -> str:
 
 
 def broadcast_train_state(ts: TrainState, mesh: Mesh) -> None:
-    """Rank 0's params, target, optimizer state and step to every rank, so
-    the replicas start bit-equal (a resumed run's too)."""
+    """Dp row 0's params, target, optimizer state and step to every row
+    (rank 0's at mp = 1; under tensor parallelism each mp index's shards
+    from row 0), so the replicas start bit-equal (a resumed run's too)."""
     with torch.no_grad():
         for t in _train_state_tensors(ts):
-            dist.broadcast(t, src=0, group=mesh.group)
+            dist.broadcast(t, src=mesh.mp_rank, group=mesh.dp_group)
     ts.step = int(ts.step_count.item())
 
 
@@ -293,7 +316,10 @@ class ShardedLearnerStep:
     all-reduces are one CUDA graph (``GraphedSteps``: the first dispatch
     eager, which also brings up NCCL's communicator before the capture);
     with gloo, which a graph cannot capture (it stages through the host),
-    the K steps run eagerly."""
+    the K steps run eagerly. Under ``mesh.mp`` > 1 the train state must be
+    tensor-parallel (``tensor_parallel.place_train_state``), the hooks
+    are ``TPGradients``' around the mean, and the K steps run eagerly on
+    both backends."""
 
     def __init__(self, net: NetworkApply, spec: ReplaySpec,
                  optim: OptimConfig, use_double: bool, mesh: Mesh,
@@ -302,9 +328,14 @@ class ShardedLearnerStep:
             raise ValueError(f"steps_per_dispatch must be >= 1; got {steps}")
         self.mesh, self.steps = mesh, steps
         self.reduce = GradMean(mesh)
+        sq_norm = None
+        if mesh.mp > 1:
+            from r2d2_tpu_torch.parallel.tensor_parallel import TPGradients
+            self.reduce = TPGradients(mesh, self.reduce)
+            sq_norm = self.reduce.sq_norm
         body = _make_step_body(net, spec, optim, use_double,
-                               reduce=self.reduce)
-        self.graphed = mesh.backend == "nccl"
+                               reduce=self.reduce, sq_norm=sq_norm)
+        self.graphed = mesh.backend == "nccl" and mesh.mp == 1
         self._dispatch = (GraphedSteps(body, steps, spec.batch_size)
                           if self.graphed else eager_steps(body, steps))
         self._started = False
@@ -330,7 +361,8 @@ def make_sharded_learner_step(net: NetworkApply, spec: ReplaySpec,
     """The data-parallel step (``ShardedLearnerStep``): the single-device
     step's sampling, loss and write-back per shard, one all-reduce mean of
     the gradient, then clip and Adam; the target sync is the single
-    step's, on the replicated step counter."""
+    step's, on the replicated step counter. ``mesh.mp`` > 1: the dp x mp
+    step (the module docstring), JAX's ``_make_gspmd_learner_step``."""
     return ShardedLearnerStep(net, spec, optim, use_double, mesh,
                               steps_per_dispatch)
 
@@ -432,6 +464,6 @@ def make_sharded_anakin_act(env, net: NetworkApply, spec: ReplaySpec, *,
 def gather_objects(obj, mesh: Mesh) -> list:
     """Every rank's ``obj`` (picklable), by rank, on every rank: the shards'
     stats and reports, over the host group."""
-    out = [None] * mesh.dp
+    out = [None] * mesh.world
     dist.all_gather_object(out, obj, group=mesh.ctrl_group)
     return out

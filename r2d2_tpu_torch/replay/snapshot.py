@@ -25,6 +25,13 @@ size matches reads a complete snapshot; a crash mid-write leaves the
 previous pair. ``SnapshotWriter`` serializes on a background thread, the
 newest submitted cut winning.
 
+A data-parallel replay (parallel/sharded.py: one shard a dp row) is cut
+in the JAX package's layout for its mesh: one entry whose leaves stack
+the shards' on a leading dp axis, in dp order (``block_ptr`` becomes a
+(dp,) leaf), beside the RingAccountant over every shard
+(``capture_sharded``); each rank restores its own index
+(``restore_plain(..., shard=)``).
+
 The replay service's shards, their spill pages and cursors
 (``capture_service`` and ``restore_service`` in the JAX package) wait for
 the port of the fleet.
@@ -127,6 +134,35 @@ def capture_plain(spec, state, ring, step: int,
     }
 
 
+def shard_leaves(state) -> dict:
+    """One replay shard's leaves as host numpy arrays, its copies waited
+    for: a data-parallel rank's part of ``capture_sharded``."""
+    leaves = _state_to_host(state)
+    if state.obs.is_cuda:
+        torch.cuda.current_stream(state.obs.device).synchronize()
+    return {name: (leaf.numpy() if torch.is_tensor(leaf)
+                   else np.asarray(leaf)) for name, leaf in leaves.items()}
+
+
+def capture_sharded(spec, shards: list, ring, step: int,
+                    extra: Optional[dict] = None) -> dict:
+    """A cut of a dp-sharded replay from every shard's ``shard_leaves``, in
+    dp order, and the RingAccountant over all of them: the leaves stacked
+    on a leading dp axis, as the JAX package captures its mesh's
+    replay."""
+    return {
+        "version": SNAPSHOT_VERSION,
+        "kind": "plain",
+        "step": int(step),
+        "spec": _spec_fingerprint(spec),
+        "extra": dict(extra or {}),
+        "shards": [{"state": {name: np.stack([s[name] for s in shards])
+                              for name in _LEAVES},
+                    "ring": _capture_ring(ring)}],
+        "ready": None,
+    }
+
+
 def wait_ready(snap: dict) -> dict:
     """Wait for a capture's copies to land, then hold its leaves as numpy
     arrays (views of the host tensors). Returns ``snap``."""
@@ -148,9 +184,12 @@ def _restore_ring(ring, cap: dict) -> None:
     ring.slot_versions = [int(v) for v in cap["slot_versions"]]
 
 
-def restore_plain(spec, state, ring, snap: dict):
+def restore_plain(spec, state, ring, snap: dict,
+                  shard: Optional[int] = None, dp: Optional[int] = None):
     """Load a plain cut into ``state`` (copied into its tensors, whose
-    addresses stay) and ``ring`` (overwritten); returns ``state``."""
+    addresses stay) and ``ring`` (overwritten); returns ``state``. A cut
+    of a ``dp``-sharded replay (``capture_sharded``) loads its shard
+    ``shard``."""
     if snap.get("kind") != "plain":
         raise ValueError(f"snapshot kind {snap.get('kind')!r} is not a "
                          "plain replay snapshot")
@@ -159,6 +198,16 @@ def restore_plain(spec, state, ring, snap: dict):
     if set(leaves) != set(_LEAVES):
         raise ValueError(f"replay snapshot leaf set {sorted(leaves)} != "
                          f"expected {sorted(_LEAVES)}")
+    got, want = np.shape(leaves["block_ptr"]), (() if shard is None
+                                                else (dp,))
+    if got != want:
+        raise ValueError(
+            f"the replay snapshot's block_ptr has shape {got}, this "
+            f"learner's replay {want}: a snapshot restores into a replay "
+            "of the same mesh dp")
+    if shard is not None:
+        leaves = {name: np.asarray(leaf)[shard]
+                  for name, leaf in leaves.items()}
     with torch.no_grad():
         for name in _LEAVES:
             if name == "block_ptr":

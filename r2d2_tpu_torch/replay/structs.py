@@ -229,6 +229,15 @@ class RingAccountant:
         return self.total_adds - adds_snapshot
 
 
+TORCH_DTYPES = {np.uint8: torch.uint8, np.int32: torch.int32,
+                np.float32: torch.float32}
+
+
+def torch_dtype(np_dtype) -> torch.dtype:
+    """The torch dtype of a replay field's numpy dtype."""
+    return TORCH_DTYPES[np.dtype(np_dtype).type]
+
+
 def empty_block_np(spec: ReplaySpec) -> dict:
     """Zeroed numpy block record (host-side assembly scratch)."""
     s, l = spec.seqs_per_block, spec.learning

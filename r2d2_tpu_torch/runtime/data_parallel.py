@@ -1,10 +1,12 @@
-"""Starting a data-parallel run (``mesh.dp`` > 1) from its rank 0.
+"""Starting a data- or tensor-parallel run (``mesh.dp`` x ``mesh.mp`` > 1)
+from its rank 0.
 
 The process that calls ``orchestrator.train`` (``cli.train``) is rank 0:
 it keeps the actors, the weight service, the metrics and stdout, and
-drives the run. ``data_parallel`` spawns ranks 1..dp-1 (``follower_main``,
-each a ``Learner`` in ``follow()``, or the fused loop's follower), joins
-the process group with them and yields rank 0's ``Mesh``; on any exit it
+drives the run (under host placement it also holds the host replay).
+``data_parallel`` spawns ranks 1..dp*mp-1 (``follower_main``, each a
+``Learner`` in ``follow()``, or the fused loop's follower), joins the
+process group with them and yields rank 0's ``Mesh``; on any exit it
 waits for the followers, which leave at rank 0's stop, and kills those
 still running. With one rank it yields None and starts nothing: the
 unsharded path runs as before.
@@ -28,27 +30,22 @@ FOLLOWER_EXIT_S = 60.0      # followers' exit after rank 0's stop
 def mesh_devices(cfg: Config, device: torch.device,
                  devices: Optional[Sequence] = None) -> List[torch.device]:
     """The devices the ranks run on: ``devices`` as given, every visible
-    GPU on CUDA, or ``mesh.dp`` copies of a CPU device."""
+    GPU on CUDA, or ``mesh.dp`` x ``mesh.mp`` copies of a CPU device."""
     if devices is not None:
         return [torch.device(d) for d in devices]
     if device.type == "cuda":
         return cuda_devices()
-    return [device] * max(cfg.mesh.dp, 1)
+    return [device] * (max(cfg.mesh.dp, 1) * max(cfg.mesh.mp, 1))
 
 
 def resolved_dp(cfg: Config, devices: Sequence) -> int:
-    """The run's rank count: ``mesh.dp`` resolved against the devices, 1
-    under host placement (which takes no dp path, as in the JAX package);
-    the rules Config checks for an explicit dp, checked again here for
-    dp=-1."""
-    if cfg.replay.placement == "host":
+    """The run's dp: ``mesh.dp`` resolved against the devices, 1 under host
+    placement at mesh.mp = 1 (which takes no dp path, as in the JAX
+    package); the rules Config checks for an explicit dp, checked again
+    here for dp=-1."""
+    if cfg.replay.placement == "host" and cfg.mesh.mp <= 1:
         return 1
     dp = cfg.mesh.resolved_dp(len(devices))
-    if dp > 1 and cfg.runtime.snapshot_interval > 0:
-        raise ValueError(
-            f"runtime.snapshot_interval with the resolved mesh.dp ({dp}): "
-            "snapshots of a sharded replay are ROADMAP item A.4 (not "
-            "ported)")
     if dp > 1 and cfg.actor.on_device:
         lanes = cfg.actor.anakin_lanes
         if lanes % dp != 0:
@@ -74,19 +71,20 @@ def data_parallel(cfg: Config, device: torch.device,
     checks and tests); by default every visible GPU over NCCL, or CPU
     ranks over gloo."""
     devices = mesh_devices(cfg, device, devices)
-    dp = resolved_dp(cfg, devices)
-    if dp == 1:
+    dp, mp = resolved_dp(cfg, devices), max(cfg.mesh.mp, 1)
+    if dp * mp == 1:
         yield None
         return
-    devices = devices[:dp]
+    devices = devices[:dp * mp]
     init = rendezvous()
     names = [str(d) for d in devices]
     with RankProcesses(follower_main,
-                       lambda r: (cfg.to_dict(), dp, init, names, backend),
-                       range(1, dp)) as followers:
+                       lambda r: (cfg.to_dict(), dp, mp, init, names,
+                                  backend),
+                       range(1, dp * mp)) as followers:
         try:
-            yield make_mesh(MeshConfig(dp=dp), devices, backend, rank=0,
-                            init_method=init)
+            yield make_mesh(MeshConfig(dp=dp, mp=mp), devices, backend,
+                            rank=0, init_method=init)
             rcs = followers.join(time.monotonic() + FOLLOWER_EXIT_S)
             if any(rc != 0 for rc in rcs):
                 raise RuntimeError(f"data-parallel followers exited with "
@@ -95,8 +93,9 @@ def data_parallel(cfg: Config, device: torch.device,
             close_mesh()
 
 
-def follower_main(rank: int, cfg_dict: dict, dp: int, init_method: str,
-                  devices: List[str], backend: Optional[str]) -> None:
+def follower_main(rank: int, cfg_dict: dict, dp: int, mp: int,
+                  init_method: str, devices: List[str],
+                  backend: Optional[str]) -> None:
     """Rank ``rank`` of a run: its mesh, then rank 0's commands until its
     stop (the fused loop's follower with ``actor.on_device``). One
     intra-op thread: the ranks share the host's cores. SIGINT is ignored:
@@ -112,7 +111,7 @@ def follower_main(rank: int, cfg_dict: dict, dp: int, init_method: str,
     torch.set_num_threads(1)
     configure_numerics()
     cfg = Config.from_dict(cfg_dict)
-    mesh = make_mesh(MeshConfig(dp=dp), devices, backend, rank=rank,
+    mesh = make_mesh(MeshConfig(dp=dp, mp=mp), devices, backend, rank=rank,
                      init_method=init_method)
     try:
         if cfg.actor.on_device:

@@ -52,17 +52,32 @@ the main thread issues at commit time); the gate also waits for a block in
 every shard. Publication, checkpoints, metrics and the log are rank 0's:
 the params are replicated bit-equal, so nothing is lost. A checkpoint
 holds every rank's sampling generator state. No thread but the main one
-issues a collective. Host placement takes no dp path, as in the JAX
-package.
+issues a collective. Host placement takes no dp path at mesh.mp = 1, as
+in the JAX package.
+
+Tensor parallel (``mesh.mp`` > 1, parallel/tensor_parallel.py): the
+ranks form a dp x mp grid and each holds feature shards of the train
+state. Under device placement each dp row's ranks hold replicas of that
+row's replay shard and run the dp x mp step. Under host placement rank 0
+keeps the host replay and its prefetch and write-back threads; each step
+it scatters every dp row its rows of the batch (``place_batch``, on the
+main thread), the followers take theirs on its command, and the
+priorities come back whole to rank 0. Publication and checkpoints gather
+the full state over dp row 0 (``full_params``, ``save``), its followers
+joining on rank 0's command.
 
 Crash recovery (``runtime.snapshot_interval`` > 0, device placement): at
 each interval boundary the learner captures the replay between dispatches
 (replay/snapshot.py: copies into pinned memory on the learner's stream,
 no host sync) with its env-step counter and its sampling generator's
-state, and a writer thread serializes it beside the checkpoints. A
-learner built with ``runtime.resume`` and ``runtime.restore_replay``
-loads the newest committed snapshot before its first dispatch, so it
-samples what its uninterrupted twin would.
+state, and a writer thread serializes it beside the checkpoints. Under a
+mesh every dp row's shard is captured on its own rank (one replica a row),
+sent to rank 0 over the host group, and written as one snapshot in the
+JAX package's layout with the round-robin ``next_shard`` and every row's
+generator state. A learner built with ``runtime.resume`` and
+``runtime.restore_replay`` loads the newest committed snapshot before its
+first dispatch (each rank its own shard), so it samples what its
+uninterrupted twin would.
 """
 
 import logging
@@ -90,14 +105,18 @@ from r2d2_tpu_torch.parallel.sharded import (gather_objects,
                                              own_blocks, shard_seed,
                                              sharded_replay_init,
                                              state_digest)
+from r2d2_tpu_torch.parallel.tensor_parallel import (
+    gather_train_state, make_tp_external_batch_step, place_train_state)
 from r2d2_tpu_torch.replay.device_replay import (WRITTEN, replay_add,
                                                  replay_add_many, replay_init)
 from r2d2_tpu_torch.replay.host_replay import HostReplay, batch_layout
 from r2d2_tpu_torch.replay.snapshot import (SnapshotWriter, capture_plain,
-                                            load_snapshot, restore_plain)
+                                            capture_sharded, load_snapshot,
+                                            restore_plain, shard_leaves)
 from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, RingAccountant,
                                            SampleBatch, batch_fields,
-                                           empty_block_np, stack_blocks)
+                                           empty_block_np, stack_blocks,
+                                           torch_dtype)
 from r2d2_tpu_torch.runtime.checkpoint import (apply_restore,
                                                prune_checkpoints,
                                                save_checkpoint)
@@ -115,9 +134,9 @@ OP_ADD = 1                  # a blocks starting at shard b
 OP_STEP = 2                 # one dispatch
 OP_SAVE = 3                 # gather the sampling generators (rank 0 saves)
 OP_STOP = 4                 # gather the final reports and leave
+OP_SNAP = 5                 # send this dp row's replay shard to rank 0
+OP_GATHER = 6               # dp row 0 gathers the full params (mp > 1)
 OP_USER = 16                # and up: a caller's handlers (the fused loop)
-_TORCH_DTYPES = {np.uint8: torch.uint8, np.int32: torch.int32,
-                 np.float32: torch.float32}
 
 
 class _BatchPlacer:
@@ -134,7 +153,7 @@ class _BatchPlacer:
         self.stream = torch.cuda.Stream(device)
         self.slots = []
         for _ in range(self.STAGING):
-            pinned = {name: torch.empty(shape, dtype=_TORCH_DTYPES[dtype],
+            pinned = {name: torch.empty(shape, dtype=torch_dtype(dtype),
                                         pin_memory=True)
                       for name, (shape, dtype) in batch_layout(spec).items()}
             arrays = SampleBatch(**{name: t.numpy()
@@ -181,7 +200,7 @@ class _IngestStaging:
         proto = empty_block_np(spec)
         for _ in range(INGEST_QUEUE + 1):
             host = {name: torch.empty((k,) + a.shape,
-                                      dtype=_TORCH_DTYPES[a.dtype.type],
+                                      dtype=torch_dtype(a.dtype),
                                       pin_memory=self.cuda)
                     for name, a in proto.items()}
             self.free.put(_Slot(
@@ -216,29 +235,30 @@ class Learner:
         ``metrics``: an in-memory ``TrainMetrics`` by default (no files).
         ``runtime.resume``/``pretrain`` load here, before any step is
         captured. ``mesh``: this rank's ``parallel.mesh.Mesh`` of a
-        data-parallel run (device placement; rank 0 drives, the others
-        ``follow()``); None = one device."""
+        data-parallel run (device placement) or a tensor-parallel one
+        (``mesh.mp`` > 1, either placement); rank 0 drives, the others
+        ``follow()``; None = one device."""
         configure_numerics()
         self.cfg = cfg
         self.net = net
         self.player_idx = player_idx
         self.device = net.device
         self.spec = ReplaySpec.from_config(cfg, self.device)
-        if mesh is not None and cfg.replay.placement == "host":
+        host = cfg.replay.placement == "host"
+        if mesh is not None and host and mesh.mp == 1:
             raise ValueError("replay.placement='host' takes no data-parallel"
-                             " path: build the Learner without a mesh")
-        if mesh is None and cfg.mesh.dp > 1 \
-                and cfg.replay.placement == "device":
+                             " path at mesh.mp=1: build the Learner without "
+                             "a mesh")
+        if mesh is None and (cfg.mesh.mp > 1
+                             or (cfg.mesh.dp > 1 and not host)):
             raise ValueError(
-                f"mesh.dp={cfg.mesh.dp}: a data-parallel Learner needs its "
-                "rank's Mesh (parallel/mesh.py make_mesh; cli.train "
-                "--mesh.dp=N starts the ranks)")
-        if mesh is not None and cfg.runtime.snapshot_interval > 0:
-            raise ValueError(
-                "runtime.snapshot_interval with a data-parallel mesh: "
-                "snapshots of a sharded replay are ROADMAP item A.4 (not "
-                "ported)")
+                f"mesh.dp={cfg.mesh.dp} x mesh.mp={cfg.mesh.mp}: a data- or "
+                "tensor-parallel Learner needs its rank's Mesh "
+                "(parallel/mesh.py make_mesh; cli.train --mesh.dp=N "
+                "--mesh.mp=M starts the ranks)")
         self.mesh = mesh
+        self._tp = mesh is not None and mesh.mp > 1
+        self.host_mode = host
         seed = (cfg.runtime.seed if seed is None else seed) \
             + 1000 * player_idx
         use_double = cfg.network.use_double
@@ -247,15 +267,20 @@ class Learner:
         rank = 0
         if mesh is not None:
             rank = mesh.rank
-            self.train_state.generator.manual_seed(shard_seed(seed + 1,
-                                                              rank))
+            # a dp row's replicas draw alike
+            self.train_state.generator.manual_seed(shard_seed(
+                seed + 1, mesh.dp_rank))
         resumed_env_steps = apply_restore(cfg.runtime, self.train_state,
                                           rank=rank)
         self.metrics = metrics or TrainMetrics(player_idx, log_dir=None)
         # wired by the orchestrator: publish(params module)
         self.publish: Optional[Callable] = None
         self.host_replay: Optional[HostReplay] = None
-        if cfg.replay.placement == "host":
+        # tensor parallel: rank 0's scatter of a host batch (host
+        # placement) and the full network publication gathers into
+        self._place_batch: Optional[Callable] = None
+        self._full_view: Optional[torch.nn.Module] = None
+        if host:
             if cfg.runtime.steps_per_dispatch > 1:
                 logging.getLogger(__name__).warning(
                     "replay.placement='host': ignoring "
@@ -264,10 +289,19 @@ class Learner:
                     cfg.runtime.steps_per_dispatch)
             self.steps_per_dispatch = 1
             self.replay_state = None
-            self.host_replay = HostReplay(self.spec, seed=seed)
-            self.ring = self.host_replay.ring
-            self._step_fn = make_external_batch_step(net, self.spec,
-                                                     cfg.optim, use_double)
+            if mesh is None or mesh.leader:
+                self.host_replay = HostReplay(self.spec, seed=seed)
+                self.ring = self.host_replay.ring
+            else:
+                self.ring = RingAccountant(self.spec.num_blocks)
+            if self._tp:
+                self._step_fn, place_state, self._place_batch = \
+                    make_tp_external_batch_step(net, self.spec, cfg.optim,
+                                                use_double, mesh)
+                self.train_state = place_state(self.train_state)
+            else:
+                self._step_fn = make_external_batch_step(
+                    net, self.spec, cfg.optim, use_double)
             self._prefetch_q: queue.Queue = queue.Queue(
                 maxsize=max(1, cfg.runtime.prefetch_batches))
             self._writeback_q: queue.Queue = queue.Queue(
@@ -280,6 +314,9 @@ class Learner:
             self.timings = {"sample_ms": deque(maxlen=TIMINGS_KEPT),
                             "h2d_ms": deque(maxlen=TIMINGS_KEPT)}
         elif mesh is not None:
+            if self._tp:
+                self.train_state = place_train_state(
+                    self.train_state, net, cfg.optim, mesh)
             self.replay_state = sharded_replay_init(self.spec, mesh)
             # rank 0 accounts for every shard: dp rings of num_blocks
             self.ring = RingAccountant(self.spec.num_blocks * mesh.dp)
@@ -313,7 +350,7 @@ class Learner:
         self._followers_released = False
         # pipelined ingestion (device placement, K > 1): the stager thread,
         # its slots and queue, and what it has popped but not committed
-        self._ingest_k = (1 if self.host_replay is not None else min(
+        self._ingest_k = (1 if host else min(
             cfg.replay.resolved_ingest_batch_blocks(self.device),
             self.spec.num_blocks))
         self.metrics.set_ingest_batching(self._ingest_k)
@@ -339,8 +376,9 @@ class Learner:
         self.snapshot_capture_ms: deque = deque(maxlen=TIMINGS_KEPT)
         # adds committed at the newest snapshot: what a crash would lose
         self._snap_adds = 0
-        if self.host_replay is None:
-            if cfg.runtime.snapshot_interval > 0:
+        if not host:
+            if cfg.runtime.snapshot_interval > 0 and (mesh is None
+                                                      or mesh.leader):
                 self._snap_writer = SnapshotWriter(cfg.runtime.save_dir,
                                                    player_idx)
             if cfg.runtime.resume and cfg.runtime.restore_replay:
@@ -363,13 +401,21 @@ class Learner:
         """Load the newest committed replay snapshot beside the
         checkpoint: the replay's tensors (copied in place), the ring
         accountant, the sampling generator and the env-step counter (the
-        later of the checkpoint's and the snapshot's). No snapshot: the
-        checkpoint alone is restored."""
+        later of the checkpoint's and the snapshot's). Under a mesh: this
+        rank's dp shard, its row's generator and the round-robin
+        ``next_shard``. No snapshot: the checkpoint alone is restored."""
         snap = load_snapshot(self.cfg.runtime.save_dir, self.player_idx)
         if snap is None:
             return
-        restore_plain(self.spec, self.replay_state, self.ring, snap)
-        state = snap["extra"].get("generator_state")
+        if self.mesh is None:
+            restore_plain(self.spec, self.replay_state, self.ring, snap)
+            state = snap["extra"].get("generator_state")
+        else:
+            restore_plain(self.spec, self.replay_state, self.ring, snap,
+                          shard=self.mesh.dp_rank, dp=self.mesh.dp)
+            self._next_shard = int(snap["extra"].get("next_shard", 0))
+            states = snap["extra"].get("generator_states")
+            state = None if states is None else states[self.mesh.dp_rank]
         if state is not None:
             gen = self.train_state.generator
             state = torch.tensor(state, dtype=torch.uint8)
@@ -640,7 +686,7 @@ class Learner:
                    ) -> bool:
         """The training gate's condition, shared by ``ready`` (committed
         blocks) and the rate limiter (committed and staged)."""
-        if (self.mesh is not None
+        if (self.mesh is not None and not self.host_mode
                 and self.ring.total_adds + extra_blocks < self.mesh.dp):
             return False
         return (self.ring.buffer_steps + extra_steps
@@ -722,6 +768,14 @@ class Learner:
             elif op == OP_SAVE:
                 gather_objects(self.train_state.generator.get_state(),
                                self.mesh)
+                if self._tp and self.mesh.dp_rank == 0:
+                    gather_train_state(self.train_state, self.net,
+                                       self.cfg.optim)
+            elif op == OP_SNAP:
+                self._capture_shards()
+            elif op == OP_GATHER:
+                if self.mesh.dp_rank == 0:
+                    self._gather_params()
             elif op == OP_STOP:
                 self.shard_reports = gather_objects(self._report(),
                                                     self.mesh)
@@ -734,6 +788,25 @@ class Learner:
     @property
     def training_steps(self) -> int:
         return self.train_state.step
+
+    def full_params(self) -> torch.nn.Module:
+        """The online network as one unsharded module, what publication
+        and the policy server take (rank 0). Under ``mesh.mp`` > 1 dp row
+        0 gathers the shards into a module of its own (the same one every
+        call), its followers joining on command."""
+        if not self._tp:
+            return self.train_state.params
+        self.command(OP_GATHER)
+        return self._gather_params()
+
+    def _gather_params(self) -> torch.nn.Module:
+        full = self.train_state.params.full_state_dict()
+        if self._full_view is None:
+            self._full_view = self.net.build().requires_grad_(False)
+        with torch.no_grad():
+            for name, p in self._full_view.named_parameters():
+                p.copy_(full[name])
+        return self._full_view
 
     # -- training --
 
@@ -754,7 +827,7 @@ class Learner:
                 and step // rt.weight_publish_interval
                 > prev // rt.weight_publish_interval):
             t0 = time.perf_counter()
-            self.publish(self.train_state.params)
+            self.publish(self.full_params())
             self.publish_ms.append((time.perf_counter() - t0) * 1e3)
         if rt.save_interval and (step // rt.save_interval
                                  > prev // rt.save_interval):
@@ -768,11 +841,15 @@ class Learner:
     def _dispatch(self, uniform: Optional[torch.Tensor] = None) -> dict:
         """One dispatch of learner steps, at most MAX_AHEAD ahead of the
         card."""
-        if self.host_replay is not None:
+        if self.host_mode:
             if uniform is not None:
                 raise ValueError("host placement samples on the host: no "
                                  "jitter to inject")
-            metrics = self._host_step_once()
+            if self.host_replay is not None:
+                metrics = self._host_step_once()
+            else:       # a tensor-parallel follower: rank 0's rows
+                self.train_state, metrics = self._step_fn(
+                    self.train_state, self._place_batch(None))
         else:
             try:
                 self.train_state, self.replay_state, metrics = \
@@ -795,12 +872,48 @@ class Learner:
         """A cut of the replay at the commit boundary between dispatches,
         with the env-step counter and the sampling generator's state (the
         checkpoint's generator state is older: the cut's is what the next
-        dispatch draws from)."""
+        dispatch draws from). Under a mesh (rank 0): every dp row's shard
+        and generator, and the round-robin ``next_shard``."""
+        if self.mesh is None:
+            extra = {"env_steps": int(self.env_steps),
+                     "generator_state":
+                         self.train_state.generator.get_state().tolist()}
+            return capture_plain(self.spec, self.replay_state, self.ring,
+                                 self.train_state.step, extra)
+        self.command(OP_SNAP)
+        shards, states = self._capture_shards()
         extra = {"env_steps": int(self.env_steps),
-                 "generator_state":
-                     self.train_state.generator.get_state().tolist()}
-        return capture_plain(self.spec, self.replay_state, self.ring,
-                             self.train_state.step, extra)
+                 "next_shard": int(self._next_shard),
+                 "generator_states": states}
+        return capture_sharded(self.spec, shards, self.ring,
+                               self.train_state.step, extra)
+
+    def _capture_shards(self):
+        """Every rank: its shard's leaves to host memory; the first rank of
+        each dp row (one replica a row) sends them to rank 0 over the host
+        group. Rank 0 returns every row's leaves and generator state in dp
+        order (the followers None)."""
+        mesh = self.mesh
+        states = gather_objects(
+            self.train_state.generator.get_state().tolist(), mesh)
+        states = [states[d * mesh.mp] for d in range(mesh.dp)]
+        if mesh.mp_rank != 0:
+            return None, None
+        mine = shard_leaves(self.replay_state)
+        if not mesh.leader:
+            for leaf in mine.values():
+                dist.send(torch.from_numpy(np.atleast_1d(leaf)), dst=0,
+                          group=mesh.ctrl_group)
+            return None, None
+        shards = [mine]
+        for d in range(1, mesh.dp):
+            got = {}
+            for name, leaf in mine.items():
+                buf = torch.from_numpy(np.empty_like(np.atleast_1d(leaf)))
+                dist.recv(buf, src=d * mesh.mp, group=mesh.ctrl_group)
+                got[name] = buf.numpy().reshape(np.shape(leaf))
+            shards.append(got)
+        return shards, states
 
     def snapshot_replay(self) -> None:
         """Capture one snapshot and hand it to the writer thread; the loop
@@ -860,14 +973,17 @@ class Learner:
         t0 = time.perf_counter()
         rt = self.cfg.runtime
         generators = None
+        ts = self.train_state
         if self.mesh is not None:
             self.command(OP_SAVE)
             generators = gather_objects(
                 self.train_state.generator.get_state(), self.mesh)
+            if self._tp:
+                ts = gather_train_state(ts, self.net, self.cfg.optim)
         self._last_saved_step = self.train_state.step
         path = save_checkpoint(rt.save_dir, self.cfg.env.game_name, index,
-                               self.player_idx, self.train_state,
-                               self.env_steps, config_json=self.cfg.to_json(),
+                               self.player_idx, ts, self.env_steps,
+                               config_json=self.cfg.to_json(),
                                generators=generators)
         prune_checkpoints(rt.save_dir, self.cfg.env.game_name,
                           self.player_idx, rt.keep_checkpoints)
@@ -975,7 +1091,7 @@ class Learner:
             self._snap_writer.stop(join_timeout)
         stuck += self._stop_stager(join_timeout)
         self.release_followers()
-        if self.host_replay is None:
+        if self.host_replay is None:       # no prefetch or write-back
             if stuck:
                 logging.getLogger(__name__).warning(
                     "learner background threads did not exit within "
@@ -1018,7 +1134,13 @@ class Learner:
         if cuda:
             current = torch.cuda.current_stream(self.device)
             current.wait_event(ready)
-        self.train_state, metrics = self._step_fn(self.train_state, batch)
+        if self._place_batch is not None:
+            # tensor parallel: each dp row's rows to its ranks
+            self.train_state, metrics = self._step_fn(
+                self.train_state, self._place_batch(batch))
+        else:
+            self.train_state, metrics = self._step_fn(self.train_state,
+                                                      batch)
         priorities = metrics.pop("priorities")
         done = None
         if cuda:

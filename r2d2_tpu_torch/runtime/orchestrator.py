@@ -312,13 +312,13 @@ class PlayerStack(ActorPool):
     def _initial_payload(self):
         """The weight service's first publication: the learner's module,
         or at a quantized dtype the bundle stamped 1."""
-        module = self.learner.train_state.params
+        module = self.learner.full_params()
         return module if self._prepare is None else self._prepare(module, 1)
 
     def _wire_publish(self) -> None:
         publish, publish_count = self.publication()
         self.snapshots = SnapshotPublisher(publish,
-                                           self.learner.train_state.params,
+                                           self.learner.full_params(),
                                            net=self.net,
                                            publish_count=publish_count)
         self.learner.publish = self.snapshots
@@ -330,7 +330,7 @@ class PlayerStack(ActorPool):
         before the learner's first dispatch)."""
         from r2d2_tpu_torch.serve import PolicyServer
         self.serve_server = PolicyServer(
-            self.cfg, self.net, self.learner.train_state.params,
+            self.cfg, self.net, self.learner.full_params(),
             endpoint=self.serve_endpoint, weight_poll=weight_poll,
             weight_version=weight_version, stats=self.serve_stats,
             client_timed=client_timed, quant_stats=self.quant_stats).start()

@@ -60,6 +60,7 @@ from r2d2_tpu_torch.serve.transport import (KIND_DISCONNECT, KIND_STEP, Reply,
 from r2d2_tpu_torch.telemetry.histogram import (NBUCKETS, bucket_index,
                                                 summarize, value_counts_np,
                                                 value_summary)
+from r2d2_tpu_torch.utils.device import gc_paused
 
 
 def serve_buckets(max_batch: int) -> List[int]:
@@ -293,7 +294,7 @@ class _BucketGraph:
             server._eager(self.obs, self.last_action, self.hidden)
         server.stream.synchronize()
         self.graph = torch.cuda.CUDAGraph()
-        with captured_launches(server.stream) as counted, \
+        with gc_paused(), captured_launches(server.stream) as counted, \
                 torch.cuda.graph(self.graph, stream=server.stream,
                                  capture_error_mode="thread_local"):
             self.out = server._eager(self.obs, self.last_action, self.hidden)

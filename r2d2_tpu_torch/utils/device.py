@@ -3,7 +3,9 @@ asks for the CPU. There is no silent fallback — asking for CUDA where there
 is none raises. ``configure_numerics`` is the one place that sets how f32
 computes on the card."""
 
-from typing import Dict, Optional, Union
+import gc
+from contextlib import contextmanager
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 
@@ -28,6 +30,23 @@ def configure_numerics() -> None:
     builds a network."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextmanager
+def gc_paused() -> Iterator[None]:
+    """A CUDA graph capture's guard: the garbage collected first, the
+    collector off until the block ends. A dead reference cycle that holds
+    a CUDA graph (an earlier learner's, a server's), collected inside a
+    capture, destroys that graph there; CUDA refuses that and invalidates
+    the capture (``torch.cuda.graph`` no longer collects by default)."""
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def sm_count(device: torch.device) -> int:

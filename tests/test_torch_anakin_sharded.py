@@ -172,7 +172,8 @@ def test_config_validates_lane_shard_rules():
         assert ok.actor.anakin_lanes // ok.mesh.dp == ok.num_blocks
         with pytest.raises(ValueError, match="num_blocks"):
             make(**{**SHARDED, "actor.anakin_lanes": 82})
-        with pytest.raises(ValueError, match="data-parallel"):
+        with pytest.raises(ValueError, match="on_device composes with "
+                                             "data-parallel meshes only"):
             make(**{"mesh.mp": 2, "mesh.dp": 1})
     cfg = small_cfg(**SHARDED)
     again = Config.from_dict(json.loads(cfg.to_json()))

@@ -404,8 +404,8 @@ def test_local_actor_fleet_supervision():
 def test_multihost_config_fields_and_refusals():
     """The four mesh fields parse with JAX's defaults and round-trip; dp is
     the controller count; the combinations left out are refused, each
-    naming its item, and the fleet, telemetry and multiplayer knobs stay
-    unknown fields."""
+    naming its item (mesh.mp > 1 across controllers ROADMAP A.4), and the
+    fleet, telemetry and multiplayer knobs stay unknown fields."""
     from r2d2_tpu.config import MeshConfig as J
     assert (MeshConfig().multihost, MeshConfig().coordinator_address,
             MeshConfig().num_processes, MeshConfig().process_id) == (
@@ -425,7 +425,7 @@ def test_multihost_config_fields_and_refusals():
     for extra, match in (
             (["--mesh.dp=2"], "num_processes"),
             (["--mesh.process_id=4"], "process_id"),
-            (["--mesh.mp=2"], "tensor_parallel.*A.4"),
+            (["--mesh.mp=2"], "mp=2 with mesh.multihost.*A.4"),
             (["--actor.on_device=true", "--replay.block_length=120",
               "--replay.capacity=120000"], "on_device.*multihost"),
             (["--actor.inference=server"], "server.*A.6")):

@@ -48,7 +48,7 @@ def test_two_controllers_thread_actors_checkpoint_and_resume(tmp_path):
     from r2d2_tpu_torch.runtime.learner_loop import Learner
     save_dir = str(tmp_path / "mh")
     records = launch_demo(2, save_dir, 8, RUN_S,
-                          collective_timeout=TIMEOUT_S)
+                          device="cpu", collective_timeout=TIMEOUT_S)
     _check_records(records, 8)
     ckpts = list_checkpoints(save_dir, "Fake", 0)
     assert ckpts, "rank 0 wrote no checkpoints"
@@ -74,7 +74,7 @@ def test_two_controllers_thread_actors_checkpoint_and_resume(tmp_path):
                        ck["generators"][0])
 
     resumed = launch_demo(2, save_dir, 12, RUN_S, resume=ckpts[-1][1],
-                          collective_timeout=TIMEOUT_S)
+                          device="cpu", collective_timeout=TIMEOUT_S)
     _check_records(resumed, 12)
     ck2 = restore_checkpoint(list_checkpoints(save_dir, "Fake", 0)[-1][1])
     assert int(ck2["step"]) == 12
@@ -89,7 +89,7 @@ def test_two_controllers_process_actors(tmp_path):
     from r2d2_tpu_torch.replay.snapshot import read_manifest
     save_dir = str(tmp_path / "mh_proc")
     records = launch_demo(2, save_dir, 8, RUN_S, actor_mode="process",
-                          collective_timeout=TIMEOUT_S,
+                          device="cpu", collective_timeout=TIMEOUT_S,
                           overrides=["--runtime.snapshot_interval=4"])
     _check_records(records, 8)
     assert read_manifest(save_dir, 0) is None
@@ -105,7 +105,7 @@ def test_two_controllers_host_placement(tmp_path):
     lockstep to 8 steps with equal digests, no gather launched."""
     save_dir = str(tmp_path / "mh_host")
     records = launch_demo(2, save_dir, 8, RUN_S, placement="host",
-                          collective_timeout=TIMEOUT_S)
+                          device="cpu", collective_timeout=TIMEOUT_S)
     _check_records(records, 8)
     assert all(r["dispatches"] == 8 for r in records)
     ck = restore_checkpoint(list_checkpoints(save_dir, "Fake", 0)[-1][1])
@@ -120,7 +120,7 @@ def test_two_controllers_int8_thread_actors(tmp_path):
     import json
     save_dir = str(tmp_path / "mh_int8")
     records = launch_demo(2, save_dir, 8, RUN_S,
-                          collective_timeout=TIMEOUT_S,
+                          device="cpu", collective_timeout=TIMEOUT_S,
                           overrides=["--network.inference_dtype=int8",
                                      "--runtime.log_interval=0.2"])
     _check_records(records, 8)

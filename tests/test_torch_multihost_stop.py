@@ -31,6 +31,7 @@ def test_sigterm_to_one_controller_stops_both_on_one_iteration(tmp_path):
     with 0; controller 1 names the signal, controller 0 only followed."""
     save_dir = str(tmp_path / "mh_term")
     argv_of = demo_argv(2, save_dir, max_steps=100_000, max_seconds=120.0,
+                        device="cpu",
                         collective_timeout=TIMEOUT_S)
     first = os.path.join(save_dir, "Fake1_player0")
     with ControllerProcesses(argv_of, 2) as ctl:
@@ -55,8 +56,10 @@ def test_a_raising_controller_fails_the_launch_and_leaves_none(tmp_path):
     controller 0 waits in the first collective: the launcher sees the
     failure, kills controller 0 and every process is gone."""
     save_dir = str(tmp_path / "mh_raise")
-    good = demo_argv(2, save_dir, max_steps=8, collective_timeout=TIMEOUT_S)
-    bad = demo_argv(2, save_dir, max_steps=8, collective_timeout=TIMEOUT_S,
+    good = demo_argv(2, save_dir, max_steps=8, device="cpu",
+                     collective_timeout=TIMEOUT_S)
+    bad = demo_argv(2, save_dir, max_steps=8, device="cpu",
+                    collective_timeout=TIMEOUT_S,
                     resume=str(tmp_path / "missing_checkpoint"))
 
     def argv_of(pid, coordinator):

@@ -176,22 +176,24 @@ def test_make_mesh_refuses_more_ranks_than_devices():
 
 
 def test_mesh_config_roundtrip_and_refusals():
-    """--mesh.dp parses and round-trips with JAX's meaning of -1; mp > 1,
-    snapshots under dp > 1 are refused naming ROADMAP A.4, the multi-host
-    fields parse and what they leave out is refused naming its item; host
-    placement and dp 1 / -1 on one device take the
-    unsharded path."""
+    """--mesh.dp parses and round-trips with JAX's meaning of -1; mp > 1
+    and snapshots under dp > 1 are settings (tensor parallelism and the
+    sharded snapshots are ported); the multi-host fields parse and what
+    they leave out is refused naming its item, mp > 1 there naming
+    ROADMAP A.4; host placement at mp 1 and dp 1 / -1 on one device take
+    the unsharded path, host placement at mp 2 a dp x mp mesh."""
     cfg = parse_overrides(Config(), ["--mesh.dp=2"])
     assert cfg.mesh == MeshConfig(dp=2, mp=1)
     assert Config.from_dict(json.loads(cfg.to_json())).mesh.dp == 2
     assert MeshConfig(dp=-1).resolved_dp(8) == 8
     assert MeshConfig(dp=-1).resolved_dp(1) == 1
     assert JMeshConfig(dp=-1).resolved_dp(8) == 8
-    with pytest.raises(ValueError, match="tensor_parallel.*A.4"):
-        parse_overrides(Config(), ["--mesh.mp=2"])
-    with pytest.raises(ValueError, match="snapshot.*A.4"):
-        parse_overrides(Config(), ["--mesh.dp=2",
-                                   "--runtime.snapshot_interval=10"])
+    assert parse_overrides(Config(), ["--mesh.mp=2"]).mesh == MeshConfig(
+        dp=1, mp=2)
+    assert MeshConfig(dp=-1, mp=2).resolved_dp(8) == 4
+    assert parse_overrides(Config(), [
+        "--mesh.dp=2", "--runtime.snapshot_interval=10"
+    ]).runtime.snapshot_interval == 10
     # the multi-host fields parse (parallel/multihost.py); what it leaves
     # out is refused naming its item
     mh = ["--mesh.multihost=true", "--mesh.coordinator_address=x:1",
@@ -200,13 +202,14 @@ def test_mesh_config_roundtrip_and_refusals():
     assert parsed.mesh == MeshConfig(dp=2, multihost=True,
                                      coordinator_address="x:1",
                                      num_processes=2, process_id=1)
-    for extra, match in ((["--mesh.mp=2"], "tensor_parallel.*A.4"),
+    for extra, match in ((["--mesh.mp=2"], "multihost.*A.4"),
                          (["--actor.inference=server"], "A.6")):
         with pytest.raises(ValueError, match=match):
             parse_overrides(Config(), mh + extra)
     cpu = torch.device("cpu")
     host = cfg.replace(**{"replay.placement": "host"})
     assert resolved_dp(host, [cpu, cpu]) == 1
+    assert resolved_dp(host.replace(**{"mesh.mp": 2}), [cpu] * 4) == 2
     for dp in (1, -1):
         one = Config().replace(**{"mesh.dp": dp})
         with data_parallel(one, cpu) as mesh:

@@ -12,7 +12,7 @@ import torch
 
 from r2d2_tpu_torch.cli import train
 from r2d2_tpu_torch.tools import sync_train
-from r2d2_tpu_torch.utils.device import resolve_device
+from r2d2_tpu_torch.utils.device import gc_paused, resolve_device
 
 pytestmark = pytest.mark.torch_port
 
@@ -52,6 +52,30 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sync_train.main(TINY_ARGS + ["--max-steps=1"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_gc_paused_collects_first_and_holds_the_collector():
+    """The guard of every CUDA graph capture: a dead reference cycle is
+    collected on entry (not inside the capture), the collector stays off
+    inside and is on again after, also when the block raises."""
+    import gc
+    import weakref
+
+    class Node:
+        pass
+
+    a, b = Node(), Node()
+    a.other, b.other = b, a
+    dead = weakref.ref(a)
+    del a, b
+    assert gc.isenabled()
+    with gc_paused():
+        assert dead() is None and not gc.isenabled()
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError):
+        with gc_paused():
+            raise RuntimeError("a failed capture")
+    assert gc.isenabled()
 
 
 def test_port_imports_nothing_of_jax():
