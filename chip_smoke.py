@@ -76,10 +76,18 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      marks its end on the card and one more dispatch runs traced, so the
      tracer's records of the window's last kernels are in; a trace that
      lost events is taken again, at most PROFILE_TRIES times), whose
-     kernel names must equal the wrappers' launch counts (these go into
-     the ``kernels`` line as ``orchestrated_launches``).
+     kernel names must equal the wrappers' launch counts, dQ's included
+     where an interval step falls inside (these go into the ``kernels``
+     line as ``orchestrated_launches``); the records carry the default
+     diagnostics' ``learning`` and ``replay_diag`` blocks in the JAX
+     package's schema, with finite gradient norms, an ESS > 0, a
+     never-sampled share in [0, 1] where evictions are reported and lane
+     counts over the fleet's lanes (phase 8 checks its records alike).
      Printed: the learner's seq-updates/s over a window from a sync
-     after its second dispatch to a sync END_MARGIN_S before the run's
+     after the dispatch that ends the default diagnostics' first period
+     (the graph of every pattern of their interval steps captured by then:
+     dispatch 51 at K=4; before them, the second dispatch) to a sync
+     END_MARGIN_S before the run's
      bound (publications and checkpoints inside, and the figure with the
      checkpoints taken out; the profiled window follows it, away from a
      checkpoint, and its trace's processing outlasts the run's bound),
@@ -252,7 +260,32 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      snapshot twin bit for bit. (a) to (g) run side by side (their
      times are taken under each other's load). The launches go
      into the ``kernels`` line as ``tp_launches`` (a, b, g),
-     ``dpmp_launches`` (c) and ``sp_launches`` (d).
+     ``dpmp_launches`` (c) and ``sp_launches`` (d). 11b, 13a and 13c run
+     with both diagnostics: 11b's reduced ``ld/`` and ``rd/`` values equal
+     the CPU ranks' (histograms exact), the ``rd/shard_*`` views with the
+     dp axis; 13a's dQ NaN (host placement); 13c's mp replicas
+     bit-equal.
+ 14. the learning and replay diagnostics (telemetry/learning.py,
+     telemetry/replaydiag.py) at the reference shape (bf16, the fused
+     scan, K=DIAG_K, a replay of DIAG_BLOCKS rows with DIAG_FILL blocks
+     written): (a) DIAG_DISPATCHES dispatches of the K-step graph with
+     both (dQ every 5 steps, a tree snapshot every 3, so dQ falls at each
+     offset of a dispatch) against the same graph without them (losses,
+     params and tree bit-equal: they only read the training state) and
+     against eager steps with them (every ``ld/`` and ``rd/`` value within
+     the CPU tests' bounds, counts exact); dQ and the snapshots at the
+     interval steps only; each dispatch's launches the graph's without
+     them plus DQ_DECODES decodes and lean forwards a dQ step; one graph
+     a pattern of interval steps captured, at its first dispatch
+     (``GraphedSteps.variants``); (b)
+     the cost: graphs with and without them at the default intervals in
+     windows of DIAG_WINDOW_S (off, on, on, off): seq-updates/s and, from
+     CUDA events around each dispatch, the ms of a plain dispatch, of
+     one holding a snapshot and of one holding dQ; (c) nan_policy=halt:
+     a small Learner on the card whose params are poisoned after clean
+     dispatches writes one forensics dump at its next flush and raises,
+     and raises again with no second dump. The ``kernels`` line's
+     ``dq_launches_per_interval_step`` is (a)'s.
      The script's total time is printed.
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
@@ -366,6 +399,10 @@ ANAKIN_ARGS = ["--actor.on_device=true", "--env.game_name=Fake",
 ANAKIN_SECONDS = 22.0              # the fused trainer's run
 # card vs CPU on small f32 segments: f32 sums in other orders on the card
 ANAKIN_ATOL = 1e-5
+# the learning diagnostics' dQ: three unrolls (the stored state, a zero
+# state, the whole stored row), each its own decode and, with the fused
+# scan, its own lean forward
+DQ_DECODES = 3
 BACK_TO_BACK = 20                  # launches enqueued ahead of the card
 SPIN_CYCLES = 20_000_000           # ~10 ms: longer than enqueuing them
 # cuDNN kernels of a 4-channel first conv's fallback (a layout conversion,
@@ -1023,17 +1060,30 @@ def phase_small_step_vs_cpu(dev, overrides, label):
           f"{runs['cuda'][2]}", flush=True)
 
 
-def _want_launches(overrides: dict, steps: int) -> dict:
+def _want_launches(overrides: dict, steps: int, dq_steps: int = 0) -> dict:
     """Launches per kernel in ``steps`` learner steps of a path: one
     gather and one decode a step (one decode feeds every unroll), and with
     the fused scan its forward and backward, plus the lean forward of the
-    double-DQN target unroll."""
+    double-DQN target unroll. ``dq_steps`` of them are the learning
+    diagnostics' interval steps, whose dQ adds DQ_DECODES decodes and,
+    with the fused scan, as many lean forwards."""
     double = bool(overrides.get("network.use_double", False))
     fused = overrides.get("network.pallas_lstm") == "on"
-    return {"gather_windows": steps, "stack_frames": steps,
+    return {"gather_windows": steps,
+            "stack_frames": steps + DQ_DECODES * dq_steps,
             "lstm_fwd": steps if fused else 0,
-            "lstm_fwd_lean": steps if fused and double else 0,
+            "lstm_fwd_lean": ((steps if double else 0)
+                              + DQ_DECODES * dq_steps) if fused else 0,
             "lstm_bwd": steps if fused else 0, "int8_linear": 0}
+
+
+def _dq_steps(first: int, last: int, interval: int = 0) -> int:
+    """The learning diagnostics' interval steps among steps first+1 ..
+    last (``interval``: the default telemetry.learning_interval)."""
+    if not interval:
+        from r2d2_tpu_torch.config import Config
+        interval = Config().telemetry.learning_interval
+    return last // interval - first // interval
 
 
 def _profiled_kernel_counts(prof) -> dict:
@@ -1647,16 +1697,26 @@ def _union_ms(events) -> float:
     return total / 1e6
 
 
+def _diag_period(k: int) -> int:
+    """Dispatches of K steps in one period of the default diagnostics'
+    intervals: by its end a run has captured the graph of every pattern
+    of interval steps (50 at K=4)."""
+    from r2d2_tpu_torch.config import Config
+    t = Config().telemetry
+    return math.lcm(k, t.learning_interval, t.replay_diag_interval) // k
+
+
 def _interval_stats(state) -> dict:
-    """Host ms between consecutive dispatches from the third to the
-    timed window's end: median, p90, max, and the
+    """Host ms between consecutive dispatches from the one after the timed
+    window's start (the third dispatch unless ``start_at`` says) to its
+    end: median, p90, max, and the
     seconds the intervals longer than 1.5x the median hold beyond it
     (stalls); and where the stalls' and the three largest intervals' host
     time went, by part of the loop (``wait``: none of the timed parts,
     chiefly the wait for the card)."""
     marks, parts = state["marks"], state["parts"]
     intervals = []
-    for i in range(3, state["end"][3] + 1):
+    for i in range(state.get("start_at", 2) + 1, state["end"][3] + 1):
         ms = (marks[i - 1] - marks[i - 2]) * 1e3
         spent = {name: (s - parts[i - 2].get(name, 0.0)) * 1e3
                  for name, s in parts[i - 1].items()}
@@ -1687,8 +1747,9 @@ def _interval_stats(state) -> dict:
 
 def _orchestrated_report(summary, state, k, batch) -> dict:
     """The numbers of one orchestrated run, from its summary and what its
-    dispatch hook recorded (host clock; the window from a sync after the
-    second dispatch to a sync END_MARGIN_S before the run's bound)."""
+    dispatch hook recorded (host clock; the window from a sync after
+    dispatch ``start_at``, the end of the diagnostics' first period, to a
+    sync END_MARGIN_S before the run's bound)."""
     (t0, s0), (t1, s1, env1, _) = state["start"], state["end"]
     steps, seconds = s1 - s0, t1 - t0
     window = state["window"]
@@ -1758,24 +1819,28 @@ def _start_window(state, n):
     state["window_start"] = n + 1
 
 
-def _record_window(state, n):
+def _record_window(state, n, step=None):
     import torch
     torch.cuda.synchronize()
     state["prof"].step()
     _reset_counts()
+    state["window_step0"] = step
     state["window_end"] = n + PROFILE_DISPATCHES
     state["window_t0"] = time.perf_counter()
 
 
-def _close_window(state, n):
+def _close_window(state, n, step=None):
     """The window's last dispatch has run: take its time and counts, and
     mark its end on the card with a spin kernel. One more dispatch runs
     traced before the tracer stops, so that the tracer's records of the
-    window's own last kernels are in."""
+    window's own last kernels are in. ``step``: the learner's step count
+    (with the one at the record, the window's dQ steps)."""
     import torch
     torch.cuda.synchronize()
     state["window_synced"] = time.perf_counter()
     state["window_launches"] = _counts()
+    state["window_dq"] = (0 if step is None else
+                          _dq_steps(state["window_step0"], step))
     torch.cuda._sleep(1000)
     state["cooldown_end"] = n + 1
 
@@ -1804,24 +1869,73 @@ def _end_window(state, n):
             / PROFILE_DISPATCHES,
             busy=_busy_ms(events) / PROFILE_DISPATCHES,
             union=_union_ms(events) / PROFILE_DISPATCHES,
-            seen=seen, launches=launches, end_marked=bool(ends))
+            seen=seen, launches=launches, end_marked=bool(ends),
+            dq_steps=state["window_dq"])
     else:
         _start_window(state, n)
 
 
-def _advance_window(state, n, free: bool) -> None:
+def _advance_window(state, n, free: bool, step=None) -> None:
     """Drive the profiled window from a dispatch hook, after the timed
     window: start it where ``free`` (no checkpoint falls inside), then
-    record, close and end it at the dispatches set for each."""
+    record, close and end it at the dispatches set for each. ``step``:
+    the learner's step count after dispatch ``n``."""
     if "prof" in state:
         if n == state["window_start"]:
-            _record_window(state, n)
+            _record_window(state, n, step)
         elif n == state.get("window_end"):
-            _close_window(state, n)
+            _close_window(state, n, step)
         elif n == state.get("cooldown_end"):
             _end_window(state, n)
     elif "window" not in state and free:
         _start_window(state, n)
+
+
+LEARNING_KEYS = {"td_abs", "td_abs_counts", "priority", "priority_counts",
+                 "q_abs", "q_abs_counts", "grad_norm", "target_param_dist",
+                 "delta_q", "sample_age", "replay_age", "nonfinite_steps"}
+
+
+def _check_diag_records(records, label: str, lanes: int) -> dict:
+    """The records of a run with the default diagnostics: ``learning``
+    blocks with JAX's keys, finite gradient norms of every group and no
+    non-finite step; ``replay_diag`` blocks with a tree snapshot whose
+    ESS is > 0, a never-sampled share in [0, 1] wherever evictions are
+    reported, and lane counts over the run's ``lanes`` lanes with no
+    unknown stamp. Returns the newest of each sub-block, for the log."""
+    learning = [r["learning"] for r in records if "learning" in r]
+    replay = [r["replay_diag"] for r in records if "replay_diag" in r]
+    check(learning and replay, f"{label}: records without the learning or "
+          f"replay_diag block ({len(records)} records)")
+    for block in learning:
+        check(LEARNING_KEYS <= set(block), f"{label}: learning keys "
+              f"{sorted(block)}")
+        check(set(block["grad_norm"]) == {"global", "head", "lstm",
+                                          "torso"}
+              and all(math.isfinite(v["max"])
+                      for v in block["grad_norm"].values()),
+              f"{label}: grad norms {block['grad_norm']}")
+        check(block["nonfinite_steps"] == 0, f"{label}: a non-finite step")
+    trees = [b["tree"] for b in replay if "tree" in b]
+    check(trees and all(t["ess"] > 0 for t in trees),
+          f"{label}: tree snapshots {trees[-1:] or None}")
+    for b in replay:
+        ev = b.get("evictions")
+        if ev and ev["evicted"]:
+            check(0.0 <= ev["never_sampled_frac"] <= 1.0,
+                  f"{label}: evictions {ev}")
+    lane_blocks = [b["lanes"] for b in replay if "lanes" in b]
+    check(lane_blocks and all(
+        lb["total_lanes"] == lanes and lb["unknown_frac"] == 0.0
+        and 1 <= lb["active_lanes"] <= lanes for lb in lane_blocks),
+        f"{label}: lanes {lane_blocks[-1:] or None}")
+    evictions = [b["evictions"] for b in replay if "evictions" in b]
+    return {"learning": {k: learning[-1][k] for k in (
+                "grad_norm", "target_param_dist", "delta_q", "sample_age",
+                "nonfinite_steps")},
+            "tree": trees[-1], "lanes": {k: v for k, v in lane_blocks[-1]
+                                         .items() if k != "counts"},
+            "evictions": evictions[-1] if evictions else None}
 
 
 def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
@@ -1834,7 +1948,7 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
     from r2d2_tpu_torch.config import Config
     batch = Config().replay.batch_size
     state = {"calls": 0, "marks": [], "parts": [], "host_s": {},
-             "saves": []}
+             "saves": [], "start_at": _diag_period(k) + 1}
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as save_dir:
         step0 = os.path.join(save_dir, "Fake0_player0")
@@ -1855,12 +1969,14 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
                                   (stack, "supervise")):
                     _time_calls(obj, name, state["host_s"])
                 _record_saves(learner, state)
-            if n == 2:
+            if n == state["start_at"]:
                 torch.cuda.synchronize()
                 state["start"] = (time.perf_counter(), steps)
                 state["env_start"] = stack.learner.env_steps
+            elif "start" not in state:
+                pass
             elif "end" not in state:
-                if n > 2 and time.perf_counter() >= state["close"]:
+                if time.perf_counter() >= state["close"]:
                     # the window ends once the card has run every dispatch
                     torch.cuda.synchronize()
                     state["end"] = (time.perf_counter(), steps,
@@ -1870,7 +1986,8 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
                 span = ((PROFILE_DISPATCHES + 2)
                         * stack.learner.steps_per_dispatch)
                 _advance_window(state, n, steps // ORCH_SAVE_INTERVAL
-                                == (steps + span) // ORCH_SAVE_INTERVAL)
+                                == (steps + span) // ORCH_SAVE_INTERVAL,
+                                steps)
 
         try:
             state["launched"] = time.perf_counter()
@@ -1916,6 +2033,12 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
         log = open(os.path.join(save_dir, "train_player0.log")).read()
         for line in ORCH_LOG_LINES:
             check(re.search(line, log, re.M), f"no log line {line!r}")
+        records = [json.loads(x) for x in open(os.path.join(
+            save_dir, "metrics_player0.jsonl")) if x.strip()]
+        actor = Config().actor
+        report["diagnostics"] = _check_diag_records(
+            records, f"cli.train {label}",
+            actor.num_actors * actor.envs_per_actor)
         check(summary["actors_alive"] == 0, "an actor is still running")
         if mode == "process":
             check(summary["actor_exitcodes"] == [0, 0],
@@ -1932,7 +2055,8 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
         overrides = {"network.pallas_lstm": "on",
                      "network.use_double": True} if extra == FUSED_ARGS \
             else {}
-        want = _want_launches(overrides, PROFILE_DISPATCHES * k)
+        want = _want_launches(overrides, PROFILE_DISPATCHES * k,
+                              state["window"]["dq_steps"])
         check(seen == launches == want, f"cli.train {label}: the profile "
               f"shows {seen}, counted {launches}, want {want}")
         report["launches"] = launches
@@ -1959,7 +2083,10 @@ def phase_learnability(dev):
     import tempfile
     from r2d2_tpu_torch.tools import learnability as learn
     with tempfile.TemporaryDirectory(prefix="chip_smoke_learn_") as d:
-        cfg = learn.learn_config(d, **{"runtime.steps_per_dispatch": 1})
+        # the diagnostics only read the training state (14a), so the
+        # learning they would watch is the same without them
+        cfg = learn.learn_config(d, **{"runtime.steps_per_dispatch": 1,
+                                       "telemetry.enabled": False})
         t0 = time.perf_counter()
         result = learn.train_and_eval(cfg, dev)
         seconds = time.perf_counter() - t0
@@ -2223,7 +2350,7 @@ def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float,
                 state["end"] = (time.perf_counter(), steps,
                                 stack.learner.env_steps, n)
         else:
-            _advance_window(state, n, True)
+            _advance_window(state, n, True, steps)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_anakin_") as d:
         torch.cuda.synchronize()
@@ -2285,6 +2412,8 @@ def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float,
         peak_gb=peak_gb, final_loss=summary["final_loss"],
         host_s={name: round(v, 3) for name, v in state["host_s"].items()},
         launches=launches, **_interval_stats(state))
+    report["diagnostics"] = _check_diag_records(
+        records, f"cli.train on-device {label}", ANAKIN_LANES)
     if stack.twin_ms:
         report["twin_adoptions"] = len(stack.twin_ms)
         report["twin_ms_median"] = statistics.median(stack.twin_ms)
@@ -2293,7 +2422,7 @@ def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float,
           f"pallas_lstm on, inference dtype {label}): " + json.dumps(report),
           flush=True)
     want = _want_launches({"network.pallas_lstm": "on"},
-                          PROFILE_DISPATCHES * k)
+                          PROFILE_DISPATCHES * k, window["dq_steps"])
     if label != "f32":
         check(launches["int8_linear"] > 0, "the int8 segment launched no "
               "int8_linear in the profiled window")
@@ -3294,6 +3423,37 @@ def _card() -> str:
     return bench.card_line()
 
 
+def _diag_match(got: dict, want: dict, label: str,
+                rtol: float = 1e-4, dq_rtol: float = 0.0) -> float:
+    """ld/ and rd/ values of one dispatch against another run's (the
+    CPU's, eager steps'): the same keys, counts (histograms, lane counts,
+    the non-finite flag, the version extrema, stamps and indices) exact,
+    NaN where the other's is, the rest within ``rtol`` (dQ within
+    ``dq_rtol``, by default ``rtol``). Returns the largest relative
+    difference."""
+    import numpy as np
+    check(got.keys() == want.keys(), f"{label}: diagnostic keys "
+          f"{sorted(got.keys() ^ want.keys())}")
+    worst = 0.0
+    for key, w in want.items():
+        g = np.asarray(got[key], np.float64)
+        w = np.asarray(w, np.float64)
+        if (key.endswith(("hist", "lane_counts", "nonfinite", "version_min",
+                          "version_max", "batch_idxes", "weight_versions"))):
+            check(np.array_equal(g, w), f"{label}: {key} {g} vs {w}")
+            continue
+        check(np.array_equal(np.isnan(g), np.isnan(w)),
+              f"{label}: {key} NaN at other places: {g} vs {w}")
+        ok = ~np.isnan(w)
+        rel = np.abs(g[ok] - w[ok]) / np.maximum(np.abs(w[ok]), 1e-12)
+        if rel.size:
+            worst = max(worst, float(rel.max()))
+            bound = (dq_rtol or rtol) if "delta_q" in key else rtol
+            check(float(rel.max()) <= bound,
+                  f"{label}: {key} {g} vs {w}")
+    return worst
+
+
 def phase_dp_gloo_card_vs_cpu(dev) -> None:
     """Phase 11(b): two gloo ranks sharing the card against two CPU ranks
     on the same dp=2 computation (tools/dp_check.py rank_steps: the small
@@ -3302,7 +3462,12 @@ def phase_dp_gloo_card_vs_cpu(dev) -> None:
     shard's tree within rtol 1e-4 (phase 4's card = CPU rule, over its
     two steps), the
     card ranks' train states bit-equal (the digest), every kernel of the
-    path launched on the card ranks and none on the CPU's."""
+    path launched on the card ranks and none on the CPU's. Both
+    diagnostics on (learning interval 2: dQ at the second step; a tree
+    snapshot every step): the reduced ld/ and rd/ values equal the CPU
+    ranks' (histograms, lane counts and version extrema exact, the rest
+    within rtol 1e-3), the rd/shard_* views with their dp axis, equal
+    on both card ranks; the dQ's decodes and lean forwards counted."""
     import dataclasses
     import numpy as np
     import torch
@@ -3330,7 +3495,9 @@ def phase_dp_gloo_card_vs_cpu(dev) -> None:
             "optim": dataclasses.asdict(cfg.optim), "params": params,
             "shards": shards, "k": k, "dispatches": dispatches,
             "jitter": rng.random((2, dispatches, k, spec.batch_size),
-                                 dtype=np.float32)}
+                                 dtype=np.float32),
+            "diag": {"interval": 2, "dq_batch": 4},
+            "rdiag": {"interval": 1, "lanes": 4}}
     t0 = time.perf_counter()
     # the two worlds at once: four spawned ranks, two rendezvous
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
@@ -3354,8 +3521,19 @@ def phase_dp_gloo_card_vs_cpu(dev) -> None:
             worst["params"] = max(worst["params"], max(
                 float(np.max(np.abs(v - want["params"][n])))
                 for n, v in got["params"].items()))
+        for d in range(dispatches):
+            worst["diag"] = max(worst.get("diag", 0.0), _diag_match(
+                card[r]["trace"][d]["diag"], cpu_runs[r]["trace"][d]["diag"],
+                f"11b rank {r}", rtol=1e-3))
+            check(card[r]["trace"][d]["diag"]["rd/shard_tree_moments"]
+                  .shape == (k, 2, 5), "11b: rd/shard_* without the dp axis")
+            for key, v in card[r]["trace"][d]["diag"].items():
+                check(np.array_equal(v, card[0]["trace"][d]["diag"][key],
+                                     equal_nan=True),
+                      f"11b: {key} differs between the card ranks")
         want_launches = _want_launches({"network.pallas_lstm": "on"},
-                                       k * dispatches)
+                                       k * dispatches,
+                                       _dq_steps(0, k * dispatches, 2))
         check(card[r]["launches"] == want_launches,
               f"11b rank {r}: launches {card[r]['launches']}")
         check(not any(cpu_runs[r]["launches"].values()),
@@ -3364,7 +3542,8 @@ def phase_dp_gloo_card_vs_cpu(dev) -> None:
           f"K={k} x {dispatches}): losses max rel {worst['loss']:.3e}, "
           f"grad norms max rel {worst['grad_norm']:.3e}, tree max abs "
           f"{worst['tree']:.3e}, params max abs "
-          f"{worst['params']:.3e}; card ranks bit-equal; "
+          f"{worst['params']:.3e}, diagnostics max rel "
+          f"{worst['diag']:.3e}; card ranks bit-equal; "
           f"{time.perf_counter() - t0:.1f} s (spawn included)", flush=True)
 
 
@@ -3428,7 +3607,8 @@ def phase_dp_loop(dev, label: str, args) -> dict:
                  "network.pallas_lstm": "on" if resolve_pallas_lstm(
                      cfg.network.pallas_lstm, dev) else "off"}
     for r in reports:
-        check(r["launches"] == _want_launches(overrides, r["steps"]),
+        check(r["launches"] == _want_launches(overrides, r["steps"],
+                                              _dq_steps(0, r["steps"])),
               f"11c {label} rank {r['rank']}: launches {r['launches']} for "
               f"{r['steps']} steps")
     anakin = [x["anakin"] for x in records if x.get("anakin")]
@@ -3695,7 +3875,8 @@ def phase_mh_one_controller(dev, bench_fused: float) -> dict:
     check(out["graphed"] and losses and all(math.isfinite(x)
                                             for x in losses),
           "12a: no finite losses from the graphed step")
-    want = _want_launches(bench.PATHS["fused"], out["step"])
+    want = _want_launches(bench.PATHS["fused"], out["step"],
+                          _dq_steps(0, out["step"]))
     check(counted == want, f"12a: launches {counted}, want {want}")
     check(len(marks) >= 3, f"12a: {len(marks)} synced marks")
     (ta, sa), (tb, sb) = marks[1], marks[-1]
@@ -3866,7 +4047,7 @@ def phase_mh_loop(label: str, placement: str, overrides) -> dict:
                 else _want_launches({"network.use_double":
                                      cfg.network.use_double,
                                      "network.pallas_lstm": "on"},
-                                    r["step"]))
+                                    r["step"], _dq_steps(0, r["step"])))
         check(r["launches"] == want, f"12c {label} rank {r['rank']}: "
               f"launches {r['launches']}, want {want}")
     check(len(recs[0]["dispatch_marks"]) == 2,
@@ -3914,6 +4095,10 @@ def phase_multihost(dev, bench_fused: float) -> dict:
 
 
 TP_STEPS = 3                       # 13(a), (b), (c): steps of each world
+# 13(a) and (c): both diagnostics, dQ and the target distance at step 2,
+# a tree snapshot every step
+TP_DIAG = {"diag": {"interval": 2, "dq_batch": 16},
+           "rdiag": {"interval": 1, "lanes": 4}}
 TP_HOST_BLOCKS = 8                 # 13(a), (b): blocks of the host replay
 # 13(a)'s tolerance (PERF.md's predictions): the TP step in bf16 against
 # the unsharded one. Column-parallel layers may take other cuDNN/cuBLAS
@@ -4012,7 +4197,8 @@ def phase_tp_reference(dev) -> dict:
         **bench.PATHS["fused_double"],
         "replay.capacity": TP_HOST_BLOCKS * 400})
     case = _tp_case(cfg, 32, light=True, control=True,
-                    host_batches=(TP_HOST_BLOCKS, TP_STEPS, 13))
+                    host_batches=(TP_HOST_BLOCKS, TP_STEPS, 13),
+                    **TP_DIAG)
     t0 = time.perf_counter()
     outs = _ranks(dp_check.rank_tp_external, 1, case,
                   devices=[str(dev)] * 2, mp=2)
@@ -4069,6 +4255,18 @@ def phase_tp_reference(dev) -> dict:
           f"13a: the negative control (partial input gradients unsummed) "
           f"passes the update bound: {control}")
     largest = _check_half_features(outs, dict(net.param_specs), "13a")
+    for i, t in enumerate(outs[0]["trace"]):
+        d = t["diag"]
+        check(all(math.isnan(float(d[f"ld/delta_q_{n}"]))
+                  for n in ("stored", "zero", "recomputed"))
+              and math.isfinite(float(d["ld/target_dist"]))
+              == ((i + 1) % TP_DIAG["diag"]["interval"] == 0)
+              and math.isfinite(float(d["ld/grad_norm_torso"])),
+              f"13a step {i}: host TP diagnostics {d}")
+        for key, v in d.items():
+            check(np.array_equal(v, outs[1]["trace"][i]["diag"][key],
+                                 equal_nan=True),
+                  f"13a step {i}: {key} differs between the ranks")
     want = _want_host_launches(cfg, TP_STEPS)
     for r, o in enumerate(outs):
         check(o["launches"] == want, f"13a rank {r}: launches "
@@ -4162,7 +4360,7 @@ def _dpmp_case(seed: int = 9):
     jitter = np.random.default_rng(seed).random(
         (2, TP_STEPS, 1, spec.batch_size), dtype=np.float32)
     return cfg, _tp_case(cfg, 32, shards=shards, jitter=jitter, k=1,
-                         dispatches=TP_STEPS, light=True)
+                         dispatches=TP_STEPS, light=True, **TP_DIAG)
 
 
 def _dpmp_compare(mp2, mp1, net) -> dict:
@@ -4388,6 +4586,47 @@ def phase_dryruns(dev) -> str:
             + "; multihost ok")
 
 
+def _dpmp_diag_check(mp2, mp1) -> float:
+    """13(c)'s diagnostics: every rank's ld/ and rd/ values bit-equal to
+    its row's mp replica's (rank 0's to rank 1's: shard 0's view), the
+    rd/shard_* views with the dp axis, the same on both rows, their tree
+    sums within rtol 1e-5 of the dp x 1 step's (the trees' bound) and the
+    lane counts equal;
+    dQ and the target distance finite at the interval step only. Returns
+    the largest relative difference of the rd/ sums."""
+    import numpy as np
+    worst = 0.0
+    for i in range(TP_STEPS):
+        row0 = mp2[0]["trace"][i]["diag"]
+        on = (i + 1) % TP_DIAG["diag"]["interval"] == 0
+        check(math.isfinite(float(row0["ld/delta_q_stored"])) == on
+              and math.isfinite(float(row0["ld/target_dist"])) == on,
+              f"13c step {i}: dQ {row0['ld/delta_q_stored']}")
+        for r in range(4):
+            mine = mp2[r]["trace"][i]["diag"]
+            replica = mp2[r ^ 1]["trace"][i]["diag"]
+            for key, v in mine.items():
+                check(np.array_equal(v, replica[key], equal_nan=True),
+                      f"13c step {i} rank {r}: {key} differs from its mp "
+                      "replica's")
+                if key.startswith("rd/"):
+                    check(np.array_equal(v, row0[key], equal_nan=True),
+                          f"13c step {i}: {key} differs between the rows")
+        check(row0["rd/shard_tree_moments"].shape == (2, 5),
+              f"13c: rd/shard_tree_moments "
+              f"{row0['rd/shard_tree_moments'].shape}")
+        other = mp1[0]["trace"][i]["diag"]
+        g = row0["rd/shard_tree_moments"][:, 1:4].astype(np.float64)
+        w = other["rd/shard_tree_moments"][:, 1:4].astype(np.float64)
+        rel = np.abs(g - w) / np.maximum(np.abs(w), 1e-12)
+        worst = max(worst, float(rel.max()))
+        check(float(rel.max()) <= 1e-5,
+              f"13c step {i}: tree sums {g} vs dp x 1 {w}")
+        check(np.array_equal(row0["rd/lane_counts"], other["rd/lane_counts"]),
+              f"13c step {i}: lane counts differ from the dp x 1 step's")
+    return worst
+
+
 def phase_parallel_remainder(dev) -> dict:
     """Phase 13 (see the module docstring): 13(a) to 13(g) side by side.
     Returns the launch counts: "tp" (13a, 13b's card ranks and 13g's),
@@ -4414,8 +4653,11 @@ def phase_parallel_remainder(dev) -> dict:
     net = NetworkApply(bench.ACTION_DIM, cfg.network, cfg.env.frame_stack,
                        cfg.env.frame_height, cfg.env.frame_width, dev)
     worst = _dpmp_compare(mp2, done["c"], net)
+    worst["diag_rd_rel"] = _dpmp_diag_check(mp2, done["c"])
     want = _want_launches({"network.pallas_lstm": "on",
-                           "network.use_double": True}, TP_STEPS)
+                           "network.use_double": True}, TP_STEPS,
+                          _dq_steps(0, TP_STEPS,
+                                    TP_DIAG["diag"]["interval"]))
     for r, o in enumerate(mp2):
         check(o["launches"] == want, f"13c rank {r}: launches "
               f"{o['launches']}, want {want}")
@@ -4442,6 +4684,307 @@ def phase_parallel_remainder(dev) -> dict:
                                for j in ("b", "g_device", "g_host"))
                 for k in tp}
     return {"tp": tp_total, "dpmp": _sum_launches(mp2), "sp": done["d"]}
+
+
+# -- phase 14: the learning and replay diagnostics ---------------------------
+
+DIAG_K = 4                         # 14(a), (b): steps a dispatch
+DIAG_DISPATCHES = 6                # 14(a): dispatches of each run
+# 14(a): dQ every 5 steps, a tree snapshot every 3: at K=4 the dQ steps
+# fall at every offset of a dispatch (5, 10, 15, 20: offsets 0, 1, 2, 3)
+# and some dispatches hold none
+DIAG_INTERVALS = (5, 3)
+DIAG_BLOCKS = 48                   # 14(a), (b): the replay's rows
+DIAG_FILL = 60                     # blocks written: the ring wraps
+DIAG_WINDOW_S = 3.0                # 14(b): each timed window
+DIAG_WARM = 52                     # 14(b): dispatches before the windows
+DQ_RTOL = 1e-4                     # dQ's bound (the CPU tests')
+
+
+def _diag_setup(dev):
+    """(cfg, net, spec, replay) at the reference widths, bench's "fused"
+    path (bf16, the fused scan), DIAG_BLOCKS rows with DIAG_FILL blocks
+    written (the eviction ledger holds the wrap)."""
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.tools import bench
+    cfg = bench.reference_config(**{
+        **bench.PATHS["fused"], "replay.capacity": DIAG_BLOCKS * 400})
+    net = NetworkApply(bench.ACTION_DIM, cfg.network, cfg.env.frame_stack,
+                       cfg.env.frame_height, cfg.env.frame_width, dev)
+    spec, rs = bench.filled_replay(
+        cfg, dev, bench.synthetic_blocks(cfg, DIAG_FILL, seed=21))
+    check(spec.replay_diag and rs.evict_stats is not None
+          and float(rs.evict_stats[0]) == DIAG_FILL - DIAG_BLOCKS,
+          "14: the replay holds no eviction ledger of its wrap")
+    return cfg, net, spec, rs
+
+
+def _dq_launches(n: int) -> dict:
+    """The launches dQ adds to a dispatch with ``n`` dQ steps: DQ_DECODES
+    decodes and lean forwards (the fused scan) each."""
+    return {"stack_frames": DQ_DECODES * n, "lstm_fwd_lean": DQ_DECODES * n}
+
+
+def phase_diag_graph(dev, setup) -> dict:
+    """Phase 14(a): the K-step graph with both diagnostics at the
+    reference shape (see the module docstring), on ``setup``
+    (``_diag_setup``'s). Returns the report, with the dQ branch's
+    launches per interval step, by kernel."""
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.learner.train_step import (_make_step_body,
+                                                   create_train_state,
+                                                   diag_intervals,
+                                                   eager_steps,
+                                                   make_multi_learner_step)
+    from r2d2_tpu_torch.telemetry.learning import LearningDiag
+    from r2d2_tpu_torch.telemetry.replaydiag import ReplayDiag
+    t0 = time.perf_counter()
+    cfg, net, spec, rs0 = setup
+    diag = LearningDiag(DIAG_INTERVALS[0], cfg.telemetry.learning_dq_batch)
+    rdiag = ReplayDiag(DIAG_INTERVALS[1],
+                       ReplayDiag.from_config(cfg).lanes)
+    use_double = cfg.network.use_double
+    uniform = torch.rand((DIAG_DISPATCHES, DIAG_K, spec.batch_size),
+                         generator=torch.Generator(device=dev).manual_seed(5),
+                         device=dev)
+    steps = {
+        "on": make_multi_learner_step(net, spec, cfg.optim, use_double,
+                                      DIAG_K, diag=diag, rdiag=rdiag),
+        "off": make_multi_learner_step(net, spec, cfg.optim, use_double,
+                                       DIAG_K),
+        "eager": eager_steps(_make_step_body(net, spec, cfg.optim,
+                                             use_double, diag=diag,
+                                             rdiag=rdiag),
+                             DIAG_K, diag_intervals(diag, rdiag))}
+    ts = {n: create_train_state(net, cfg.optim, 0, use_double)
+          for n in steps}
+    rs = {n: _clone_replay(rs0) for n in steps}
+    out = {n: [] for n in steps}
+    counts = {n: [] for n in steps}
+    flags = []
+    for d in range(DIAG_DISPATCHES):
+        flags.append(steps["on"].flags(ts["on"].step))
+        for n, step in steps.items():
+            _reset_counts()
+            ts[n], rs[n], m = step(ts[n], rs[n], uniform[d])
+            torch.cuda.synchronize()
+            counts[n].append(_counts())
+            out[n].append({k: v.float().cpu().numpy() for k, v in m.items()})
+    # the diagnostics change no training state: losses per dispatch, then
+    # the params, target and tree after the run, bit for bit
+    for d in range(DIAG_DISPATCHES):
+        check(np.array_equal(out["on"][d]["loss"], out["off"][d]["loss"]),
+              f"14a dispatch {d}: losses with the diagnostics differ")
+    for (name, p), q in zip(ts["on"].params.named_parameters(),
+                            ts["off"].params.parameters()):
+        check(torch.equal(p, q), f"14a: param {name} differs")
+    check(torch.equal(rs["on"].tree, rs["off"].tree), "14a: trees differ")
+    # graph against eager on the card, every dispatch
+    worst = 0.0
+    for d in range(DIAG_DISPATCHES):
+        diag_on = {k: v for k, v in out["on"][d].items()
+                   if k.startswith(("ld/", "rd/"))}
+        diag_eager = {k: v for k, v in out["eager"][d].items()
+                      if k.startswith(("ld/", "rd/"))}
+        worst = max(worst, _diag_match(diag_on, diag_eager,
+                                       f"14a dispatch {d}", rtol=1e-5,
+                                       dq_rtol=DQ_RTOL))
+        dq_on = [f[0] for f in flags[d]]
+        rd_on = [f[1] for f in flags[d]]
+        dq = np.isfinite(out["on"][d]["ld/delta_q_stored"])
+        rd = np.isfinite(out["on"][d]["rd/tree_moments"][:, 0])
+        check(list(dq) == dq_on and list(rd) == rd_on,
+              f"14a dispatch {d}: dQ at {dq}, snapshots at {rd}, interval "
+              f"steps {flags[d]}")
+        extra = _dq_launches(sum(dq_on))
+        want = {k: c + extra.get(k, 0) for k, c in counts["off"][d].items()}
+        check(counts["on"][d] == want, f"14a dispatch {d} {flags[d]}: "
+              f"launches {counts['on'][d]}, want {want}")
+    for name in ("sample_count", "evict_stats", "evict_life_hist"):
+        check(torch.equal(getattr(rs["on"], name), getattr(rs["eager"], name)),
+              f"14a: the graph's {name} differs from eager's")
+    check(float(rs["on"].sample_count.sum())
+          == DIAG_DISPATCHES * DIAG_K * spec.batch_size,
+          "14a: the sample counts miss sampled sequences")
+    variants = sorted(steps["on"].variants)
+    check(variants == sorted(set(flags[1:])),
+          f"14a: variants captured {variants}, patterns {set(flags[1:])}")
+    dq_offsets = {tuple(f[0] for f in v).index(True) for v in variants
+                  if any(f[0] for f in v)}
+    check(dq_offsets == set(range(DIAG_K)),
+          f"14a: dQ at offsets {dq_offsets} of the dispatches")
+    dq_per_step = _dq_launches(1)
+    report = {"variants_captured": len(variants),
+              # a step: q = dQ, r = a tree snapshot, - = neither
+              "variants": ["".join("q" * f[0] + "r" * f[1] or "-"
+                                   for f in v) for v in variants],
+              "dq_dispatches": sum(1 for f in flags if any(x[0] for x in f)),
+              "diag_max_rel_graph_vs_eager": worst,
+              "dq_launches_per_interval_step": dq_per_step,
+              "launches_plain_dispatch": counts["on"][
+                  next(d for d in range(1, DIAG_DISPATCHES)
+                       if not any(f[0] for f in flags[d]))],
+              "seconds": round(time.perf_counter() - t0, 1)}
+    print(f"14a K={DIAG_K} graph with both diagnostics at the reference "
+          f"shape (bf16, fused scan; learning interval 5, replay interval "
+          f"3), {DIAG_DISPATCHES} dispatches against the same graph "
+          f"without them (training state bit-equal) and eager steps (the "
+          f"diagnostics within their bounds), {_card()}: "
+          + json.dumps(report), flush=True)
+    del steps, ts, rs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_diag_cost(dev, setup) -> dict:
+    """Phase 14(b): K=4 graphs at the reference shape with the default
+    intervals (dQ every 200 steps, a tree snapshot every 50), with and
+    without the diagnostics, in alternating windows of DIAG_WINDOW_S
+    (off, on, on, off): seq-updates/s of each, and from CUDA events
+    around every dispatch, the ms of a dispatch without them, of a plain
+    one with them, of one holding a tree snapshot and of one holding a
+    dQ step."""
+    import torch
+    from r2d2_tpu_torch.learner.train_step import (create_train_state,
+                                                   make_multi_learner_step)
+    from r2d2_tpu_torch.telemetry.learning import LearningDiag
+    from r2d2_tpu_torch.telemetry.replaydiag import ReplayDiag
+    cfg, net, spec, rs0 = setup
+    diag, rdiag = LearningDiag.from_config(cfg), ReplayDiag.from_config(cfg)
+    use_double = cfg.network.use_double
+    steps = {"on": make_multi_learner_step(net, spec, cfg.optim, use_double,
+                                           DIAG_K, diag=diag, rdiag=rdiag),
+             "off": make_multi_learner_step(net, spec, cfg.optim, use_double,
+                                            DIAG_K)}
+    ts = {n: create_train_state(net, cfg.optim, 0, use_double)
+          for n in steps}
+    rs = {n: _clone_replay(rs0) for n in steps}
+    for n, step in steps.items():           # past every pattern's capture
+        for _ in range(DIAG_WARM):
+            ts[n], rs[n], _ = step(ts[n], rs[n])
+    torch.cuda.synchronize()
+    rates = {"on": [], "off": []}
+    ms = {"off": [], "on": [], "on_snapshot": [], "on_dq": []}
+    for n in ("off", "on", "on", "off"):
+        events = []
+        dispatches = 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < DIAG_WINDOW_S:
+            flags = steps["on"].flags(ts[n].step) if n == "on" else ()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ts[n], rs[n], _ = steps[n](ts[n], rs[n])
+            end.record()
+            key = ("on_dq" if any(f[0] for f in flags) else "on_snapshot"
+                   if any(f[1] for f in flags) else n)
+            events.append((start, end, key))
+            dispatches += 1
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rates[n].append(dispatches * DIAG_K * spec.batch_size / seconds)
+        for start, end, key in events:
+            ms[key].append(start.elapsed_time(end))
+    check(ms["on_dq"] and ms["on_snapshot"],
+          "14b: no dQ or snapshot dispatch in the windows")
+    off, on = statistics.mean(rates["off"]), statistics.mean(rates["on"])
+    report = {
+        "seq_updates_per_s": {k: [round(x, 1) for x in v]
+                              for k, v in rates.items()},
+        "overhead": round(1.0 - on / off, 4),
+        "ms_per_dispatch": {k: round(statistics.median(v), 4)
+                            for k, v in ms.items()},
+        "dispatches": {k: len(v) for k, v in ms.items()},
+        "dq_dispatch_extra_ms": round(
+            statistics.median(ms["on_dq"]) - statistics.median(ms["on"]), 4),
+        "snapshot_dispatch_extra_ms": round(
+            statistics.median(ms["on_snapshot"])
+            - statistics.median(ms["on"]), 4)}
+    print(f"14b the diagnostics' cost, K={DIAG_K} graphs at the reference "
+          f"shape (bf16, fused scan, default intervals: dQ every 200 "
+          f"steps, a tree snapshot every 50), windows of {DIAG_WINDOW_S} s "
+          f"off, on, on, off, {_card()}: " + json.dumps(report), flush=True)
+    del steps, ts, rs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_diag_halt(dev) -> dict:
+    """Phase 14(c): telemetry.nan_policy="halt" on the card: a Learner at
+    the small shape (K=4 graphs); clean dispatches flush a learning block
+    with no non-finite step; its params poisoned with a NaN, the next
+    flush writes the one forensics dump and raises; after another
+    poisoned dispatch the flush raises again without a second dump."""
+    import tempfile
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.runtime.learner_loop import Learner
+    from r2d2_tpu_torch.tools import bench
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_halt_") as d:
+        cfg = _tiny_config().replace(**{
+            "runtime.save_dir": d, "runtime.save_interval": 0,
+            "runtime.steps_per_dispatch": DIAG_K,
+            "replay.learning_starts": 100, "telemetry.nan_policy": "halt"})
+        net = NetworkApply(18, cfg.network, cfg.env.frame_stack,
+                           cfg.env.frame_height, cfg.env.frame_width, dev)
+        learner = Learner(cfg, net)
+        for block in bench.synthetic_blocks(cfg, 10, seed=4):
+            learner.ingest(block)
+        for _ in range(3):
+            learner.step()
+        learner.flush_metrics()
+        record = learner.metrics.log(1.0)
+        check(record["learning"]["nonfinite_steps"] == 0
+              and "replay_diag" in record,
+              f"14c: the clean record {record.get('learning')}")
+        with torch.no_grad():
+            next(learner.train_state.params.parameters()).fill_(
+                float("nan"))
+        dump = os.path.join(d, "nan_dump_player0.json")
+        raised = []
+        for attempt in range(2):
+            learner.step()
+            try:
+                learner.flush_metrics()
+            except RuntimeError as e:
+                raised.append(str(e))
+            if attempt == 0:
+                check(os.path.exists(dump), "14c: no forensics dump")
+                written = json.load(open(dump))
+                os.remove(dump)
+        check(len(raised) == 2 and all("nan_policy=halt" in e
+                                       for e in raised),
+              f"14c: flushes raised {raised}")
+        check(not os.path.exists(dump), "14c: a second dump was written")
+        check(written["learning"]["nonfinite_steps"] > 0
+              and written["nan_policy"] == "halt"
+              and len(written["last_batch_idxes"]) == DIAG_K * 8,
+              f"14c: dump {written}")
+        learner.stop_background()
+    report = {"dump_step": written["step"],
+              "nonfinite_steps": written["learning"]["nonfinite_steps"],
+              "raised": raised[0]}
+    print(f"14c nan_policy=halt on the card ({_card()}): "
+          + json.dumps(report), flush=True)
+    return report
+
+
+def phase_diagnostics(dev) -> dict:
+    """Phase 14: 14(a), (b), (c) in turn."""
+    import torch
+    t0 = time.perf_counter()
+    setup = _diag_setup(dev)
+    graph = phase_diag_graph(dev, setup)
+    cost = phase_diag_cost(dev, setup)
+    del setup
+    torch.cuda.empty_cache()
+    phase_diag_halt(dev)
+    print(f"phase 14 {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"graph": graph, "cost": cost}
 
 
 def main(argv) -> int:
@@ -4542,6 +5085,9 @@ def main(argv) -> int:
     done("multi-host")
     parallel = phase_parallel_remainder(dev)
     done("tensor, dp x mp and sequence parallel")
+    diagnostics = phase_diagnostics(dev)
+    dq = diagnostics["graph"]["dq_launches_per_interval_step"]
+    done("learning and replay diagnostics")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}
@@ -4572,7 +5118,9 @@ def main(argv) -> int:
                     dpmp_launches=(0 if name.endswith("_padded")
                                    else parallel["dpmp"][name]),
                     sp_launches=(0 if name.endswith("_padded")
-                                 else parallel["sp"][name]))
+                                 else parallel["sp"][name]),
+                    dq_launches_per_interval_step=(
+                        0 if name.endswith("_padded") else dq.get(name, 0)))
                for name, r in timings.items()]
     kernels.append(dict(
         name="int8_linear", route="cuda", source=KERNEL_SOURCES["quant_kernels"],
@@ -4591,7 +5139,8 @@ def main(argv) -> int:
         multihost_launches=multihost["int8_linear"],
         tp_launches=parallel["tp"]["int8_linear"],
         dpmp_launches=parallel["dpmp"]["int8_linear"],
-        sp_launches=parallel["sp"]["int8_linear"]))
+        sp_launches=parallel["sp"]["int8_linear"],
+        dq_launches_per_interval_step=0))
     check(all(multihost[name] > 0 for name in (
         "gather_windows", "stack_frames", "lstm_fwd", "lstm_bwd")),
         f"phase 12 launched {multihost}")

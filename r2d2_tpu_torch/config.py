@@ -8,7 +8,13 @@ refused as an unknown field instead of being ignored, and a value the port
 cannot honour yet is refused naming the item that brings it: ``mesh.mp >
 1`` under ``mesh.multihost`` (ROADMAP A.4) and ``serve.servers > 1``
 (A.6). ``actor.on_device`` with ``mesh.mp > 1`` is refused in the JAX
-package's words, as it refuses it.
+package's words, as it refuses it. The telemetry section holds the master
+switch ``enabled``, the learning diagnostics (``learning_enabled``,
+``learning_interval``, ``learning_dq_batch``, ``nan_policy``), the replay
+diagnostics (``replay_diag_enabled``, ``replay_diag_interval``) and
+``quant_probe_interval``; its other fields in the JAX package (spans,
+resources, compile telemetry, alerts, the cost model) are refused as
+unknown fields naming ROADMAP A.7, which ports them.
 
 The tri-state knobs ("on"/"off"/"auto") resolve for the device the port
 runs on, never for a TPU:
@@ -273,8 +279,36 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class TelemetryConfig:
-    """The telemetry fields the port reads."""
+    """The telemetry fields the port reads, with the JAX package's names
+    and defaults: the master switch, the learning diagnostics
+    (telemetry/learning.py), the replay diagnostics
+    (telemetry/replaydiag.py) and the quantized forward's probe. Until the
+    stage timers and spans are ported, ``enabled`` gates only the two
+    diagnostic pillars. The JAX package's other telemetry fields (the
+    span ring, the flush cadence, spans, resources, compile telemetry,
+    alerts, the cost model) are refused as unknown fields: ROADMAP A.7
+    ports them."""
 
+    # master switch: false turns both diagnostic pillars off (the step,
+    # its graph and the record are then what they are without them)
+    enabled: bool = True
+    # the learning diagnostics fused into the learner step: |TD|,
+    # priority and |Q| histograms, per-group gradient norms, the
+    # non-finite guard, sample staleness, and every learning_interval
+    # steps the target distance and the stored-state dQ check on
+    # learning_dq_batch sequences
+    learning_enabled: bool = True
+    learning_interval: int = 200
+    learning_dq_batch: int = 16
+    # a non-finite loss or gradient norm seen at a metrics flush: both
+    # policies write one nan_dump_player{p}.json; "warn" logs and goes
+    # on, "halt" raises and stops the run at that flush
+    nan_policy: str = "warn"
+    # the replay diagnostics: the sum tree's health every
+    # replay_diag_interval steps, the per-slot sample counts and the
+    # eviction ledger, the sampled batches' lane composition
+    replay_diag_enabled: bool = True
+    replay_diag_interval: int = 50
     # every N-th quantized forward also runs the f32 twin on the same live
     # rows (max |dQ| and greedy agreement into the record's "quant"
     # block); 0 = no probe
@@ -491,6 +525,22 @@ class Config:
                 " — routing its actors through a serve transport is the "
                 "router/fleet item, ROADMAP A.6")
 
+    def _check_telemetry(self) -> None:
+        """The diagnostics' fields, checked in the JAX package's words."""
+        t = self.telemetry
+        if t.learning_interval < 1:
+            raise ValueError(f"telemetry.learning_interval "
+                             f"({t.learning_interval}) must be >= 1")
+        if t.learning_dq_batch < 1:
+            raise ValueError(f"telemetry.learning_dq_batch "
+                             f"({t.learning_dq_batch}) must be >= 1")
+        if t.nan_policy not in ("warn", "halt"):
+            raise ValueError(f"telemetry.nan_policy ({t.nan_policy!r}) must "
+                             "be 'warn' or 'halt'")
+        if t.replay_diag_interval < 1:
+            raise ValueError(f"telemetry.replay_diag_interval "
+                             f"({t.replay_diag_interval}) must be >= 1")
+
     def _check_inference(self) -> None:
         """The quantized plane's and the policy server's rules, the JAX
         package's wording; what the port does not have yet is refused
@@ -502,6 +552,7 @@ class Config:
                 "'f32', 'bf16', or 'int8' — the acting/serving forward's "
                 "weight dtype (the learner always trains in the network.bf16 "
                 "policy regardless)")
+        self._check_telemetry()
         if self.telemetry.quant_probe_interval < 0:
             raise ValueError(
                 f"telemetry.quant_probe_interval "
@@ -774,6 +825,19 @@ def check_decode_layout(optim: OptimConfig) -> None:
                          f"'nhwc'; got {optim.pallas_decode_layout!r}")
 
 
+# the JAX package's telemetry fields that ROADMAP A.7 ports later
+_TELEMETRY_NOT_PORTED = (
+    "ring_size", "flush_interval_s", "spans", "resources_enabled",
+    "resources_interval_s", "resources_headroom_warn_frac",
+    "compile_enabled", "alerts_enabled", "alerts_window",
+    "alerts_throughput_drop_frac", "alerts_heartbeat_age_s",
+    "alerts_staleness_growth_factor", "alerts_hbm_headroom_frac",
+    "alerts_retrace_storm", "costmodel_enabled", "alerts_shard_imbalance",
+    "alerts_replay_ess_frac", "alerts_priority_saturation",
+    "alerts_never_sampled_growth", "alerts_lane_starved_frac",
+    "fleet_enabled", "tracing_enabled", "trace_sample_every",
+    "replay_tiers_enabled")
+
 _SCALARS = {"bool": bool, "int": int, "float": float, "str": str,
             "Optional[str]": str}
 
@@ -830,8 +894,12 @@ def parse_overrides(cfg: Config, argv: List[str]) -> Config:
             raise SystemExit(f"unknown config section {section!r}")
         matching = {f.name: f for f in dataclasses.fields(getattr(cfg, section))}
         if fname not in matching:
+            hint = ""
+            if section == "telemetry" and fname in _TELEMETRY_NOT_PORTED:
+                hint = (": the JAX package's field, not ported yet (ROADMAP "
+                        "A.7, the telemetry remainder)")
             raise SystemExit(f"unknown field {fname!r} in section "
-                             f"{section!r}")
+                             f"{section!r}{hint}")
         dotted[key] = _coerce(key, raw, matching[fname].type)
     return cfg.replace(**dotted) if dotted else cfg
 

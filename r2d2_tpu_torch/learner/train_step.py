@@ -8,7 +8,25 @@ writing them back.
 
 The JAX step is one XLA program over donated buffers; here the same steps
 run on one CUDA stream and update the replay tree, the parameters and the
-optimizer state in place. Sampling and its write-back stay atomic with
+optimizer state in place.
+
+Every factory takes ``diag`` (telemetry/learning.py ``LearningDiag``) and
+``rdiag`` (telemetry/replaydiag.py ``ReplayDiag``), as the JAX package's
+do: the learning and the replay diagnostics computed inside the step,
+their ``ld/`` and ``rd/`` values returned with the metrics. None leaves
+the step as it is without them. The learning diagnostics read the
+gradients before the clip and the parameters and target before the
+update (the JAX step feeds them its pre-update state); the replay
+diagnostics run after the priority write-back. Their interval work (dQ
+and the target distance on the steps whose new count is a multiple of
+``diag.interval``, the tree snapshot and the eviction ledger's read on
+multiples of ``rdiag.interval``; the JAX step's ``lax.cond``) is decided
+on the host, from its mirror of the step count: a step is told
+``dq_on`` and ``rd_on``, and a CUDA graph of K steps is captured once
+for each pattern of interval steps among its K (``GraphedSteps``), so a
+dispatch without one replays a graph without that work.
+
+Sampling and its write-back stay atomic with
 respect to ingestion because nothing else writes the replay between them.
 The step makes no host sync and reads no host value that changes from step
 to step (the target sync rides a step counter on the device, Adam keeps
@@ -188,41 +206,124 @@ def make_loss_fn(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
             # the learning steps the means divide by (unclamped): the
             # weight of this batch in a mean over several
             "valid_steps": mask.sum().detach(),
+            # the per-element views the learning diagnostics' histograms
+            # read (nothing is computed for them)
+            "abs_td": abs_td,
+            "mask": mask,
+            "q_chosen": q_chosen.detach(),
         }
         return loss, aux
 
     return loss_fn
 
 
+def _is_interval(interval: Optional[int], new_step: int) -> bool:
+    return bool(interval) and new_step % interval == 0
+
+
+def diag_intervals(diag, rdiag) -> Optional[Tuple[Optional[int],
+                                                  Optional[int]]]:
+    """(dQ interval, tree snapshot interval) of a step's diagnostics, None
+    without either."""
+    if diag is None and rdiag is None:
+        return None
+    return (diag.interval if diag is not None else None,
+            rdiag.interval if rdiag is not None else None)
+
+
+def step_flags(intervals, new_step: int) -> Tuple[bool, bool]:
+    """A step's (dq_on, rd_on) from ``diag_intervals``."""
+    if intervals is None:
+        return False, False
+    return (_is_interval(intervals[0], new_step),
+            _is_interval(intervals[1], new_step))
+
+
 def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
                      use_double: bool, reduce: Optional[Callable] = None,
-                     sq_norm: Optional[Callable] = None):
-    """``train(train_state, batch) -> metrics``: one step's device work on
-    a sampled batch, all of it in place (loss, clip + Adam, the step
-    counter and the hard target sync); ``metrics["priorities"]`` holds the
-    batch's (B,) new priorities. The host mirror ``step`` is the caller's
-    to advance. ``reduce(grads, loss, mean_abs_td, mean_q, valid_steps)
-    -> (loss, mean_abs_td, mean_q)``, between the backward and the clip:
-    the data-parallel mean over ranks (parallel/sharded.py ``GradMean``,
-    or ``BatchMean`` for one batch split over the ranks; under tensor
-    parallelism ``TPGradients`` around it), in place on the gradients;
-    None on a single device. ``sq_norm``:
-    ``clip_by_global_norm_``'s (parallel/tensor_parallel.py
-    ``TPGradients.sq_norm``)."""
+                     sq_norm: Optional[Callable] = None, diag=None,
+                     rdiag=None, diag_reduce: bool = False,
+                     diag_gather: Optional[Callable] = None,
+                     group_sq: Optional[Callable] = None):
+    """``train(train_state, batch, rs=None, dq_on=False, rd_on=False) ->
+    metrics``: one step's device work on a sampled batch, all of it in
+    place (loss, clip + Adam, the step counter and the hard target sync);
+    ``metrics["priorities"]`` holds the batch's (B,) new priorities. The
+    host mirror ``step`` is the caller's to advance. ``reduce(grads,
+    loss, mean_abs_td, mean_q, valid_steps) -> (loss, mean_abs_td,
+    mean_q)``, between the backward and the clip: the data-parallel mean
+    over ranks (parallel/sharded.py ``GradMean``, or ``BatchMean`` for
+    one batch split over the ranks; under tensor parallelism
+    ``TPGradients`` around it), in place on the gradients; None on a
+    single device. ``sq_norm``: ``clip_by_global_norm_``'s
+    (parallel/tensor_parallel.py ``TPGradients.sq_norm``).
+
+    ``diag``: the learning diagnostics (telemetry/learning.py), of the
+    batch, of the gradients after ``reduce`` and before the clip, and on
+    ``dq_on`` steps the target distance and, given the replay ``rs``, dQ,
+    all before the update. How they meet the ranks: ``diag_reduce`` (the
+    dp step) reduces the batch's values in ``reduce``'s all-reduce
+    (``reduce(..., diag=values)`` returns them reduced, the per-sequence
+    vectors left out); ``diag_gather(aux, batch) -> (aux, batch)`` (the
+    external steps over dp rows) gives the whole batch's per-sequence
+    values first; otherwise they are this rank's. ``group_sq``: the
+    group norms' squares (telemetry/learning.py ``GroupSqNorms``; tensor
+    parallelism's). ``rdiag``: the lane counts of the batch (the external
+    step's half of the replay diagnostics)."""
+    from r2d2_tpu_torch.telemetry.learning import (batch_diagnostics,
+                                                   grad_diagnostics)
+    from r2d2_tpu_torch.telemetry.replaydiag import lane_counts
     loss_fn = make_loss_fn(net, spec, optim, use_double)
     interval = optim.target_net_update_interval
+    frozen: List[torch.Tensor] = []      # the initial params (no double)
 
-    def train(ts: TrainState, batch: SampleBatch) -> Dict[str, torch.Tensor]:
+    def reference(ts: TrainState) -> List[torch.Tensor]:
+        """The target the distance is taken to: without double DQN the
+        initial parameters, the JAX package's frozen target."""
+        if ts.target_params is not ts.params:
+            return list(ts.target_params.parameters())
+        if not frozen:
+            frozen.extend(p.detach().clone() for p in ts.params.parameters())
+        return frozen
+
+    def train(ts: TrainState, batch: SampleBatch,
+              rs: Optional[ReplayState] = None, dq_on: bool = False,
+              rd_on: bool = False) -> Dict[str, torch.Tensor]:
         loss, aux = loss_fn(ts.params, ts.target_params, batch)
         ts.opt.zero_grad(set_to_none=False)
         loss.backward()
         grads = [p.grad for p in ts.params.parameters()]
         loss = loss.detach()
+        with_ld = diag is not None and batch.weight_version is not None
+        lanes = (rdiag is not None and batch.lane is not None
+                 and rdiag.lanes > 0)
+        ld: Dict[str, torch.Tensor] = {}
+        view_aux, view = aux, batch
+        if diag_gather is not None and (with_ld or lanes):
+            view_aux, view = diag_gather(aux, batch)
+        if with_ld:
+            ld = batch_diagnostics(
+                net, spec, diag, dq_on, ts.params,
+                list(ts.params.parameters()), reference(ts), view,
+                view_aux, replay_state=rs, raw_arrays=not diag_reduce,
+                sq_norms=group_sq)
         if reduce is not None:
-            loss, aux["mean_abs_td"], aux["mean_q"] = reduce(
-                grads, loss, aux["mean_abs_td"], aux["mean_q"],
-                aux["valid_steps"])
+            if with_ld and diag_reduce:
+                loss, aux["mean_abs_td"], aux["mean_q"], ld = reduce(
+                    grads, loss, aux["mean_abs_td"], aux["mean_q"],
+                    aux["valid_steps"], diag=ld)
+            else:
+                loss, aux["mean_abs_td"], aux["mean_q"] = reduce(
+                    grads, loss, aux["mean_abs_td"], aux["mean_q"],
+                    aux["valid_steps"])
+        if with_ld:
+            ld.update(grad_diagnostics(ts.params, grads, group_sq))
         grad_norm = clip_by_global_norm_(grads, optim.grad_norm, sq_norm)
+        if with_ld:
+            ld["ld/grad_norm"] = grad_norm
+            ld["ld/nonfinite"] = torch.logical_not(
+                torch.isfinite(loss) & torch.isfinite(grad_norm)).to(
+                    torch.int32)
         ts.opt.step()
 
         # hard target sync on the 1-based step counter, on the device
@@ -233,47 +334,70 @@ def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
                 for t, p in zip(ts.target_params.parameters(),
                                 ts.params.parameters()):
                     torch.where(sync, p, t, out=t)
-        return {"loss": loss, "mean_abs_td": aux["mean_abs_td"],
-                "mean_q": aux["mean_q"], "grad_norm": grad_norm,
-                "priorities": aux["priorities"]}
+        metrics = {"loss": loss, "mean_abs_td": aux["mean_abs_td"],
+                   "mean_q": aux["mean_q"], "grad_norm": grad_norm,
+                   "priorities": aux["priorities"]}
+        metrics.update(ld)
+        if lanes:
+            metrics["rd/lane_counts"] = lane_counts(view.lane, rdiag.lanes)
+        return metrics
 
     return train
 
 
 def _make_step_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
                     use_double: bool, reduce: Optional[Callable] = None,
-                    sq_norm: Optional[Callable] = None):
-    """``body(train_state, replay_state, uniform) -> metrics``: sample,
-    train, and write the priorities back, right after the sample they
-    belong to. ``uniform``: the (B,) sampling jitter, or None to draw it
-    from the train state's generator. ``reduce``, ``sq_norm``:
-    ``_make_train_body``'s."""
-    train = _make_train_body(net, spec, optim, use_double, reduce, sq_norm)
+                    sq_norm: Optional[Callable] = None, diag=None,
+                    rdiag=None, diag_reduce: bool = False,
+                    group_sq: Optional[Callable] = None,
+                    rd_reduce: Optional[Callable] = None):
+    """``body(train_state, replay_state, uniform, dq_on=False,
+    rd_on=False) -> metrics``: sample, train, and write the priorities
+    back, right after
+    the sample they belong to. ``uniform``: the (B,) sampling jitter, or
+    None to draw it from the train state's generator. ``reduce``,
+    ``sq_norm``, ``diag``, ``diag_reduce``, ``group_sq``:
+    ``_make_train_body``'s. ``rdiag``: the replay diagnostics
+    (telemetry/replaydiag.py ``fused_replay_diag``, the tree snapshot on
+    ``rd_on`` steps) after the write-back; ``rd_reduce(rd) -> rd``: their
+    meeting over the dp ranks (``shard_replay_diag``), on every step."""
+    from r2d2_tpu_torch.telemetry.replaydiag import fused_replay_diag
+    train = _make_train_body(net, spec, optim, use_double, reduce, sq_norm,
+                             diag=diag, diag_reduce=diag_reduce,
+                             group_sq=group_sq)
 
     def body(ts: TrainState, rs: ReplayState,
-             uniform: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+             uniform: Optional[torch.Tensor], dq_on: bool = False,
+             rd_on: bool = False) -> Dict[str, torch.Tensor]:
         batch = replay_sample(spec, rs, generator=ts.generator,
                               uniform=uniform)
-        metrics = train(ts, batch)
+        metrics = train(ts, batch, rs, dq_on)
         tree_update(spec.tree_layers, rs.tree, spec.prio_exponent,
                     metrics.pop("priorities"), batch.idxes)
+        if rdiag is not None:
+            rd = fused_replay_diag(spec, rdiag, rd_on, rs, batch)
+            metrics.update(rd if rd_reduce is None else rd_reduce(rd))
         return metrics
 
     return body
 
 
 def make_learner_step(net: NetworkApply, spec: ReplaySpec,
-                      optim: OptimConfig, use_double: bool):
+                      optim: OptimConfig, use_double: bool, diag=None,
+                      rdiag=None):
     """Build ``step(train_state, replay_state, uniform=None) ->
     (train_state, replay_state, metrics)``. Both states update in place;
     metrics stay device tensors (no host sync). ``uniform`` injects the
     sampling jitter (tests); otherwise it is drawn from the train state's
-    generator."""
-    body = _make_step_body(net, spec, optim, use_double)
+    generator. ``diag``, ``rdiag``: the learning and replay diagnostics
+    (the module docstring)."""
+    body = _make_step_body(net, spec, optim, use_double, diag=diag,
+                           rdiag=rdiag)
+    intervals = diag_intervals(diag, rdiag)
 
     def step(ts: TrainState, rs: ReplayState,
              uniform: Optional[torch.Tensor] = None):
-        metrics = body(ts, rs, uniform)
+        metrics = body(ts, rs, uniform, *step_flags(intervals, ts.step + 1))
         ts.step += 1
         return ts, rs, metrics
 
@@ -284,7 +408,10 @@ def make_external_batch_step(net: NetworkApply, spec: ReplaySpec,
                              optim: OptimConfig, use_double: bool,
                              reduce: Optional[Callable] = None,
                              graphed: Optional[bool] = None,
-                             sq_norm: Optional[Callable] = None):
+                             sq_norm: Optional[Callable] = None, diag=None,
+                             rdiag=None,
+                             diag_gather: Optional[Callable] = None,
+                             group_sq: Optional[Callable] = None):
     """The step of host-placement replay (``replay.placement="host"``): the
     batch is sampled on the host (``replay/host_replay.py``) and copied to
     the device by the caller. ``step(train_state, batch) -> (train_state,
@@ -300,15 +427,24 @@ def make_external_batch_step(net: NetworkApply, spec: ReplaySpec,
     the second captures. ``reduce``, ``sq_norm``: ``_make_train_body``'s
     (the sharded and the tensor-parallel external steps, parallel/);
     ``graphed``: False runs it eagerly on CUDA too (a collective a graph
-    cannot capture), None = on CUDA."""
-    train = _make_train_body(net, spec, optim, use_double, reduce, sq_norm)
+    cannot capture), None = on CUDA. ``diag``: the learning diagnostics
+    of a batch that carries its weight-version stamps; dQ is NaN here
+    (the stored rows are in host memory), the target distance is taken on
+    interval steps. ``rdiag``: the batch's lane counts; the tree's health
+    and the evictions come from the host replay at the flush.
+    ``diag_gather``, ``group_sq``: ``_make_train_body``'s."""
+    train = _make_train_body(net, spec, optim, use_double, reduce, sq_norm,
+                             diag=diag, rdiag=rdiag, diag_gather=diag_gather,
+                             group_sq=group_sq)
+    intervals = diag_intervals(diag, None)
     if graphed is None:
         graphed = net.device.type == "cuda"
     if graphed:
-        return GraphedSteps(train, 1, spec.batch_size, batch_input=True)
+        return GraphedSteps(train, 1, spec.batch_size, batch_input=True,
+                            intervals=intervals)
 
     def step(ts: TrainState, batch: SampleBatch):
-        metrics = train(ts, batch)
+        metrics = train(ts, batch, None, *step_flags(intervals, ts.step + 1))
         ts.step += 1
         return ts, metrics
 
@@ -317,41 +453,48 @@ def make_external_batch_step(net: NetworkApply, spec: ReplaySpec,
 
 def make_multi_learner_step(net: NetworkApply, spec: ReplaySpec,
                             optim: OptimConfig, use_double: bool,
-                            steps_per_dispatch: int):
+                            steps_per_dispatch: int, diag=None, rdiag=None):
     """K = ``steps_per_dispatch`` learner steps per dispatch:
     ``multi(train_state, replay_state, uniform=None) -> (train_state,
     replay_state, metrics)`` with every metric stacked to (K,) and
     ``uniform`` the (K, B) jitter. The semantics are those of K calls of
     the single step: the same jitter chain (step k's draws are the k-th
     draw of B from the generator) and the same target-sync schedule,
-    carried by the step counter.
+    carried by the step counter; the diagnostics' values stack to (K,
+    ...), with NaN dQ on the steps that are not interval steps.
 
     On the CPU it runs K eager steps. On CUDA it is one CUDA graph of K
     steps (``GraphedSteps``): the first dispatch runs its K steps eagerly
     (the warm-up; they are real steps), the second captures the graph and
-    replays it, every later one replays it."""
+    replays it, every later one replays it (with ``diag``, the graph of
+    its pattern of interval steps)."""
     if steps_per_dispatch < 1:
         raise ValueError(f"steps_per_dispatch must be >= 1; got "
                          f"{steps_per_dispatch}")
-    body = _make_step_body(net, spec, optim, use_double)
+    body = _make_step_body(net, spec, optim, use_double, diag=diag,
+                           rdiag=rdiag)
+    intervals = diag_intervals(diag, rdiag)
     if net.device.type == "cuda":
-        return GraphedSteps(body, steps_per_dispatch, spec.batch_size)
-    return eager_steps(body, steps_per_dispatch)
+        return GraphedSteps(body, steps_per_dispatch, spec.batch_size,
+                            intervals=intervals)
+    return eager_steps(body, steps_per_dispatch, intervals)
 
 
-def eager_steps(body: Callable, steps: int):
+def eager_steps(body: Callable, steps: int, intervals=None):
     """``multi(train_state, replay_state, uniform=None)``: ``steps`` eager
-    calls of a step body, the metrics stacked to (K,)."""
+    calls of a step body, the metrics stacked to (K,). ``intervals``: the
+    diagnostics' (``diag_intervals``; each step is told its flags)."""
 
     def multi(ts: TrainState, rs: ReplayState,
               uniform: Optional[torch.Tensor] = None):
         per_step = []
         for k in range(steps):
             per_step.append(body(ts, rs, None if uniform is None
-                                 else uniform[k]))
+                                 else uniform[k],
+                                 *step_flags(intervals, ts.step + 1)))
             ts.step += 1
         return ts, rs, {name: torch.stack([m[name] for m in per_step])
-                        for name in METRICS}
+                        for name in per_step[0]}
 
     return multi
 
@@ -386,14 +529,23 @@ class GraphedSteps:
       warm-up before a capture, counted as real steps (no extra step is
       taken). Dispatch 2 captures the K steps into one graph and replays
       it; every later dispatch replays it.
+    * With the diagnostics' ``intervals`` (``diag_intervals``), the K
+      steps of a dispatch are told which of them are interval steps of
+      either pillar (from the host's step count, ``flags``), and a graph
+      is captured for each pattern at its first dispatch (``variants``),
+      all in one memory pool: the JAX step's ``lax.cond``, without a
+      branch in a graph. A run meets every pattern within one period of
+      the intervals (their least common multiple with K: 200 steps at the
+      defaults). Without them there is one graph, as before.
     * The inputs go into static buffers before each replay, on the current
       stream. Over the replay: the (K, B) jitter, step k's draws from the
       train state's generator, one per step as the single step draws them,
       or the injected ``uniform``; the graph holds no RNG state. With a
       batch input: the given device batch, field by field.
-    * A replay reads and writes the tensors the capture saw, at their
+    * A replay reads and writes the tensors the captures saw, at their
       addresses: those of the states and the static inputs are recorded
-      at capture, and a replay raises if one of them has moved.
+      at the first capture, and a replay or a later capture raises if one
+      of them has moved.
     * The kernel wrappers count launches when they are called, which a
       replay does not do: the counts of the capture are taken back and
       added once per replay.
@@ -401,14 +553,19 @@ class GraphedSteps:
     """
 
     def __init__(self, body: Callable, steps: int, batch_size: int,
-                 batch_input: bool = False):
+                 batch_input: bool = False, intervals=None):
         if batch_input and steps != 1:
             raise ValueError("a batch input feeds one step a dispatch")
         self.body = body
         self.steps = steps
         self.batch_size = batch_size
         self.batch_input = batch_input
+        self.intervals = intervals
         self.dispatches = 0
+        # per pattern of interval steps: (graph, static outputs, launches
+        # a replay); the newest replayed one's in graph, out, launches
+        self.variants: Dict[Tuple[bool, ...], tuple] = {}
+        self.pool = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.uniform: Optional[torch.Tensor] = None    # (K, B) static
         self.batch: Optional[SampleBatch] = None       # static batch input
@@ -416,12 +573,18 @@ class GraphedSteps:
         self.addresses: Dict[str, int] = {}
         self.launches: Dict[str, int] = {}              # per replay
 
-    def _run(self, ts: TrainState, rs: Optional[ReplayState]
-             ) -> Dict[str, torch.Tensor]:
+    def flags(self, step: int) -> Tuple[Tuple[bool, bool], ...]:
+        """(dq_on, rd_on) of each of the K steps from host step
+        ``step``."""
+        return tuple(step_flags(self.intervals, step + k + 1)
+                     for k in range(self.steps))
+
+    def _run(self, ts: TrainState, rs: Optional[ReplayState],
+             flags) -> Dict[str, torch.Tensor]:
         if self.batch_input:
-            per_step = [self.body(ts, self.batch)]
+            per_step = [self.body(ts, self.batch, None, *flags[0])]
         else:
-            per_step = [self.body(ts, rs, self.uniform[k])
+            per_step = [self.body(ts, rs, self.uniform[k], *flags[k])
                         for k in range(self.steps)]
         return {name: torch.stack([m[name] for m in per_step])
                 for name in per_step[0]}
@@ -487,20 +650,22 @@ class GraphedSteps:
         else:
             rs = rs_or_batch
             self._fill_uniform(ts, device, uniform)
+        flags = self.flags(ts.step)
         current = torch.cuda.current_stream(device)
         if self.dispatches == 0:
             side = torch.cuda.Stream(device)
             side.wait_stream(current)
             with torch.cuda.stream(side):
-                out = self._run(ts, rs)
+                out = self._run(ts, rs, flags)
             current.wait_stream(side)
             for t in out.values():
                 t.record_stream(current)
         else:
-            if self.graph is None:
-                self._capture(ts, rs)
-            else:
+            if self.variants:
                 self._check_addresses(ts, rs)
+            if flags not in self.variants:
+                self._capture(ts, rs, flags)
+            self.graph, self.out, self.launches = self.variants[flags]
             self.graph.replay()
             add_launch_counts(self.launches)
             out = self.out
@@ -510,21 +675,28 @@ class GraphedSteps:
             return ts, {name: t[0].clone() for name, t in out.items()}
         return ts, rs, {name: t.clone() for name, t in out.items()}
 
-    def _capture(self, ts: TrainState, rs: Optional[ReplayState]) -> None:
+    def _capture(self, ts: TrainState, rs: Optional[ReplayState],
+                 flags) -> None:
         graph = torch.cuda.CUDAGraph()
+        if self.intervals is not None and self.pool is None:
+            # the variants share one pool: they replay one at a time on
+            # one stream, and each one's static outputs stay referenced
+            self.pool = torch.cuda.graph_pool_handle()
         # thread-local: other threads (the host placement's prefetch and
         # write-back, the policy server) may allocate, copy, synchronize
         # and launch on their own streams while this thread captures; the
         # capture counts only the launches on its own stream
         stream = torch.cuda.Stream()
         with gc_paused(), captured_launches(stream) as counted, \
-                torch.cuda.graph(graph, stream=stream,
+                torch.cuda.graph(graph, pool=self.pool, stream=stream,
                                  capture_error_mode="thread_local"):
-            out = self._run(ts, rs)
-        self.launches = {name: counted.get(name, 0)
-                         for name in launch_counts()}
-        add_launch_counts({name: -n for name, n in self.launches.items()})
-        self.graph, self.out = graph, out
-        self.addresses = {name: t.data_ptr()
-                          for name, t in _state_tensors(ts, rs)
-                          + self._inputs()}
+            out = self._run(ts, rs, flags)
+        launches = {name: counted.get(name, 0) for name in launch_counts()}
+        add_launch_counts({name: -n for name, n in launches.items()})
+        self.variants[flags] = (graph, out, launches)
+        if not self.addresses:
+            self.addresses = {name: t.data_ptr()
+                              for name, t in _state_tensors(ts, rs)
+                              + self._inputs()}
+        else:
+            self._check_addresses(ts, rs)

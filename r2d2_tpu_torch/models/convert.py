@@ -111,7 +111,7 @@ def replay_state_from_jax(state, spec, device) -> "ReplayState":
     """A JAX ``ReplayState`` with numpy leaves -> the port's ReplayState
     on ``device``. ``spec`` is the port's ReplaySpec; its storage layout
     (padded or not) must match the JAX state's."""
-    from r2d2_tpu_torch.replay.structs import ReplayState
+    from r2d2_tpu_torch.replay.structs import DIAG_LEAVES, ReplayState
 
     def t(x):       # a copy: the port updates its state in place
         return torch.from_numpy(np.array(x, copy=True)).to(device)
@@ -122,6 +122,9 @@ def replay_state_from_jax(state, spec, device) -> "ReplayState":
         raise ValueError(f"JAX obs ring frames are {tuple(obs.shape[2:])}, "
                          f"the port's spec stores {expected}")
     lane = getattr(state, "lane", None)
+    # the replay diagnostics' leaves, where the JAX state has them
+    diag = {name: t(getattr(state, name)) for name in DIAG_LEAVES
+            if getattr(state, name, None) is not None}
     return ReplayState(
         tree=t(state.tree), obs=obs, last_action=t(state.last_action),
         hidden=t(state.hidden), action=t(state.action),
@@ -133,4 +136,5 @@ def replay_state_from_jax(state, spec, device) -> "ReplayState":
         block_ptr=int(np.asarray(state.block_ptr)),
         lane=(t(lane) if lane is not None
               else torch.full((spec.num_blocks,), -1, dtype=torch.int32,
-                              device=device)))
+                              device=device)),
+        **diag)

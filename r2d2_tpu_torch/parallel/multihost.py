@@ -30,6 +30,15 @@ Design, as in the JAX package:
   * **Rank 0 de-duplicates side effects**: checkpoints (with every rank's
     sampling generator, gathered), the metrics log and pruning. The
     params are replicated bit-equal, so nothing is lost.
+  * **The learning diagnostics** (telemetry/learning.py) go into the
+    sharded step, reduced over the controllers as the dp step reduces
+    them; rank 0 aggregates them into its record's ``learning`` block.
+    Under ``telemetry.nan_policy="halt"`` a non-finite step found at rank
+    0's flush sets the stop flag, so every controller leaves the loop on
+    the same iteration through the stop consensus, and rank 0 raises the
+    error after the unwind (the final checkpoint and snapshot first). The
+    replay diagnostics' ring state rides the shards as in the JAX
+    package, whose lockstep step carries the learning pillar only.
 
 Device placement trains ``runtime.steps_per_dispatch`` steps a dispatch
 (one CUDA graph with the all-reduce inside under NCCL; eager under gloo,
@@ -45,8 +54,9 @@ controllers needs the JAX package's GSPMD lockstep ingest and a
 controller that drives mp ranks; ``mesh.mp`` runs on one host through
 ``cli.train``), on-device acting and served actors under multihost
 (Config; on-device acting with mp > 1 and ``serve.servers > 1`` are
-refused everywhere), and the fleet, telemetry and multiplayer planes,
-which the port's config does not have (A.6, A.7, A.9).
+refused everywhere), and the fleet and multiplayer planes and the
+telemetry beyond the learning and replay diagnostics, which the port's
+config does not have (A.6, A.9, A.7).
 
 Demo and validation, every controller its own interpreter on a loopback
 coordinator, parameter digests compared across controllers:
@@ -79,6 +89,7 @@ from r2d2_tpu_torch.runtime.orchestrator import ActorPool
 
 # the stop flag's local reasons, for the summary
 STOP_NONE, STOP_SIGNAL, STOP_DEADLINE = "", "signal", "deadline"
+STOP_HALT = "nan_halt"          # telemetry.nan_policy="halt" at rank 0
 
 
 class LocalActorFleet(ActorPool):
@@ -419,6 +430,8 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
     from r2d2_tpu_torch.runtime.metrics import TrainMetrics
     from r2d2_tpu_torch.runtime.weights import (SnapshotPublisher,
                                                 make_publish_preparer)
+    from r2d2_tpu_torch.telemetry.learning import (LearningAggregator,
+                                                   LearningDiag)
 
     rank, nprocs = mesh.process_id, mesh.num_processes
     device = mesh.device
@@ -447,6 +460,7 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
     resumed_env = apply_restore(cfg.runtime, ts, rank=rank)
     dp = mesh.dp
     rt = cfg.runtime
+    diag = LearningDiag.from_config(cfg)
     if host_mode:
         if rt.steps_per_dispatch > 1:
             logging.getLogger(__name__).warning(
@@ -454,7 +468,8 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
                 "replay.placement='host' (host sampling is per-step)",
                 rt.steps_per_dispatch)
         step_fn = make_sharded_external_batch_step(net, spec, cfg.optim,
-                                                   use_double, mesh)
+                                                   use_double, mesh,
+                                                   diag=diag)
         core = LockstepCore(
             mesh, ts, step_fn, 1,
             learning_starts=cfg.replay.learning_starts,
@@ -464,7 +479,7 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
     else:
         k = rt.resolved_steps_per_dispatch(device)
         step_fn = make_sharded_learner_step(net, spec, cfg.optim, use_double,
-                                            mesh, k)
+                                            mesh, k, diag=diag)
         core = LockstepCore(
             mesh, ts, step_fn, k,
             learning_starts=cfg.replay.learning_starts,
@@ -496,7 +511,9 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
                             total_actors=nprocs * n_local,
                             quant_stats=quant_stats)
     prev_handlers = _install_stop_signals(stop)
-    snapshots = metrics = None
+    snapshots = metrics = learn_agg = None
+    # a halt of telemetry.nan_policy, raised after every controller left
+    halt_error: List[BaseException] = []
     stop_reason = STOP_NONE
     t_start = time.time()
     try:
@@ -513,6 +530,10 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
             metrics = TrainMetrics(0, rt.save_dir, resume=bool(rt.resume))
             if quant_stats is not None:
                 metrics.set_quant(quant_stats.interval_block)
+            if diag is not None:
+                learn_agg = LearningAggregator(0, rt.save_dir,
+                                               cfg.telemetry.nan_policy,
+                                               cfg.optim.lr)
 
         max_steps = max_training_steps or cfg.optim.training_steps
         deadline = time.time() + max_seconds if max_seconds else None
@@ -533,6 +554,22 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
                 for loss in values:
                     metrics.on_train_step(loss)
                 flushed.extend(values)
+            if learn_agg is None:
+                return
+            occupancy = (core.host_replay.ring.live_versions()
+                         if host_mode else None)
+            try:
+                metrics.set_learning(learn_agg.flush(
+                    core.ts.step, publish_count=publish_count(),
+                    occupancy_versions=occupancy))
+            except RuntimeError as e:
+                if "nan_policy=halt" not in str(e):
+                    raise
+                # raising here would leave the other controllers in a
+                # collective: the stop flag reaches them through the next
+                # all-reduce instead, and the error is raised after
+                halt_error.append(e)
+                stop.set()
 
         def gather_generators():
             # a collective: every controller reaches each save together
@@ -558,7 +595,8 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
             iterations += 1
             local_stop = 0
             if stop.is_set():
-                local_stop, stop_reason = 1, stop_reason or STOP_SIGNAL
+                local_stop, stop_reason = 1, stop_reason or (
+                    STOP_HALT if halt_error else STOP_SIGNAL)
             elif deadline is not None and time.time() > deadline:
                 local_stop, stop_reason = 1, stop_reason or STOP_DEADLINE
             block = None
@@ -581,6 +619,8 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
                 prev = step - core.k
                 if metrics is not None:
                     pending_losses.append(out["metrics"]["loss"])
+                if learn_agg is not None:
+                    learn_agg.on_dispatch(out["metrics"])
 
                 def boundary(iv, step=step, prev=prev):
                     return iv and step // iv > prev // iv
@@ -618,6 +658,8 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
             snap_writer.write_now(capture())
         if snapshots is not None:
             snapshots.flush()
+        if halt_error:
+            raise halt_error[0]
     finally:
         stop.set()
         if snap_writer is not None:

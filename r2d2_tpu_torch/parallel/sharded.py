@@ -26,8 +26,22 @@ The inner computation is the single-device step's
 (``learner/train_step.py``): the all-reduce enters through the hook
 between its backward and its clip, which the unsharded path leaves empty.
 
+The diagnostics (``diag``/``rdiag``, telemetry/) reduce as the JAX
+package's manual dp step reduces them: the three histograms summed and
+the staleness mean, the unknown share, the three dQs and the target
+distance averaged, all in ``GradMean``'s one flat all-reduce; the
+version min and max in one more (a max); the group norms from the
+averaged gradients; no per-sequence vectors. The replay views are gathered
+to ``rd/shard_*`` with a leading dp axis and the lane counts summed
+(``shard_replay_diag``, one all-gather). Every collective runs on every
+step, in every graph variant: the ranks pick the same variant from the
+same step count, so none waits in a collective another skips.
+
 With ``mesh.mp`` > 1 the step is the counterpart of the JAX package's
-``_make_gspmd_learner_step``: the dp x mp grid of parallel/mesh.py, the
+``_make_gspmd_learner_step`` (its diagnostics too: the learning ones of
+this rank's view, which is shard 0's on rank 0, with the global loss and
+gradients; the replay views stacked): the dp x mp grid of
+parallel/mesh.py, the
 replay shard of dp row d replicated bit for bit on its mp ranks (each
 writes the same blocks and draws the same jitter, from
 ``shard_seed(seed, d)``), the train state feature-sharded over the row
@@ -47,7 +61,8 @@ import torch.distributed as dist
 from r2d2_tpu_torch.actor.anakin import AnakinAct, init_act_carry
 from r2d2_tpu_torch.config import OptimConfig
 from r2d2_tpu_torch.learner.train_step import (GraphedSteps, TrainState,
-                                               _make_step_body, eager_steps,
+                                               _make_step_body,
+                                               diag_intervals, eager_steps,
                                                make_external_batch_step)
 from r2d2_tpu_torch.models.network import NetworkApply
 from r2d2_tpu_torch.parallel.mesh import Mesh
@@ -58,6 +73,12 @@ from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, ReplayState,
                                            stack_blocks, torch_dtype)
 
 _METRIC_SLOTS = ("loss", "mean_abs_td", "mean_q")
+# the learning diagnostics the dp step averages and sums (JAX's pmean and
+# psum sets); the version min and max go through a max
+DIAG_MEANS = ("ld/version_mean", "ld/unknown_frac", "ld/delta_q_stored",
+              "ld/delta_q_zero", "ld/delta_q_recomputed", "ld/target_dist")
+DIAG_SUMS = ("ld/td_hist", "ld/prio_hist", "ld/q_hist")
+DIAG_EXTRA = len(DIAG_MEANS) + 64 * len(DIAG_SUMS)
 
 
 def shard_seed(seed: int, rank: int) -> int:
@@ -203,12 +224,16 @@ class GradMean:
     dp ranks (``mesh.dp_group``) of the gradient and of the three metric
     scalars, in one all-reduce. The parameters' ``.grad`` are views of one
     flat f32 buffer allocated once (``attach``), so the collective is one
-    call and a CUDA graph's addresses hold."""
+    call and a CUDA graph's addresses hold. With ``diag`` the buffer also
+    carries the learning diagnostics' sums and means (``DIAG_MEANS``,
+    ``DIAG_SUMS``; a call then takes and returns them), and their version
+    min and max take one more all-reduce."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, diag: bool = False):
         self.mesh = mesh
         self.flat: Optional[torch.Tensor] = None
         self.numel = 0
+        self.extra = DIAG_EXTRA if diag else 0
 
     SLOTS = len(_METRIC_SLOTS)      # the scalars behind the gradient
 
@@ -218,7 +243,7 @@ class GradMean:
             raise ValueError("the flat gradient buffer holds f32 parameters "
                              "only")
         self.numel = sum(p.numel() for p in params)
-        self.flat = torch.zeros(self.numel + self.SLOTS,
+        self.flat = torch.zeros(self.numel + self.SLOTS + self.extra,
                                 dtype=torch.float32, device=params[0].device)
         off = 0
         for p in params:
@@ -232,15 +257,41 @@ class GradMean:
 
     def __call__(self, grads: Sequence[torch.Tensor], loss: torch.Tensor,
                  mean_abs_td: torch.Tensor, mean_q: torch.Tensor,
-                 valid_steps: Optional[torch.Tensor] = None):
+                 valid_steps: Optional[torch.Tensor] = None,
+                 diag: Optional[dict] = None):
         self._check(grads)
         flat, n = self.flat, self.numel
-        flat[n:].copy_(torch.stack([loss, mean_abs_td, mean_q]).float())
+        m = n + self.SLOTS
+        flat[n:m].copy_(torch.stack([loss, mean_abs_td, mean_q]).float())
+        dp = self.mesh.dp
+        if diag is not None:
+            # the means enter divided by dp, so the sum is their mean
+            flat[m:].copy_(torch.cat(
+                [torch.stack([diag[k] for k in DIAG_MEANS]).float() / dp]
+                + [diag[k].float() for k in DIAG_SUMS]))
         dist.all_reduce(flat, group=self.mesh.dp_group)
-        if self.mesh.dp > 1:
-            flat.mul_(1.0 / self.mesh.dp)
-        out = flat[n:].clone()
-        return out[0], out[1], out[2]
+        if dp > 1:
+            flat[:m].mul_(1.0 / dp)
+        out = flat[n:m].clone()
+        if diag is None:
+            return out[0], out[1], out[2]
+        return out[0], out[1], out[2], self._diag_out(diag, flat[m:])
+
+    def _diag_out(self, diag: dict, reduced: torch.Tensor) -> dict:
+        out = dict(diag)
+        reduced = reduced.clone()
+        for i, key in enumerate(DIAG_MEANS):
+            out[key] = reduced[i]
+        off = len(DIAG_MEANS)
+        for key in DIAG_SUMS:
+            out[key] = reduced[off:off + 64].round().to(diag[key].dtype)
+            off += 64
+        extrema = torch.stack([-diag["ld/version_min"],
+                               diag["ld/version_max"]]).float()
+        dist.all_reduce(extrema, op=dist.ReduceOp.MAX,
+                        group=self.mesh.dp_group)
+        out["ld/version_min"], out["ld/version_max"] = -extrema[0], extrema[1]
+        return out
 
 
 class BatchMean(GradMean):
@@ -323,21 +374,30 @@ class ShardedLearnerStep:
 
     def __init__(self, net: NetworkApply, spec: ReplaySpec,
                  optim: OptimConfig, use_double: bool, mesh: Mesh,
-                 steps: int):
+                 steps: int, diag=None, rdiag=None):
         if steps < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1; got {steps}")
+        from r2d2_tpu_torch.telemetry.replaydiag import shard_replay_diag
         self.mesh, self.steps = mesh, steps
-        self.reduce = GradMean(mesh)
-        sq_norm = None
+        sq_norm = group_sq = None
         if mesh.mp > 1:
             from r2d2_tpu_torch.parallel.tensor_parallel import TPGradients
-            self.reduce = TPGradients(mesh, self.reduce)
+            self.reduce = TPGradients(mesh, GradMean(mesh))
             sq_norm = self.reduce.sq_norm
-        body = _make_step_body(net, spec, optim, use_double,
-                               reduce=self.reduce, sq_norm=sq_norm)
+            group_sq = self.reduce.group_sq_norms
+        else:
+            self.reduce = GradMean(mesh, diag=diag is not None)
+        body = _make_step_body(
+            net, spec, optim, use_double, reduce=self.reduce,
+            sq_norm=sq_norm, diag=diag, rdiag=rdiag,
+            diag_reduce=mesh.mp == 1, group_sq=group_sq,
+            rd_reduce=lambda rd: shard_replay_diag(rd, mesh))
+        intervals = diag_intervals(diag, rdiag)
         self.graphed = mesh.backend == "nccl" and mesh.mp == 1
-        self._dispatch = (GraphedSteps(body, steps, spec.batch_size)
-                          if self.graphed else eager_steps(body, steps))
+        self._dispatch = (GraphedSteps(body, steps, spec.batch_size,
+                                       intervals=intervals)
+                          if self.graphed
+                          else eager_steps(body, steps, intervals))
         self._started = False
 
     def __call__(self, ts: TrainState, rs: ReplayState,
@@ -356,15 +416,54 @@ class ShardedLearnerStep:
 
 def make_sharded_learner_step(net: NetworkApply, spec: ReplaySpec,
                               optim: OptimConfig, use_double: bool,
-                              mesh: Mesh, steps_per_dispatch: int = 1
-                              ) -> ShardedLearnerStep:
+                              mesh: Mesh, steps_per_dispatch: int = 1,
+                              diag=None, rdiag=None) -> ShardedLearnerStep:
     """The data-parallel step (``ShardedLearnerStep``): the single-device
     step's sampling, loss and write-back per shard, one all-reduce mean of
     the gradient, then clip and Adam; the target sync is the single
     step's, on the replicated step counter. ``mesh.mp`` > 1: the dp x mp
-    step (the module docstring), JAX's ``_make_gspmd_learner_step``."""
+    step (the module docstring), JAX's ``_make_gspmd_learner_step``.
+    ``diag``, ``rdiag``: the diagnostics, reduced as the module docstring
+    says."""
     return ShardedLearnerStep(net, spec, optim, use_double, mesh,
-                              steps_per_dispatch)
+                              steps_per_dispatch, diag, rdiag)
+
+
+class DpRowGather:
+    """``gather(aux, batch) -> (aux, batch)``: the per-sequence values the
+    learning diagnostics and the lane counts read, of the whole batch
+    split over the dp rows (row d holds rows ``[d*B/dp, (d+1)*B/dp)``):
+    |TD|, the mask, Q(s, a), the priorities, the stamps, the indices and
+    the lanes, in one all-gather of one f32 row a sequence over
+    ``mesh.dp_group`` (indices and stamps are exact in f32 below 2^24).
+    The external steps across dp rows use it, so their diagnostics are
+    those of the global batch, as the JAX package's GSPMD step computes
+    them."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def __call__(self, aux: dict, batch: SampleBatch):
+        from r2d2_tpu_torch.parallel.tensor_parallel import gather_dp_rows
+        b = aux["abs_td"].shape[0]
+        lane = (batch.lane if batch.lane is not None
+                else torch.full((b,), -1, device=aux["abs_td"].device))
+        cols = [aux["abs_td"], aux["mask"], aux["q_chosen"],
+                aux["priorities"][:, None], batch.weight_version[:, None],
+                batch.idxes[:, None], lane[:, None]]
+        widths = [c.shape[1] for c in cols]
+        full = gather_dp_rows(torch.cat([c.float() for c in cols], dim=1),
+                              self.mesh)
+        split = torch.split(full, widths, dim=1)
+        out_aux = dict(aux, abs_td=split[0], mask=split[1],
+                       q_chosen=split[2], priorities=split[3][:, 0])
+        out = dataclasses.replace(
+            batch, weight_version=split[4][:, 0].round().to(
+                batch.weight_version.dtype),
+            idxes=split[5][:, 0].round().to(batch.idxes.dtype),
+            lane=(None if batch.lane is None
+                  else split[6][:, 0].round().to(batch.lane.dtype)))
+        return out_aux, out
 
 
 class ShardedExternalBatchStep:
@@ -377,7 +476,8 @@ class ShardedExternalBatchStep:
     one CUDA graph of the step, gloo runs it eagerly."""
 
     def __init__(self, net: NetworkApply, spec: ReplaySpec,
-                 optim: OptimConfig, use_double: bool, mesh: Mesh):
+                 optim: OptimConfig, use_double: bool, mesh: Mesh,
+                 diag=None, rdiag=None):
         if spec.batch_size % mesh.dp:
             raise ValueError(
                 f"replay.batch_size={spec.batch_size} is not divisible by "
@@ -387,9 +487,10 @@ class ShardedExternalBatchStep:
         self.reduce = BatchMean(mesh)
         local = dataclasses.replace(spec, batch_size=self.local_batch)
         self.graphed = mesh.backend == "nccl"
-        self._step = make_external_batch_step(net, local, optim, use_double,
-                                              reduce=self.reduce,
-                                              graphed=self.graphed)
+        self._step = make_external_batch_step(
+            net, local, optim, use_double, reduce=self.reduce,
+            graphed=self.graphed, diag=diag, rdiag=rdiag,
+            diag_gather=DpRowGather(mesh) if mesh.dp > 1 else None)
         self._started = False
 
     def __call__(self, ts: TrainState, batch: SampleBatch):
@@ -402,11 +503,15 @@ class ShardedExternalBatchStep:
 
 def make_sharded_external_batch_step(net: NetworkApply, spec: ReplaySpec,
                                      optim: OptimConfig, use_double: bool,
-                                     mesh: Mesh) -> ShardedExternalBatchStep:
+                                     mesh: Mesh, diag=None, rdiag=None
+                                     ) -> ShardedExternalBatchStep:
     """Host placement's data-parallel step (``ShardedExternalBatchStep``),
     the counterpart of the JAX package's GSPMD external-batch step over a
-    dp-sharded global batch: ``batch`` is this rank's ``B/dp`` rows."""
-    return ShardedExternalBatchStep(net, spec, optim, use_double, mesh)
+    dp-sharded global batch: ``batch`` is this rank's ``B/dp`` rows.
+    ``diag``, ``rdiag``: the diagnostics of the global batch
+    (``DpRowGather``)."""
+    return ShardedExternalBatchStep(net, spec, optim, use_double, mesh,
+                                    diag, rdiag)
 
 
 # -- on-device acting --------------------------------------------------------

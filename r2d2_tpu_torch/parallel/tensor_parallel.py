@@ -55,7 +55,8 @@ from r2d2_tpu_torch.models.convert import OUT_DIM, flax_shape, leaf_kind
 from r2d2_tpu_torch.models.network import (LayerCalls, NetworkApply,
                                            R2D2Network)
 from r2d2_tpu_torch.parallel.mesh import Mesh
-from r2d2_tpu_torch.parallel.sharded import (BatchMean, broadcast_train_state,
+from r2d2_tpu_torch.parallel.sharded import (BatchMean, DpRowGather,
+                                             broadcast_train_state,
                                              pack_rows, unpack_rows,
                                              wire_layout)
 from r2d2_tpu_torch.replay.host_replay import batch_layout
@@ -327,6 +328,23 @@ class TPGradients:
             parts[sharded] = parts[sharded] + torch.sum(g.float() ** 2)
         return parts[0] + all_reduce_row(parts[1], self.mesh)
 
+    def group_sq_norms(self, tensors, groups, n: int) -> torch.Tensor:
+        """(n,) squared norms of groups of parameter-aligned tensors (the
+        learning diagnostics' group norms and target distance), each
+        element counted once over the row as ``sq_norm`` counts it: the
+        sharded ones' squares summed over the row in one all-reduce."""
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=tensors[0].device)
+        rep, shard = [zero] * n, [zero] * n
+        for t, g, sharded in zip(tensors, groups, self.sharded):
+            sq = torch.sum(t.float() ** 2)
+            if sharded:
+                shard[g] = shard[g] + sq
+            else:
+                rep[g] = rep[g] + sq
+        return torch.stack(rep) + all_reduce_row(torch.stack(shard),
+                                                 self.mesh)
+
 
 # -- train states -------------------------------------------------------------
 
@@ -401,11 +419,13 @@ class BatchScatter:
     batch (host-sampled: numpy arrays or tensors, the step's fields), the
     others None."""
 
-    def __init__(self, spec: ReplaySpec, mesh: Mesh):
+    def __init__(self, spec: ReplaySpec, mesh: Mesh, stamps: bool = False):
         self.mesh = mesh
         fields = batch_layout(spec, spec.batch_size // mesh.dp)
+        names = _TRAIN_FIELDS + (("weight_version", "lane") if stamps
+                                 else ())
         self.layout, self.row_bytes = wire_layout(
-            {name: fields[name] for name in _TRAIN_FIELDS})
+            {name: fields[name] for name in names})
         self.wire = (torch.device("cpu") if mesh.backend == "gloo"
                      else mesh.device)
 
@@ -425,7 +445,8 @@ class BatchScatter:
 
 def make_tp_external_batch_step(net: NetworkApply, spec: ReplaySpec,
                                 optim: OptimConfig, use_double: bool,
-                                mesh: Mesh, min_shard_width: int = 32):
+                                mesh: Mesh, min_shard_width: int = 32,
+                                diag=None, rdiag=None):
     """Returns ``(step, place_state, place_batch)``, as the JAX package's.
 
     ``place_state(ts)``: this rank's tensor-parallel train state
@@ -437,7 +458,13 @@ def make_tp_external_batch_step(net: NetworkApply, spec: ReplaySpec,
     each dp row's valid steps under dp > 1 (``BatchMean`` over
     ``mesh.dp_group``) and the replicated ones made equal over the row
     (``TPGradients``), ``metrics["priorities"]`` the whole batch's (B,)
-    on every rank, in the order of rank 0's batch."""
+    on every rank, in the order of rank 0's batch. ``diag``, ``rdiag``:
+    the diagnostics of the global batch, as JAX's GSPMD step computes
+    them (its stamps and lanes ride the scatter; under dp > 1 the
+    per-sequence values are gathered over the dp rows, ``DpRowGather``);
+    the group norms and the target distance count each element once over
+    the row (``TPGradients.group_sq_norms``); dQ is NaN (host
+    placement)."""
     dp = mesh.dp
     if spec.batch_size % dp:
         raise ValueError(
@@ -445,9 +472,11 @@ def make_tp_external_batch_step(net: NetworkApply, spec: ReplaySpec,
             f"mesh dp={dp} — the batch axis cannot shard evenly")
     local = dataclasses.replace(spec, batch_size=spec.batch_size // dp)
     hooks = TPGradients(mesh, BatchMean(mesh) if dp > 1 else None)
-    inner = make_external_batch_step(net, local, optim, use_double,
-                                     reduce=hooks, graphed=False,
-                                     sq_norm=hooks.sq_norm)
+    inner = make_external_batch_step(
+        net, local, optim, use_double, reduce=hooks, graphed=False,
+        sq_norm=hooks.sq_norm, diag=diag, rdiag=rdiag,
+        diag_gather=DpRowGather(mesh) if dp > 1 else None,
+        group_sq=hooks.group_sq_norms)
     started = []
 
     def step(ts: TrainState, batch: SampleBatch):
@@ -463,4 +492,5 @@ def make_tp_external_batch_step(net: NetworkApply, spec: ReplaySpec,
     def place_state(ts: TrainState) -> TrainState:
         return place_train_state(ts, net, optim, mesh, min_shard_width)
 
-    return step, place_state, BatchScatter(spec, mesh)
+    return step, place_state, BatchScatter(
+        spec, mesh, stamps=diag is not None or rdiag is not None)

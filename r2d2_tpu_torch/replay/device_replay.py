@@ -17,6 +17,7 @@ from r2d2_tpu_torch.ops.replay_kernels import gather_rows
 from r2d2_tpu_torch.ops.sum_tree import tree_sample, tree_update
 from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, ReplayState,
                                            SampleBatch, stack_blocks)
+from r2d2_tpu_torch.telemetry.histogram import value_counts
 
 
 def _gib(b: float) -> str:
@@ -49,6 +50,13 @@ def replay_init(spec: ReplaySpec, device) -> ReplayState:
     def full(shape, value):
         return torch.full(shape, value, dtype=torch.int32, device=device)
 
+    diag = {}
+    if spec.replay_diag:
+        diag = dict(sample_count=zeros((n,), torch.int32),
+                    added_at=zeros((n,), torch.int32),
+                    add_count=zeros((), torch.int32),
+                    evict_stats=zeros((5,), torch.float32),
+                    evict_life_hist=zeros((64,), torch.int32))
     return ReplayState(
         tree=zeros((2 ** spec.tree_layers - 1,), torch.float32),
         obs=zeros((n, spec.obs_row_len, spec.stored_frame_height,
@@ -65,6 +73,7 @@ def replay_init(spec: ReplaySpec, device) -> ReplayState:
         weight_version=full((n,), -1),
         block_ptr=0,
         lane=full((n,), -1),
+        **diag,
     )
 
 
@@ -80,10 +89,14 @@ def write_rows(spec: ReplaySpec, state: ReplayState, rows: torch.Tensor,
     ``rows`` (K,) int64 on that device and seed their K*S tree leaves by
     one tree_update. Device ops only, no host value read: the on-device
     acting segment calls this inside its CUDA graph, with rows from a
-    device-side pointer. ``state.block_ptr`` is the caller's to advance."""
+    device-side pointer. ``state.block_ptr`` is the caller's to advance.
+    With the replay diagnostics on, the overwritten rows' lifetimes go
+    into the eviction ledger first (``_account_evictions``)."""
     idxes = (rows[:, None] * spec.seqs_per_block
              + torch.arange(spec.seqs_per_block, device=rows.device)[None, :]
              ).reshape(-1)
+    if state.sample_count is not None:
+        _account_evictions(spec, state, rows, idxes)
     tree_update(spec.tree_layers, state.tree, spec.prio_exponent,
                 blocks.priority.reshape(-1), idxes)
     # the stored frame may be tile-padded (exact_gather): write the true
@@ -97,6 +110,41 @@ def write_rows(spec: ReplaySpec, state: ReplayState, rows: torch.Tensor,
                       else name)
         dst = getattr(state, name)
         dst[rows] = src.to(dst.dtype)
+
+
+def _account_evictions(spec: ReplaySpec, state: ReplayState,
+                       rows: torch.Tensor, idxes: torch.Tensor) -> None:
+    """The eviction ledger of K rows about to be overwritten (the JAX
+    package's ``replay_add_many`` accounting), in place on the device:
+    each row that held data adds [1, sampled never, times sampled, age
+    in ring adds, its highest leaf priority] to ``evict_stats`` and its
+    times sampled (if any) to ``evict_life_hist``; then the rows' counts
+    restart and their birth stamps are the add counter's values. Reads
+    the old leaves before the write's ``tree_update`` replaces them. The
+    rows are distinct (K <= num_blocks), so the batch sees what K
+    sequential writes would, row by row; row j's age counts from add
+    ``add_count + j``, and the rows' contributions are added one after
+    another, so the f32 priority sum is bit-equal to K writes of one
+    block each."""
+    k = rows.shape[0]
+    live = (state.learning_steps[rows].sum(dim=1) > 0).float()     # (K,)
+    counts = state.sample_count[rows].float()
+    births = state.add_count + torch.arange(k, dtype=torch.int32,
+                                            device=rows.device)
+    ages = (births - state.added_at[rows]).float()
+    leaf0 = 2 ** (spec.tree_layers - 1) - 1
+    prio_row = state.tree[leaf0 + idxes].reshape(
+        k, spec.seqs_per_block).amax(dim=1)
+    rows_stats = torch.stack([live, live * (counts == 0).float(),
+                              live * counts, live * ages, live * prio_row],
+                             dim=1)                               # (K, 5)
+    for j in range(k):
+        state.evict_stats += rows_stats[j]
+    state.evict_life_hist += value_counts(
+        counts, mask=(live > 0) & (counts > 0))
+    state.sample_count.index_fill_(0, rows, 0)    # no host scalar copy
+    state.added_at[rows] = births
+    state.add_count += k
 
 
 def replay_add_many(spec: ReplaySpec, state: ReplayState,

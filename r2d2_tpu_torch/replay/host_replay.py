@@ -24,6 +24,8 @@ from r2d2_tpu_torch.ops.sum_tree import (tree_init_np, tree_sample_np,
                                          tree_update_np)
 from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, RingAccountant,
                                            SampleBatch)
+from r2d2_tpu_torch.telemetry.histogram import (NBUCKETS, bucket_index,
+                                                value_counts_np)
 
 
 def batch_layout(spec: ReplaySpec, batch_size: Optional[int] = None
@@ -83,8 +85,25 @@ class HostReplay:
         # the one pointer and step account; the host-placement Learner
         # reads this instance
         self.ring = RingAccountant(n)
+        # the replay diagnostics' numpy twin of the device ring's state
+        # (spec.replay_diag): per-slot sample counts and birth stamps, the
+        # eviction ledger in ReplayState.evict_stats' layout with its
+        # lifetime histogram, and a mirror of the leaf priorities (the
+        # native tree does not expose its leaves) for the tree's health
+        self._diag = spec.replay_diag
+        if self._diag:
+            self.sample_count = np.zeros((n,), np.int64)
+            self.added_at = np.zeros((n,), np.int64)
+            self.evict_stats = np.zeros((5,), np.float64)
+            self.evict_life_hist = np.zeros((NBUCKETS,), np.int64)
+            self.leaf_prio = np.zeros((spec.num_sequences,), np.float64)
 
     def _tree_update(self, td_errors: np.ndarray, idxes: np.ndarray) -> None:
+        if self._diag:
+            # the trees' rule: p = |td| ** alpha, 0 stays 0
+            td = np.asarray(td_errors, np.float64)
+            self.leaf_prio[np.asarray(idxes, np.int64)] = np.where(
+                td != 0.0, np.abs(td) ** self.spec.prio_exponent, 0.0)
         if self._native is not None:
             self._native.update(self.spec.prio_exponent, td_errors, idxes)
         else:
@@ -101,6 +120,8 @@ class HostReplay:
         spec = self.spec
         with self.lock:
             wv = int(np.asarray(block.weight_version))
+            if self._diag:
+                self._account_eviction(self.ring.ptr)
             ptr = self.ring.advance(
                 int(np.asarray(block.learning_steps).sum()), wv)
             self.weight_version[ptr] = wv
@@ -118,6 +139,23 @@ class HostReplay:
             self.learning_steps[ptr] = block.learning_steps
             self.forward_steps[ptr] = block.forward_steps
             self.seq_start[ptr] = block.seq_start
+
+    def _account_eviction(self, slot: int) -> None:
+        """The eviction ledger of the slot the next add overwrites, read
+        before the add changes it (the device ring's order), then the
+        slot's count restarts and its birth stamp is the add count."""
+        if self.ring.slot_steps[slot] > 0:
+            life = int(self.sample_count[slot])
+            age = float(self.ring.total_adds - self.added_at[slot])
+            lo = slot * self.spec.seqs_per_block
+            prio = float(self.leaf_prio[lo:lo + self.spec.seqs_per_block]
+                         .max())
+            self.evict_stats += [1.0, float(life == 0), float(life), age,
+                                 prio]
+            if life > 0:
+                self.evict_life_hist[bucket_index(float(life))] += 1
+        self.sample_count[slot] = 0
+        self.added_at[slot] = self.ring.total_adds
 
     def sample(self, batch_size: Optional[int] = None,
                out: Optional[SampleBatch] = None
@@ -138,6 +176,8 @@ class HostReplay:
             idxes, is_weights = self._tree_sample(batch)
             b = idxes // spec.seqs_per_block
             s = idxes % spec.seqs_per_block
+            if self._diag:
+                np.add.at(self.sample_count, b, 1)
             burn_in = self.burn_in_steps[b, s]
             start = (self.seq_start[b, s] - burn_in).astype(np.int64)
             if (start < 0).any() or (start + obs_len > spec.obs_row_len).any():
@@ -190,6 +230,34 @@ class HostReplay:
                 idxes, td_errors = idxes[keep], td_errors[keep]
             if idxes.size:
                 self._tree_update(td_errors, idxes)
+
+    def diag_raw(self) -> Optional[dict]:
+        """The replay diagnostics' readings of host placement, in the
+        layout of the device step's interval snapshot: the tree moments
+        [active, sum, sum of squares, max, at max] and the histogram of
+        the live leaves, and the eviction ledger, read and reset (the
+        aggregator integrates the totals). None with the diagnostics
+        off."""
+        if not self._diag:
+            return None
+        from r2d2_tpu_torch.telemetry.replaydiag import AT_MAX_RTOL
+        with self.lock:
+            leaves = self.leaf_prio
+            active_mask = leaves > 0
+            active = float(active_mask.sum())
+            mx = float(leaves.max()) if active else 0.0
+            at_max = (float(np.sum(active_mask
+                                   & (leaves >= mx * (1.0 - AT_MAX_RTOL))))
+                      if active else 0.0)
+            hist = value_counts_np(leaves, mask=active_mask)
+            ev, self.evict_stats = self.evict_stats, np.zeros(5, np.float64)
+            lh, self.evict_life_hist = (self.evict_life_hist,
+                                        np.zeros(NBUCKETS, np.int64))
+            return {"tree_moments": np.asarray(
+                        [active, float(leaves.sum()),
+                         float(np.sum(leaves ** 2)), mx, at_max], np.float64),
+                    "leaf_hist": hist, "evict_stats": ev,
+                    "evict_life_hist": lh}
 
     def __len__(self) -> int:
         return int(self.learning_steps.sum())

@@ -4,7 +4,11 @@ package's ``replay/snapshot.py``.
 The replay is the expensive state of an R2D2 run: the weights come back
 from any checkpoint in seconds, the ring took millions of env steps to
 fill. A snapshot holds every ``ReplayState`` leaf (storage rings, sum
-tree, ring pointer, weight-version and lane stamps), the host's
+tree, ring pointer, weight-version and lane stamps, and with the replay
+diagnostics on their sample counts, birth stamps, add counter and
+eviction ledger; a leaf that is None, the diagnostics off, is captured as
+absent and restored as None, as the JAX package's snapshot contract
+says), the host's
 ``RingAccountant`` mirror and the caller's extras (the learner's env-step
 counter and its sampling generator's state), and restores them bit for
 bit into a freshly built replay of the same geometry.
@@ -46,6 +50,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from r2d2_tpu_torch.replay.structs import DIAG_LEAVES
+
 SNAPSHOT_VERSION = 1
 
 # ReplaySpec fields a snapshot must agree on to be loadable: everything
@@ -53,13 +59,20 @@ SNAPSHOT_VERSION = 1
 _SPEC_FIELDS = ("num_blocks", "seqs_per_block", "block_length", "burn_in",
                 "learning", "forward", "frame_stack", "frame_height",
                 "frame_width", "hidden_dim", "batch_size", "prio_exponent",
-                "is_exponent", "exact_gather")
+                "is_exponent", "exact_gather", "replay_diag")
 
 # ReplayState's leaves, in JAX's order; block_ptr is a host int here and
 # a () int32 leaf in the file, as JAX stores it
 _LEAVES = ("tree", "obs", "last_action", "hidden", "action", "reward",
            "gamma", "burn_in_steps", "learning_steps", "forward_steps",
            "seq_start", "weight_version", "block_ptr", "lane")
+
+
+def _present(state) -> tuple:
+    """The leaves ``state`` holds: every one of ``_LEAVES`` and the
+    replay diagnostics' that are not None (``spec.replay_diag``)."""
+    return _LEAVES + tuple(name for name in DIAG_LEAVES
+                           if getattr(state, name, None) is not None)
 
 
 def snapshot_paths(save_dir: str, player_idx: int):
@@ -87,7 +100,7 @@ def _state_to_host(state) -> dict:
     into new pinned memory without blocking the host (``wait_ready``
     before reading it); a CPU leaf is cloned."""
     out = {}
-    for name in _LEAVES:
+    for name in _present(state):
         leaf = getattr(state, name)
         if name == "block_ptr":
             out[name] = np.asarray(int(leaf), np.int32)
@@ -157,7 +170,7 @@ def capture_sharded(spec, shards: list, ring, step: int,
         "spec": _spec_fingerprint(spec),
         "extra": dict(extra or {}),
         "shards": [{"state": {name: np.stack([s[name] for s in shards])
-                              for name in _LEAVES},
+                              for name in shards[0]},
                     "ring": _capture_ring(ring)}],
         "ready": None,
     }
@@ -195,9 +208,10 @@ def restore_plain(spec, state, ring, snap: dict,
                          "plain replay snapshot")
     _check_spec(snap, spec)
     leaves = snap["shards"][0]["state"]
-    if set(leaves) != set(_LEAVES):
+    names = _present(state)
+    if set(leaves) != set(names):
         raise ValueError(f"replay snapshot leaf set {sorted(leaves)} != "
-                         f"expected {sorted(_LEAVES)}")
+                         f"expected {sorted(names)}")
     got, want = np.shape(leaves["block_ptr"]), (() if shard is None
                                                 else (dp,))
     if got != want:
@@ -209,7 +223,7 @@ def restore_plain(spec, state, ring, snap: dict,
         leaves = {name: np.asarray(leaf)[shard]
                   for name, leaf in leaves.items()}
     with torch.no_grad():
-        for name in _LEAVES:
+        for name in names:
             if name == "block_ptr":
                 continue
             dst = getattr(state, name)

@@ -45,6 +45,12 @@ class ReplaySpec:
     # tile (84x84 -> 96x128). Off by default in the port; the gather
     # kernel and the decode handle either layout.
     exact_gather: bool = False
+    # the replay diagnostics' state on the ring (per-slot sample counts
+    # and birth stamps, the add counter, the eviction ledger): from
+    # telemetry.enabled and telemetry.replay_diag_enabled, as in the JAX
+    # package; False allocates none of it and the ring writes are what
+    # they are without it
+    replay_diag: bool = False
 
     @classmethod
     def from_config(cls, cfg: Config, device) -> "ReplaySpec":
@@ -65,6 +71,8 @@ class ReplaySpec:
             prio_exponent=cfg.replay.prio_exponent,
             is_exponent=cfg.replay.importance_sampling_exponent,
             exact_gather=resolve_exact_gather(cfg.replay.pallas_exact_gather),
+            replay_diag=(cfg.telemetry.enabled
+                         and cfg.telemetry.replay_diag_enabled),
         )
 
     @property
@@ -90,7 +98,10 @@ class ReplaySpec:
         seq_meta = n * s * (3 * l + 4) * 4
         versions = 2 * n * 4
         tree = (2 ** self.tree_layers - 1) * 4
-        return obs + last_action + hidden + seq_meta + versions + tree
+        # the replay diagnostics: sample counts and birth stamps (N,), the
+        # add counter, the eviction ledger (5,) and its histogram (64,)
+        diag = (2 * n + 1 + 5 + 64) * 4 if self.replay_diag else 0
+        return obs + last_action + hidden + seq_meta + versions + tree + diag
 
     @property
     def seq_window(self) -> int:
@@ -144,6 +155,11 @@ def stack_blocks(blocks) -> Block:
                     for f in dataclasses.fields(Block)})
 
 
+# the replay diagnostics' leaves of ReplayState (None with them off)
+DIAG_LEAVES = ("sample_count", "added_at", "add_count", "evict_stats",
+               "evict_life_hist")
+
+
 @dataclass
 class ReplayState:
     """Device-resident buffer state. Updated in place: the obs ring is
@@ -163,6 +179,18 @@ class ReplayState:
     weight_version: torch.Tensor  # (N,) int32
     block_ptr: int                # ring pointer, kept on the host
     lane: torch.Tensor            # (N,) int32
+    # the replay diagnostics' leaves (spec.replay_diag; None when off):
+    # times each slot was sampled since its write, the add count at its
+    # write, the ring's adds so far (a device tensor, advanced in place,
+    # so a captured ring write advances it too), and the eviction ledger
+    # [evicted, never sampled, lifetime sum, age sum, final priority sum]
+    # with its lifetime histogram, both read and reset by the step's
+    # interval snapshot (telemetry/replaydiag.py)
+    sample_count: Optional[torch.Tensor] = None    # (N,) int32
+    added_at: Optional[torch.Tensor] = None        # (N,) int32
+    add_count: Optional[torch.Tensor] = None       # () int32
+    evict_stats: Optional[torch.Tensor] = None     # (5,) f32
+    evict_life_hist: Optional[torch.Tensor] = None  # (64,) int32
 
 
 @dataclass

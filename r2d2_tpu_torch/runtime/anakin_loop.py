@@ -227,6 +227,8 @@ def _lead(cfg: Config, device: torch.device, mesh: Optional[Mesh],
         # (1 = the initial weights)
         return 1 + learner.training_steps // pub_interval
 
+    learner.weight_version_fn = publish_count
+
     probe_interval = cfg.telemetry.quant_probe_interval
     quant_stats = None
     if parts.quant:

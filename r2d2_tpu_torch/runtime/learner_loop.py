@@ -1,8 +1,20 @@
 """The learner: the train state, the replay, block ingestion with its rate
 limiter, the training gate, one dispatch of learner steps per call, weight
 publication, checkpoints and replay snapshots at interval boundaries, and
-the metrics flush, the JAX package's ``Learner`` without its telemetry
-and replay service.
+the metrics flush, the JAX package's ``Learner`` without its stage
+telemetry and replay service.
+
+The learning and replay diagnostics (telemetry/learning.py,
+telemetry/replaydiag.py; ``telemetry.enabled`` with
+``telemetry.learning_enabled`` / ``telemetry.replay_diag_enabled``, on by
+default) go into every step this learner builds: single, K-step graph,
+host placement, tensor parallel, dp and dp x mp. Each dispatch's ``ld/``
+and ``rd/`` values wait on the device until ``flush_metrics``, which
+builds the record's ``learning`` and ``replay_diag`` blocks (host
+placement: the host replay's readings for the tree and the evictions)
+and applies ``telemetry.nan_policy``: under "halt" the error leaves the
+flush, at the log boundary; a data-parallel run's followers then stop
+through rank 0's stop command, as on any error of rank 0's loop.
 
 Ingestion under device placement is per block (``replay.ingest_batch_blocks``
 = 1: ``drain`` pops and ring-writes each block on the main thread) or
@@ -122,6 +134,9 @@ from r2d2_tpu_torch.runtime.checkpoint import (apply_restore,
                                                save_checkpoint)
 from r2d2_tpu_torch.runtime.metrics import TrainMetrics
 from r2d2_tpu_torch.runtime.supervisor import RESTARTS_ENV
+from r2d2_tpu_torch.telemetry.learning import LearningAggregator, LearningDiag
+from r2d2_tpu_torch.telemetry.replaydiag import (ReplayDiag,
+                                                 ReplayDiagAggregator)
 from r2d2_tpu_torch.utils.device import configure_numerics
 
 WRITEBACK_QUEUE = 64        # steps of priorities waiting for the host tree
@@ -273,6 +288,19 @@ class Learner:
         resumed_env_steps = apply_restore(cfg.runtime, self.train_state,
                                           rank=rank)
         self.metrics = metrics or TrainMetrics(player_idx, log_dir=None)
+        # the learning and replay diagnostics: the steps' specs, and the
+        # host aggregators of their per-dispatch values (rank 0's)
+        diag = LearningDiag.from_config(cfg)
+        rdiag = ReplayDiag.from_config(cfg)
+        self._learning_agg = (LearningAggregator(
+            player_idx, cfg.runtime.save_dir, cfg.telemetry.nan_policy,
+            cfg.optim.lr) if diag is not None else None)
+        self._replay_agg = (ReplayDiagAggregator(rdiag.lanes)
+                            if rdiag is not None else None)
+        # wired by the orchestrator beside ``publish``: () -> the weight
+        # service's publication count, the clock of the sample ages
+        # (None: the ages are not reported)
+        self.weight_version_fn: Optional[Callable[[], int]] = None
         # wired by the orchestrator: publish(params module)
         self.publish: Optional[Callable] = None
         self.host_replay: Optional[HostReplay] = None
@@ -297,11 +325,13 @@ class Learner:
             if self._tp:
                 self._step_fn, place_state, self._place_batch = \
                     make_tp_external_batch_step(net, self.spec, cfg.optim,
-                                                use_double, mesh)
+                                                use_double, mesh, diag=diag,
+                                                rdiag=rdiag)
                 self.train_state = place_state(self.train_state)
             else:
                 self._step_fn = make_external_batch_step(
-                    net, self.spec, cfg.optim, use_double)
+                    net, self.spec, cfg.optim, use_double, diag=diag,
+                    rdiag=rdiag)
             self._prefetch_q: queue.Queue = queue.Queue(
                 maxsize=max(1, cfg.runtime.prefetch_batches))
             self._writeback_q: queue.Queue = queue.Queue(
@@ -324,7 +354,7 @@ class Learner:
                 cfg.runtime.resolved_steps_per_dispatch(self.device)
             self._step_fn = make_sharded_learner_step(
                 net, self.spec, cfg.optim, use_double, mesh,
-                self.steps_per_dispatch)
+                self.steps_per_dispatch, diag=diag, rdiag=rdiag)
             self._sharded_add_many = make_sharded_replay_add_many(self.spec,
                                                                   mesh)
         else:
@@ -335,10 +365,11 @@ class Learner:
             if self.steps_per_dispatch > 1:
                 self._step_fn = make_multi_learner_step(
                     net, self.spec, cfg.optim, use_double,
-                    self.steps_per_dispatch)
+                    self.steps_per_dispatch, diag=diag, rdiag=rdiag)
             else:
                 self._step_fn = make_learner_step(net, self.spec, cfg.optim,
-                                                  use_double)
+                                                  use_double, diag=diag,
+                                                  rdiag=rdiag)
         self.env_steps = resumed_env_steps
         # data parallel: the shard the next block goes to (rank 0), the
         # blocks written into this rank's shard, the final reports of every
@@ -442,7 +473,7 @@ class Learner:
     @property
     def losses(self) -> List[float]:
         """Every step's loss (the newest LOSSES_KEPT), flushed first."""
-        self.flush_metrics()
+        self._flush_losses()
         return list(self._flushed_losses)
 
     # -- ingestion --
@@ -821,6 +852,9 @@ class Learner:
             self.command(OP_STEP)
         metrics = self._dispatch(uniform)
         self._pending_losses.append(metrics["loss"])
+        for agg in (self._learning_agg, self._replay_agg):
+            if agg is not None:
+                agg.on_dispatch(metrics)
         step = self.train_state.step
         rt = self.cfg.runtime
         if (self.publish is not None
@@ -957,7 +991,27 @@ class Learner:
 
     def flush_metrics(self) -> None:
         """Move the dispatches' device losses to the host (one sync for
-        all of them) and feed the metrics' training counters."""
+        all of them) and feed the metrics' training counters; with the
+        diagnostics on, build the record's ``learning`` and
+        ``replay_diag`` blocks from the dispatches' values. A non-finite
+        step under ``telemetry.nan_policy="halt"`` raises here, after its
+        one forensics dump."""
+        self._flush_losses()
+        if self._learning_agg is not None:
+            pub = (int(self.weight_version_fn())
+                   if self.weight_version_fn is not None else None)
+            self.metrics.set_learning(self._learning_agg.flush(
+                self.train_state.step, publish_count=pub,
+                occupancy_versions=self.ring.live_versions()))
+        if self._replay_agg is not None:
+            # host placement: the host replay's readings stand in for the
+            # tree snapshot and the evictions the step cannot take
+            host_stats = (self.host_replay.diag_raw()
+                          if self.host_replay is not None else None)
+            self.metrics.set_replay_diag(
+                self._replay_agg.flush(host_stats=host_stats))
+
+    def _flush_losses(self) -> None:
         if not self._pending_losses:
             return
         values = torch.cat([x.reshape(-1).float()

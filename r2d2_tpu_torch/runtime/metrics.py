@@ -1,14 +1,20 @@
 """Training metrics and logging, the JAX package's ``TrainMetrics``
-without its telemetry blocks: the reference's log lines in
+without its stage-telemetry blocks: the reference's log lines in
 ``train_player{p}.log`` (the key strings its plot script matches) and one
 JSON record per log interval in ``metrics_player{p}.jsonl`` with the
 record's core keys (throughput, ingestion, worker health, dropped
 priority updates) and, from the on-device acting loop, its ``anakin``
 block; with the policy server a ``serving`` block, at a quantized
 inference dtype a ``quant`` block (the JAX package's keys), with the
-ingest stager (``replay.ingest_batch_blocks`` > 1) an ``ingest`` block
-and with replay snapshots a ``recovery`` block. Without them the record
-is what it was.
+ingest stager (``replay.ingest_batch_blocks`` > 1) an ``ingest`` block,
+with replay snapshots a ``recovery`` block, and with the diagnostics (on
+by default; ``telemetry.enabled=false`` turns both off) a ``learning``
+block (|TD|, priority and |Q| histograms with their counts, gradient
+norms by group, the target distance and dQ, sample and occupancy ages,
+non-finite steps; telemetry/learning.py) and a ``replay_diag`` block
+(the sum tree's health, the eviction ledger with the never-sampled
+share, the sampled lanes; telemetry/replaydiag.py), in the JAX package's
+schema. Without them the record is what it was.
 
 ``log_dir=None`` keeps everything in memory: no file is written (what a
 bare ``Learner`` gets).
@@ -69,6 +75,8 @@ class TrainMetrics:
         # the latest supervision snapshot (WorkerHealth.snapshot)
         self._actor_health = {}
         self._anakin: Optional[dict] = None
+        self._learning: Optional[dict] = None
+        self._replay_diag: Optional[dict] = None
         # interval-block providers: called once a record, None = none
         self._serving: Optional[Callable[[], Optional[dict]]] = None
         self._quant: Optional[Callable[[], dict]] = None
@@ -104,6 +112,16 @@ class TrainMetrics:
         at dp=1; runtime/anakin_loop.py flush_stats); emitted once as the
         record's "anakin" key, None = none this interval."""
         self._anakin = block
+
+    def set_learning(self, block: Optional[dict]) -> None:
+        """The interval's learning-diagnostics block; emitted once as the
+        record's "learning" key, None = none this interval."""
+        self._learning = block
+
+    def set_replay_diag(self, block: Optional[dict]) -> None:
+        """The interval's replay-diagnostics block; emitted once as the
+        record's "replay_diag" key, None = none this interval."""
+        self._replay_diag = block
 
     def set_serving(self, provider: Callable[[], Optional[dict]]) -> None:
         """The policy server's ``serving`` block provider (consumes its
@@ -259,6 +277,12 @@ class TrainMetrics:
         if self._anakin is not None:
             record["anakin"] = self._anakin
             self._anakin = None
+        if self._learning is not None:
+            record["learning"] = self._learning
+            self._learning = None
+        if self._replay_diag is not None:
+            record["replay_diag"] = self._replay_diag
+            self._replay_diag = None
         if self._serving is not None:
             block = self._serving()
             if block is not None:

@@ -322,6 +322,7 @@ class PlayerStack(ActorPool):
                                            net=self.net,
                                            publish_count=publish_count)
         self.learner.publish = self.snapshots
+        self.learner.weight_version_fn = publish_count
 
     def _start_serve_server(self, weight_poll, weight_version,
                             client_timed: bool) -> None:

@@ -1,5 +1,6 @@
-"""The port's telemetry: the shared log histogram and the quantized
-inference probe's aggregator."""
+"""The port's telemetry: the shared log histogram (host and device), the
+learning and replay diagnostics (``learning``, ``replaydiag``) and the
+quantized inference probe's aggregator."""
 
 from r2d2_tpu_torch.telemetry.quant import QuantStats
 

@@ -1,6 +1,8 @@
 """Fixed-bucket log-scale histograms, the port's copy of the JAX package's
-``telemetry/histogram.py`` (its host half: the jitted device twin has no
-user in the port).
+``telemetry/histogram.py``: the host half, and its device twin
+(``bucketize_values``/``value_counts`` on tensors), the one
+bucketize-scatter that the learning and the replay diagnostics share
+(telemetry/learning.py, telemetry/replaydiag.py).
 
 64 buckets spaced geometrically over 1 us .. 100 s (8 a decade, ~33% a
 bucket): one integer increment an observation, percentiles from the
@@ -12,6 +14,7 @@ import math
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 NBUCKETS = 64
 _LO = 1e-6                   # left edge of bucket 0: 1 us
@@ -19,6 +22,33 @@ _DECADES = 8.0               # span: 1 us .. 100 s
 _STEP = _DECADES / NBUCKETS  # log10 width of one bucket
 _INV_STEP = 1.0 / _STEP
 _LOG_LO = math.log10(_LO)
+
+
+
+
+def bucketize_values(x: torch.Tensor) -> torch.Tensor:
+    """The device twin of ``bucket_index`` over |x|: int64 bucket indices
+    of x's shape, the JAX package's f32 formula ``floor((log10(max(|x|,
+    1e-6)) + 6) * 8)`` clipped to [0, 63]; a non-finite value goes to
+    the top bucket."""
+    ax = x.detach().abs().float()
+    i = torch.floor((torch.log10(torch.clamp(ax, min=_LO)) - _LOG_LO)
+                    * _INV_STEP)
+    # NaN and +inf to the top bucket (|x| has no -inf)
+    i = torch.nan_to_num(i, nan=NBUCKETS - 1, posinf=NBUCKETS - 1)
+    return i.clamp(0, NBUCKETS - 1).long()
+
+
+def value_counts(x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """(NBUCKETS,) int32 histogram of |x| on x's device: bucketize, then
+    one ``scatter_add_`` of ones (or of ``mask``, same shape, 0/1, which
+    leaves entries out). No host sync: it runs inside a CUDA graph."""
+    idx = bucketize_values(x).reshape(-1)
+    ones = (torch.ones_like(idx, dtype=torch.int32) if mask is None
+            else mask.reshape(-1).to(torch.int32))
+    return torch.zeros(NBUCKETS, dtype=torch.int32,
+                       device=x.device).scatter_add_(0, idx, ones)
 
 
 def bucket_index(seconds: float) -> int:

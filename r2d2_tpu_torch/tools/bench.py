@@ -130,12 +130,14 @@ def path_ks(label: str):
 
 def host_learner(cfg, device, blocks, seed: int = 0):
     """A host-placement Learner of ``cfg`` on ``device`` with ``blocks``
-    in its host replay."""
+    in its host replay; its telemetry off, as the other cells build their
+    steps without the diagnostics."""
     from r2d2_tpu_torch.models.network import NetworkApply
     from r2d2_tpu_torch.runtime.learner_loop import Learner
     net = NetworkApply(ACTION_DIM, cfg.network, cfg.env.frame_stack,
                        cfg.env.frame_height, cfg.env.frame_width, device)
-    learner = Learner(cfg, net, seed=seed)
+    learner = Learner(cfg.replace(**{"telemetry.enabled": False}), net,
+                      seed=seed)
     for block in blocks:
         learner.ingest(block)
     return learner

@@ -8,7 +8,10 @@ their results against the JAX package's sharded and tensor-parallel steps
 on the CPU; ``chip_smoke.py`` runs them with ranks on the card.
 
 Each function takes this rank's ``Mesh`` and a picklable case and returns
-numpy results.
+numpy results. ``case["diag"]`` / ``case["rdiag"]`` (the fields of
+``LearningDiag`` / ``ReplayDiag``) turn the diagnostics on in the steps of
+``rank_steps`` and ``rank_tp_external``; each dispatch's ``ld/`` and
+``rd/`` values are then in its record's ``diag``.
 """
 
 import hashlib
@@ -34,8 +37,10 @@ from r2d2_tpu_torch.parallel.sharded import (gather_objects,
                                              state_digest)
 from r2d2_tpu_torch.parallel.tensor_parallel import (
     make_tp_external_batch_step, place_train_state)
-from r2d2_tpu_torch.replay.structs import (ReplaySpec, SampleBatch,
-                                           stack_blocks)
+from r2d2_tpu_torch.replay.structs import (DIAG_LEAVES, ReplaySpec,
+                                           SampleBatch, stack_blocks)
+from r2d2_tpu_torch.telemetry.learning import LearningDiag
+from r2d2_tpu_torch.telemetry.replaydiag import ReplayDiag
 from r2d2_tpu_torch.utils.device import configure_numerics
 
 REPLAY_FIELDS = ("tree", "obs", "last_action", "hidden", "action", "reward",
@@ -50,7 +55,11 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def numpy_state(state) -> Dict[str, np.ndarray]:
+    """A replay shard's fields as numpy, the replay diagnostics' leaves
+    where it holds them."""
     out = {name: _np(getattr(state, name)) for name in REPLAY_FIELDS}
+    out.update({name: _np(getattr(state, name)) for name in DIAG_LEAVES
+                if getattr(state, name, None) is not None})
     out["block_ptr"] = np.asarray(state.block_ptr)
     return out
 
@@ -75,6 +84,19 @@ def full_params(module) -> Dict[str, np.ndarray]:
     state = (module.full_state_dict() if hasattr(module, "full_state_dict")
              else module.state_dict())
     return {name: _np(v) for name, v in state.items()}
+
+
+def _diags(case: dict):
+    """The case's (LearningDiag, ReplayDiag), None where it has none."""
+    diag, rdiag = case.get("diag"), case.get("rdiag")
+    return (None if diag is None else LearningDiag(**diag),
+            None if rdiag is None else ReplayDiag(**rdiag))
+
+
+def _diag_record(metrics: dict) -> dict:
+    """A dispatch's diagnostic values as numpy, by key."""
+    return {k: _np(v) for k, v in metrics.items()
+            if k.startswith(("ld/", "rd/"))}
 
 
 def _params_record(ts, mesh: Mesh, case: dict, last: bool) -> dict:
@@ -156,8 +178,9 @@ def rank_steps(mesh: Mesh, case: dict) -> dict:
                                case.get("min_shard_width", 32))
     rs = replay_state_from_jax(types.SimpleNamespace(
         **case["shards"][mesh.dp_rank]), spec, device)
+    diag, rdiag = _diags(case)
     step = make_sharded_learner_step(net, spec, optim, net.config.use_double,
-                                     mesh, case["k"])
+                                     mesh, case["k"], diag=diag, rdiag=rdiag)
     jitter = case.get("jitter")
     trace = []
     for d in range(case["dispatches"]):
@@ -168,7 +191,8 @@ def rank_steps(mesh: Mesh, case: dict) -> dict:
         t0 = time.perf_counter()
         ts, rs, m = step(ts, rs, uniform)
         rec = {"loss": _np(m["loss"]), "seconds": time.perf_counter() - t0,
-               "grad_norm": _np(m["grad_norm"]), "tree": _np(rs.tree)}
+               "grad_norm": _np(m["grad_norm"]), "tree": _np(rs.tree),
+               "diag": _diag_record(m)}
         rec.update(_params_record(ts, mesh, case,
                                   d == case["dispatches"] - 1))
         trace.append(rec)
@@ -184,9 +208,10 @@ def _tp_external_run(mesh: Mesh, case: dict, batches) -> tuple:
     """``rank_tp_external``'s steps over ``batches``: (trace, train
     state)."""
     spec, net, optim, ts = _network(case, mesh)
+    diag, rdiag = _diags(case)
     step, place_state, place_batch = make_tp_external_batch_step(
         net, spec, optim, net.config.use_double, mesh,
-        case.get("min_shard_width", 32))
+        case.get("min_shard_width", 32), diag=diag, rdiag=rdiag)
     ts = place_state(ts)
     trace = []
     for i, fields in enumerate(batches):
@@ -197,7 +222,7 @@ def _tp_external_run(mesh: Mesh, case: dict, batches) -> tuple:
         ts, m = step(ts, place_batch(batch))
         rec = {"loss": _np(m["loss"]), "seconds": time.perf_counter() - t0,
                "grad_norm": _np(m["grad_norm"]),
-               "priorities": _np(m["priorities"])}
+               "priorities": _np(m["priorities"]), "diag": _diag_record(m)}
         rec.update(_params_record(ts, mesh, case, i == len(batches) - 1))
         trace.append(rec)
     return trace, ts

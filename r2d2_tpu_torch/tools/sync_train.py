@@ -27,6 +27,8 @@ import sys
 
 from r2d2_tpu_torch.config import Config
 
+FLUSH_STEPS = 1000      # learner steps between flushes of device metrics
+
 
 def sync_train(cfg: Config, train_steps: int, collect_eps: float,
                seed: int = 0, param_refresh_interval: int = 10,
@@ -92,6 +94,10 @@ def sync_train(cfg: Config, train_steps: int, collect_eps: float,
                 log_fn(learner.training_steps, metrics)
             if learner.training_steps % param_refresh_interval == 0:
                 policy.update_params(learner.train_state.params)
+            if (learner.training_steps % FLUSH_STEPS
+                    < learner.steps_per_dispatch):
+                # the losses and the diagnostics' values held on the device
+                learner.flush_metrics()
     finally:
         env.close()
     return net, learner

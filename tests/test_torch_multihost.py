@@ -450,3 +450,42 @@ def test_init_distributed_refusals():
         with pytest.raises(RuntimeError, match="finds no CUDA device"):
             init_distributed(MeshConfig(multihost=True), "cuda:0")
     assert not torch.distributed.is_initialized()
+
+
+def test_nan_halt_stops_both_controllers_through_the_consensus(tmp_path):
+    """Two loopback controllers on the CPU with
+    ``--telemetry.nan_policy=halt`` and a learning rate so large (1e30)
+    that the second step's loss is not finite: rank 0's flush writes one
+    forensics dump and sets the stop flag, both controllers leave the
+    loop on the same iteration (controller 1 through the stop consensus,
+    exit 0 with its summary; the checkpoint of that step, which both
+    join, is written) and controller 0 then raises (a nonzero exit, no
+    summary)."""
+    import json
+    import os
+    import time
+
+    from r2d2_tpu_torch.parallel.multihost import (ControllerProcesses,
+                                                   demo_argv, digest_path)
+    save_dir = str(tmp_path / "mh_halt")
+    argv_of = demo_argv(2, save_dir, max_steps=100_000, max_seconds=120.0,
+                        device="cpu", collective_timeout=60.0,
+                        overrides=["--telemetry.nan_policy=halt",
+                                   "--optim.lr=1e30",
+                                   "--runtime.log_interval=0.5"])
+    with ControllerProcesses(argv_of, 2) as ctl:
+        rcs = ctl.wait(time.monotonic() + 150.0)
+    assert rcs[0] not in (None, 0) and rcs[1] == 0
+    dump = json.loads(open(os.path.join(save_dir,
+                                        "nan_dump_player0.json")).read())
+    assert dump["nan_policy"] == "halt"
+    assert dump["learning"]["nonfinite_steps"] > 0
+    assert not os.path.exists(digest_path(save_dir, 0))
+    with open(digest_path(save_dir, 1)) as f:
+        follower = json.load(f)
+    assert follower["stop_reason"] == ""
+    assert follower["step"] < 100_000
+    step = follower["step"]          # the demo saves every 4 steps
+    final = os.path.join(save_dir,
+                         f"Fake{step // 4 + (1 if step % 4 else 0)}_player0")
+    assert os.path.exists(final)

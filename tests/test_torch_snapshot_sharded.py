@@ -27,7 +27,8 @@ from r2d2_tpu_torch.parallel.multihost import snapshot_twin_on
 from r2d2_tpu_torch.replay import device_replay as tdr
 from r2d2_tpu_torch.replay.snapshot import (capture_sharded, restore_plain,
                                             shard_leaves)
-from r2d2_tpu_torch.replay.structs import ReplaySpec, RingAccountant
+from r2d2_tpu_torch.replay.structs import (DIAG_LEAVES, ReplaySpec,
+                                           RingAccountant)
 from r2d2_tpu_torch.tools import dp_check
 from tests.test_torch_recovery import LEAVES
 from tests.test_torch_replay import specs, synthetic_blocks
@@ -63,7 +64,8 @@ def _jax_sharded_capture(spec, blocks):
 
 def test_dp2_snapshot_matches_jax_and_restores_bit_for_bit(tmp_path):
     """Two Learner ranks: the cut after five round-robin blocks holds
-    JAX's sharded capture leaf for leaf (rings, stamps and lanes exact,
+    JAX's sharded capture leaf for leaf (rings, stamps, lanes and the
+    replay diagnostics' leaves exact,
     the sum tree within pow's last ulp as tests/test_torch_recovery.py
     allows), its ring and ``next_shard``; a learner resumed from a
     checkpoint and a later snapshot adopts ``next_shard`` (the same extra
@@ -79,8 +81,10 @@ def test_dp2_snapshot_matches_jax_and_restores_bit_for_bit(tmp_path):
     cut = out["cut"]
     want = _jax_sharded_capture(spec, blocks[:BLOCKS])
     leaves, jleaves = cut["shards"][0]["state"], want["shards"][0]["state"]
-    assert set(leaves) == set(jleaves) == set(LEAVES)
-    for name in LEAVES:
+    # the default config's replay diagnostics add their five leaves
+    names = set(LEAVES) | set(DIAG_LEAVES)
+    assert set(leaves) == set(jleaves) == names
+    for name in sorted(names):
         assert leaves[name].shape == jleaves[name].shape, name
         assert leaves[name].dtype == jleaves[name].dtype, name
         if name == "tree":
