@@ -130,7 +130,11 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      QUANT_ROWS, bf16 and f32 activations (tolerances at QUANT_F32_RTOL,
      QUANT_BF16_ULP), timed at M=32 bf16 alone and back to back beside
      the bound (int8 weights, scales, x and y at 3.35 TB/s), the plain
-     version and torch.matmul on the bf16 twin (the yardstick); (b) the
+     version and torch.matmul on the bf16 twin (the yardstick, alone and
+     back to back); then back to back at every shape x QUANT_ROWS with
+     bf16 x and at the recurrent product's M=64 with f32 x, each beside
+     torch.matmul on the twin and torch._weight_int8pack_mm where the
+     card's torch has a CUDA kernel for it (phase_quant_sweep); (b) the
      int8 forward at the reference widths, card (bf16 compute) against
      the port's CPU forward (f32): greedy agreement >= 0.99 outside the
      tie band, |dQ| <= 5% of the Q scale (JAX's tests/test_quant.py
@@ -567,6 +571,10 @@ def phase_build():
         # forward instantiation spills
         for kernel, n in counts.items():
             if "lstm_fwd_kernel<__nv_bfloat16" in kernel:
+                check(n > 0, f"no HMMA in {kernel}")
+        # every int8_linear instantiation runs on the tensor cores
+        for kernel, n in counts.items():
+            if "int8_linear_kernel" in kernel:
                 check(n > 0, f"no HMMA in {kernel}")
         for line in lines:
             if "lstm_fwd_kernel" in line:
@@ -2464,13 +2472,16 @@ QUANT_SHAPES = (("torso.dense", 3136, 1024), ("lstm.input_proj", 1030, 2048),
                 ("lstm.recurrent_kernel", 512, 2048),
                 ("head.hidden", 512, 512), ("head.adv_out", 512, 6),
                 ("head.val_out", 512, 1))
-QUANT_ROWS = (1, 3, 32, 64)
+# M: each of the kernel's n8-tile instantiations (M 1-8, 9-16, 17-32,
+# 33-64) and the serving buckets that reach them
+QUANT_ROWS = (1, 3, 8, 16, 32, 64)
 QUANT_MAIN = ("torso.dense", 32)   # the kernels line's case: bf16, M=32
 # int8_linear vs its plain version: f32 sums in another order, so rtol
 # 1e-5 scaled by sqrt(K) against the output's magnitude; a bf16 output
 # may round the other way, one bf16 ulp (<= 2^-7 relative)
 QUANT_F32_RTOL = 1e-5
 QUANT_BF16_ULP = 2.0 ** -7
+QUANT_SWEEP_REPEATS = 3            # windows a figure of 9a's sweep
 SERVE_LANES = (1, 8, 32)
 SERVE_LOAD_S = 4.0                 # each load window of cli.serve
 SERVE_STEPS = 200                  # served-vs-eager steps of 32 lanes
@@ -2540,17 +2551,78 @@ def phase_quant_kernel(dev) -> dict:
             plain_ms=cuda_ms(lambda: qk.int8_linear_plain(xs[0], q, scale,
                                                           bias), runs=10),
             library_ms=cuda_ms(lambda: torch.matmul(xs[0], w16.t())),
+            library_b2b=b2b_ms(lambda i: torch.matmul(xs[i], w16.t())),
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         r = rows[name]
         print(f"int8_linear {name} ({k}->{n}, M={m}, bf16): kernel "
               f"{r['ms']:.4f} ms (back to back {r['b2b_ms']:.4f}), plain "
               f"{r['plain_ms']:.4f}, torch.matmul on the bf16 twin "
-              f"{r['library_ms']:.4f}, bound {r['bound_ms'] * 1e3:.2f} us "
+              f"{r['library_ms']:.4f} (back to back "
+              f"{r['library_b2b']:.4f}), bound {r['bound_ms'] * 1e3:.2f} us "
               f"({r['bound_by']})", flush=True)
+    phase_quant_sweep(layers, g)
     main = dict(rows[QUANT_MAIN[0]])
     main["max_abs_err"] = err["bfloat16"]
+    main["library_b2b_ms"] = main.pop("library_b2b")
     return main
+
+
+def _int8pack_call(x, q_raw, scale):
+    """torch._weight_int8pack_mm on the card (x . (q * scale)^T, scales in
+    x's type), or None where this torch has no CUDA kernel for it."""
+    import torch
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None
+    s16 = scale.to(x.dtype)
+    try:
+        fn(x, q_raw, s16)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError):
+        return None
+    return lambda i, xs: fn(xs[i], q_raw, s16)
+
+
+def phase_quant_sweep(layers, g) -> None:
+    """9a's like-for-like times: int8_linear back to back at every
+    QUANT_SHAPES row x QUANT_ROWS M with bf16 x (and f32 x for the
+    recurrent product at M=64, the acting segment's case), each beside
+    torch.matmul on the twin back to back and, where this torch has a CUDA
+    kernel for it, torch._weight_int8pack_mm (neither call is the port's).
+    QUANT_SWEEP_REPEATS windows a figure."""
+    import torch
+    from r2d2_tpu_torch.ops import quant_kernels as qk
+    t0 = time.perf_counter()
+    cases = [(name, k, n, m, torch.bfloat16) for name, k, n in QUANT_SHAPES
+             for m in QUANT_ROWS]
+    cases.append(("lstm.recurrent_kernel", 512, 2048, 64, torch.float32))
+    pack_seen = False
+    for name, k, n, m, dt in cases:
+        q, scale, bias, w16 = layers[name]
+        w = w16 if dt == torch.bfloat16 else w16.float()
+        xs = [torch.randn(m, k, generator=g).to(q.device, dt)
+              for _ in range(BACK_TO_BACK)]
+        kern = b2b_ms(lambda i: qk.int8_linear(xs[i], q, scale, bias),
+                      repeats=QUANT_SWEEP_REPEATS)
+        mm = b2b_ms(lambda i: torch.matmul(xs[i], w.t()),
+                    repeats=QUANT_SWEEP_REPEATS)
+        pack = _int8pack_call(xs[0], q[:, :k].contiguous(), scale)
+        pack_ms = (None if pack is None else
+                   b2b_ms(lambda i: pack(i, xs), repeats=QUANT_SWEEP_REPEATS))
+        pack_seen = pack_seen or pack is not None
+        print(f"int8_linear back to back, {name} ({k}->{n}, M={m}, "
+              f"{'bf16' if dt == torch.bfloat16 else 'f32'} x): kernel "
+              f"{kern:.4f} ms, torch.matmul on the "
+              f"{'bf16' if dt == torch.bfloat16 else 'f32'} twin {mm:.4f} "
+              f"({mm / kern:.2f}x the kernel's), "
+              + ("torch._weight_int8pack_mm: no CUDA kernel"
+                 if pack is None else
+                 f"torch._weight_int8pack_mm {pack_ms:.4f}"), flush=True)
+    if not pack_seen:
+        print(f"torch {torch.__version__} has no CUDA kernel for "
+              f"torch._weight_int8pack_mm at these shapes", flush=True)
+    print(f"int8_linear sweep {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def _add_counts(total: dict, counts: dict) -> None:
@@ -5130,7 +5202,8 @@ def main(argv) -> int:
         max_abs_err=serving["max_abs_err"], ms=serving["ms"],
         b2b_ms=serving["b2b_ms"], plain_ms=serving["plain_ms"],
         bound_ms=serving["bound_ms"], bound_by=serving["bound_by"],
-        library_ms=serving["library_ms"], host_path_launches=0,
+        library_ms=serving["library_ms"],
+        library_b2b_ms=serving["library_b2b_ms"], host_path_launches=0,
         orchestrated_launches=0, anakin_launches=0,
         serve_launches=serve_launches["int8_linear"],
         anakin_quant_launches=anakin_quant["int8_linear"],
