@@ -98,11 +98,18 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      host ms by part), and the device's busy and idle share over the
      profiled window; then r2d2_tpu_torch.cli.evaluate --play on the
      final checkpoint, 2 rounds;
-  7. learnability: r2d2_tpu_torch/tools/learnability.py's configuration
+  7. a Learner at one step a dispatch runs it as a CUDA graph of one
+     step: against eager single steps from the same seed and blocks
+     (small f32, with and without the diagnostics, and the
+     learnability configuration below in bf16 as it trains) for
+     SINGLE_STEPS dispatches, losses and tree within phase 4's rtol
+     1e-4; then
+     learnability: r2d2_tpu_torch/tools/learnability.py's configuration
      and thresholds (those of tests/test_torch_learnability.py) through
      tools.sync_train with the learner on the card, one
      step a dispatch (K=1, the JAX test's collect ratio of 2 env steps a
-     step): every evaluation seed >= 2x random, the mean >= 3x.
+     step), the collecting policy on one intra-op thread as a process
+     actor's: every evaluation seed >= 2x random, the mean >= 3x.
   8. on-device acting (actor/anakin.py, runtime/anakin_loop.py): two
      small f32 acting segments on the card against the CPU from the same
      weights and draws (Fake with the constant stamp, Grid with "td"
@@ -122,7 +129,8 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      steps/s while training, host ms between dispatches, busy and idle
      over the profiled window, peak GB and the warm-up; last, the
      gridworld learns under the fused loop on the card
-     (tools/learnability.py grid_config, the JAX test's threshold).
+     (tools/learnability.py grid_config with telemetry off, as phase 7
+     runs; the JAX test's threshold).
   9. serving on the card (serve/, ops/quant_kernels.py): (a) int8_linear
      against its plain version at every dense shape of the quantized
      forward (torso 3136->1024, input projection 1030->2048, recurrent
@@ -290,6 +298,25 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      dispatches writes one forensics dump at its next flush and raises,
      and raises again with no second dump. The ``kernels`` line's
      ``dq_launches_per_interval_step`` is (a)'s.
+ 15. the runtime telemetry (telemetry/core.py, spans.py, board.py,
+     profiler.py, costmodel.py; tools/profile_step.py): (a)
+     r2d2_tpu_torch.cli.profile at the reference shape, bench's "fused"
+     path at K=TELE_K, PROFILE_STEPS steps over a full ring of bench's
+     REF_CAPACITY steps (its tree depth and gather spread): the trace
+     (graph replays' kernels one by one) names gather_windows, stack_frames, lstm_fwd and
+     lstm_bwd, every hand kernel with launches a step equal to the
+     wrappers' counts in the window; the device kernels' ms and launches
+     a step, model FLOPs a step and their share of the card's bf16 peak
+     at bench fused's rate of this call; (b) runtime.profile_at_step in a
+     short on-device cli.train run writes one trace with device kernels;
+     (c) the stage timers' cost through the Learner, telemetry on (spans
+     drained) against off, diagnostics off in both, windows of
+     TELE_WINDOW_S in TELE_ORDER: the median over the pairs. Phases 6, 8,
+     9(e) and 12(c) check their records' ``stages`` (every stage their
+     mode observes: thread and process actors, the latter through the
+     board; ``actor/act_scan``; ``serve/*``; rank 1's host rows in
+     ``telemetry_host1.jsonl``), the first record's ``costs`` block and
+     that every span file parses.
      The script's total time is printed.
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
@@ -1044,7 +1071,7 @@ def phase_small_step_vs_cpu(dev, overrides, label):
     runs = {}
     for device in (torch.device("cpu"), dev):
         spec, rs = bench.filled_replay(cfg, device, blocks)
-        ts, step = bench.build_learner_step(cfg, device, spec)
+        ts, step = bench.build_learner_step(cfg, device, spec, eager=True)
         _reset_counts()
         losses = []
         for u in uniforms:
@@ -1191,7 +1218,8 @@ def phase_graph_vs_eager(dev, base, spec, rs):
         rs_graph, rs_eager = _clone_replay(rs), _clone_replay(rs)
         ts_graph, multi = bench.build_learner_step(cfg, dev, spec,
                                                    GRAPH_K)
-        ts_eager, single = bench.build_learner_step(cfg, dev, spec)
+        ts_eager, single = bench.build_learner_step(cfg, dev, spec,
+                                                    eager=True)
         want = _want_launches(overrides, GRAPH_K)
         for d, u in enumerate(uniforms):
             _reset_counts()
@@ -1264,7 +1292,7 @@ def phase_reference_vs_cpu(dev):
     runs = {}
     for device in (torch.device("cpu"), dev):
         spec, rs = bench.filled_replay(cfg, device, blocks)
-        ts, step = bench.build_learner_step(cfg, device, spec)
+        ts, step = bench.build_learner_step(cfg, device, spec, eager=True)
         _reset_counts()
         t0 = time.perf_counter()
         _, rs, m = step(ts, rs, uniform.to(device))
@@ -1946,6 +1974,63 @@ def _check_diag_records(records, label: str, lanes: int) -> dict:
             "evictions": evictions[-1] if evictions else None}
 
 
+# the stages each mode must observe (telemetry/core.py STAGES); a stage's
+# summary has exactly these fields
+ORCH_STAGES = ("actor/env_step", "actor/forward", "actor/block_emit",
+               "actor/queue_put", "ingest/ring_get", "ingest/commit",
+               "learner/train_dispatch", "learner/device_sync",
+               "weights/publish")
+ANAKIN_STAGES = ("actor/act_scan", "ingest/commit", "learner/train_dispatch",
+                 "learner/device_sync")
+SERVE_STAGES = ("serve/enqueue", "serve/batch_wait", "serve/forward",
+                "serve/reply")
+HOST_ROW_STAGES = ("lockstep/dispatch", "lockstep/step", "ingest/commit",
+                   "learner/train_dispatch", "weights/publish")
+STAGE_FIELDS = {"count", "p50_ms", "p95_ms", "p99_ms"}
+COST_COMPONENTS = {"torso", "lstm", "head", "sum_tree", "replay"}
+
+
+def _read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def _check_stage_records(records, label: str, want, spans=(),
+                         costs: bool = True) -> dict:
+    """Records with the stage timers on: every one carries ``stages`` in
+    JAX's summary fields, each stage of ``want`` was observed (counts
+    summed over the records), the first carries the ``costs`` block
+    (``costs``), and each span file of ``spans`` parses, a span a line.
+    Returns the summed counts and the spans read a file."""
+    check(records and all("stages" in r and "telemetry_dropped_spans" in r
+                          for r in records),
+          f"{label}: a record without the stages block")
+    counts = {}
+    for r in records:
+        for name, summary in r["stages"].items():
+            check(set(summary) == STAGE_FIELDS and summary["count"] > 0
+                  and summary["p50_ms"] <= summary["p95_ms"]
+                  <= summary["p99_ms"], f"{label}: stage {name} {summary}")
+            counts[name] = counts.get(name, 0) + summary["count"]
+    check(all(counts.get(name, 0) > 0 for name in want),
+          f"{label}: stage counts {counts}, want every one of {want}")
+    if costs:
+        block = records[0].get("costs")
+        check(block is not None and block["model_flops_per_step"] > 0
+              and set(block["components"]) == COST_COMPONENTS
+              and not any("costs" in r for r in records[1:]),
+              f"{label}: the first record's costs block {block}")
+    read = {}
+    for path in spans:
+        events = _read_jsonl(path)
+        check(events and all({"name", "ts", "dur", "tid", "pid"} <= set(e)
+                             and e["dur"] >= 0 for e in events),
+              f"{label}: spans of {os.path.basename(path)}: "
+              f"{len(events)} events")
+        read[os.path.basename(path)] = len(events)
+    return {"stage_counts": counts, "spans": read}
+
+
 def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
     """cli.train on the card for ORCH_SECONDS with ``mode`` actors at the
     reference widths (see the module docstring, phase 6). Returns (the
@@ -2047,6 +2132,13 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
         report["diagnostics"] = _check_diag_records(
             records, f"cli.train {label}",
             actor.num_actors * actor.envs_per_actor)
+        # process actors' stages reach the record through the board
+        span_files = [os.path.join(save_dir, "spans_player0.jsonl")]
+        if mode == "process":
+            span_files += [os.path.join(save_dir, f"spans_p0_a{i}.jsonl")
+                           for i in range(actor.num_actors)]
+        report["telemetry"] = _check_stage_records(
+            records, f"cli.train {label}", ORCH_STAGES, span_files)
         check(summary["actors_alive"] == 0, "an actor is still running")
         if mode == "process":
             check(summary["actor_exitcodes"] == [0, 0],
@@ -2084,19 +2176,101 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
     return launches, report
 
 
+def phase_single_step_graph(dev) -> dict:
+    """Phase 7, first: a Learner at one step a dispatch on the card runs
+    each dispatch as a CUDA graph of one step (``make_dispatch_step``'s
+    ``multi``); from the same seed and blocks it gives an eager single
+    step's losses and tree over SINGLE_STEPS dispatches (warm-up,
+    capture, replays) within phase 4's rtol 1e-4 (cuDNN's weight
+    gradients sum in an order that may differ between runs): at the
+    small f32 shape with and without the diagnostics (a graph a pattern
+    of interval steps), and at the learnability configuration as phase 7
+    trains it (bf16, telemetry off; the synthetic blocks' 18 actions)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.learner.train_step import make_learner_step
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.runtime.learner_loop import Learner
+    from r2d2_tpu_torch.telemetry.learning import LearningDiag
+    from r2d2_tpu_torch.telemetry.replaydiag import ReplayDiag
+    from r2d2_tpu_torch.tools import bench
+    from r2d2_tpu_torch.tools import learnability as learn
+    tiny = _tiny_config().replace(**{
+        "runtime.steps_per_dispatch": 1,
+        "telemetry.learning_interval": 3,
+        "telemetry.replay_diag_interval": 2})
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_single_") as d:
+        cases = (("small_telemetry_off",
+                  tiny.replace(**{"telemetry.enabled": False})),
+                 ("small_telemetry_on",
+                  tiny.replace(**{"telemetry.enabled": True})),
+                 ("learnability", learn.learn_config(d, **{
+                     "runtime.steps_per_dispatch": 1,
+                     "telemetry.enabled": False})))
+        for label, cfg in cases:
+            net = NetworkApply(bench.ACTION_DIM, cfg.network,
+                               cfg.env.frame_stack, cfg.env.frame_height,
+                               cfg.env.frame_width, dev)
+            graphed, eager = Learner(cfg, net), Learner(cfg, net)
+            eager._step_fn = make_learner_step(
+                net, eager.spec, cfg.optim, cfg.network.use_double,
+                diag=LearningDiag.from_config(cfg),
+                rdiag=ReplayDiag.from_config(cfg))
+            for block in bench.synthetic_blocks(cfg, cfg.num_blocks, seed=5):
+                graphed.ingest(block)
+                eager.ingest(block)
+            got, want = [], []
+            for _ in range(SINGLE_STEPS):
+                got.append(graphed.step()["loss"].item())
+                want.append(eager.step()["loss"].item())
+            np.testing.assert_allclose(got, want, rtol=1e-4)
+            np.testing.assert_allclose(
+                graphed.replay_state.tree.cpu().numpy(),
+                eager.replay_state.tree.cpu().numpy(), rtol=1e-4, atol=1e-6)
+            multi = graphed._step_fn.multi
+            diag_on = cfg.telemetry.enabled
+            check(multi.graph is not None and len(multi.variants) >= 1
+                  and (not diag_on or len(multi.variants) > 1),
+                  f"7 {label}: graph variants {len(multi.variants)}")
+            graphed.flush_metrics()
+            eager.flush_metrics()
+            report[label] = {
+                "bf16": net.compute_dtype == torch.bfloat16,
+                "variants": len(multi.variants),
+                "max_rel": float(np.max(np.abs(np.subtract(got, want))
+                                        / np.abs(want)))}
+    print(f"7 one step a dispatch as a CUDA graph against eager single "
+          f"steps, {SINGLE_STEPS} dispatches (rtol 1e-4): "
+          + json.dumps(report), flush=True)
+    return report
+
+
 def phase_learnability(dev):
     """tools/learnability.py's configuration, budget and thresholds (those
     of the CPU test) through sync_train with the learner on the card,
     K=1."""
     import tempfile
+    import torch
     from r2d2_tpu_torch.tools import learnability as learn
     with tempfile.TemporaryDirectory(prefix="chip_smoke_learn_") as d:
         # the diagnostics only read the training state (14a), so the
         # learning they would watch is the same without them
         cfg = learn.learn_config(d, **{"runtime.steps_per_dispatch": 1,
                                        "telemetry.enabled": False})
+        # the collecting policy acts on the host CPU with one intra-op
+        # thread, as a process actor does: on an 8-core H100 host, 8
+        # threads took 7.7 ms an act of this small forward against 1.3 ms
+        # on one, most of the phase's time; the configuration, the steps
+        # and the thresholds are the same
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
         t0 = time.perf_counter()
-        result = learn.train_and_eval(cfg, dev)
+        try:
+            result = learn.train_and_eval(cfg, dev)
+        finally:
+            torch.set_num_threads(threads)
         seconds = time.perf_counter() - t0
     check(result["training_steps"] >= learn.TRAIN_STEPS, result)
     learn.check_returns(result["returns"])
@@ -2379,6 +2553,9 @@ def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float,
         log = open(os.path.join(d, "train_player0.log")).read()
         records = [json.loads(x) for x in open(os.path.join(
             d, "metrics_player0.jsonl")) if x.strip()]
+        telemetry = _check_stage_records(
+            records, f"cli.train on-device {label}", ANAKIN_STAGES,
+            [os.path.join(d, "spans_player0.jsonl")])
     check("window" in state and "end" in state, f"cli.train on-device: "
           f"only {state['calls']} dispatches")
     stack = state["stack"]
@@ -2422,6 +2599,7 @@ def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float,
         launches=launches, **_interval_stats(state))
     report["diagnostics"] = _check_diag_records(
         records, f"cli.train on-device {label}", ANAKIN_LANES)
+    report["telemetry"] = telemetry
     if stack.twin_ms:
         report["twin_adoptions"] = len(stack.twin_ms)
         report["twin_ms_median"] = statistics.median(stack.twin_ms)
@@ -2443,13 +2621,18 @@ def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float,
 def phase_anakin_learnability(dev):
     """Phase 8, part 4: tools/learnability.py's gridworld configuration
     (tests/test_anakin.py's) through the fused loop on the card, one step
-    a dispatch as in the JAX test on the CPU; the JAX test's threshold
-    (check_grid_returns: the episodes before training against those of
-    the last quarter of it)."""
+    a dispatch as in the JAX test on the CPU, telemetry off; the JAX
+    test's threshold (check_grid_returns: the episodes before training
+    against those of the last quarter of it)."""
     import tempfile
     from r2d2_tpu_torch.tools import learnability as learn
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as d:
-        cfg = learn.grid_config(d, **{"runtime.steps_per_dispatch": 1})
+        # telemetry off, as in phase 7: the diagnostics only read the
+        # training state (14a) and the stage timers only the host clock,
+        # so the learning is the same without them, while a record every
+        # loop turn would aggregate both each step
+        cfg = learn.grid_config(d, **{"runtime.steps_per_dispatch": 1,
+                                      "telemetry.enabled": False})
         t0 = time.perf_counter()
         result = learn.grid_train(cfg, dev)
         seconds = time.perf_counter() - t0
@@ -2912,6 +3095,9 @@ def phase_served_train(dev, k, bench_default: float) -> dict:
         counted = _counts()
         records = [json.loads(x) for x in open(os.path.join(
             d, "metrics_player0.jsonl")).read().split("\n") if x.strip()]
+        telemetry = _check_stage_records(
+            records, "served training", SERVE_STAGES + ORCH_STAGES[2:],
+            [os.path.join(d, "spans_player0.jsonl")])
     check(summary["device"].startswith("cuda"), "served training off cuda")
     check(summary["steps"] > 0 and all(math.isfinite(x)
                                         for x in summary["losses"]),
@@ -2932,8 +3118,8 @@ def phase_served_train(dev, k, bench_default: float) -> dict:
           f"{served['batches']} dispatches, forward ms by bucket "
           f"{served['forward_ms_by_bucket']}; last serving latency "
           f"{blocks[-1]['latency']}, fill {blocks[-1]['batch']['fill_mean']}"
-          f"; quant {records[-1].get('quant')}; launches {counted}",
-          flush=True)
+          f"; quant {records[-1].get('quant')}; launches {counted}; "
+          f"telemetry {json.dumps(telemetry)}", flush=True)
     return counted
 
 
@@ -4102,6 +4288,16 @@ def phase_mh_loop(label: str, placement: str, overrides) -> dict:
         check(all(p.poll() is not None for p in ctl.procs),
               f"12c {label}: a controller is still running")
         recs = read_digests(d, 2)
+        # rank 0's stages ride its record, rank 1's its host rows
+        telemetry = {
+            "rank0": _check_stage_records(
+                _read_jsonl(os.path.join(d, "metrics_player0.jsonl")),
+                f"12c {label} rank 0", HOST_ROW_STAGES,
+                [os.path.join(d, "spans_host0.jsonl")], costs=False),
+            "rank1": _check_stage_records(
+                _read_jsonl(os.path.join(d, "telemetry_host1.jsonl")),
+                f"12c {label} rank 1's host rows", HOST_ROW_STAGES,
+                [os.path.join(d, "spans_host1.jsonl")], costs=False)}
     check(recs[0]["step"] == recs[1]["step"] > 0
           and recs[0]["iterations"] == recs[1]["iterations"]
           and recs[0]["digest"] == recs[1]["digest"],
@@ -4135,7 +4331,8 @@ def phase_mh_loop(label: str, placement: str, overrides) -> dict:
               "shard_blocks": [r["shard_blocks"] for r in recs],
               "local_env_steps": [r["local_env_steps"] for r in recs],
               "collective_ms_median": [r["collective_ms_median"]
-                                       for r in recs]}
+                                       for r in recs],
+              "telemetry": telemetry}
     print(f"12c two controllers sharing one card over gloo ({label}, "
           f"{_card()}; gloo staging through one host, not scaling): "
           + json.dumps(report), flush=True)
@@ -5059,6 +5256,204 @@ def phase_diagnostics(dev) -> dict:
     return {"graph": graph, "cost": cost}
 
 
+SINGLE_STEPS = 8                   # 7: one-step graph vs eager dispatches
+PROFILE_STEPS = 20                 # 15a: steps inside cli.profile's trace
+TELE_CAPACITY = 6400               # 15c: 16 reference blocks
+AT_STEP = 8                        # 15b: runtime.profile_at_step
+AT_STEP_SECONDS = 5.0              # 15b: the short run's bound
+TELE_K = 4                         # 15c: steps a dispatch
+TELE_WINDOW_S = 1.0                # 15c: each timed window
+TELE_ORDER = ("off", "on", "on", "off") * 2
+# 15b's short run: the on-device loop at the CPU tests' tiny shape
+AT_STEP_ARGS = [
+    "--env.game_name=Fake", "--env.frame_height=24", "--env.frame_width=24",
+    "--env.frame_stack=2", "--network.hidden_dim=16",
+    "--network.cnn_out_dim=32", "--network.conv_layers=8,4,2;16,3,1",
+    "--sequence.burn_in_steps=4", "--sequence.learning_steps=5",
+    "--sequence.forward_steps=3", "--replay.capacity=800",
+    "--replay.block_length=20", "--replay.batch_size=8",
+    "--replay.learning_starts=100", "--actor.on_device=true",
+    "--actor.anakin_lanes=4", "--env.episode_len=40",
+    # a 0.1 s capture window: at this shape the card runs ~100 steps a
+    # second, ~30 MB of trace
+    "--runtime.save_interval=0", "--runtime.log_interval=0.1"]
+
+
+def phase_cli_profile(dev, bench_fused: float) -> dict:
+    """15(a): python -m r2d2_tpu_torch.cli.profile's entry point at the
+    reference shape, bench's "fused" path at K=TELE_K, PROFILE_STEPS
+    steps over a full ring of bench's REF_CAPACITY steps (cli.profile's
+    default capacity; tools/profile_step.py repeats its distinct blocks
+    to fill it): the trace names the hand kernels of the step with launches a
+    step equal to the wrappers' counts in the traced window; prints the
+    device kernels' table, model FLOPs a step and the share of the card's
+    bf16 peak (telemetry/costmodel.py peak_spec) at bench fused's rate in
+    this call."""
+    import tempfile
+    from r2d2_tpu_torch.cli import profile
+    from r2d2_tpu_torch.telemetry import costmodel
+    from r2d2_tpu_torch.tools import bench
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as d:
+        result = profile.main([
+            "--steps", str(PROFILE_STEPS), "--out", d, "--top", "12",
+            "--network.pallas_lstm=on",
+            f"--runtime.steps_per_dispatch={TELE_K}"])
+    table = result["device_kernels"]
+    check(result["steps"] == PROFILE_STEPS, f"15a: {result['steps']} steps")
+    hand, counted = result["hand_kernels"], result["launches_per_step"]
+    check(all(hand[n]["launches_per_step"] > 0 for n in (
+        "gather_windows", "stack_frames", "lstm_fwd", "lstm_bwd"))
+        and all(hand[n]["launches_per_step"] == counted[n] for n in hand),
+        f"15a: the trace's hand kernels {hand}, counted {counted}")
+    cfg = bench.reference_config()
+    flops = costmodel.model_flops_per_step(cfg, bench.ACTION_DIM, False)
+    peak = costmodel.peak_spec()
+    steps_per_s = bench_fused / cfg.replay.batch_size
+    top = sorted(((n, r) for n, r in table.items() if n != "total"),
+                 key=lambda x: -x[1]["ms_per_step"])[:15]
+    print(f"15a cli.profile, reference shape, fused K={TELE_K}, "
+          f"{PROFILE_STEPS} steps ({_card()}): device ms a step "
+          f"{table['total']['ms_per_step']:.4f}, launches a step "
+          f"{table['total']['launches_per_step']:.2f}; top kernels:",
+          flush=True)
+    for name, row in top:
+        print(f"  {row['ms_per_step']:8.4f} ms/step "
+              f"{row['launches_per_step']:7.2f}/step  {name[:100]}",
+              flush=True)
+    share = flops * steps_per_s / peak["flops_bf16"]
+    report = {"device_ms_per_step": table["total"]["ms_per_step"],
+              "hand_kernels": hand, "model_flops_per_step": flops,
+              "bench_fused_seq_updates_per_s": bench_fused,
+              "model_tflops_per_s": flops * steps_per_s / 1e12,
+              "peak": peak, "share_of_bf16_peak": share,
+              "share_of_bf16_peak_at_device_time":
+                  flops / (table["total"]["ms_per_step"] / 1e3)
+                  / peak["flops_bf16"]}
+    print("15a model FLOPs a step and the share of the bf16 peak: "
+          + json.dumps(report), flush=True)
+    return report
+
+
+def phase_profile_at_step(dev) -> dict:
+    """15(b): runtime.profile_at_step=AT_STEP in a short cli.train run
+    (the on-device loop at the tiny shape): the capture starts once the
+    learner reaches the step, stops after min(log_interval, 30) s and is
+    written under {save_dir}/profile, a trace with the device's kernels."""
+    import glob
+    import tempfile
+    from r2d2_tpu_torch.cli import train
+    from r2d2_tpu_torch.tools.profile_step import summarize_trace
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_at_step_") as d:
+        summary = train.main(AT_STEP_ARGS + [
+            f"--runtime.save_dir={d}", f"--runtime.profile_at_step={AT_STEP}",
+            f"--max-seconds={AT_STEP_SECONDS}"])
+        traces = glob.glob(os.path.join(d, "profile", "*.pt.trace.json"))
+        check(summary["steps"] > AT_STEP and len(traces) == 1,
+              f"15b: {summary['steps']} steps, traces {traces}")
+        planes = summarize_trace(os.path.join(d, "profile"), top=5)
+        report = {"steps": summary["steps"],
+                  "trace_mb": os.path.getsize(traces[0]) / 1e6,
+                  "device_kernels_top": [(n, round(us / 1e3, 3), c)
+                                         for n, us, c in
+                                         planes.get("device", [])]}
+    check(report["device_kernels_top"], f"15b: no device kernel in the "
+          f"capture: {sorted(planes)}")
+    print("15b runtime.profile_at_step capture: " + json.dumps(report),
+          flush=True)
+    return report
+
+
+def phase_telemetry_cost(dev) -> dict:
+    """15(c): the stage timers' and spans' cost through the Learner at
+    the reference shape, bench's "fused" path at K=TELE_K over a replay
+    of TELE_CAPACITY steps: one Learner with telemetry on (a drain
+    writing spans) and one with telemetry.enabled=false, the learning and
+    replay diagnostics off in both, in windows of TELE_WINDOW_S in
+    TELE_ORDER; a window ends with the flush and the record, as the
+    orchestrator's log boundary does. The cost is the median over the
+    (off, on) pairs of 1 - on / off."""
+    import tempfile
+    import torch
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.runtime.learner_loop import Learner
+    from r2d2_tpu_torch.runtime.metrics import TrainMetrics
+    from r2d2_tpu_torch.telemetry.core import Telemetry
+    from r2d2_tpu_torch.tools import bench
+    base = bench.reference_config(**{
+        **bench.PATHS["fused"], "replay.capacity": TELE_CAPACITY,
+        "runtime.steps_per_dispatch": TELE_K, "runtime.save_interval": 0,
+        "telemetry.learning_enabled": False,
+        "telemetry.replay_diag_enabled": False})
+    blocks = bench.synthetic_blocks(base, base.num_blocks, seed=31)
+    learners, rates, records = {}, {"off": [], "on": []}, {"off": [],
+                                                           "on": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tele_") as d:
+        for arm in ("off", "on"):
+            cfg = base.replace(**{"telemetry.enabled": arm == "on"})
+            net = NetworkApply(bench.ACTION_DIM, cfg.network,
+                               cfg.env.frame_stack, cfg.env.frame_height,
+                               cfg.env.frame_width, dev)
+            metrics = TrainMetrics(0, log_dir=None)
+            tele = Telemetry.from_config(cfg, name=f"cost-{arm}")
+            metrics.set_telemetry(tele)
+            tele.start_drain(os.path.join(d, f"spans_{arm}.jsonl"))
+            learner = Learner(cfg, net, metrics=metrics)
+            for block in blocks:
+                learner.ingest(block)
+            for _ in range(3):          # eager, capture, replay
+                learner.step()
+            learner.flush_metrics()
+            learner.metrics.log(1.0)
+            learners[arm] = learner
+        torch.cuda.synchronize()
+        for arm in TELE_ORDER:
+            learner = learners[arm]
+            steps0 = learner.training_steps
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < TELE_WINDOW_S:
+                learner.step()
+            learner.flush_metrics()     # the readback ends the window
+            records[arm].append(learner.metrics.log(TELE_WINDOW_S))
+            seconds = time.perf_counter() - t0
+            rates[arm].append((learner.training_steps - steps0)
+                              * base.replay.batch_size / seconds)
+        for learner in learners.values():
+            learner.metrics.telemetry.close()
+            learner.stop_background()
+        on_spans = os.path.join(d, "spans_on.jsonl")
+        telemetry = _check_stage_records(
+            records["on"], "15c the on arm",
+            ("learner/train_dispatch", "learner/device_sync"), [on_spans],
+            costs=False)
+        check(not os.path.exists(os.path.join(d, "spans_off.jsonl"))
+              and not any("stages" in r or "costs" in r
+                          for r in records["off"]),
+              "15c: the off arm observed stages or wrote spans")
+    pairs = [1.0 - rates["on"][i] / rates["off"][i]
+             for i in range(len(rates["on"]))]
+    report = {"seq_updates_per_s": {k: [round(x, 2) for x in v]
+                                    for k, v in rates.items()},
+              "pair_costs": [round(x, 5) for x in pairs],
+              "median_cost": statistics.median(pairs),
+              "windows_s": TELE_WINDOW_S,
+              "stage_counts": telemetry["stage_counts"],
+              "spans": telemetry["spans"]}
+    print(f"15c the stage timers' cost through the Learner, reference "
+          f"shape, fused K={TELE_K}, diagnostics off, windows of "
+          f"{TELE_WINDOW_S} s {' '.join(TELE_ORDER)} ({_card()}): "
+          + json.dumps(report), flush=True)
+    del learners
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_telemetry(dev, bench_fused: float) -> dict:
+    """Phase 15 (see the module docstring)."""
+    return {"profile": phase_cli_profile(dev, bench_fused),
+            "at_step": phase_profile_at_step(dev),
+            "cost": phase_telemetry_cost(dev)}
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5129,6 +5524,7 @@ def main(argv) -> int:
         for name, n in counted.items():
             orchestrated[name] = max(orchestrated.get(name, 0), n)
     done("cli.train")
+    phase_single_step_graph(dev)
     phase_learnability(dev)
     done("learnability")
     phase_anakin_vs_cpu(dev)
@@ -5160,6 +5556,9 @@ def main(argv) -> int:
     diagnostics = phase_diagnostics(dev)
     dq = diagnostics["graph"]["dq_launches_per_interval_step"]
     done("learning and replay diagnostics")
+    phase_telemetry(dev,
+                    reference["fused", resolved_k]["median_seq_updates_per_s"])
+    done("telemetry")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}

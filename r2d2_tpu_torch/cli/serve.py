@@ -17,7 +17,10 @@ raises). It prints ``serving on HOST:PORT (action_dim=A)`` and, with
 ``network.inference_dtype``, the ``quant`` block appends to
 ``serve_metrics.jsonl`` in ``--save-dir``; a final record closes the run,
 with the forward's mean ms per dispatch bucket and the kernels' launch
-counts. The JAX package also evaluates alert rules on each record; the
+counts. With telemetry on, the server's ``serve/forward`` and
+``serve/reply`` spans drain to ``spans_serve.jsonl`` in ``--save-dir``
+(every ``telemetry.flush_interval_s``). The JAX package also evaluates
+alert rules on each record; the
 port has no alert engine yet, so those keys are not written. SIGTERM and
 SIGINT stop it cleanly; ``--seconds`` bounds the run.
 """
@@ -88,10 +91,14 @@ def main(argv=None) -> int:
         quant_stats = QuantStats(cfg.network.inference_dtype,
                                  cfg.telemetry.quant_probe_interval)
 
+    from r2d2_tpu_torch.telemetry.core import Telemetry
+    save_dir = args.save_dir or "."
+    telemetry = Telemetry.from_config(cfg, name="serve")
+    telemetry.start_drain(os.path.join(save_dir, "spans_serve.jsonl"))
     stats = ServingStats()
     endpoint = InprocEndpoint()
     server = PolicyServer(cfg, net, module, endpoint=endpoint, stats=stats,
-                          quant_stats=quant_stats)
+                          quant_stats=quant_stats, telemetry=telemetry)
     del module                      # the server holds its own copy
     transports = [SocketServerTransport(endpoint.submit, cfg.serve.host,
                                         cfg.serve.port)]
@@ -105,7 +112,6 @@ def main(argv=None) -> int:
         transports.append(shm_t)
         print(f"shm request ring: {shm_t.request_ring.name}", flush=True)
 
-    save_dir = args.save_dir or "."
     os.makedirs(save_dir, exist_ok=True)
     metrics_path = os.path.join(save_dir, "serve_metrics.jsonl")
     open(metrics_path, "w").close()
@@ -148,6 +154,7 @@ def main(argv=None) -> int:
         server.stop()
         for t in transports:
             t.close()
+        telemetry.close()
         final = record(t0, final=True, device=str(device),
                        forward_ms_by_bucket=server.forward_ms_by_bucket(),
                        launches=launch_counts())

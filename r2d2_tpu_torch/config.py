@@ -12,9 +12,11 @@ package's words, as it refuses it. The telemetry section holds the master
 switch ``enabled``, the learning diagnostics (``learning_enabled``,
 ``learning_interval``, ``learning_dq_batch``, ``nan_policy``), the replay
 diagnostics (``replay_diag_enabled``, ``replay_diag_interval``) and
-``quant_probe_interval``; its other fields in the JAX package (spans,
-resources, compile telemetry, alerts, the cost model) are refused as
-unknown fields naming ROADMAP A.7, which ports them.
+``quant_probe_interval``, the stage timers' and spans' fields
+(``ring_size``, ``flush_interval_s``, ``spans``) and the cost model's
+switch (``costmodel_enabled``); its other fields in the JAX package
+(resources, compile telemetry, alerts, the fleet plane, tracing) are
+refused as unknown fields naming ROADMAP A.7, which ports them.
 
 The tri-state knobs ("on"/"off"/"auto") resolve for the device the port
 runs on, never for a TPU:
@@ -37,9 +39,8 @@ runs on, never for a TPU:
   (``models/network.py dual_sequence_q``); "auto" resolves as for
   pallas_lstm.
 * ``runtime.steps_per_dispatch``: learner steps per dispatch, one CUDA graph
-  of K steps on the card (``learner/train_step.py
-  make_multi_learner_step``). -1 = the bench's winner on CUDA, 1 on the
-  CPU.
+  of K steps on the card, K = 1 too (``learner/train_step.py
+  make_dispatch_step``). -1 = ``CUDA_AUTO``'s 4 on CUDA, 1 on the CPU.
 * ``network.space_to_depth``: "on"/"off" only, as in the JAX package: it
   picks the first conv's parameter layout. Which input the conv runs on is
   not a setting (models/network.py ``input_layout``).
@@ -81,8 +82,15 @@ INFERENCE_DTYPES = ("f32", "bf16", "int8")   # network.inference_dtype
 # What "auto" (and steps_per_dispatch=-1) resolves to on CUDA: the faster
 # setting in pairs that tools/bench.py measured in one call on an H100 at
 # the reference shape (PERF.md section 5): the fused scan against the loop
-# (single DQN), and K=4, the fewest steps a dispatch within 1% of the
-# fastest. fused_double_unroll stays off: an interleaved unroll measured
+# (single DQN). K=4 was the fewest steps a dispatch within 1% of the
+# fastest while K=1 ran eagerly; measured again with K=1 a one-step graph
+# as the Learner runs it (PERF.md section 6), K=1, 4 and 16 tie
+# within 0.13% (K=4 at 0.9990 of K=1), so bench's tie-break names K=1.
+# K stays 4: K also sets the loops' cadence, which the bench does not
+# time (the on-device loop acts one segment a dispatch, multihost
+# all-reduces once a dispatch), and every loop figure and check was
+# measured at 4; a change waits for an A/B through the loops
+# (ROADMAP.md). fused_double_unroll stays off: an interleaved unroll measured
 # no faster than the two unrolls, which both settings now run.
 # ingest_batch_blocks: per-block (1) against the stager at 8, orchestrated
 # seq-updates/s with two thread actors (chip_smoke.py phase 10(a)'s runs,
@@ -108,6 +116,12 @@ class EnvConfig:
     episode_len: int = 120
     # grid side of the on-device gridworld (env kind "Grid")
     grid_size: int = 6
+    # gymnasium's frameskip for engine envs (1 = none; the synthetic envs
+    # ignore it)
+    frame_skip: int = 1
+    # clip rewards to [-1, 1] (envs/wrappers.py ClipReward); off, as every
+    # call site of the reference passes
+    clip_rewards: bool = False
 
     @property
     def env_id(self) -> str:
@@ -280,18 +294,33 @@ class MeshConfig:
 @dataclass(frozen=True)
 class TelemetryConfig:
     """The telemetry fields the port reads, with the JAX package's names
-    and defaults: the master switch, the learning diagnostics
-    (telemetry/learning.py), the replay diagnostics
-    (telemetry/replaydiag.py) and the quantized forward's probe. Until the
-    stage timers and spans are ported, ``enabled`` gates only the two
-    diagnostic pillars. The JAX package's other telemetry fields (the
-    span ring, the flush cadence, spans, resources, compile telemetry,
-    alerts, the cost model) are refused as unknown fields: ROADMAP A.7
-    ports them."""
+    and defaults: the master switch, the stage timers and spans
+    (telemetry/core.py, telemetry/spans.py), the cost model's block, the
+    learning diagnostics (telemetry/learning.py), the replay diagnostics
+    (telemetry/replaydiag.py) and the quantized forward's probe.
+    ``enabled`` gates all of them: off, no stage is observed, no span is
+    recorded or written, no board is made, and the record carries no
+    ``stages``, ``costs``, ``learning`` or ``replay_diag`` block. The JAX
+    package's other telemetry fields (resources, compile telemetry,
+    alerts, the fleet plane, tracing) are refused as unknown fields:
+    ROADMAP A.7 ports them."""
 
-    # master switch: false turns both diagnostic pillars off (the step,
-    # its graph and the record are then what they are without them)
+    # master switch: false turns the stage timers, the spans, the costs
+    # block and both diagnostic pillars off (the step, its graph and the
+    # record are then what they are without them)
     enabled: bool = True
+    # the span ring's capacity a thread; when a drain interval overflows
+    # it the oldest spans drop, counted as telemetry_dropped_spans
+    ring_size: int = 4096
+    # the drain's cadence: spans to spans_*.jsonl, process actors' stage
+    # counts to the shared-memory board
+    flush_interval_s: float = 5.0
+    # the span sub-switch: the stage timers stay on (they feed the
+    # record's stages block); spans cost a JSONL file a process
+    spans: bool = True
+    # the first record's one-shot costs block: the analytic per-component
+    # FLOPs and bytes of the configured step (telemetry/costmodel.py)
+    costmodel_enabled: bool = True
     # the learning diagnostics fused into the learner step: |TD|,
     # priority and |Q| histograms, per-group gradient norms, the
     # non-finite guard, sample staleness, and every learning_interval
@@ -379,6 +408,13 @@ class RuntimeConfig:
     shm_transport: bool = True
     test_epsilon: float = 0.01
     seed: int = 0
+    # non-empty: a torch.profiler capture of the first training interval
+    # is written here (telemetry/profiler.py)
+    profile_dir: str = ""
+    # > 0: one capture once the learner's step counter reaches it, for
+    # min(log_interval, 30) s, into profile_dir or {save_dir}/profile;
+    # SIGUSR2 starts the same capture on demand
+    profile_at_step: int = 0
     restart_dead_actors: bool = True
     # worker health: supervision cadence, the hang watchdog (0 = off) and
     # its grace before a worker's first heartbeat
@@ -409,7 +445,7 @@ class RuntimeConfig:
     auto_resume: bool = False
 
     def resolved_steps_per_dispatch(self, device) -> int:
-        """A value > 0 as given; otherwise the bench's winner on CUDA and 1
+        """A value > 0 as given; otherwise ``CUDA_AUTO``'s on CUDA and 1
         on the CPU."""
         if self.steps_per_dispatch > 0:
             return self.steps_per_dispatch
@@ -461,6 +497,8 @@ class Config:
             raise ValueError(
                 f"replay.drain_max_blocks ({self.replay.drain_max_blocks}) "
                 "must be >= 1")
+        if self.runtime.profile_at_step < 0:
+            raise ValueError("runtime.profile_at_step must be >= 0")
         if self.runtime.snapshot_interval < 0:
             raise ValueError(
                 f"runtime.snapshot_interval "
@@ -540,6 +578,11 @@ class Config:
         if t.replay_diag_interval < 1:
             raise ValueError(f"telemetry.replay_diag_interval "
                              f"({t.replay_diag_interval}) must be >= 1")
+        if t.ring_size < 16:
+            raise ValueError(f"telemetry.ring_size ({t.ring_size}) must be "
+                             ">= 16")
+        if t.flush_interval_s <= 0:
+            raise ValueError("telemetry.flush_interval_s must be > 0")
 
     def _check_inference(self) -> None:
         """The quantized plane's and the policy server's rules, the JAX
@@ -827,12 +870,12 @@ def check_decode_layout(optim: OptimConfig) -> None:
 
 # the JAX package's telemetry fields that ROADMAP A.7 ports later
 _TELEMETRY_NOT_PORTED = (
-    "ring_size", "flush_interval_s", "spans", "resources_enabled",
+    "resources_enabled",
     "resources_interval_s", "resources_headroom_warn_frac",
     "compile_enabled", "alerts_enabled", "alerts_window",
     "alerts_throughput_drop_frac", "alerts_heartbeat_age_s",
     "alerts_staleness_growth_factor", "alerts_hbm_headroom_frac",
-    "alerts_retrace_storm", "costmodel_enabled", "alerts_shard_imbalance",
+    "alerts_retrace_storm", "alerts_shard_imbalance",
     "alerts_replay_ess_frac", "alerts_priority_saturation",
     "alerts_never_sampled_growth", "alerts_lane_starved_frac",
     "fleet_enabled", "tracing_enabled", "trace_sample_every",

@@ -1,6 +1,7 @@
-"""Environment factory: resolves an env id to a backend and applies
-WarpFrame to engine frames, as the JAX package's ``envs/factory.py`` does
-(reward clipping is off there by default and has no setting here).
+"""Environment factory: resolves an env id to a backend, applies WarpFrame
+to engine frames, passes ``env.frame_skip`` to gymnasium as its
+``frameskip`` and wraps ``ClipReward`` under ``env.clip_rewards``, as the
+JAX package's ``envs/factory.py`` does.
 
   * "Fake*"       the hermetic deterministic env (tests, benchmarks);
   * "JaxFake*",
@@ -22,7 +23,8 @@ import torch
 from r2d2_tpu_torch.envs.device_env import (DeviceFakeEnv, DeviceGridWorld,
                                             HostDeviceEnv, is_grid_id)
 from r2d2_tpu_torch.envs.fake import FakeR2D2Env
-from r2d2_tpu_torch.envs.wrappers import GymnasiumAdapter, WarpFrame
+from r2d2_tpu_torch.envs.wrappers import (ClipReward, GymnasiumAdapter,
+                                         WarpFrame)
 
 
 def create_device_env(cfg, device):
@@ -49,6 +51,13 @@ def create_device_env(cfg, device):
 def create_env(cfg, *, name: str = "", seed: int = 0):
     """Build and wrap one environment instance; ``cfg`` is an EnvConfig.
     The Fake env records ``name`` among its wiring."""
+    env = _backend_env(cfg, name, seed)
+    if cfg.clip_rewards:
+        env = ClipReward(env)
+    return env
+
+
+def _backend_env(cfg, name: str, seed: int):
     env_id = cfg.env_id
     if env_id.startswith("Fake"):
         return FakeR2D2Env(height=cfg.frame_height, width=cfg.frame_width,
@@ -67,8 +76,11 @@ def create_env(cfg, *, name: str = "", seed: int = 0):
             raise ImportError(
                 f"env id {env_id!r} needs gymnasium and the ALE (Atari) "
                 "engine, which are not installed; use the Fake env") from e
+        kwargs = {}
+        if cfg.frame_skip > 1:
+            kwargs["frameskip"] = cfg.frame_skip
         try:
-            inner = gymnasium.make(env_id)
+            inner = gymnasium.make(env_id, **kwargs)
         except gymnasium.error.Error as e:
             raise ImportError(
                 f"env id {env_id!r}: gymnasium has no such env; an Atari id "

@@ -1,7 +1,8 @@
 """The R2D2 learner step: sample -> decode -> unroll -> loss -> clip + Adam ->
 priority write-back -> hard target sync, the counterpart of the JAX
 package's fused ``make_learner_step``; ``make_multi_learner_step``, K
-steps per dispatch (the JAX package's ``lax.scan`` of the step); and
+steps per dispatch (the JAX package's ``lax.scan`` of the step), which
+``make_dispatch_step`` gives the learner at every K; and
 ``make_external_batch_step``, the step on a batch sampled on the host
 (``replay.placement="host"``), which returns the priorities instead of
 writing them back.
@@ -478,6 +479,30 @@ def make_multi_learner_step(net: NetworkApply, spec: ReplaySpec,
         return GraphedSteps(body, steps_per_dispatch, spec.batch_size,
                             intervals=intervals)
     return eager_steps(body, steps_per_dispatch, intervals)
+
+
+def make_dispatch_step(net: NetworkApply, spec: ReplaySpec,
+                       optim: OptimConfig, use_double: bool,
+                       steps_per_dispatch: int, diag=None, rdiag=None):
+    """The learner's dispatch on a device replay, for every device and K:
+    ``make_multi_learner_step`` (one CUDA graph of K steps on the card, K
+    eager steps on the CPU). At K = 1 it keeps the single step's contract
+    (``make_learner_step``'s: (B,) jitter in, unstacked metrics out) and
+    holds the K = 1 dispatch as ``multi``; at K > 1 it is that dispatch."""
+    multi = make_multi_learner_step(net, spec, optim, use_double,
+                                    steps_per_dispatch, diag=diag,
+                                    rdiag=rdiag)
+    if steps_per_dispatch > 1:
+        return multi
+
+    def step(ts: TrainState, rs: ReplayState,
+             uniform: Optional[torch.Tensor] = None):
+        ts, rs, metrics = multi(ts, rs,
+                                None if uniform is None else uniform[None])
+        return ts, rs, {name: t[0] for name, t in metrics.items()}
+
+    step.multi = multi
+    return step
 
 
 def eager_steps(body: Callable, steps: int, intervals=None):

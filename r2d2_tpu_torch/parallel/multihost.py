@@ -55,8 +55,18 @@ controller that drives mp ranks; ``mesh.mp`` runs on one host through
 ``cli.train``), on-device acting and served actors under multihost
 (Config; on-device acting with mp > 1 and ``serve.servers > 1`` are
 refused everywhere), and the fleet and multiplayer planes and the
-telemetry beyond the learning and replay diagnostics, which the port's
-config does not have (A.6, A.9, A.7).
+telemetry beyond the stage timers, spans and diagnostics, which the
+port's config does not have (A.6, A.9, A.7).
+
+Telemetry (telemetry/core.py): each controller has its own ``Telemetry``
+(its actors' board under process actors) and drains its spans to
+``{save_dir}/spans_host{rank}.jsonl``. It observes ``lockstep/dispatch``
+(the iteration's all-reduce), ``lockstep/step`` (one whole iteration),
+``ingest/commit``, the ``learner/*`` stages and ``weights/publish``.
+Rank 0's summary is its record's ``stages`` block; every other rank
+appends a row ``{t, rank, stages, telemetry_dropped_spans}`` a log
+interval to ``{save_dir}/telemetry_host{rank}.jsonl``. The JAX rows'
+``fleet``, ``resources`` and ``alerts`` parts come with the fleet plane.
 
 Demo and validation, every controller its own interpreter on a loopback
 coordinator, parameter digests compared across controllers:
@@ -85,7 +95,8 @@ from r2d2_tpu_torch.config import Config
 from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, RingAccountant,
                                            SampleBatch, batch_fields)
 from r2d2_tpu_torch.runtime.learner_loop import MAX_AHEAD, TIMINGS_KEPT
-from r2d2_tpu_torch.runtime.orchestrator import ActorPool
+from r2d2_tpu_torch.runtime.orchestrator import ActorPool, start_span_drain
+from r2d2_tpu_torch.telemetry.core import NULL_TELEMETRY, Telemetry
 
 # the stop flag's local reasons, for the summary
 STOP_NONE, STOP_SIGNAL, STOP_DEADLINE = "", "signal", "deadline"
@@ -231,8 +242,10 @@ class LockstepCore:
 
     def __init__(self, mesh, ts, step_fn, k: int, *, learning_starts: int,
                  ratio: float, rs=None, spec: Optional[ReplaySpec] = None,
-                 host_replay=None, local_batch: Optional[int] = None):
+                 host_replay=None, local_batch: Optional[int] = None,
+                 telemetry=None):
         self.mesh = mesh
+        self.tele = telemetry if telemetry is not None else NULL_TELEMETRY
         self.ts = ts
         self.step_fn = step_fn
         self.k = k
@@ -267,16 +280,22 @@ class LockstepCore:
                 else self.ingest.ring)
 
     def _dispatch(self, uniform: Optional[torch.Tensor]) -> dict:
+        tele = self.tele
         if self.host_mode:
             if uniform is not None:
                 raise ValueError("host placement samples on the host: no "
                                  "jitter to inject")
+            t0 = time.perf_counter()
             batch_np, snapshot = self.host_replay.sample(self.local_batch)
             device = self.ts.step_count.device
             batch = SampleBatch(**{
                 name: torch.from_numpy(np.array(a)).to(device)
                 for name, a in batch_fields(batch_np).items()})
+            t1 = time.perf_counter()
+            tele.observe("learner/sample", t1 - t0)
             self.ts, m = self.step_fn(self.ts, batch)
+            t0 = time.perf_counter()
+            tele.observe("learner/train_dispatch", t0 - t1)
             prios = m.pop("priorities").detach().cpu().numpy()
             if len(prios) != len(batch_np.idxes):
                 raise RuntimeError(
@@ -284,8 +303,12 @@ class LockstepCore:
                     f"priorities for {len(batch_np.idxes)} sampled idxes")
             self.host_replay.update_priorities(batch_np.idxes, prios,
                                                snapshot)
+            tele.observe("learner/priority_writeback",
+                         time.perf_counter() - t0)
         else:
+            t0 = time.perf_counter()
             self.ts, self.rs, m = self.step_fn(self.ts, self.rs, uniform)
+            tele.observe("learner/train_dispatch", time.perf_counter() - t0)
         if self.ts.step_count.is_cuda:
             done = torch.cuda.Event(blocking=True)
             done.record()
@@ -300,6 +323,7 @@ class LockstepCore:
         drains nothing while ``paused``) and this controller's stop flag.
         ``uniform``: a dispatch's injected jitter (checks). Returns
         {"info", "stop", "ready", "stepped", "metrics"}."""
+        t0 = time.perf_counter()
         if self.host_mode:
             if block is not None:
                 self.host_replay.add(block)
@@ -311,7 +335,11 @@ class LockstepCore:
             args = self.feed.build(block, local_stop)
             self.rs, self.cum_env, info = self.ingest(self.rs, self.cum_env,
                                                       *args)
+        t_coll = time.perf_counter() - t0
+        self.tele.observe("lockstep/dispatch", t_coll)
         if block is not None:
+            # only real ingests: the no-op iterations would swamp it
+            self.tele.observe("ingest/commit", t_coll)
             self.blocks_in += 1
         self.info = info
         out = {"info": info, "stop": info["stop"] > 0, "ready": False,
@@ -334,6 +362,21 @@ class LockstepCore:
             out["metrics"] = self._dispatch(uniform)
             out["stepped"] = True
         return out
+
+
+def host_row_path(save_dir: str, rank: int) -> str:
+    return os.path.join(save_dir or ".", f"telemetry_host{rank}.jsonl")
+
+
+def write_host_row(path: str, rank: int, tele, t_start: float) -> None:
+    """A rank > 0's row of a log interval, the JAX package's host row
+    without its fleet, resources and alerts parts."""
+    import json
+    row = {"t": round(time.time() - t_start, 3), "rank": rank,
+           "stages": tele.interval_summary(),
+           "telemetry_dropped_spans": tele.spans.dropped}
+    with open(path, "a") as f:
+        f.write(json.dumps(row) + "\n")
 
 
 def _install_stop_signals(stop) -> dict:
@@ -461,6 +504,8 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
     dp = mesh.dp
     rt = cfg.runtime
     diag = LearningDiag.from_config(cfg)
+    # this controller's stage timers and spans (host-local, no collective)
+    tele = Telemetry.from_config(cfg, name=f"learner-h{rank}")
     if host_mode:
         if rt.steps_per_dispatch > 1:
             logging.getLogger(__name__).warning(
@@ -475,7 +520,7 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
             learning_starts=cfg.replay.learning_starts,
             ratio=cfg.replay.max_env_steps_per_train_step,
             host_replay=HostReplay(spec, seed=rt.seed + 7919 * rank),
-            local_batch=step_fn.local_batch)
+            local_batch=step_fn.local_batch, telemetry=tele)
     else:
         k = rt.resolved_steps_per_dispatch(device)
         step_fn = make_sharded_learner_step(net, spec, cfg.optim, use_double,
@@ -484,7 +529,7 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
             mesh, ts, step_fn, k,
             learning_starts=cfg.replay.learning_starts,
             ratio=cfg.replay.max_env_steps_per_train_step,
-            rs=sharded_replay_init(spec, mesh), spec=spec)
+            rs=sharded_replay_init(spec, mesh), spec=spec, telemetry=tele)
 
     snap_writer = None
     if snapshot_twin_on(rt, rank, nprocs, dp, host_mode):
@@ -509,14 +554,23 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
             else threading.Event())
     fleet = LocalActorFleet(cfg, net, actor_base=rank * n_local,
                             total_actors=nprocs * n_local,
-                            quant_stats=quant_stats)
+                            quant_stats=quant_stats, telemetry=tele)
     prev_handlers = _install_stop_signals(stop)
     snapshots = metrics = learn_agg = None
     # a halt of telemetry.nan_policy, raised after every controller left
     halt_error: List[BaseException] = []
     stop_reason = STOP_NONE
     t_start = time.time()
+    host_rows = None
     try:
+        start_span_drain(tele, rt.save_dir, f"spans_host{rank}.jsonl",
+                         [f"spans_p0_a{rank * n_local + i}.jsonl"
+                          for i in range(n_local)], bool(rt.resume))
+        if rank != 0 and tele.enabled:
+            host_rows = host_row_path(rt.save_dir, rank)
+            os.makedirs(os.path.dirname(host_rows), exist_ok=True)
+            if not rt.resume:
+                open(host_rows, "w").close()
         if actor_mode == "process":
             fleet.open_processes(stop, initial, spec)
         else:
@@ -528,6 +582,7 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
         queue = fleet.queue
         if rank == 0:
             metrics = TrainMetrics(0, rt.save_dir, resume=bool(rt.resume))
+            metrics.set_telemetry(tele)     # stages ride rank 0's record
             if quant_stats is not None:
                 metrics.set_quant(quant_stats.interval_block)
             if diag is not None:
@@ -548,8 +603,10 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
 
         def flush_losses():
             if pending_losses:
+                t0 = time.perf_counter()
                 values = torch.cat([x.reshape(-1).float()
                                     for x in pending_losses]).tolist()
+                tele.observe("learner/device_sync", time.perf_counter() - t0)
                 pending_losses.clear()
                 for loss in values:
                     metrics.on_train_step(loss)
@@ -592,6 +649,7 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
             return capture_plain(spec, core.rs, core.ring, core.ts.step)
 
         while core.ts.step < max_steps:
+            t_iter = time.perf_counter()
             iterations += 1
             local_stop = 0
             if stop.is_set():
@@ -626,7 +684,10 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
                     return iv and step // iv > prev // iv
 
                 if boundary(rt.weight_publish_interval):
+                    t0 = time.perf_counter()
                     snapshots(core.ts.params)
+                    tele.observe("weights/publish",
+                                 time.perf_counter() - t0)
                 if boundary(rt.save_interval):
                     save(step // rt.save_interval)
                     last_ckpt_step = step
@@ -648,8 +709,16 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
                 if log_fn:
                     log_fn({"rank": rank, **record})
                 last_log = now
+            elif now - last_log >= rt.log_interval and host_rows:
+                # a rank without the metrics: one stage row an interval
+                write_host_row(host_rows, rank, tele, t_start)
+                last_log = now
+            tele.observe("lockstep/step", time.perf_counter() - t_iter)
         if metrics is not None:
             flush_losses()
+        if host_rows:
+            # the last interval's row, however short the run
+            write_host_row(host_rows, rank, tele, t_start)
         # the final checkpoint of a clean stop (every controller left the
         # loop on the same iteration, so the gather below is entered by all)
         if rt.save_interval and core.ts.step > last_ckpt_step:
@@ -672,6 +741,7 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
         if snapshots is not None:
             snapshots.close()
         fleet.close()
+        tele.close()
         if metrics is not None:
             metrics.close()
 

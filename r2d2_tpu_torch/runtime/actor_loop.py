@@ -7,9 +7,15 @@ bootstrap (its return reported only by near-greedy actors); at a block
 boundary with the bootstrap Q; fresh weights are polled every
 ``actor.actor_update_interval`` env steps. A served policy
 (``actor.inference="server"``) is driven by the same loops.
+
+With a ``telemetry`` (telemetry/core.py) the loops observe
+``actor/forward`` and ``actor/env_step`` each tick and
+``actor/weight_sync`` each poll; ``instrument_block_sink`` adds
+``actor/block_emit`` (with a span) around the sink.
 """
 
 import dataclasses
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -19,6 +25,7 @@ from r2d2_tpu_torch.actor.policy import ActorPolicy, BatchedActorPolicy
 from r2d2_tpu_torch.config import (Config, apex_epsilon,
                                    vector_lane_epsilons)
 from r2d2_tpu_torch.replay.structs import ReplaySpec
+from r2d2_tpu_torch.telemetry.core import NULL_TELEMETRY
 
 
 def _with(block, **fields):
@@ -115,9 +122,11 @@ def make_actor_policy(cfg: Config, net, params, actor_idx: int, seed: int,
 
 def instrument_block_sink(sink: Callable, slot: int, board=None,
                           weight_version: Optional[Callable[[], int]] = None,
-                          lane_base: Optional[int] = None) -> Callable:
-    """Health and provenance around a block sink, one wrapping point for
-    every spawner: the heartbeat (outermost: "reached the sink alive"),
+                          lane_base: Optional[int] = None,
+                          telemetry=None) -> Callable:
+    """Health, telemetry and provenance around a block sink, one wrapping
+    point for every spawner: ``actor/block_emit`` (outermost, the whole
+    call with the queue wait), the heartbeat ("reached the sink alive"),
     then the stamps: ``weight_version()``, the publication the actor acts
     with, and the lane, the loop's lane-relative index offset by
     ``lane_base`` to the fleet's epsilon-ladder position (an unstamped
@@ -139,15 +148,27 @@ def instrument_block_sink(sink: Callable, slot: int, board=None,
             board.beat(slot)
             return _wrapped(block)
         wrapped = sink_with_heartbeat
+    if telemetry is not None and telemetry.enabled:
+        def sink_with_telemetry(block, _wrapped=wrapped):
+            t0 = time.time()
+            try:
+                return _wrapped(block)
+            finally:
+                t1 = time.time()
+                telemetry.observe("actor/block_emit", t1 - t0)
+                telemetry.record_span("actor/block_emit", t0, t1,
+                                      {"slot": slot})
+        wrapped = sink_with_telemetry
     return wrapped
 
 
 def run_actor(cfg: Config, env, policy: ActorPolicy, block_sink: Callable,
               weight_poll: Callable, should_stop: Callable[[], bool],
-              max_env_steps: Optional[int] = None) -> int:
+              max_env_steps: Optional[int] = None, telemetry=None) -> int:
     """Returns the env steps taken. ``block_sink(block)`` ships a finished
     block; ``weight_poll()`` returns fresh weights or None. Owns ``env``
     and closes it on every exit."""
+    tele = telemetry if telemetry is not None else NULL_TELEMETRY
     try:
         spec = actor_spec(cfg)
         lb = LocalBuffer(spec, policy.action_dim, cfg.optim.gamma,
@@ -157,8 +178,12 @@ def run_actor(cfg: Config, env, policy: ActorPolicy, block_sink: Callable,
         lb.reset(obs)
         episode_steps = total_steps = counter = 0
         while not should_stop():
+            t0 = time.perf_counter()
             action, q, hidden = policy.act()
+            t1 = time.perf_counter()
             next_obs, reward, done, _ = env.step(action)
+            tele.observe("actor/forward", t1 - t0)
+            tele.observe("actor/env_step", time.perf_counter() - t1)
             policy.observe(next_obs, action)
             lb.add(action, reward, next_obs, q, hidden)
             episode_steps += 1
@@ -177,9 +202,11 @@ def run_actor(cfg: Config, env, policy: ActorPolicy, block_sink: Callable,
                 block_sink(_with(lb.finish(policy.bootstrap_q()), lane=0))
             counter += 1
             if counter >= cfg.actor.actor_update_interval:
+                t0 = time.perf_counter()
                 params = weight_poll()
                 if params is not None:
                     policy.update_params(params)
+                tele.observe("actor/weight_sync", time.perf_counter() - t0)
                 counter = 0
             if max_env_steps is not None and total_steps >= max_env_steps:
                 break
@@ -194,11 +221,13 @@ def run_actor(cfg: Config, env, policy: ActorPolicy, block_sink: Callable,
 def run_vector_actor(cfg: Config, venv, policy: BatchedActorPolicy,
                      block_sink: Callable, weight_poll: Callable,
                      should_stop: Callable[[], bool],
-                     max_env_steps: Optional[int] = None) -> int:
+                     max_env_steps: Optional[int] = None,
+                     telemetry=None) -> int:
     """The N-lane twin of ``run_actor``: one (N, 1) forward steps every
     lane of a SyncVectorEnv a tick, each lane with its own LocalBuffer, so
     the blocks are those of N scalar actors. Returns the env steps of all
     lanes. Owns ``venv`` and closes it on every exit."""
+    tele = telemetry if telemetry is not None else NULL_TELEMETRY
     try:
         spec = actor_spec(cfg)
         n = venv.num_envs
@@ -213,8 +242,12 @@ def run_vector_actor(cfg: Config, venv, policy: BatchedActorPolicy,
             buffers[i].reset(obs[i])
         total_steps = counter = 0
         while not should_stop():
+            t0 = time.perf_counter()
             actions, qs, hiddens = policy.act()
+            t1 = time.perf_counter()
             next_obs, rewards, dones, infos = venv.step(actions)
+            tele.observe("actor/forward", t1 - t0)
+            tele.observe("actor/env_step", time.perf_counter() - t1)
             # every lane's state first: the bootstrap reads the post-step
             # state, as the scalar loop's observe-then-bootstrap order
             policy.observe(next_obs, actions)
@@ -242,9 +275,11 @@ def run_vector_actor(cfg: Config, venv, policy: BatchedActorPolicy,
             total_steps += n
             counter += n
             if counter >= cfg.actor.actor_update_interval:
+                t0 = time.perf_counter()
                 params = weight_poll()
                 if params is not None:
                     policy.update_params(params)
+                tele.observe("actor/weight_sync", time.perf_counter() - t0)
                 counter = 0
             if max_env_steps is not None and total_steps >= max_env_steps:
                 break

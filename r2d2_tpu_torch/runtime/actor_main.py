@@ -14,7 +14,8 @@ import os
 def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
                        epsilon: float, shm_name: str, queue, stop_event,
                        health_board=None, serve_spec=None,
-                       health_slot=None, total_actors=None) -> None:
+                       health_slot=None, total_actors=None,
+                       telemetry_board=None) -> None:
     """``serve_spec`` (``actor.inference="server"``): the policy server's
     rung, {"transport": "shm", "request_ring", "action_dim", "hidden_dim",
     "reply_slots"} or {"transport": "socket", "host", "port"}; the actor
@@ -22,7 +23,11 @@ def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
     ``health_slot``: the heartbeat board's slot (``actor_idx`` by
     default); ``total_actors``: the fleet the ladder spreads over
     (``actor.num_actors`` by default; a multi-host controller's actors
-    are global actors of every controller's fleet)."""
+    are global actors of every controller's fleet). ``telemetry_board``:
+    the learner's ``TelemetryBoard``, whose slot ``health_slot`` this
+    process's stage timers publish into; its spans go to
+    ``{save_dir}/spans_p{player}_a{actor}.jsonl`` (appended: a respawn
+    keeps its predecessor's)."""
     slot = actor_idx if health_slot is None else health_slot
     # a respawn booting after the parent unlinked the segments exits quietly
     if stop_event.is_set():
@@ -38,6 +43,7 @@ def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
                                                    make_actor_policy)
     from r2d2_tpu_torch.runtime.feeder import put_patient
     from r2d2_tpu_torch.runtime.weights import WeightSubscriber
+    from r2d2_tpu_torch.telemetry.core import Telemetry
 
     cfg = Config.from_dict(cfg_dict)
     seed = cfg.runtime.seed + 10_000 * player_idx + 100 * actor_idx
@@ -79,9 +85,16 @@ def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
                                          should_stop=stop_event.is_set)
     beat = ((lambda: health_board.touch(slot))
             if health_board is not None else None)
+    tele = Telemetry.from_config(cfg, name=f"actor-p{player_idx}-{actor_idx}",
+                                 board=telemetry_board, slot=slot)
+    if tele.enabled:
+        tele.start_drain(os.path.join(
+            cfg.runtime.save_dir or ".",
+            f"spans_p{player_idx}_a{actor_idx}.jsonl"), append=True)
     sink = instrument_block_sink(
-        lambda b: put_patient(queue, b, stop_event.is_set, beat=beat),
-        slot, board=health_board,
+        lambda b: put_patient(queue, b, stop_event.is_set, beat=beat,
+                              telemetry=tele),
+        slot, board=health_board, telemetry=tele,
         # the publication the actor acts with: the subscriber's, or the
         # server's riding each reply
         weight_version=((lambda: policy.weight_version) if sub is None
@@ -90,11 +103,12 @@ def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
     try:
         run_loop(cfg, env, policy, block_sink=sink,
                  weight_poll=sub.poll if sub is not None else (lambda: None),
-                 should_stop=stop_event.is_set)
+                 should_stop=stop_event.is_set, telemetry=tele)
     except Exception:
         if not stop_event.is_set():
             raise       # a served policy raising at shutdown is a clean stop
     finally:
+        tele.close()
         if sub is not None:
             sub.close()
         if serve_channel is not None:

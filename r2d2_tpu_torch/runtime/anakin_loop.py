@@ -43,9 +43,17 @@ Episode counts and returns are summed on the card and read at log time.
 The loop is single-threaded, so given its seeds it is deterministic on
 the CPU; the collect:learn interleave is set by
 ``actor.anakin_scans_per_train`` and the rate limiter.
+
+Telemetry: the loop's own ``Telemetry`` observes ``actor/act_scan`` (a
+segment's launch, with a span) and ``ingest/commit`` (the host's commit of
+the segment's blocks: the ring write itself is in the segment's graph),
+beside the learner's stages; spans drain to
+``{save_dir}/spans_player0.jsonl``, and the profiler's capture triggers
+(telemetry/profiler.py) ride the loop as in the orchestrator's.
 """
 
 import logging
+import os
 import time
 from typing import Callable, Optional
 
@@ -62,6 +70,8 @@ from r2d2_tpu_torch.parallel.sharded import (gather_objects,
                                              init_sharded_act_carry,
                                              make_sharded_anakin_act,
                                              shard_seed)
+from r2d2_tpu_torch.telemetry.core import Telemetry
+from r2d2_tpu_torch.telemetry.profiler import CaptureTriggers
 from r2d2_tpu_torch.telemetry.quant import QuantStats
 from r2d2_tpu_torch.runtime.data_parallel import data_parallel
 from r2d2_tpu_torch.runtime.learner_loop import OP_USER, Learner
@@ -96,6 +106,7 @@ class AnakinStack:
 
     def close(self) -> None:
         self.learner.stop_background()
+        self.metrics.telemetry.close()
         self.metrics.close()
 
 
@@ -214,6 +225,12 @@ def _lead(cfg: Config, device: torch.device, mesh: Optional[Mesh],
     dp = mesh.dp if mesh is not None else 1
     metrics = TrainMetrics(0, cfg.runtime.save_dir,
                            resume=bool(cfg.runtime.resume))
+    telemetry = Telemetry.from_config(cfg, name="anakin-p0")
+    metrics.set_telemetry(telemetry)
+    if telemetry.enabled:
+        telemetry.start_drain(
+            os.path.join(cfg.runtime.save_dir or ".", "spans_player0.jsonl"),
+            append=bool(cfg.runtime.resume))
     parts = _FusedParts(cfg, device, mesh, metrics)
     learner, segment = parts.learner, parts.segment
     if cfg.runtime.snapshot_interval > 0:
@@ -249,18 +266,26 @@ def _lead(cfg: Config, device: torch.device, mesh: Optional[Mesh],
         if mesh is not None:
             learner.command(OP_ACT, 1, wv)
         parts.act(wv)
+        t1 = time.time()
+        telemetry.observe("actor/act_scan", t1 - t0)
+        telemetry.record_span("actor/act_scan", t0, t1,
+                              {"lanes": num_lanes, "steps": seg_steps,
+                               "shards": dp})
         segments += 1
         if (parts.quant and probe_interval > 0
                 and segments % probe_interval == 0):
             probe = segment.probe()
             quant_stats.on_probe(probe["quant_dq"], probe["quant_agree"],
                                  lanes=num_lanes // dp)
+        t_commit = time.time()
         for _ in range(num_lanes):
             learner.ring.advance(seg_steps, wv)
             metrics.on_block(seg_steps, None)
         learner.env_steps += num_lanes * seg_steps
         metrics.set_buffer_size(learner.ring.buffer_steps)
-        metrics.on_ingest_drain(num_lanes, time.time() - t0)
+        t2 = time.time()
+        telemetry.observe("ingest/commit", t2 - t_commit)
+        metrics.on_ingest_drain(num_lanes, t2 - t0)
         segments_since_flush += 1
 
     def flush_stats() -> None:
@@ -293,7 +318,10 @@ def _lead(cfg: Config, device: torch.device, mesh: Optional[Mesh],
     max_steps = max_training_steps or cfg.optim.training_steps
     last_log = start
     final_error = None
+    triggers = CaptureTriggers(cfg.runtime)
     try:
+        triggers.install()
+        triggers.start_first_interval()
         if cfg.runtime.save_interval:
             learner.save(0)
         while ((deadline is None or time.time() < deadline)
@@ -314,6 +342,7 @@ def _lead(cfg: Config, device: torch.device, mesh: Optional[Mesh],
                 if dispatch_hook is not None:
                     dispatch_hook(stack)
             now = time.time()
+            triggers.poll(now, learner.training_steps)
             if now - last_log >= cfg.runtime.log_interval:
                 learner.flush_metrics()
                 flush_stats()
@@ -324,6 +353,7 @@ def _lead(cfg: Config, device: torch.device, mesh: Optional[Mesh],
         learner.flush_metrics()
         flush_stats()
     finally:
+        triggers.uninstall()    # stop a running capture, restore SIGUSR2
         try:
             if cfg.runtime.save_interval:
                 learner.save_final()

@@ -29,18 +29,25 @@ from r2d2_tpu_torch.replay.structs import Block, stack_blocks
 
 
 def put_patient(q, block: Block, should_stop, poll: float = 0.5,
-                beat: Optional[Callable[[], None]] = None) -> bool:
+                beat: Optional[Callable[[], None]] = None,
+                telemetry=None) -> bool:
     """Blocking put that waits out any back-pressure but honors the stop
     signal; False iff stopped before the block was accepted. ``beat``
     (the worker's heartbeat touch) runs once a poll, so a producer parked
     by back-pressure still reads as alive to the hang watchdog.
+    ``telemetry`` observes the wait from entry to acceptance as
+    ``actor/queue_put``, the stage whose tail is the back-pressure.
     Module-level because process actors receive the raw queue, not the
     ``BlockQueue``."""
+    t0 = time.perf_counter()
     while not should_stop():
         if beat is not None:
             beat()
         try:
             q.put(block, timeout=poll)
+            if telemetry is not None:
+                telemetry.observe("actor/queue_put",
+                                  time.perf_counter() - t0)
             return True
         except queue_mod.Full:
             continue
@@ -400,8 +407,10 @@ class BlockQueue:
         self._q.put(block, timeout=timeout)
 
     def put_patient(self, block: Block, should_stop, poll: float = 0.5,
-                    beat: Optional[Callable[[], None]] = None) -> bool:
-        return put_patient(self._q, block, should_stop, poll, beat=beat)
+                    beat: Optional[Callable[[], None]] = None,
+                    telemetry=None) -> bool:
+        return put_patient(self._q, block, should_stop, poll, beat=beat,
+                           telemetry=telemetry)
 
     def drain(self, max_items: int = 16) -> List[Block]:
         """Non-blocking pop of up to ``max_items`` blocks."""

@@ -1,8 +1,19 @@
 """The learner: the train state, the replay, block ingestion with its rate
 limiter, the training gate, one dispatch of learner steps per call, weight
 publication, checkpoints and replay snapshots at interval boundaries, and
-the metrics flush, the JAX package's ``Learner`` without its stage
-telemetry and replay service.
+the metrics flush, the JAX package's ``Learner`` without its replay
+service.
+
+Stage timers and spans (telemetry/core.py; on by default, off with
+``telemetry.enabled=false``) are observed at the JAX package's points:
+``ingest/ring_get``, ``ingest/stage`` and ``ingest/commit`` around
+ingestion, ``learner/sample`` and ``learner/priority_writeback`` in the
+host-placement threads, ``learner/train_dispatch`` around a dispatch's
+launch, ``weights/publish``, ``recovery/snapshot_capture`` and
+``learner/device_sync`` around the flush's one readback. They read the
+host clock around host work and add no synchronisation; nothing is
+observed inside a captured graph. The first flush attaches the one-shot
+``costs`` block (telemetry/costmodel.py) with ``telemetry.costmodel_enabled``.
 
 The learning and replay diagnostics (telemetry/learning.py,
 telemetry/replaydiag.py; ``telemetry.enabled`` with
@@ -106,9 +117,8 @@ import torch.distributed as dist
 
 from r2d2_tpu_torch.config import Config
 from r2d2_tpu_torch.learner.train_step import (create_train_state,
-                                               make_external_batch_step,
-                                               make_learner_step,
-                                               make_multi_learner_step)
+                                               make_dispatch_step,
+                                               make_external_batch_step)
 from r2d2_tpu_torch.models.network import NetworkApply
 from r2d2_tpu_torch.ops.launch_counts import launch_counts
 from r2d2_tpu_torch.parallel.sharded import (gather_objects,
@@ -134,6 +144,7 @@ from r2d2_tpu_torch.runtime.checkpoint import (apply_restore,
                                                save_checkpoint)
 from r2d2_tpu_torch.runtime.metrics import TrainMetrics
 from r2d2_tpu_torch.runtime.supervisor import RESTARTS_ENV
+from r2d2_tpu_torch.telemetry.costmodel import costs_block
 from r2d2_tpu_torch.telemetry.learning import LearningAggregator, LearningDiag
 from r2d2_tpu_torch.telemetry.replaydiag import (ReplayDiag,
                                                  ReplayDiagAggregator)
@@ -288,6 +299,7 @@ class Learner:
         resumed_env_steps = apply_restore(cfg.runtime, self.train_state,
                                           rank=rank)
         self.metrics = metrics or TrainMetrics(player_idx, log_dir=None)
+        self._costs_attached = False
         # the learning and replay diagnostics: the steps' specs, and the
         # host aggregators of their per-dispatch values (rank 0's)
         diag = LearningDiag.from_config(cfg)
@@ -362,14 +374,9 @@ class Learner:
             self.ring = RingAccountant(self.spec.num_blocks)
             self.steps_per_dispatch = \
                 cfg.runtime.resolved_steps_per_dispatch(self.device)
-            if self.steps_per_dispatch > 1:
-                self._step_fn = make_multi_learner_step(
-                    net, self.spec, cfg.optim, use_double,
-                    self.steps_per_dispatch, diag=diag, rdiag=rdiag)
-            else:
-                self._step_fn = make_learner_step(net, self.spec, cfg.optim,
-                                                  use_double, diag=diag,
-                                                  rdiag=rdiag)
+            self._step_fn = make_dispatch_step(
+                net, self.spec, cfg.optim, use_double,
+                self.steps_per_dispatch, diag=diag, rdiag=rdiag)
         self.env_steps = resumed_env_steps
         # data parallel: the shard the next block goes to (rank 0), the
         # blocks written into this rank's shard, the final reports of every
@@ -476,6 +483,12 @@ class Learner:
         self._flush_losses()
         return list(self._flushed_losses)
 
+    @property
+    def tele(self):
+        """The process's Telemetry, read through the metrics each time:
+        the caller may attach it after this Learner was built."""
+        return self.metrics.telemetry
+
     # -- ingestion --
 
     def ingest(self, block: Block) -> None:
@@ -539,10 +552,17 @@ class Learner:
             return 0
         t0 = time.time()
         blocks = queue.drain(max_items)
+        t_get = time.time()
         for blk in blocks:
             self.ingest(blk)
         if blocks:
-            self.metrics.on_ingest_drain(len(blocks), time.time() - t0)
+            t1 = time.time()
+            self.metrics.on_ingest_drain(len(blocks), t1 - t0)
+            tele = self.tele
+            tele.observe("ingest/ring_get", t_get - t0)
+            tele.observe("ingest/commit", t1 - t_get)
+            tele.record_span("ingest/commit", t0, t1,
+                             {"blocks": len(blocks)})
         return len(blocks)
 
     # -- pipelined ingestion: the stager thread and the commit --
@@ -570,6 +590,7 @@ class Learner:
         """One replay_add_many of a staged batch on the current stream,
         after its copy; then the ring, env-step, metric and staged-counter
         accounting the per-block path does block by block."""
+        t_commit = time.time()
         t0 = time.perf_counter()
         staging = self._staging
         if staging.cuda:
@@ -597,7 +618,10 @@ class Learner:
         ms = (time.perf_counter() - t0) * 1e3
         self.ingest_ms["commit"].append(ms)
         self.metrics.on_ingest_commit(ms)
-        self.metrics.on_ingest_drain(k, time.time() - t_pop)
+        now = time.time()
+        self.metrics.on_ingest_drain(k, now - t_pop)
+        self.tele.observe("ingest/commit", now - t_commit)
+        self.tele.record_span("ingest/commit", t_commit, now, {"blocks": k})
         return k
 
     def _stage(self, feeder, want: int) -> bool:
@@ -620,6 +644,7 @@ class Learner:
         if k == 0:
             staging.free.put(slot)
             return False
+        self.tele.observe("ingest/ring_get", time.time() - t_pop)
         learning = stacked.learning_steps.sum(axis=1).astype(np.int64)
         rets = stacked.sum_reward
         wvs = stacked.weight_version
@@ -641,6 +666,9 @@ class Learner:
         ms = (time.perf_counter() - t0) * 1e3
         self.ingest_ms["stage"].append(ms)
         self.metrics.on_ingest_stage(ms)
+        now = time.time()
+        self.tele.observe("ingest/stage", now - t_pop)
+        self.tele.record_span("ingest/stage", t_pop, now, {"blocks": k})
         # a full queue is back-pressure, not staging work: untimed
         while True:
             try:
@@ -862,7 +890,9 @@ class Learner:
                 > prev // rt.weight_publish_interval):
             t0 = time.perf_counter()
             self.publish(self.full_params())
-            self.publish_ms.append((time.perf_counter() - t0) * 1e3)
+            seconds = time.perf_counter() - t0
+            self.publish_ms.append(seconds * 1e3)
+            self.tele.observe("weights/publish", seconds)
         if rt.save_interval and (step // rt.save_interval
                                  > prev // rt.save_interval):
             self.save(step // rt.save_interval)
@@ -874,7 +904,10 @@ class Learner:
 
     def _dispatch(self, uniform: Optional[torch.Tensor] = None) -> dict:
         """One dispatch of learner steps, at most MAX_AHEAD ahead of the
-        card."""
+        card. ``learner/train_dispatch`` times its launch, before the wait
+        that keeps the host within MAX_AHEAD."""
+        prev = self.train_state.step
+        t0 = time.time()
         if self.host_mode:
             if uniform is not None:
                 raise ValueError("host placement samples on the host: no "
@@ -892,6 +925,11 @@ class Learner:
             except Exception:
                 self._mesh_failed = self.mesh is not None
                 raise
+        t1 = time.time()
+        tele = self.tele
+        tele.observe("learner/train_dispatch", t1 - t0)
+        tele.record_span("learner/train_dispatch", t0, t1,
+                         {"k": self.steps_per_dispatch, "step": prev})
         if self.device.type == "cuda":
             done = torch.cuda.Event(blocking=True)
             done.record()
@@ -957,7 +995,9 @@ class Learner:
             return
         t0 = time.perf_counter()
         snap = self._capture_replay()
-        self.snapshot_capture_ms.append((time.perf_counter() - t0) * 1e3)
+        seconds = time.perf_counter() - t0
+        self.snapshot_capture_ms.append(seconds * 1e3)
+        self.tele.observe("recovery/snapshot_capture", seconds)
         self._snap_writer.submit(snap)
         self._snap_adds = self.ring.total_adds
 
@@ -995,7 +1035,16 @@ class Learner:
         diagnostics on, build the record's ``learning`` and
         ``replay_diag`` blocks from the dispatches' values. A non-finite
         step under ``telemetry.nan_policy="halt"`` raises here, after its
-        one forensics dump."""
+        one forensics dump. The first call attaches the one-shot ``costs``
+        block."""
+        if (not self._costs_attached and self.cfg.telemetry.enabled
+                and self.cfg.telemetry.costmodel_enabled):
+            self._costs_attached = True
+            # the resolved compute dtype: the byte counts are this run's
+            self.metrics.set_costs(costs_block(
+                self.cfg, self.net.action_dim,
+                act_bytes=2 if self.net.config.bf16 else 4,
+                device=self.device))
         self._flush_losses()
         if self._learning_agg is not None:
             pub = (int(self.weight_version_fn())
@@ -1014,8 +1063,13 @@ class Learner:
     def _flush_losses(self) -> None:
         if not self._pending_losses:
             return
+        n = len(self._pending_losses)
+        t0 = time.time()
         values = torch.cat([x.reshape(-1).float()
                             for x in self._pending_losses]).tolist()
+        t1 = time.time()
+        self.tele.observe("learner/device_sync", t1 - t0)
+        self.tele.record_span("learner/device_sync", t0, t1, {"losses": n})
         self._pending_losses.clear()
         for loss in values:
             self.metrics.on_train_step(loss)
@@ -1087,6 +1141,7 @@ class Learner:
             cuda = self.device.type == "cuda"
             placer = _BatchPlacer(self.spec, self.device) if cuda else None
             while not self._bg_stop.is_set():
+                t_sample = time.perf_counter()
                 if cuda:
                     with torch.cuda.device(self.device):
                         item = placer.place(self.host_replay, self.timings)
@@ -1099,6 +1154,8 @@ class Learner:
                         name: torch.from_numpy(a)
                         for name, a in batch_fields(batch).items()}),
                         batch.idxes, snapshot, None)
+                self.tele.observe("learner/sample",
+                                  time.perf_counter() - t_sample)
                 while not self._bg_stop.is_set():
                     try:
                         self._prefetch_q.put(item, timeout=0.5)
@@ -1116,10 +1173,13 @@ class Learner:
                         self._writeback_q.get(timeout=0.5)
                 except queue.Empty:
                     continue
+                t0 = time.perf_counter()
                 if ready is not None:
                     ready.synchronize()
                 self.host_replay.update_priorities(
                     idxes, priorities.numpy(), snapshot)
+                self.tele.observe("learner/priority_writeback",
+                                  time.perf_counter() - t0)
                 self._writeback_q.task_done()
         except Exception as e:          # surfaced by _host_step_once
             self._bg_error = e

@@ -1,5 +1,5 @@
-"""Training metrics and logging, the JAX package's ``TrainMetrics``
-without its stage-telemetry blocks: the reference's log lines in
+"""Training metrics and logging, the JAX package's ``TrainMetrics``: the
+reference's log lines in
 ``train_player{p}.log`` (the key strings its plot script matches) and one
 JSON record per log interval in ``metrics_player{p}.jsonl`` with the
 record's core keys (throughput, ingestion, worker health, dropped
@@ -14,7 +14,12 @@ norms by group, the target distance and dQ, sample and occupancy ages,
 non-finite steps; telemetry/learning.py) and a ``replay_diag`` block
 (the sum tree's health, the eviction ledger with the never-sampled
 share, the sampled lanes; telemetry/replaydiag.py), in the JAX package's
-schema. Without them the record is what it was.
+schema. With telemetry on (``telemetry.enabled``, the default) every
+record carries ``stages`` ({stage: {count, p50_ms, p95_ms, p99_ms}} for
+each stage observed in the interval, process actors' through the board;
+telemetry/core.py) and ``telemetry_dropped_spans``, and the first one the
+one-shot ``costs`` block (telemetry/costmodel.py). Without them the
+record is what it was.
 
 ``log_dir=None`` keeps everything in memory: no file is written (what a
 bare ``Learner`` gets).
@@ -81,6 +86,12 @@ class TrainMetrics:
         self._serving: Optional[Callable[[], Optional[dict]]] = None
         self._quant: Optional[Callable[[], dict]] = None
         self._recovery: Optional[Callable[[], Optional[dict]]] = None
+        self._costs: Optional[dict] = None
+        # the process's Telemetry (set_telemetry): its interval summary is
+        # the record's stages block; NULL keeps a bare construction
+        # working with no branch at the call sites
+        from r2d2_tpu_torch.telemetry.core import NULL_TELEMETRY
+        self.telemetry = NULL_TELEMETRY
         # the ingest stager's block (set_ingest_batching): K, the staging
         # queue's depth, and per interval its batches and host ms
         self._ingest_k = 1
@@ -122,6 +133,17 @@ class TrainMetrics:
         """The interval's replay-diagnostics block; emitted once as the
         record's "replay_diag" key, None = none this interval."""
         self._replay_diag = block
+
+    def set_telemetry(self, telemetry) -> None:
+        """The process's Telemetry: log() then emits its interval summary
+        as the ``stages`` block (fleet-wide when an actor board is
+        attached to it)."""
+        self.telemetry = telemetry
+
+    def set_costs(self, block: Optional[dict]) -> None:
+        """The one-shot cost-model block: emitted on one record, then
+        cleared; None = none."""
+        self._costs = block
 
     def set_serving(self, provider: Callable[[], Optional[dict]]) -> None:
         """The policy server's ``serving`` block provider (consumes its
@@ -283,6 +305,12 @@ class TrainMetrics:
         if self._replay_diag is not None:
             record["replay_diag"] = self._replay_diag
             self._replay_diag = None
+        if self._costs is not None:
+            record["costs"] = self._costs
+            self._costs = None
+        if self.telemetry.enabled:
+            record["stages"] = self.telemetry.interval_summary()
+            record["telemetry_dropped_spans"] = self.telemetry.spans.dropped
         if self._serving is not None:
             block = self._serving()
             if block is not None:

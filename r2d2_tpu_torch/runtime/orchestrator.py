@@ -37,10 +37,21 @@ clients: thread actors on in-process channels, process actors over the
 shm request/reply rings or TCP (``serve.transport``). The periodic record
 then has a ``serving`` block, and at a quantized inference dtype a
 ``quant`` block.
+
+Telemetry (telemetry/core.py, on by default): one ``Telemetry`` in this
+process, shared by the learner's threads, thread actors and the server;
+process actors publish their stage timers through a ``TelemetryBoard``
+that the record's ``stages`` block folds in. Spans drain to
+``{save_dir}/spans_player{p}.jsonl`` (process actors: their own
+``spans_p{p}_a{i}.jsonl``). The profiler's capture triggers
+(telemetry/profiler.py: ``runtime.profile_dir``,
+``runtime.profile_at_step``, SIGUSR2) ride the training loop.
 """
 
+import glob
 import logging
 import multiprocessing as mp
+import os
 import signal
 import threading
 import time
@@ -60,6 +71,9 @@ from r2d2_tpu_torch.runtime.feeder import (BlockQueue, HeartbeatBoard,
                                            WorkerHealth, supervise_workers)
 from r2d2_tpu_torch.runtime.learner_loop import Learner
 from r2d2_tpu_torch.runtime.metrics import TrainMetrics
+from r2d2_tpu_torch.telemetry.board import TelemetryBoard
+from r2d2_tpu_torch.telemetry.core import NULL_TELEMETRY, Telemetry
+from r2d2_tpu_torch.telemetry.profiler import CaptureTriggers
 from r2d2_tpu_torch.runtime.weights import (InProcWeightStore,
                                             SnapshotPublisher,
                                             WeightPublisher,
@@ -79,12 +93,14 @@ class ActorPool:
     (parallel/multihost.py). Heartbeat slot i is actor i's.
 
     ``open_threads``/``open_processes`` build the weight service and the
-    queue, ``spawn_actors`` starts one actor a slot; ``close`` (after the
-    stop event is set) reaps them and unlinks every segment."""
+    queue (and for process actors, with ``telemetry`` on, the board they
+    publish their stage timers to), ``spawn_actors`` starts one actor a
+    slot; ``close`` (after the stop event is set) reaps them and unlinks
+    every segment."""
 
     def __init__(self, cfg: Config, net, player_idx: int = 0, *,
                  actor_base: int = 0, total_actors: Optional[int] = None,
-                 quant_stats=None):
+                 quant_stats=None, telemetry=None):
         self.cfg = cfg
         self.net = net
         self.player_idx = player_idx
@@ -92,6 +108,9 @@ class ActorPool:
         self.actor_base = actor_base
         self.total_actors = total_actors or self.n_slots
         self.quant_stats = quant_stats
+        self.telemetry = telemetry if telemetry is not None \
+            else NULL_TELEMETRY
+        self.tele_board: Optional[TelemetryBoard] = None
         self.threads: List[threading.Thread] = []
         self.processes: List[mp.Process] = []
         self._seen_dead: set = set()
@@ -130,6 +149,10 @@ class ActorPool:
             shm_spec=shm_spec if cfg.runtime.shm_transport else None)
         if cfg.runtime.shm_transport:
             self.segment_names.append(self.queue._q.name)
+        if self.telemetry.enabled:
+            self.tele_board = TelemetryBoard(self.n_slots)
+            self.segment_names.append(self.tele_board.name)
+            self.telemetry.attach_board(self.tele_board)
         self._stop = stop_event
 
     def publication(self):
@@ -172,10 +195,12 @@ class ActorPool:
             serve_stats=self.serve_stats, should_stop=should_stop,
             quant_stats=self.quant_stats)
         self.heartbeats.reset_slot(i)
+        tele = self.telemetry
         sink = instrument_block_sink(
             lambda b: self.queue.put_patient(
-                b, should_stop, beat=lambda: self.heartbeats.touch(i)),
-            i, board=self.heartbeats,
+                b, should_stop, beat=lambda: self.heartbeats.touch(i),
+                telemetry=tele),
+            i, board=self.heartbeats, telemetry=tele,
             # served: the server's publication, riding each reply
             weight_version=((lambda: policy.weight_version) if served
                             else (lambda: self.store.reader_version(i))),
@@ -186,7 +211,7 @@ class ActorPool:
                 run_loop(cfg, env, policy, block_sink=sink,
                          weight_poll=((lambda: None) if served
                                       else (lambda: self.store.poll(i))),
-                         should_stop=should_stop)
+                         should_stop=should_stop, telemetry=tele)
             except Exception:
                 if not should_stop():
                     raise
@@ -206,13 +231,17 @@ class ActorPool:
         eps = apex_epsilon(gidx, self.total_actors, cfg.actor.base_eps,
                            cfg.actor.eps_alpha)
         self.heartbeats.reset_slot(i)
+        if self.tele_board is not None:
+            # a fresh incarnation's cumulative counts start at zero
+            self.tele_board.reset_slot(i)
         p = self._ctx.Process(
             target=actor_process_main,
             args=(cfg.to_dict(), self.player_idx, gidx, eps,
                   self.publisher.name, self.queue._q, self._stop),
             kwargs={"health_board": self.heartbeats, "health_slot": i,
                     "total_actors": self.total_actors,
-                    "serve_spec": self._serve_spec},
+                    "serve_spec": self._serve_spec,
+                    "telemetry_board": self.tele_board},
             daemon=True, name=f"actor-p{self.player_idx}-{gidx}")
         p.start()
         return p
@@ -266,6 +295,29 @@ class ActorPool:
         if self.queue is not None:
             self.queue.close()
         self.heartbeats.close()
+        if self.tele_board is not None:
+            self.tele_board.close()
+
+
+def start_span_drain(telemetry, save_dir: str, own: str, actor_files,
+                     resume: bool) -> None:
+    """Start ``telemetry``'s drain into ``{save_dir}/{own}``; a fresh run
+    first removes an earlier run's actor span files there, those the glob
+    patterns ``actor_files`` match (process actors append, so that a
+    respawn keeps its predecessor's spans: this is the one place that
+    clears them)."""
+    if not telemetry.enabled:
+        return
+    save_dir = save_dir or "."
+    if not resume:
+        stale_files = [path for pattern in actor_files
+                       for path in glob.glob(os.path.join(save_dir, pattern))]
+        for stale in stale_files:
+            try:
+                os.remove(stale)
+            except OSError:
+                pass
+    telemetry.start_drain(os.path.join(save_dir, own), append=resume)
 
 
 class PlayerStack(ActorPool):
@@ -278,6 +330,10 @@ class PlayerStack(ActorPool):
                            cfg.env.frame_height, cfg.env.frame_width, device)
         self.metrics = TrainMetrics(player_idx, cfg.runtime.save_dir,
                                     resume=bool(cfg.runtime.resume))
+        # one Telemetry for this process, attached before the learner is
+        # built so that none of its observations is lost
+        telemetry = Telemetry.from_config(cfg, name=f"learner-p{player_idx}")
+        self.metrics.set_telemetry(telemetry)
         self.learner = Learner(cfg, net, player_idx=player_idx,
                                metrics=self.metrics, mesh=mesh)
         if cfg.runtime.snapshot_interval > 0:
@@ -290,7 +346,8 @@ class PlayerStack(ActorPool):
             quant_stats = QuantStats(cfg.network.inference_dtype,
                                      cfg.telemetry.quant_probe_interval)
             self.metrics.set_quant(quant_stats.interval_block)
-        super().__init__(cfg, net, player_idx, quant_stats=quant_stats)
+        super().__init__(cfg, net, player_idx, quant_stats=quant_stats,
+                         telemetry=telemetry)
         self._stall = IngestStallDetector(cfg.runtime.ingest_stall_timeout_s)
         self.snapshots: Optional[SnapshotPublisher] = None
         # the publish-time quantizer (None at "f32")
@@ -308,6 +365,10 @@ class PlayerStack(ActorPool):
             self.metrics.set_serving(lambda: self.serve_stats.interval_block(
                 deadline_ms=cfg.serve.deadline_ms,
                 max_batch=cfg.serve.max_batch))
+        start_span_drain(telemetry, cfg.runtime.save_dir,
+                         f"spans_player{player_idx}.jsonl",
+                         [f"spans_p{player_idx}_a*.jsonl"],
+                         bool(cfg.runtime.resume))
 
     def _initial_payload(self):
         """The weight service's first publication: the learner's module,
@@ -334,7 +395,8 @@ class PlayerStack(ActorPool):
             self.cfg, self.net, self.learner.full_params(),
             endpoint=self.serve_endpoint, weight_poll=weight_poll,
             weight_version=weight_version, stats=self.serve_stats,
-            client_timed=client_timed, quant_stats=self.quant_stats).start()
+            client_timed=client_timed, quant_stats=self.quant_stats,
+            telemetry=self.telemetry).start()
 
     # -- thread actors --
 
@@ -446,6 +508,7 @@ class PlayerStack(ActorPool):
             self._serve_transport.close()
         if self._serve_sub is not None:
             self._serve_sub.close()
+        self.telemetry.close()      # the drain thread, the final flush
         self.metrics.close()
 
 
@@ -501,6 +564,7 @@ def _lead(cfg: Config, device, mesh, action_dim: int, max_training_steps,
     prev_handlers = {}
     st: Optional[PlayerStack] = None
     final_error: Optional[Exception] = None
+    triggers = CaptureTriggers(cfg.runtime)
     try:
         if threading.current_thread() is threading.main_thread():
             def _on_signal(signum, frame):
@@ -517,6 +581,8 @@ def _lead(cfg: Config, device, mesh, action_dim: int, max_training_steps,
                     prev_handlers[sig] = signal.signal(sig, _on_signal)
                 except (ValueError, OSError):
                     pass
+        # SIGUSR2's flag handler (main thread only; restored in finally)
+        triggers.install()
 
         st = PlayerStack(cfg, 0, action_dim, device, mesh=mesh)
         if actor_mode == "thread":
@@ -552,6 +618,8 @@ def _lead(cfg: Config, device, mesh, action_dim: int, max_training_steps,
                 dispatch_hook(st)
             supervise_if_due()
             now = time.time()
+            # end a capture's window, fire profile_at_step, serve SIGUSR2
+            triggers.poll(now, learner.training_steps)
             if now - last_log >= cfg.runtime.log_interval:
                 learner.flush_metrics()
                 record = st.metrics.log(now - last_log)
@@ -559,11 +627,14 @@ def _lead(cfg: Config, device, mesh, action_dim: int, max_training_steps,
                     log_fn({"player": st.player_idx, **record})
                 last_log = now
 
-        # the step-0 checkpoint, then drain and train
+        # the profile_dir capture of the first interval; then the step-0
+        # checkpoint, drain and train
+        triggers.start_first_interval()
         learner.run(st.queue, should_stop,
                     max_training_steps or cfg.optim.training_steps,
                     on_dispatch=on_dispatch)
     finally:
+        triggers.uninstall()    # stop a running capture, restore SIGUSR2
         stop.set()
         if st is not None:
             try:

@@ -41,7 +41,11 @@ runs 0.4% of the time.
 
 ``ServingStats`` gathers request latency and batch fill on the shared
 64-bucket log histogram (telemetry/histogram.py) and the client churn:
-the periodic record's ``serving`` block.
+the periodic record's ``serving`` block. With a ``telemetry``
+(telemetry/core.py) each dispatch observes ``serve/batch_wait`` (the
+oldest request's wait), ``serve/enqueue`` (each request's), and around
+the replay ``serve/forward`` and ``serve/reply`` (with spans): host time
+around the graph's replay, whose readback the forward already waits for.
 """
 
 import logging
@@ -54,6 +58,7 @@ import numpy as np
 import torch
 
 from r2d2_tpu_torch.serve.state_cache import MisroutedClient, StateCache
+from r2d2_tpu_torch.telemetry.core import NULL_TELEMETRY
 from r2d2_tpu_torch.serve.transport import (KIND_DISCONNECT, KIND_STEP, Reply,
                                             Request, STATUS_EXPIRED,
                                             STATUS_OK, STATUS_RETRY)
@@ -318,7 +323,8 @@ class PolicyServer:
     and ``publish_count``). ``client_timed=True``: in-process clients feed
     the latency histogram themselves (round trip with queueing and
     retries), so the server does not. ``device``: the server's device
-    (default: ``net``'s)."""
+    (default: ``net``'s). ``telemetry``: where the ``serve/*`` stages go
+    (none by default)."""
 
     def __init__(self, cfg, net, params, *, endpoint,
                  weight_poll: Optional[Callable] = None,
@@ -326,7 +332,8 @@ class PolicyServer:
                  stats: Optional[ServingStats] = None,
                  client_timed: bool = False, warmup: Optional[bool] = None,
                  quant_stats=None, cache=None,
-                 queue_depth_bound: Optional[int] = None, device=None):
+                 queue_depth_bound: Optional[int] = None, device=None,
+                 telemetry=None):
         from r2d2_tpu_torch.actor.policy import (InferenceTwin, as_bundle,
                                                  make_forward_fn)
         sv = cfg.serve
@@ -338,6 +345,8 @@ class PolicyServer:
         self._weight_version_fn = weight_version
         self.weight_version = int(weight_version()) if weight_version else 0
         self.stats = stats if stats is not None else ServingStats()
+        self.telemetry = (telemetry if telemetry is not None
+                          else NULL_TELEMETRY)
         self._client_timed = client_timed
         self.endpoint = endpoint
         self.queue_depth_bound = (sv.queue_depth_bound
@@ -645,6 +654,10 @@ class PolicyServer:
 
     def _dispatch(self, batch: list) -> None:
         now = time.monotonic()
+        tele = self.telemetry
+        tele.observe("serve/batch_wait", max(now - batch[0][0].t_recv, 0.0))
+        for req, _cb in batch:
+            tele.observe("serve/enqueue", max(now - req.t_recv, 0.0))
         self.stats.on_requests(len(batch))
         live: List[Tuple[Request, Callable, int]] = []
         cache = self.cache
@@ -700,7 +713,14 @@ class PolicyServer:
             return
         fill = len(live)
         bucket = next(b for b in self.buckets if b >= fill)
+        t0 = time.perf_counter()
         actions, q, h = self._forward(bucket, [slot for _, _, slot in live])
+        t1 = time.perf_counter()
+        tele.observe("serve/forward", t1 - t0)
+        if tele.spans.enabled:
+            wall = time.time()
+            tele.record_span("serve/forward", wall - (t1 - t0), wall,
+                             {"fill": fill})
         reply_t = time.monotonic()
         for i, (req, cb, slot) in enumerate(live):
             if req.kind == KIND_STEP:
@@ -715,6 +735,11 @@ class PolicyServer:
                 self.stats.on_request_latency(lat)
             if self.stats.admission_enabled:
                 self.stats.on_admitted_latency(lat)
+        reply_s = time.perf_counter() - t1
+        tele.observe("serve/reply", reply_s)
+        if tele.spans.enabled:
+            wall = time.time()
+            tele.record_span("serve/reply", wall - reply_s, wall)
         self.stats.on_replies(fill)
         self.rows_served += fill
         self.stats.on_batch(

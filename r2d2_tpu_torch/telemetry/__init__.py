@@ -1,6 +1,8 @@
 """The port's telemetry: the shared log histogram (host and device), the
-learning and replay diagnostics (``learning``, ``replaydiag``) and the
-quantized inference probe's aggregator."""
+stage timers and their publication (``core``, ``spans``, ``board``),
+``torch.profiler`` captures (``profiler``), the analytic cost model
+(``costmodel``), the learning and replay diagnostics (``learning``,
+``replaydiag``) and the quantized inference probe's aggregator."""
 
 from r2d2_tpu_torch.telemetry.quant import QuantStats
 

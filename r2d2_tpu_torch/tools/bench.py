@@ -10,8 +10,9 @@ blocks, a 0.83 GB ring) and filled with synthetic blocks
 (``replay/synthetic.py``, 18 actions). Paths (``PATHS``): default (single
 DQN, Python LSTM loop), double (double DQN, loop), fused_double (double
 DQN, ``network.pallas_lstm="on"``) and fused (single DQN, the fused
-scan), each at K learner steps per dispatch (``runtime.steps_per_dispatch``;
-K > 1 is one CUDA graph of K steps); and host, the fused configuration
+scan), each at K learner steps per dispatch (``runtime.steps_per_dispatch``:
+one CUDA graph of K steps, K = 1 too, built as the ``Learner`` builds its
+dispatch); and host, the fused configuration
 under ``replay.placement="host"``: a ``Learner`` whose replay is in host
 memory (the same blocks), one external-batch step a dispatch (one CUDA
 graph of one step) fed by its prefetch thread. Every cell trains from its
@@ -33,11 +34,13 @@ the host path the prefetch thread's sample ms (host clock) and copy ms
 Peak GB is the replay ring (on the device) plus the most
 the cell's state, steps and graph held at once
 (``torch.cuda.max_memory_allocated`` while it was built and warmed up).
-From the medians it picks what "auto" resolves to on CUDA
+From the medians it picks what "auto" would resolve to on CUDA
 (``config.CUDA_AUTO``), each by a pair measured in this call: K, the
 fewest steps per dispatch whose mean speed-up over K=1 across paths is
 within 1% of the best; and ``network.pallas_lstm``, fused against default
-at that K. The host path takes no part in the choices.
+at that K. The host path takes no part in the choices. With K=1 a graph
+too, the K cells tie at the reference shape and the K named is 1, while
+``CUDA_AUTO`` keeps 4 for the loops' sake (config.py says why).
 
 Prints the card's name and power limit (``nvidia-smi``), a line per cell,
 and last one JSON line with every cell and the choices (``--out``: also
@@ -107,21 +110,23 @@ def synthetic_blocks(cfg, count: int, seed: int = 0):
 
 
 def build_learner_step(cfg, device, spec, steps_per_dispatch: int = 1,
-                       seed: int = 0):
-    """(train_state, step): the single step for K = 1, else the K-step
-    dispatch (a CUDA graph of K steps on the card)."""
+                       seed: int = 0, eager: bool = False):
+    """(train_state, step): the Learner's dispatch of K steps
+    (``make_dispatch_step``: one CUDA graph of K steps on the card, K = 1
+    too); ``eager``: the eager single step (``make_learner_step``), the
+    reference a graph is held against."""
     from r2d2_tpu_torch.learner.train_step import (create_train_state,
-                                                   make_learner_step,
-                                                   make_multi_learner_step)
+                                                   make_dispatch_step,
+                                                   make_learner_step)
     from r2d2_tpu_torch.models.network import NetworkApply
     net = NetworkApply(ACTION_DIM, cfg.network, cfg.env.frame_stack,
                        cfg.env.frame_height, cfg.env.frame_width, device)
     ts = create_train_state(net, cfg.optim, seed, cfg.network.use_double)
     use_double = cfg.network.use_double
-    if steps_per_dispatch > 1:
-        return ts, make_multi_learner_step(net, spec, cfg.optim, use_double,
-                                           steps_per_dispatch)
-    return ts, make_learner_step(net, spec, cfg.optim, use_double)
+    if eager:
+        return ts, make_learner_step(net, spec, cfg.optim, use_double)
+    return ts, make_dispatch_step(net, spec, cfg.optim, use_double,
+                                  steps_per_dispatch)
 
 
 def path_ks(label: str):
@@ -210,8 +215,7 @@ class Cell:
             self.ts = self.learner.train_state
         else:
             self.ts, self.step = build_learner_step(cfg, device, spec, k)
-        # warm-up: K = 1 three steps; a graph its eager dispatch, its
-        # capture and one replay
+        # warm-up: a graph's eager dispatch, its capture and one replay
         self.losses = []
         for _ in range(3):
             self.losses.append(self.dispatch(rs))

@@ -482,8 +482,8 @@ def test_learning_config_fields_checks_and_gating():
                              ("nan_policy", "stop", "nan_policy")):
         with pytest.raises(ValueError, match=word):
             cfg.replace(**{f"telemetry.{key}": value})
-    for name in ("spans", "ring_size", "resources_enabled",
-                 "costmodel_enabled", "compile_enabled"):
+    for name in ("alerts_enabled", "fleet_enabled", "resources_enabled",
+                 "tracing_enabled", "compile_enabled"):
         with pytest.raises(SystemExit, match="A.7"):
             parse_overrides(cfg, [f"--telemetry.{name}=1"])
 

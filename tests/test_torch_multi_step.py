@@ -181,6 +181,60 @@ def test_dispatch_equals_single_steps_exactly(use_double):
     assert ts_a.step == ts_b.step == K
 
 
+@pytest.mark.parametrize("telemetry", [False, True])
+def test_learner_dispatch_at_k1_is_the_single_step_exactly(telemetry):
+    """The Learner's one factory (``make_dispatch_step``) at K = 1 keeps
+    the single step's contract and values: from the same seed and blocks,
+    a Learner's dispatches equal ``make_learner_step``'s steps bit for bit
+    (losses, every metric and its shape, params, tree), with and without
+    the diagnostics' interval steps; the K = 1 dispatch is held as
+    ``multi``, and at K > 1 the factory returns that dispatch itself. The
+    bench builds the same dispatch, or the eager single step on request."""
+    from r2d2_tpu_torch.learner.train_step import make_dispatch_step
+    from r2d2_tpu_torch.telemetry.learning import LearningDiag
+    from r2d2_tpu_torch.telemetry.replaydiag import ReplayDiag
+    from r2d2_tpu_torch.tools import bench
+    cfg = parse_overrides(Config(), TINY_ARGS + [
+        "--runtime.steps_per_dispatch=1",
+        f"--telemetry.enabled={str(telemetry).lower()}",
+        "--telemetry.learning_interval=3",
+        "--telemetry.replay_diag_interval=2"])
+    net = NetworkApply(6, cfg.network, cfg.env.frame_stack,
+                       cfg.env.frame_height, cfg.env.frame_width, "cpu")
+    dispatched, single = Learner(cfg, net), Learner(cfg, net)
+    assert callable(dispatched._step_fn.multi)
+    single._step_fn = make_learner_step(
+        net, single.spec, cfg.optim, cfg.network.use_double,
+        diag=LearningDiag.from_config(cfg), rdiag=ReplayDiag.from_config(cfg))
+    for block in synthetic_blocks(dispatched.spec, 6, seed=1):
+        block.last_action_row = block.last_action_row % 6
+        block.action = block.action % 6
+        dispatched.ingest(block)
+        single.ingest(block)
+    for i in range(6):
+        uniform = (torch.rand(cfg.replay.batch_size,
+                              generator=torch.Generator().manual_seed(i))
+                   if i % 2 else None)
+        got, want = dispatched.step(uniform), single.step(uniform)
+        assert set(got) == set(want)
+        for name in want:
+            assert got[name].shape == want[name].shape, name
+            assert torch.equal(got[name], want[name]) or (
+                torch.isnan(want[name]).all()
+                and torch.isnan(got[name]).all()), name
+    for x, y in zip(dispatched.train_state.params.state_dict().values(),
+                    single.train_state.params.state_dict().values()):
+        assert torch.equal(x, y)
+    assert torch.equal(dispatched.replay_state.tree, single.replay_state.tree)
+    assert dispatched.training_steps == single.training_steps == 6
+    spec = dispatched.spec
+    multi = make_dispatch_step(net, spec, cfg.optim, False, 4)
+    assert not hasattr(multi, "multi")
+    _, step = bench.build_learner_step(cfg, "cpu", spec)
+    _, eager = bench.build_learner_step(cfg, "cpu", spec, eager=True)
+    assert callable(step.multi) and not hasattr(eager, "multi")
+
+
 def test_runtime_and_unroll_settings():
     """--runtime.steps_per_dispatch parses; -1 resolves to 1 on the CPU and
     to the bench's winner on CUDA; prefetch_batches,
@@ -372,9 +426,11 @@ def test_graph_refuses_moved_state():
 def test_bench_choices_follow_its_pairs():
     """tools/bench.py's choices for "auto" on CUDA: the fewest steps a
     dispatch within 1% of the best mean speed-up over K=1, the fused scan
-    iff it beats the loop (single DQN) at that K; the config holds what
-    the committed bench run chose, and fused_double_unroll off. The host
-    path (K = 1 only) takes no part, however fast."""
+    iff it beats the loop (single DQN) at that K; the config holds the
+    fused scan the committed bench run chose, K=4 (which that run ties
+    with K=1: config.py's CUDA_AUTO says why it stays) and
+    fused_double_unroll off. The host path (K = 1 only) takes no part,
+    however fast."""
     from r2d2_tpu_torch.tools import bench
     assert set(bench.PATHS) == {"default", "double", "fused_double",
                                 "fused", "host"}

@@ -90,7 +90,10 @@ def test_end_to_end_process_mode(tmp_path, placement):
     assert len(st.processes) == cfg.actor.num_actors
     assert not any(p.is_alive() for p in st.processes), "orphan actors"
     assert [p.exitcode for p in st.processes] == [0, 0]
-    assert len(st.segment_names) == 3 and not _gone(st.segment_names)
+    # the heartbeat board, the weight segment, the ring and (telemetry on
+    # by default) the telemetry board
+    assert len(st.segment_names) == 4 and not _gone(st.segment_names)
+    assert st.tele_board.name in st.segment_names
     if placement == "host":
         assert st.learner.host_replay is not None
         assert not st.learner._bg_threads
