@@ -317,7 +317,36 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      board; ``actor/act_scan``; ``serve/*``; rank 1's host rows in
      ``telemetry_host1.jsonl``), the first record's ``costs`` block and
      that every span file parses.
-     The script's total time is printed.
+ 16. the resource, compile and alert planes, tracing and the roofline
+     (telemetry/resources.py, compile.py, alerts.py, tracing.py,
+     traceparse.py, scopes.py; tools/roofline.py). Phases 6, 8, 9(e),
+     12(c) and 15(c)'s planes arm check their records' ``resources`` and
+     ``alerts`` blocks (_check_health_records): the device entry names
+     this card with bytes in use and a headroom in (0, 1), the buffers
+     hold the train state, the replay ring (and the acting carry, the
+     serving graphs) with the bytes their tensors hold, the compile
+     sub-block counted the run's graph captures with no retrace after
+     warm-up (the serving buckets' coverage complete in 9e), no crit
+     alert fired, the alert stream written (rank 1's own in
+     ``alerts_host1.jsonl``). (a) inside 15(b)'s run, whose headroom
+     floors are forced to 0.999: ``hbm_headroom`` fires once and the one
+     forensics dump holds the record's buffers; (b) a serving graph
+     captured again at RETRACE_NEW buckets after ``mark_warm``: counted as
+     retraces, ``retrace_storm`` fires once; (c) served training with
+     tracing on, every exchange and block traced, TRACED_SECONDS: every
+     hop of the serving block's ``trace`` sub-block seen, the ring
+     accountant's slot mirrors stamped; (d) 15(a)'s capture attributed to
+     components through an eager profile of the same step (>= 80% of its
+     device time), the learner step's FLOPs counted on the card with the
+     kernels on within 5% of model_flops_per_step, and the roofline table
+     over them printed with the card's name and power limit; (e) the
+     planes' cost on top of the stage timers (15c's third arm) and the
+     component scopes' cost on the eager step. Phase 10(b) splits its
+     launch-to-first-snapshot seconds by part from the killed child's
+     spans (``startup/*``, the dispatches) and the snapshot's manifest;
+     phase 13(a) runs again in f32 beside the bf16 one, its distances
+     printed, not held (ROADMAP C.5).
+     The script's total time is printed beside its budget, BUDGET_S.
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
 The last line is {"ok": true, "device": {...}}. ``--profile`` adds a
@@ -337,10 +366,12 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+BUDGET_S = 1120.0                  # the whole script's share of 1,200 s
 # H100 SXM dense peaks by input type: bf16 on the tensor cores, f32 off them
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCES = {"replay_kernels": "r2d2_tpu_torch/csrc/replay_kernels.cu",
@@ -2031,6 +2062,92 @@ def _check_stage_records(records, label: str, want, spans=(),
     return {"stage_counts": counts, "spans": read}
 
 
+def _state_bytes(train_state=None, replay_state=None, carry=None) -> dict:
+    """The bytes a run's buffers hold, summed here from their tensors
+    (each counted once): what the records' ``buffers`` must name."""
+    import dataclasses
+    import torch
+
+    def total(tensors) -> int:
+        return sum({(t.data_ptr(), t.nbytes): t.nbytes
+                    for t in tensors}.values())
+    out = {}
+    if train_state is not None:
+        ts = train_state
+        tensors = [*ts.params.parameters(), *ts.params.buffers(),
+                   *ts.target_params.parameters(), ts.step_count]
+        for state in ts.opt.state.values():
+            tensors += [v for v in state.values() if torch.is_tensor(v)]
+        out["p0/train_state"] = total(tensors)
+    if replay_state is not None:
+        out["p0/replay_ring"] = total(
+            t for t in vars(replay_state).values() if torch.is_tensor(t))
+    if carry is not None:
+        tensors = []
+        for f in dataclasses.fields(carry):
+            v = getattr(carry, f.name)
+            if dataclasses.is_dataclass(v):
+                tensors += [getattr(v, g.name) for g in dataclasses.fields(v)
+                            if torch.is_tensor(getattr(v, g.name))]
+            elif torch.is_tensor(v):
+                tensors.append(v)
+        out["p0/anakin_carry"] = total(tensors)
+    return out
+
+
+def _check_health_records(records, label: str, buffers=None,
+                          alerts_path=None, captures: bool = True,
+                          names=(), noisy=()) -> dict:
+    """Records with the resources plane on (the default): every one
+    carries ``resources`` and ``alerts``; its device entry names this
+    card with bytes in use and a headroom in (0, 1); no crit alert fires;
+    the newest record's buffers hold ``buffers`` ({name: bytes}) exactly
+    and ``names`` at all; the compile sub-block counted the graphs the
+    run captured (``captures``: gloo ranks run eagerly) with no retrace
+    after warm-up; the alert stream exists. ``noisy``: crit rules whose
+    firings a run's record cadence makes noise of (printed, not held).
+    Returns what the run's records say."""
+    import torch
+    kind = torch.cuda.get_device_name(0)
+    check(records and all("resources" in r and "alerts" in r
+                          for r in records),
+          f"{label}: a record without the resources or alerts block")
+    fired = []
+    for r in records:
+        devs = r["resources"]["devices"]
+        check(len(devs) == 1 and devs[0].get("kind") == kind
+              and devs[0].get("bytes_in_use", 0) > 0
+              and 0 < devs[0].get("headroom_frac", 0) < 1,
+              f"{label}: the device entry {devs}")
+        fired += r["alerts"]["fired"]
+    crit = [a for a in fired
+            if a["severity"] == "crit" and a["rule"] not in noisy]
+    check(not crit, f"{label}: crit alerts fired: {crit}")
+    last = records[-1]["resources"]
+    for name, nbytes in (buffers or {}).items():
+        check(last["buffers"].get(name) == nbytes,
+              f"{label}: buffer {name} {last['buffers'].get(name)}, its "
+              f"tensors hold {nbytes}")
+    for name in names:
+        check(last["buffers"].get(name, 0) > 0,
+              f"{label}: no buffer {name} in {last['buffers']}")
+    comp = last["compile"]
+    compiles = sum(r["resources"]["compile"]["compiles"] for r in records)
+    check(comp["retraces_total"] == 0 and comp["warm"]
+          and (compiles > 0 or not captures),
+          f"{label}: compile block {comp}, {compiles} captures counted")
+    if alerts_path is not None:
+        check(os.path.exists(alerts_path), f"{label}: no {alerts_path}")
+    return {"headroom_min": min(r["resources"]["hbm_headroom_frac_min"]
+                                for r in records),
+            "bytes_in_use_last": last["devices"][0]["bytes_in_use"],
+            "buffers": last["buffers"], "captures": compiles,
+            "capture_s": comp["compile_time_s_total"],
+            "late_captures": comp["late_compiles"],
+            "aot": comp.get("aot"),
+            "alerts_fired": sorted({a["rule"] for a in fired})}
+
+
 def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
     """cli.train on the card for ORCH_SECONDS with ``mode`` actors at the
     reference widths (see the module docstring, phase 6). Returns (the
@@ -2055,6 +2172,7 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
             if n == 1:
                 state["step0_written"] = os.path.exists(step0)
                 state["warmup_s"] = time.perf_counter() - state["launched"]
+                state["stack"] = stack
                 learner = stack.learner
                 for obj, name in ((learner, "drain"), (learner, "_step_fn"),
                                   (learner, "publish"), (learner, "save"),
@@ -2082,6 +2200,9 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
                                 == (steps + span) // ORCH_SAVE_INTERVAL,
                                 steps)
 
+        # the card's headroom is read as the records report it: the
+        # earlier phases' cached blocks go back first
+        torch.cuda.empty_cache()
         try:
             state["launched"] = time.perf_counter()
             state["close"] = state["launched"] + ORCH_SECONDS - END_MARGIN_S
@@ -2139,6 +2260,11 @@ def phase_orchestrated(dev, mode, extra, label, k, evaluate=False):
                            for i in range(actor.num_actors)]
         report["telemetry"] = _check_stage_records(
             records, f"cli.train {label}", ORCH_STAGES, span_files)
+        learner = state["stack"].learner
+        report["health"] = _check_health_records(
+            records, f"cli.train {label}",
+            _state_bytes(learner.train_state, learner.replay_state),
+            os.path.join(save_dir, "alerts_player0.jsonl"))
         check(summary["actors_alive"] == 0, "an actor is still running")
         if mode == "process":
             check(summary["actor_exitcodes"] == [0, 0],
@@ -2536,6 +2662,7 @@ def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float,
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_anakin_") as d:
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         # what the run itself held at most, above what earlier phases left
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2556,6 +2683,12 @@ def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float,
         telemetry = _check_stage_records(
             records, f"cli.train on-device {label}", ANAKIN_STAGES,
             [os.path.join(d, "spans_player0.jsonl")])
+        fused = state["stack"]
+        health = _check_health_records(
+            records, f"cli.train on-device {label}",
+            _state_bytes(fused.learner.train_state,
+                         fused.learner.replay_state, fused.segment.carry),
+            os.path.join(d, "alerts_player0.jsonl"))
     check("window" in state and "end" in state, f"cli.train on-device: "
           f"only {state['calls']} dispatches")
     stack = state["stack"]
@@ -2600,6 +2733,7 @@ def phase_anakin_train(dev, k, bench_fused: float, segment_ms: float,
     report["diagnostics"] = _check_diag_records(
         records, f"cli.train on-device {label}", ANAKIN_LANES)
     report["telemetry"] = telemetry
+    report["health"] = health
     if stack.twin_ms:
         report["twin_adoptions"] = len(stack.twin_ms)
         report["twin_ms_median"] = statistics.median(stack.twin_ms)
@@ -3082,12 +3216,17 @@ def phase_served_train(dev, k, bench_default: float) -> dict:
     batch = Config().replay.batch_size
     marks = []
 
+    stacks = []
+
     def hook(stack):
+        if not stacks:
+            stacks.append(stack)
         marks.append((time.perf_counter(), stack.learner.training_steps,
                       stack.learner.env_steps))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_served_") as d:
         _reset_counts()
+        torch.cuda.empty_cache()
         summary = train.main(SERVED_TRAIN_ARGS + [
             f"--max-seconds={SERVED_TRAIN_SECONDS}",
             f"--runtime.save_dir={d}"], dispatch_hook=hook)
@@ -3098,6 +3237,14 @@ def phase_served_train(dev, k, bench_default: float) -> dict:
         telemetry = _check_stage_records(
             records, "served training", SERVE_STAGES + ORCH_STAGES[2:],
             [os.path.join(d, "spans_player0.jsonl")])
+        learner = stacks[0].learner
+        health = _check_health_records(
+            records, "served training",
+            _state_bytes(learner.train_state, learner.replay_state),
+            os.path.join(d, "alerts_player0.jsonl"), names=("serve/graphs",))
+        aot = [r["resources"]["compile"].get("aot") for r in records]
+        check(all(a is not None and not a["missing"] for a in aot),
+              f"served training: the serving buckets' coverage {aot[-1:]}")
     check(summary["device"].startswith("cuda"), "served training off cuda")
     check(summary["steps"] > 0 and all(math.isfinite(x)
                                         for x in summary["losses"]),
@@ -3119,7 +3266,8 @@ def phase_served_train(dev, k, bench_default: float) -> dict:
           f"{served['forward_ms_by_bucket']}; last serving latency "
           f"{blocks[-1]['latency']}, fill {blocks[-1]['batch']['fill_mean']}"
           f"; quant {records[-1].get('quant')}; launches {counted}; "
-          f"telemetry {json.dumps(telemetry)}", flush=True)
+          f"telemetry {json.dumps(telemetry)}; resources and alerts "
+          f"{json.dumps(health)}", flush=True)
     return counted
 
 
@@ -3151,6 +3299,58 @@ SUPERVISED_KILL_BY_S = 48.0        # its first snapshot must land by then
 # after two reference-width blocks instead of the default 1,000 env steps,
 # which two thread actors took 15-20 s to fill on slower hosts
 SUPERVISED_LEARNING_STARTS = 200
+SUPERVISED_FLUSH_S = 0.5           # the child's span drain (the split)
+SUPERVISED_GRACE_S = 1.2           # after the commit: the spans drain
+
+
+def _process_start(pid: int) -> float:
+    """A process's start on the wall clock, from /proc (Linux)."""
+    with open(f"/proc/{pid}/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(x.split()[1]) for x in f if x.startswith("btime"))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _startup_split(spans, child_start: float, meta: dict) -> dict:
+    """10b's seconds from the killed child's start to its first committed
+    snapshot, by part: its spans (startup/stack, startup/actors,
+    startup/fill, the dispatches) and the snapshot's manifest."""
+    first = {}
+    for e in spans:
+        first.setdefault(e["name"], e)
+    dispatches = [e for e in spans if e["name"] == "learner/train_dispatch"]
+    check(all(n in first for n in ("startup/stack", "startup/actors",
+                                   "startup/fill"))
+          and len(dispatches) >= 2,
+          f"10b: the child's spans {sorted(first)}, "
+          f"{len(dispatches)} dispatches")
+    stack, fill = first["startup/stack"], first["startup/fill"]
+    d1, d2 = dispatches[0], dispatches[1]
+    # the dispatch whose steps reached the snapshot's step
+    at = next((e for e in dispatches
+               if e["tags"]["step"] + e["tags"]["k"] >= meta["step"]),
+              dispatches[-1])
+    write_start = meta["written_at"] - meta["write_s"]
+    parts = {
+        "start_up_and_imports": stack["ts"] - child_start,
+        "learner_build_and_kernel_load": stack["dur"],
+        "actors_start": first["startup/actors"]["dur"],
+        "fill_to_learning_starts": fill["dur"],
+        "step0_checkpoint_and_first_drain": d1["ts"] - (fill["ts"]
+                                                        + fill["dur"]),
+        "first_eager_dispatch": d1["dur"],
+        "to_the_first_captures": d2["ts"] - (d1["ts"] + d1["dur"]),
+        "first_captures": d2["dur"],
+        "steps_to_the_snapshot": (at["ts"] + at["dur"]
+                                  - (d2["ts"] + d2["dur"])),
+        "snapshot_capture_to_write": write_start - (at["ts"] + at["dur"]),
+        "snapshot_write": meta["write_s"],
+    }
+    parts = {k: round(v, 3) for k, v in parts.items()}
+    parts["total"] = round(meta["written_at"] - child_start, 3)
+    parts["steps"] = meta["step"]
+    return parts
 QUANT_TRAIN_SECONDS = 13.0         # cli.train at int8 on-device acting
 QUANT_TRAIN_ARGS = ["--network.inference_dtype=int8",
                     "--telemetry.quant_probe_interval=4"]
@@ -3369,21 +3569,29 @@ def phase_supervised_kill(dev) -> dict:
                  f"--replay.learning_starts={SUPERVISED_LEARNING_STARTS}",
                  f"--runtime.snapshot_interval={SUPERVISED_SNAPSHOT_INTERVAL}",
                  "--runtime.save_interval=100000", "--runtime.log_interval=1",
+                 f"--telemetry.flush_interval_s={SUPERVISED_FLUSH_S}",
                  "--actor-mode=thread", "--env.game_name=Fake",
                  "--replay.capacity=100000",
                  f"--max-seconds={SUPERVISED_SECONDS}",
                  f"--runtime.save_dir={d}"], stdout=out, stderr=err)
         try:
-            meta = None
+            meta = child_start = None
             while meta is None and time.time() - t_launch \
                     < SUPERVISED_KILL_BY_S and proc.poll() is None:
                 time.sleep(0.2)
+                if child_start is None and os.path.exists(
+                        os.path.join(d, "learner.pid")):
+                    child_start = _process_start(int(open(os.path.join(
+                        d, "learner.pid")).read()))
                 meta = read_manifest(d, 0)
             check(meta is not None, "no snapshot committed by "
                   f"{SUPERVISED_KILL_BY_S} s: "
                   + open(os.path.join(d, "stderr.txt")).read()[-3000:])
             child = int(open(os.path.join(d, "learner.pid")).read())
             check(child != proc.pid, "learner.pid names the supervisor")
+            t_commit = time.time()
+            # the spans of the snapshot's dispatches drain before the kill
+            time.sleep(SUPERVISED_GRACE_S)
             os.kill(child, signal.SIGKILL)
             t_kill = time.time()
             first_dispatch = None
@@ -3416,12 +3624,18 @@ def phase_supervised_kill(dev) -> dict:
               and math.isfinite(child_summary[0]["final_loss"]),
               f"the relaunched child's summary {child_summary}")
         records = [json.loads(x) for x in open(metrics) if x.strip()]
+        spans = [e for e in _read_jsonl(os.path.join(d, "spans_player0.jsonl"))
+                 if e["ts"] < t_kill]
+        split = _startup_split(spans, child_start, meta)
         restored = [r["recovery"] for r in records
                     if r.get("recovery", {}).get("restores") == 1]
         check(restored and restored[0]["restored_blocks"] > 0
               and restored[0]["supervisor"]["restarts"] == 1,
               f"no restore in the relaunched records: {records[-1:]}")
     report = dict(killed_after_s=t_kill - t_launch,
+                  first_snapshot_seen_s=t_commit - t_launch,
+                  launch_to_child_start_s=child_start - t_launch,
+                  split_s=split,
                   first_snapshot=dict(step=meta["step"],
                                       payload_bytes=meta["payload_bytes"],
                                       write_s=meta["write_s"],
@@ -4298,6 +4512,24 @@ def phase_mh_loop(label: str, placement: str, overrides) -> dict:
                 _read_jsonl(os.path.join(d, "telemetry_host1.jsonl")),
                 f"12c {label} rank 1's host rows", HOST_ROW_STAGES,
                 [os.path.join(d, "spans_host1.jsonl")], costs=False)}
+        # each controller its own resources and alerts: rank 0's on its
+        # record, rank 1's on its host rows (firings to alerts_host1). The
+        # records come every second (the start poll reads them): under
+        # the lockstep's rate limiter a second can ingest nothing, which
+        # the throughput-drop rules' median over 8 records flags
+        ring = ("p0/replay_ring",) if placement == "device" else ()
+        noisy = ("env_throughput_drop", "learner_throughput_drop")
+        telemetry["health"] = {
+            "rank0": _check_health_records(
+                _read_jsonl(os.path.join(d, "metrics_player0.jsonl")),
+                f"12c {label} rank 0", None,
+                os.path.join(d, "alerts_player0.jsonl"), captures=False,
+                names=("p0/train_state",) + ring, noisy=noisy),
+            "rank1": _check_health_records(
+                _read_jsonl(os.path.join(d, "telemetry_host1.jsonl")),
+                f"12c {label} rank 1's host rows", None,
+                os.path.join(d, "alerts_host1.jsonl"), captures=False,
+                names=("p0/train_state",) + ring, noisy=noisy)}
     check(recs[0]["step"] == recs[1]["step"] > 0
           and recs[0]["iterations"] == recs[1]["iterations"]
           and recs[0]["digest"] == recs[1]["digest"],
@@ -4442,6 +4674,41 @@ def _update_rel(final, init, want) -> tuple:
     return worst, leaf
 
 
+def _tp_f32_distances(dev, cfg32, out: dict, init) -> dict:
+    """13a's f32 repeat: the unsharded f32 step on the card over the same
+    batches from the same weights against the ranks' ``f32_params`` and
+    ``f32_losses``: the same distances as the bf16 comparison's."""
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.learner.train_step import (create_train_state,
+                                                   make_external_batch_step)
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.replay.structs import ReplaySpec, SampleBatch
+    from r2d2_tpu_torch.tools import bench, dp_check
+    net = NetworkApply(bench.ACTION_DIM, cfg32.network,
+                       cfg32.env.frame_stack, cfg32.env.frame_height,
+                       cfg32.env.frame_width, dev)
+    ts = create_train_state(net, cfg32.optim, 0, True)
+    step = make_external_batch_step(net, ReplaySpec.from_config(cfg32, dev),
+                                    cfg32.optim, True, graphed=False)
+    spec = ReplaySpec.from_config(cfg32, torch.device("cpu"))
+    losses = []
+    for fields in dp_check.host_batches(spec, TP_HOST_BLOCKS, TP_STEPS, 13):
+        ts, m = step(ts, SampleBatch(**{n: torch.from_numpy(a).to(dev)
+                                        for n, a in fields.items()}))
+        losses.append(float(m["loss"]))
+    want = {n: p.float().cpu().numpy()
+            for n, p in ts.params.state_dict().items()}
+    got = out["f32_params"]
+    report = {"loss_rel": max(abs(float(a) - b) / abs(b) for a, b in
+                              zip(out["f32_losses"], losses)),
+              "params_abs": max(float(np.max(np.abs(got[n] - want[n])))
+                                for n in want)}
+    report["update_rel"], report["update_rel_leaf"] = _update_rel(
+        got, init, want)
+    return report
+
+
 def phase_tp_reference(dev) -> dict:
     """Phase 13(a): the tensor-parallel host-batch step at the reference
     shape (B=128, 55-step windows, 84x84x4, cnn 1024, LSTM 512, dueling,
@@ -4454,7 +4721,11 @@ def phase_tp_reference(dev) -> dict:
     its steps (K3, K4, K4 lean, K5; no gather: the host samples). The
     same ranks then repeat the steps with the row's partial input
     gradients unsummed (the negative control): its update distance must
-    exceed the bound. Returns the ranks' launches."""
+    exceed the bound. Then the same ranks repeat the steps in f32
+    (network.bf16 off, no diagnostics) against the unsharded f32 step, the
+    same distances printed, not held to TP_REF_TOL: ROADMAP C.5's
+    question, whether bf16 rounding is what separates the two steps.
+    Returns the ranks' launches (the bf16 steps')."""
     import numpy as np
     import torch
     from r2d2_tpu_torch.learner.train_step import (create_train_state,
@@ -4462,11 +4733,14 @@ def phase_tp_reference(dev) -> dict:
     from r2d2_tpu_torch.models.network import NetworkApply
     from r2d2_tpu_torch.replay.structs import ReplaySpec, SampleBatch
     from r2d2_tpu_torch.tools import bench, dp_check
+    import dataclasses
     cfg = bench.reference_config(**{
         **bench.PATHS["fused_double"],
         "replay.capacity": TP_HOST_BLOCKS * 400})
+    cfg32 = cfg.replace(**{"network.bf16": "off"})
     case = _tp_case(cfg, 32, light=True, control=True,
                     host_batches=(TP_HOST_BLOCKS, TP_STEPS, 13),
+                    f32_network=dataclasses.asdict(cfg32.network),
                     **TP_DIAG)
     t0 = time.perf_counter()
     outs = _ranks(dp_check.rank_tp_external, 1, case,
@@ -4488,6 +4762,7 @@ def phase_tp_reference(dev) -> dict:
         ts, m = step(ts, batch)
         ref.append({k: v.float().cpu().numpy() for k, v in m.items()})
         ref_s.append(time.perf_counter() - t1)
+    f32 = _tp_f32_distances(dev, cfg32, outs[0], init)
     worst = {"loss_rel": 0.0, "priorities_abs": 0.0, "params_abs": 0.0}
     check(outs[0]["trace"][-1]["params_sha"]
           == outs[1]["trace"][-1]["params_sha"],
@@ -4553,6 +4828,7 @@ def phase_tp_reference(dev) -> dict:
               "losses_unsharded": [float(m["loss"]) for m in ref],
               "max_diff": worst, "tolerance": TP_REF_TOL,
               "control_unsummed_input_grads": control,
+              "f32_repeat_printed_not_held": f32,
               "largest_sharded_leaf": largest,
               "launches_per_rank": outs[0]["launches"],
               "world_s": world_s}), flush=True)
@@ -5263,7 +5539,9 @@ AT_STEP = 8                        # 15b: runtime.profile_at_step
 AT_STEP_SECONDS = 5.0              # 15b: the short run's bound
 TELE_K = 4                         # 15c: steps a dispatch
 TELE_WINDOW_S = 1.0                # 15c: each timed window
-TELE_ORDER = ("off", "on", "on", "off") * 2
+# 15c's arms and 16e's: telemetry off; the stage timers and spans on;
+# those and the resources, compile and alert planes (telemetry's default)
+TELE_ORDER = ("off", "on", "planes", "planes", "on", "off") * 2
 # 15b's short run: the on-device loop at the CPU tests' tiny shape
 AT_STEP_ARGS = [
     "--env.game_name=Fake", "--env.frame_height=24", "--env.frame_width=24",
@@ -5276,10 +5554,14 @@ AT_STEP_ARGS = [
     "--actor.anakin_lanes=4", "--env.episode_len=40",
     # a 0.1 s capture window: at this shape the card runs ~100 steps a
     # second, ~30 MB of trace
-    "--runtime.save_interval=0", "--runtime.log_interval=0.1"]
+    "--runtime.save_interval=0", "--runtime.log_interval=0.1",
+    # 16a folded in: the headroom floors near 1 force hbm_headroom and the
+    # forensics dump
+    "--telemetry.resources_headroom_warn_frac=0.999",
+    "--telemetry.alerts_hbm_headroom_frac=0.999"]
 
 
-def phase_cli_profile(dev, bench_fused: float) -> dict:
+def phase_cli_profile(dev, bench_fused: float, out_dir: str) -> dict:
     """15(a): python -m r2d2_tpu_torch.cli.profile's entry point at the
     reference shape, bench's "fused" path at K=TELE_K, PROFILE_STEPS
     steps over a full ring of bench's REF_CAPACITY steps (cli.profile's
@@ -5288,16 +5570,14 @@ def phase_cli_profile(dev, bench_fused: float) -> dict:
     step equal to the wrappers' counts in the traced window; prints the
     device kernels' table, model FLOPs a step and the share of the card's
     bf16 peak (telemetry/costmodel.py peak_spec) at bench fused's rate in
-    this call."""
-    import tempfile
+    this call. The capture stays in ``out_dir`` for 16d."""
     from r2d2_tpu_torch.cli import profile
     from r2d2_tpu_torch.telemetry import costmodel
     from r2d2_tpu_torch.tools import bench
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as d:
-        result = profile.main([
-            "--steps", str(PROFILE_STEPS), "--out", d, "--top", "12",
-            "--network.pallas_lstm=on",
-            f"--runtime.steps_per_dispatch={TELE_K}"])
+    result = profile.main([
+        "--steps", str(PROFILE_STEPS), "--out", out_dir, "--top", "12",
+        "--network.pallas_lstm=on",
+        f"--runtime.steps_per_dispatch={TELE_K}"])
     table = result["device_kernels"]
     check(result["steps"] == PROFILE_STEPS, f"15a: {result['steps']} steps")
     hand, counted = result["hand_kernels"], result["launches_per_step"]
@@ -5338,7 +5618,8 @@ def phase_profile_at_step(dev) -> dict:
     """15(b): runtime.profile_at_step=AT_STEP in a short cli.train run
     (the on-device loop at the tiny shape): the capture starts once the
     learner reaches the step, stops after min(log_interval, 30) s and is
-    written under {save_dir}/profile, a trace with the device's kernels."""
+    written under {save_dir}/profile, a trace with the device's kernels;
+    16(a) on its records (phase_headroom_alert)."""
     import glob
     import tempfile
     from r2d2_tpu_torch.cli import train
@@ -5351,7 +5632,9 @@ def phase_profile_at_step(dev) -> dict:
         check(summary["steps"] > AT_STEP and len(traces) == 1,
               f"15b: {summary['steps']} steps, traces {traces}")
         planes = summarize_trace(os.path.join(d, "profile"), top=5)
-        report = {"steps": summary["steps"],
+        headroom = phase_headroom_alert(
+            d, _read_jsonl(os.path.join(d, "metrics_player0.jsonl")))
+        report = {"steps": summary["steps"], "headroom_alert": headroom,
                   "trace_mb": os.path.getsize(traces[0]) / 1e6,
                   "device_kernels_top": [(n, round(us / 1e3, 3), c)
                                          for n, us, c in
@@ -5364,20 +5647,26 @@ def phase_profile_at_step(dev) -> dict:
 
 
 def phase_telemetry_cost(dev) -> dict:
-    """15(c): the stage timers' and spans' cost through the Learner at
-    the reference shape, bench's "fused" path at K=TELE_K over a replay
-    of TELE_CAPACITY steps: one Learner with telemetry on (a drain
-    writing spans) and one with telemetry.enabled=false, the learning and
-    replay diagnostics off in both, in windows of TELE_WINDOW_S in
+    """15(c) and 16(e): the stage timers' and spans' cost, and the
+    resources, compile and alert planes' cost on top of them, through the
+    Learner at the reference shape, bench's "fused" path at K=TELE_K over
+    a replay of TELE_CAPACITY steps: one Learner with telemetry.enabled=
+    false ("off"), one with the stage timers and spans (a drain writing
+    spans) and resources off ("on"), one with both and the planes
+    ("planes": a HealthPlane on its metrics, ticked after every dispatch,
+    an upper bound of the loops' supervision cadence), the learning and
+    replay diagnostics off in all, in windows of TELE_WINDOW_S in
     TELE_ORDER; a window ends with the flush and the record, as the
-    orchestrator's log boundary does. The cost is the median over the
-    (off, on) pairs of 1 - on / off."""
+    orchestrator's log boundary does. 15c's cost is the median over the
+    (off, on) pairs of 1 - on / off, 16e's over the (on, planes) pairs of
+    1 - planes / on."""
     import tempfile
     import torch
     from r2d2_tpu_torch.models.network import NetworkApply
     from r2d2_tpu_torch.runtime.learner_loop import Learner
     from r2d2_tpu_torch.runtime.metrics import TrainMetrics
     from r2d2_tpu_torch.telemetry.core import Telemetry
+    from r2d2_tpu_torch.telemetry.resources import HealthPlane
     from r2d2_tpu_torch.tools import bench
     base = bench.reference_config(**{
         **bench.PATHS["fused"], "replay.capacity": TELE_CAPACITY,
@@ -5385,11 +5674,17 @@ def phase_telemetry_cost(dev) -> dict:
         "telemetry.learning_enabled": False,
         "telemetry.replay_diag_enabled": False})
     blocks = bench.synthetic_blocks(base, base.num_blocks, seed=31)
-    learners, rates, records = {}, {"off": [], "on": []}, {"off": [],
-                                                           "on": []}
+    arms = ("off", "on", "planes")
+    learners = {}
+    rates = {arm: [] for arm in arms}
+    records = {arm: [] for arm in arms}
+    plane = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tele_") as d:
-        for arm in ("off", "on"):
-            cfg = base.replace(**{"telemetry.enabled": arm == "on"})
+        for arm in arms:
+            cfg = base.replace(**{"telemetry.enabled": arm != "off",
+                                  "telemetry.resources_enabled":
+                                      arm == "planes",
+                                  "runtime.save_dir": d})
             net = NetworkApply(bench.ACTION_DIM, cfg.network,
                                cfg.env.frame_stack, cfg.env.frame_height,
                                cfg.env.frame_width, dev)
@@ -5397,6 +5692,8 @@ def phase_telemetry_cost(dev) -> dict:
             tele = Telemetry.from_config(cfg, name=f"cost-{arm}")
             metrics.set_telemetry(tele)
             tele.start_drain(os.path.join(d, f"spans_{arm}.jsonl"))
+            if arm == "planes":
+                plane = HealthPlane(cfg, metrics, 0, devices=[dev])
             learner = Learner(cfg, net, metrics=metrics)
             for block in blocks:
                 learner.ingest(block)
@@ -5412,6 +5709,8 @@ def phase_telemetry_cost(dev) -> dict:
             t0 = time.perf_counter()
             while time.perf_counter() - t0 < TELE_WINDOW_S:
                 learner.step()
+                if arm == "planes":
+                    plane.tick(learner.warm)
             learner.flush_metrics()     # the readback ends the window
             records[arm].append(learner.metrics.log(TELE_WINDOW_S))
             seconds = time.perf_counter() - t0
@@ -5420,6 +5719,7 @@ def phase_telemetry_cost(dev) -> dict:
         for learner in learners.values():
             learner.metrics.telemetry.close()
             learner.stop_background()
+        plane.close()
         on_spans = os.path.join(d, "spans_on.jsonl")
         telemetry = _check_stage_records(
             records["on"], "15c the on arm",
@@ -5429,17 +5729,32 @@ def phase_telemetry_cost(dev) -> dict:
               and not any("stages" in r or "costs" in r
                           for r in records["off"]),
               "15c: the off arm observed stages or wrote spans")
+        check(not any("resources" in r or "alerts" in r
+                      for r in records["on"] + records["off"])
+              and all("resources" in r and "alerts" in r
+                      for r in records["planes"]),
+              "16e: the resources and alerts blocks in the wrong arms")
+        planes = _check_health_records(
+            records["planes"], "16e the planes arm",
+            _state_bytes(learners["planes"].train_state,
+                         learners["planes"].replay_state),
+            os.path.join(d, "alerts_player0.jsonl"), captures=False)
     pairs = [1.0 - rates["on"][i] / rates["off"][i]
              for i in range(len(rates["on"]))]
+    plane_pairs = [1.0 - rates["planes"][i] / rates["on"][i]
+                   for i in range(len(rates["on"]))]
     report = {"seq_updates_per_s": {k: [round(x, 2) for x in v]
                                     for k, v in rates.items()},
               "pair_costs": [round(x, 5) for x in pairs],
               "median_cost": statistics.median(pairs),
+              "planes_pair_costs": [round(x, 5) for x in plane_pairs],
+              "planes_median_cost": statistics.median(plane_pairs),
               "windows_s": TELE_WINDOW_S,
               "stage_counts": telemetry["stage_counts"],
-              "spans": telemetry["spans"]}
-    print(f"15c the stage timers' cost through the Learner, reference "
-          f"shape, fused K={TELE_K}, diagnostics off, windows of "
+              "spans": telemetry["spans"], "planes": planes}
+    print(f"15c the stage timers' cost, and 16e the resources, compile "
+          f"and alert planes' on top of them, through the Learner, "
+          f"reference shape, fused K={TELE_K}, diagnostics off, windows of "
           f"{TELE_WINDOW_S} s {' '.join(TELE_ORDER)} ({_card()}): "
           + json.dumps(report), flush=True)
     del learners
@@ -5447,11 +5762,274 @@ def phase_telemetry_cost(dev) -> dict:
     return report
 
 
-def phase_telemetry(dev, bench_fused: float) -> dict:
-    """Phase 15 (see the module docstring)."""
-    return {"profile": phase_cli_profile(dev, bench_fused),
+def phase_telemetry(dev, bench_fused: float, profile_dir: str) -> dict:
+    """Phase 15 (see the module docstring), with 16a inside 15b and 16e's
+    planes arm inside 15c."""
+    return {"profile": phase_cli_profile(dev, bench_fused, profile_dir),
             "at_step": phase_profile_at_step(dev),
             "cost": phase_telemetry_cost(dev)}
+
+
+def phase_planes(dev, bench_fused: float, profile_dir: str) -> dict:
+    """Phase 16 (see the module docstring): 16b, 16c, 16d and 16e's
+    scopes; 16a and 16e's planes ran inside phase 15."""
+    return {"retrace": phase_retrace(dev),
+            "traced": phase_traced_serving(dev),
+            "roofline": phase_roofline(dev, profile_dir, bench_fused),
+            "scopes": phase_scope_cost(dev)}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the resource, compile and alert planes, tracing, the roofline
+
+RETRACE_NEW = (3, 5, 6)            # 16b: captured after warm-up
+TRACED_SECONDS = 6.0               # 16c: the traced served run
+TRACED_ARGS = ["--actor-mode=thread", "--actor.inference=server",
+               "--env.game_name=Fake", "--replay.capacity=100000",
+               "--runtime.log_interval=4",
+               "--telemetry.tracing_enabled=true",
+               "--telemetry.trace_sample_every=1"]
+MAP_CAPACITY = 6400                # 16d: the eager map's ring (16 blocks)
+ROOFLINE_VARIANTS = ("learner_step",)     # 16d: counted on the card
+SCOPE_WINDOWS = ("on", "off", "off", "on") * 2   # 16e: eager steps
+SCOPE_STEPS = 16                   # 16e: eager steps a window
+
+
+def phase_retrace(dev) -> dict:
+    """16(b): a policy server at the reference widths captures its buckets
+    under a compile monitor; after ``mark_warm`` a capture of the same
+    forward at each of RETRACE_NEW buckets (a new shape) counts as a
+    retrace; the resources block's compile sub-block carries them, and
+    ``retrace_storm`` fires once on that record (alerts_retrace_storm =
+    3, JAX's default) and not again on the next."""
+    import torch
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.serve.server import _BucketGraph
+    from r2d2_tpu_torch.telemetry.alerts import AlertEngine, default_rules
+    from r2d2_tpu_torch.telemetry.compile import CompileMonitor
+    from r2d2_tpu_torch.telemetry.resources import (BufferRegistry,
+                                                    ResourceMonitor)
+    tcfg = Config().telemetry
+    mon = CompileMonitor().install()
+    try:
+        cfg, server, _ = _serving_server(
+            dev, "f32", warmup=True)
+        check(server.buckets == [1, 2, 4, 8, 16, 32],
+              f"16b: buckets {server.buckets}")
+        mon.mark_warm()
+        with server._on_stream():
+            for b in RETRACE_NEW:
+                _BucketGraph(server, b)
+        torch.cuda.synchronize()
+        res = ResourceMonitor(devices=[dev], compile_monitor=mon,
+                              registry=BufferRegistry())
+        engine = AlertEngine(default_rules(tcfg))
+        first = {"resources": res.block()}
+        a1 = engine.evaluate(first)
+        second = {"resources": res.block()}
+        a2 = engine.evaluate(second)
+    finally:
+        mon.uninstall()
+    comp = first["resources"]["compile"]
+    check(comp["retraces_interval"] == len(RETRACE_NEW)
+          and comp["retraces_total"] == len(RETRACE_NEW)
+          and comp["late_compiles"] == 0
+          and comp["last_retrace"]["fn"] == "serve_forward",
+          f"16b: compile block {comp}")
+    check([a["rule"] for a in a1["fired"]] == ["retrace_storm"]
+          and a2["fired"] == [] and "retrace_storm" not in a2["active"],
+          f"16b: alerts {a1}, then {a2}")
+    report = {"compile": comp, "fired": a1["fired"],
+              "storm_bound": tcfg.alerts_retrace_storm,
+              "after": second["resources"]["compile"]["retraces_interval"]}
+    print("16b a recapture at a new shape after warm-up (serving buckets "
+          f"{list(RETRACE_NEW)} after {server.buckets}): "
+          + json.dumps(report), flush=True)
+    return report
+
+
+def phase_headroom_alert(d: str, records) -> dict:
+    """16(a), on 15b's run (forced floors of 0.999): ``hbm_headroom``
+    fires once (edge semantics: one line in alerts_player0.jsonl, one
+    record's fired list) and the one forensics dump holds the buffers
+    the records name, with the same bytes."""
+    lines = _read_jsonl(os.path.join(d, "alerts_player0.jsonl"))
+    head = [x for x in lines if x["rule"] == "hbm_headroom"]
+    fired = [a for r in records for a in r["alerts"]["fired"]
+             if a["rule"] == "hbm_headroom"]
+    check(len(head) == 1 and len(fired) == 1
+          and head[0]["severity"] == "crit",
+          f"16a: hbm_headroom lines {head}, fired {fired}")
+    dump_path = os.path.join(d, "resource_dump_player0.json")
+    check(os.path.exists(dump_path), "16a: no resource dump")
+    dump = json.load(open(dump_path))
+    buffers = records[-1]["resources"]["buffers"]
+    check(dump["buffers"] and all(buffers.get(k) == v
+                                  for k, v in dump["buffers"].items()
+                                  if k != "p0/train_state"),
+          f"16a: the dump's buffers {dump['buffers']}, the record's "
+          f"{buffers}")
+    check(all(k in buffers for k in dump["buffers"]),
+          f"16a: dump buffers {sorted(dump['buffers'])} not in the record")
+    report = {"fired": head[0], "dump_reason": dump["reason"],
+              "dump_buffers": dump["buffers"],
+              "record_buffers": buffers}
+    print("16a a forced hbm_headroom firing (floors 0.999, 15b's run): "
+          + json.dumps(report), flush=True)
+    return report
+
+
+def phase_traced_serving(dev) -> dict:
+    """16(c): served training with telemetry.tracing_enabled and
+    trace_sample_every=1 (thread actors, the in-process rung; f32
+    inference) for TRACED_SECONDS: the records' serving blocks carry a
+    trace sub-block with every hop's histogram non-empty, and the ring
+    accountant's slot mirrors hold stamped slots (emission before
+    commit)."""
+    import tempfile
+    import torch
+    from r2d2_tpu_torch.cli import train
+    from r2d2_tpu_torch.telemetry.tracing import SERVE_HOPS
+    stacks = []
+
+    def hook(stack):
+        if not stacks:
+            stacks.append(stack)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_traced_") as d:
+        torch.cuda.empty_cache()
+        summary = train.main(TRACED_ARGS + [
+            f"--max-seconds={TRACED_SECONDS}", f"--runtime.save_dir={d}"],
+            dispatch_hook=hook)
+        records = _read_jsonl(os.path.join(d, "metrics_player0.jsonl"))
+    check(summary["device"].startswith("cuda") and summary["steps"] > 0,
+          f"16c: {summary['device']}, {summary['steps']} steps")
+    traces = [r["serving"]["trace"] for r in records
+              if "trace" in r.get("serving", {})]
+    check(traces, "16c: no serving trace block")
+    hops = {}
+    for t in traces:
+        for name, h in t["hops"].items():
+            hops[name] = hops.get(name, 0) + h["count"]
+    check(all(hops.get(name, 0) > 0 for name in SERVE_HOPS),
+          f"16c: hop counts {hops}")
+    ring = stacks[0].learner.ring
+    stamped = [(t, i) for t, i in zip(ring.slot_trace, ring.slot_ingest_ms)
+               if t >= 0]
+    check(stamped and all(i >= 0 and (i - t) % 2 ** 31 < 600_000
+                          for t, i in stamped),
+          f"16c: {len(stamped)} stamped slots of {ring.total_adds} adds")
+    report = {"steps": summary["steps"], "requests_traced":
+              sum(t["requests"] for t in traces), "hop_counts": hops,
+              "last_hops": traces[-1]["hops"],
+              "stamped_slots": len(stamped),
+              "emit_to_commit_ms_median": statistics.median(
+                  (i - t) % 2 ** 31 for t, i in stamped)}
+    print(f"16c traced served training ({_card()}): " + json.dumps(report),
+          flush=True)
+    return report
+
+
+def phase_roofline(dev, trace_dir: str, bench_fused: float) -> dict:
+    """16(d): 15a's capture (a graph replay of K=TELE_K steps) attributed
+    to components through an eager profile of the same step factory
+    (telemetry/traceparse.py: >= 80% of its device time); the learner
+    step's FLOPs counted on the card with the kernels on (the flop
+    counter plus their formulas) within 5% of model_flops_per_step; the
+    roofline table (tools/roofline.py) over them at bench fused's step
+    time in this call, with the card's name and power limit."""
+    import tempfile
+    import torch
+    from r2d2_tpu_torch.telemetry import costmodel, traceparse
+    from r2d2_tpu_torch.tools import bench, profile_step, roofline
+    cfg = bench.reference_config(**{"network.pallas_lstm": "on",
+                                    "runtime.steps_per_dispatch": TELE_K})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_map_") as d:
+        profile_step.capture_step_trace(
+            cfg.replace(**{"replay.capacity": MAP_CAPACITY}), 2, d,
+            warmup=2, device=dev, eager=True)
+        kmap = traceparse.kernel_components(d)
+        eager = traceparse.attribute_trace(d)
+    summary = traceparse.attribute_trace(trace_dir, kernel_map=kmap)
+    summary["steps"] = profile_step.traced_step_count(trace_dir)
+    check(eager["attributed_frac"] >= 0.8,
+          f"16d: the eager step {eager['attributed_frac']} attributed")
+    check(summary["attributed_frac"] >= 0.8,
+          f"16d: 15a's capture {summary['attributed_frac']} attributed: "
+          + traceparse.format_attribution(summary))
+    # FLOPs do not depend on the ring's capacity: counted over the map's
+    costs = costmodel.collect_cost_table(
+        cfg.replace(**{"replay.capacity": MAP_CAPACITY}),
+        variants=ROOFLINE_VARIANTS, device=dev, action_dim=bench.ACTION_DIM)
+    torch.cuda.synchronize()
+    kernel_flops = costs["programs"]["learner_step"]["kernel_flops"]
+    check(kernel_flops.get("lstm_fwd", 0) > 0
+          and kernel_flops.get("lstm_bwd", 0) > 0,
+          f"16d: the LSTM kernels' formulas did not count: {kernel_flops}")
+    step_ms = 1e3 * cfg.replay.batch_size / bench_fused
+    report = roofline.build_report(cfg, "reference", step_ms,
+                                   costmodel.peak_spec(),
+                                   trace_summary=summary, costs=costs,
+                                   device=dev)
+    check(report["parity"]["within"],
+          f"16d: FLOP parity {report['parity']}")
+    print(f"16d component attribution of 15a's capture ({_card()}):\n"
+          + traceparse.format_attribution(summary), flush=True)
+    print(f"16d roofline, reference shape, fused K={TELE_K}, step time "
+          f"from bench fused K={TELE_K} in this call ({_card()}):\n"
+          + roofline.format_report(report), flush=True)
+    out = {"attributed_frac": summary["attributed_frac"],
+           "mapped_us": summary["mapped_us"],
+           "eager_attributed_frac": eager["attributed_frac"],
+           "parity": report["parity"],
+           "components": report["learner_step"]["components"],
+           "device_ms_by_component": {
+               c: round(row["time_us"] / 1e3 / summary["steps"], 4)
+               for c, row in summary["components"].items()}}
+    print("16d roofline report: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_scope_cost(dev) -> dict:
+    """16(e), second part: the component scopes on the eager path with no
+    profiler running (each one a check of the profiler's state): the
+    eager single step at the reference shape (fused path, diagnostics
+    off) in windows of SCOPE_STEPS synced steps, the scopes as built
+    against scopes.scope replaced by a null context, in SCOPE_WINDOWS
+    order; the cost is the median over the pairs of 1 - on / off."""
+    import contextlib
+    import torch
+    from r2d2_tpu_torch.telemetry import scopes
+    from r2d2_tpu_torch.tools import bench
+    cfg = bench.reference_config(**{**bench.PATHS["fused"],
+                                    "replay.capacity": MAP_CAPACITY})
+    blocks = bench.synthetic_blocks(cfg, 16, seed=41)
+    spec, rs = bench.filled_replay(cfg, dev, blocks)
+    ts, step = bench.build_learner_step(cfg, dev, spec, 1, eager=True)
+    for _ in range(2):
+        step(ts, rs)
+    torch.cuda.synchronize()
+    built = scopes.scope
+    null = contextlib.nullcontext()
+    rates = {"on": [], "off": []}
+    try:
+        for arm in SCOPE_WINDOWS:
+            scopes.scope = built if arm == "on" else (lambda name: null)
+            t0 = time.perf_counter()
+            for _ in range(SCOPE_STEPS):
+                step(ts, rs)
+            torch.cuda.synchronize()
+            rates[arm].append(SCOPE_STEPS / (time.perf_counter() - t0))
+    finally:
+        scopes.scope = built
+    pairs = [1.0 - on / off for on, off in zip(rates["on"], rates["off"])]
+    report = {"steps_per_s": rates, "pair_costs": pairs,
+              "median_cost": statistics.median(pairs)}
+    print(f"16e the component scopes' cost on the eager step ({_card()}): "
+          + json.dumps(report), flush=True)
+    del ts, rs
+    torch.cuda.empty_cache()
+    return report
 
 
 def main(argv) -> int:
@@ -5556,9 +6134,12 @@ def main(argv) -> int:
     diagnostics = phase_diagnostics(dev)
     dq = diagnostics["graph"]["dq_launches_per_interval_step"]
     done("learning and replay diagnostics")
-    phase_telemetry(dev,
-                    reference["fused", resolved_k]["median_seq_updates_per_s"])
-    done("telemetry")
+    bench_fused = reference["fused", resolved_k]["median_seq_updates_per_s"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as prof:
+        phase_telemetry(dev, bench_fused, prof)
+        done("telemetry")
+        phase_planes(dev, bench_fused, prof)
+    done("resources, compile, alerts, tracing, roofline")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}
@@ -5622,7 +6203,9 @@ def main(argv) -> int:
           and parallel["sp"]["lstm_fwd_lean"] > 0,
           f"phase 13 launched {parallel}")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
+    total = time.perf_counter() - t0
+    print(f"chip_smoke total {total:.1f} s (budget {BUDGET_S:.0f} s: "
+          f"{'within' if total <= BUDGET_S else 'OVER'})", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

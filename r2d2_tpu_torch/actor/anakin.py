@@ -60,6 +60,8 @@ from r2d2_tpu_torch.ops.launch_counts import (add_launch_counts,
                                               launch_counts)
 from r2d2_tpu_torch.replay.device_replay import write_rows
 from r2d2_tpu_torch.replay.structs import Block, ReplaySpec, ReplayState
+from r2d2_tpu_torch.telemetry import scopes
+from r2d2_tpu_torch.telemetry.compile import compile_event
 from r2d2_tpu_torch.utils.device import gc_paused
 
 STATS = ("episodes", "reported_episodes", "reported_return_sum",
@@ -204,111 +206,114 @@ def emit_blocks(spec: ReplaySpec, gamma: float, priority,
     Row ``i`` of a block's timeline is ``frames_all[i]`` of ``frames_all
     = tail ++ segment``: the right-aligned tails make the offset one
     per-lane constant ``B - burn0``."""
-    n, l_seg = actions.shape
-    b, f, lrn = spec.burn_in, spec.forward, spec.learning
-    s, stack = spec.seqs_per_block, spec.frame_stack
-    if l_seg != spec.block_length:
-        raise ValueError(f"a segment of {l_seg} steps; blocks are "
-                         f"{spec.block_length}")
-    device = actions.device
-    burn0 = burn0.long()
-    actions = actions.to(torch.int32)
+    with scopes.scope("emit_blocks"):
+        n, l_seg = actions.shape
+        b, f, lrn = spec.burn_in, spec.forward, spec.learning
+        s, stack = spec.seqs_per_block, spec.frame_stack
+        if l_seg != spec.block_length:
+            raise ValueError(f"a segment of {l_seg} steps; blocks are "
+                             f"{spec.block_length}")
+        device = actions.device
+        burn0 = burn0.long()
+        actions = actions.to(torch.int32)
 
-    buf_frames = torch.cat([tail_frames, obs], dim=1)
-    buf_la = torch.cat([tail_la, actions], dim=1)
-    buf_hid = torch.cat([tail_hidden, hiddens], dim=1)
+        buf_frames = torch.cat([tail_frames, obs], dim=1)
+        buf_la = torch.cat([tail_la, actions], dim=1)
+        buf_hid = torch.cat([tail_hidden, hiddens], dim=1)
 
-    # obs / last-action rows, zero (-1) past the live timeline
-    r_idx = torch.arange(spec.obs_row_len, device=device)
-    idx = b - burn0[:, None] + r_idx[None, :]
-    valid = r_idx[None, :] < stack + burn0[:, None] + l_seg
-    obs_row = torch.where(
-        valid[:, :, None, None],
-        _take_rows(buf_frames, idx.clamp(0, buf_frames.shape[1] - 1)), 0)
-    la_idx = torch.arange(spec.la_row_len, device=device)
-    lidx = b - burn0[:, None] + la_idx[None, :]
-    lvalid = la_idx[None, :] < burn0[:, None] + l_seg + 1
-    la_row = torch.where(
-        lvalid, _take_rows(buf_la, lidx.clamp(0, buf_la.shape[1] - 1)), -1)
+        # obs / last-action rows, zero (-1) past the live timeline
+        r_idx = torch.arange(spec.obs_row_len, device=device)
+        idx = b - burn0[:, None] + r_idx[None, :]
+        valid = r_idx[None, :] < stack + burn0[:, None] + l_seg
+        obs_row = torch.where(
+            valid[:, :, None, None],
+            _take_rows(buf_frames, idx.clamp(0, buf_frames.shape[1] - 1)), 0)
+        la_idx = torch.arange(spec.la_row_len, device=device)
+        lidx = b - burn0[:, None] + la_idx[None, :]
+        lvalid = la_idx[None, :] < burn0[:, None] + l_seg + 1
+        la_row = torch.where(
+            lvalid, _take_rows(buf_la, lidx.clamp(0, buf_la.shape[1] - 1)), -1)
 
-    # per-sequence metadata (every slot full: L % learning == 0)
-    s_arr = torch.arange(s, device=device)
-    burn_in_s = torch.clamp(s_arr[None, :] * lrn + burn0[:, None], max=b)
-    # the hidden at each sequence's window start (seq_start - burn_in):
-    # in buffer coordinates the episode offset burn0 cancels out
-    hidden_sel = _take_rows(buf_hid, b + s_arr[None, :] * lrn - burn_in_s)
+        # per-sequence metadata (every slot full: L % learning == 0)
+        s_arr = torch.arange(s, device=device)
+        burn_in_s = torch.clamp(s_arr[None, :] * lrn + burn0[:, None], max=b)
+        # the hidden at each sequence's window start (seq_start - burn_in):
+        # in buffer coordinates the episode offset burn0 cancels out
+        hidden_sel = _take_rows(buf_hid, b + s_arr[None, :] * lrn - burn_in_s)
 
-    # n-step returns and the gamma tail (ops/returns.py, vectorized)
-    padded = F.pad(rewards.float(), (0, f - 1))
-    returns = _f32(gamma ** 0) * padded[:, :l_seg]
-    for i in range(1, f):
-        returns = returns + _f32(gamma ** i) * padded[:, i:i + l_seg]
-    rem = l_seg - torch.arange(l_seg, device=device)          # steps to end
-    g_tail = torch.full((), gamma, dtype=torch.float32,
-                        device=device) ** rem.float()
-    gammas = torch.where(
-        rem[None, :] > f, _f32(gamma ** f),
-        torch.where(terminal[:, None], 0.0, g_tail[None, :]))
+        # n-step returns and the gamma tail (ops/returns.py, vectorized)
+        padded = F.pad(rewards.float(), (0, f - 1))
+        returns = _f32(gamma ** 0) * padded[:, :l_seg]
+        for i in range(1, f):
+            returns = returns + _f32(gamma ** i) * padded[:, i:i + l_seg]
+        rem = l_seg - torch.arange(l_seg, device=device)      # steps to end
+        g_tail = torch.full((), gamma, dtype=torch.float32,
+                            device=device) ** rem.float()
+        gammas = torch.where(
+            rem[None, :] > f, _f32(gamma ** f),
+            torch.where(terminal[:, None], 0.0, g_tail[None, :]))
 
-    if isinstance(priority, str):
-        # "td" (make_act_core checks the spelling): |n-step TD| a step: the bootstrap for step t is max_a Q at row
-        # min(t + mf, L) of the (L+1)-row Q timeline (the segment's states
-        # and the bootstrap row), the host's [mf : size+1] slice edge-padded
-        mf = min(f, l_seg)
-        max_rows = torch.cat([q_seg, q_boot[:, None]], dim=1).amax(dim=-1)
-        boot_idx = torch.clamp(torch.arange(l_seg, device=device) + mf,
-                               max=l_seg)
-        chosen = q_seg.gather(2, actions.long()[:, :, None])[..., 0]
-        td = (returns + gammas * max_rows[:, boot_idx] - chosen).abs()
-        td_s = td.reshape(n, s, lrn)
-        prio = (_f32(priority_eta) * td_s.amax(dim=-1)
-                + _f32(1.0 - priority_eta) * td_s.mean(dim=-1))
-    else:
-        prio = torch.full((n, s), float(priority), device=device)
+        if isinstance(priority, str):
+            # "td" (make_act_core checks the spelling): |n-step TD| a
+            # step: the bootstrap for step t is max_a Q at row min(t + mf,
+            # L) of the (L+1)-row Q timeline (the segment's states and the
+            # bootstrap row), the host's [mf : size+1] slice edge-padded
+            mf = min(f, l_seg)
+            max_rows = torch.cat([q_seg, q_boot[:, None]], dim=1).amax(dim=-1)
+            boot_idx = torch.clamp(torch.arange(l_seg, device=device) + mf,
+                                   max=l_seg)
+            chosen = q_seg.gather(2, actions.long()[:, :, None])[..., 0]
+            td = (returns + gammas * max_rows[:, boot_idx] - chosen).abs()
+            td_s = td.reshape(n, s, lrn)
+            prio = (_f32(priority_eta) * td_s.amax(dim=-1)
+                    + _f32(1.0 - priority_eta) * td_s.mean(dim=-1))
+        else:
+            prio = torch.full((n, s), float(priority), device=device)
 
-    forward_s = torch.clamp(l_seg + 1 - (s_arr + 1) * lrn, max=f)
-    sum_reward = torch.where(terminal & report_mask, final_return,
-                             float("nan"))
-    if torch.is_tensor(weight_version):
-        wv = weight_version.to(torch.int32).expand(n)
-    else:
-        wv = torch.full((n,), int(weight_version), dtype=torch.int32,
-                        device=device)
-    blocks = Block(
-        obs_row=obs_row.to(torch.uint8),
-        last_action_row=la_row.to(torch.int32),
-        hidden=hidden_sel.float(),
-        action=actions.reshape(n, s, lrn),
-        reward=returns.reshape(n, s, lrn),
-        gamma=gammas.reshape(n, s, lrn).float(),
-        priority=prio.float(),
-        burn_in_steps=burn_in_s.to(torch.int32),
-        learning_steps=torch.full((n, s), lrn, dtype=torch.int32,
-                                  device=device),
-        forward_steps=forward_s.to(torch.int32).expand(n, s),
-        seq_start=(burn0[:, None] + s_arr[None, :] * lrn).to(torch.int32),
-        num_sequences=torch.full((n,), s, dtype=torch.int32, device=device),
-        sum_reward=sum_reward.float(),
-        weight_version=wv,
-        lane=(torch.full((n,), -1, dtype=torch.int32, device=device)
-              if lanes is None else lanes.to(torch.int32)),
-    )
+        forward_s = torch.clamp(l_seg + 1 - (s_arr + 1) * lrn, max=f)
+        sum_reward = torch.where(terminal & report_mask, final_return,
+                                 float("nan"))
+        if torch.is_tensor(weight_version):
+            wv = weight_version.to(torch.int32).expand(n)
+        else:
+            wv = torch.full((n,), int(weight_version), dtype=torch.int32,
+                            device=device)
+        blocks = Block(
+            obs_row=obs_row.to(torch.uint8),
+            last_action_row=la_row.to(torch.int32),
+            hidden=hidden_sel.float(),
+            action=actions.reshape(n, s, lrn),
+            reward=returns.reshape(n, s, lrn),
+            gamma=gammas.reshape(n, s, lrn).float(),
+            priority=prio.float(),
+            burn_in_steps=burn_in_s.to(torch.int32),
+            learning_steps=torch.full((n, s), lrn, dtype=torch.int32,
+                                      device=device),
+            forward_steps=forward_s.to(torch.int32).expand(n, s),
+            seq_start=(burn0[:, None] + s_arr[None, :] * lrn).to(torch.int32),
+            num_sequences=torch.full((n,), s, dtype=torch.int32,
+                                     device=device),
+            sum_reward=sum_reward.float(),
+            weight_version=wv,
+            lane=(torch.full((n,), -1, dtype=torch.int32, device=device)
+                  if lanes is None else lanes.to(torch.int32)),
+        )
 
-    # the burn-in carry to the next segment (LocalBuffer's tail trim; a
-    # lane whose episode ended restarts from LocalBuffer.reset instead)
-    reset_tail = torch.cat([torch.zeros_like(tail_frames[:, :b]),
-                            reset_obs[:, None].expand(-1, stack, -1, -1)],
-                           dim=1)
-    new_tails = (
-        _where(terminal, reset_tail, buf_frames[:, -(stack + b):]),
-        _where(terminal, torch.full_like(tail_la, -1),
-               buf_la[:, -(b + 1):]),
-        _where(terminal, torch.zeros_like(tail_hidden),
-               buf_hid[:, -(b + 1):]),
-        torch.where(terminal, 0, torch.clamp(burn0 + l_seg, max=b)
-                    ).to(torch.int32),
-    )
-    return blocks, new_tails
+        # the burn-in carry to the next segment (LocalBuffer's tail trim; a
+        # lane whose episode ended restarts from LocalBuffer.reset instead)
+        reset_tail = torch.cat([torch.zeros_like(tail_frames[:, :b]),
+                                reset_obs[:, None].expand(-1, stack, -1, -1)],
+                               dim=1)
+        new_tails = (
+            _where(terminal, reset_tail, buf_frames[:, -(stack + b):]),
+            _where(terminal, torch.full_like(tail_la, -1),
+                   buf_la[:, -(b + 1):]),
+            _where(terminal, torch.zeros_like(tail_hidden),
+                   buf_hid[:, -(b + 1):]),
+            torch.where(terminal, 0, torch.clamp(burn0 + l_seg, max=b)
+                        ).to(torch.int32),
+        )
+        return blocks, new_tails
 
 
 def _forward_inputs(carry_stack, last_action, action_dim: int):
@@ -370,10 +375,12 @@ def make_act_core(env, net: NetworkApply, spec: ReplaySpec, *,
     quant = net.config.inference_dtype != "f32"
 
     def forward(module, carry_stack, last_action, hidden):
-        obs, one_hot = _forward_inputs(carry_stack, last_action, action_dim)
-        if quant:
-            return module.quant(obs, one_hot, hidden)
-        return module(obs, one_hot, hidden)
+        with scopes.scope("act_forward"):
+            obs, one_hot = _forward_inputs(carry_stack, last_action,
+                                           action_dim)
+            if quant:
+                return module.quant(obs, one_hot, hidden)
+            return module(obs, one_hot, hidden)
 
     @torch.no_grad()
     def core(module, carry: ActCarry, weight_version, eps: torch.Tensor,
@@ -381,7 +388,8 @@ def make_act_core(env, net: NetworkApply, spec: ReplaySpec, *,
              draws: SegmentDraws):
         # one speculative reset a segment, selected after the last step:
         # episodes end only on segment boundaries
-        reset_state, reset_obs = env.reset(draws.env_reset)
+        with scopes.scope("env_reset"):
+            reset_state, reset_obs = env.reset(draws.env_reset)
         env_state, cur_stack = carry.env_state, carry.cur_stack
         hidden, last_action = carry.hidden, carry.last_action
         ep_return = carry.ep_return
@@ -395,9 +403,10 @@ def make_act_core(env, net: NetworkApply, spec: ReplaySpec, *,
             explore = draws.explore[t] < eps
             action = torch.where(explore, draws.random_action[t].long(),
                                  greedy)
-            env_state, obs, reward, done = env.step(
-                env_state, action,
-                None if draws.env_step is None else draws.env_step[t])
+            with scopes.scope("env_step"):
+                env_state, obs, reward, done = env.step(
+                    env_state, action,
+                    None if draws.env_step is None else draws.env_step[t])
             cur_stack = torch.cat([cur_stack[:, 1:], obs[:, None]], dim=1)
             last_action = action
             ep_return = ep_return + reward
@@ -583,7 +592,10 @@ class ActSegment:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         stream = torch.cuda.Stream()
-        with gc_paused(), captured_launches(stream) as counted, \
+        signature = (f"lanes={self.act.num_lanes} "
+                     f"quant={bool(self.act.quant)}")
+        with compile_event("anakin_act", signature), gc_paused(), \
+                captured_launches(stream) as counted, \
                 torch.cuda.graph(graph, stream=stream,
                                  capture_error_mode="thread_local"):
             self._outputs = self._run()

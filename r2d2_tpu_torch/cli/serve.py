@@ -12,17 +12,19 @@ raises). It prints ``serving on HOST:PORT (action_dim=A)`` and, with
 ``--shm``, the request ring's name. Clients are
 ``r2d2_tpu_torch.serve.RemotePolicy`` / ``RemoteBatchedPolicy`` over a
 ``SocketChannel`` (or a ``ShmServeChannel``). Every
-``runtime.log_interval`` seconds a record with the ``serving`` block
-(request latency, batch fill, client churn) and, at a quantized
+``runtime.log_interval`` seconds a record with the process header
+(``proc``: plane, pid, clock anchor), the ``serving`` block (request
+latency, batch fill, client churn; with ``telemetry.tracing_enabled`` its
+``trace`` sub-block of per-hop latencies) and, at a quantized
 ``network.inference_dtype``, the ``quant`` block appends to
 ``serve_metrics.jsonl`` in ``--save-dir``; a final record closes the run,
 with the forward's mean ms per dispatch bucket and the kernels' launch
-counts. With telemetry on, the server's ``serve/forward`` and
-``serve/reply`` spans drain to ``spans_serve.jsonl`` in ``--save-dir``
-(every ``telemetry.flush_interval_s``). The JAX package also evaluates
-alert rules on each record; the
-port has no alert engine yet, so those keys are not written. SIGTERM and
-SIGINT stop it cleanly; ``--seconds`` bounds the run.
+counts. With telemetry and ``telemetry.alerts_enabled`` on, the alert
+rules run on each record (its ``alerts`` block; firings to
+``serve_alerts.jsonl``). With telemetry on, the server's ``serve/forward``
+and ``serve/reply`` spans drain to ``spans_serve.jsonl`` in ``--save-dir``
+(every ``telemetry.flush_interval_s``). SIGTERM and SIGINT stop it
+cleanly; ``--seconds`` bounds the run.
 """
 
 import argparse
@@ -46,7 +48,8 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, default=0.0,
                    help="stop after this long (0 = until signalled)")
     p.add_argument("--save-dir", default=".",
-                   help="where serve_metrics.jsonl goes")
+                   help="where serve_metrics.jsonl and serve_alerts.jsonl "
+                        "go")
     p.add_argument("--device", default=None,
                    help='"cuda" (default; raises without one) or "cpu"')
     args, config_overrides = p.parse_known_args(argv)
@@ -91,11 +94,17 @@ def main(argv=None) -> int:
         quant_stats = QuantStats(cfg.network.inference_dtype,
                                  cfg.telemetry.quant_probe_interval)
 
+    from r2d2_tpu_torch.telemetry.alerts import AlertEngine, default_rules
     from r2d2_tpu_torch.telemetry.core import Telemetry
+    from r2d2_tpu_torch.telemetry.tracing import (ServeTrace, proc_header,
+                                                  tracing_on)
     save_dir = args.save_dir or "."
     telemetry = Telemetry.from_config(cfg, name="serve")
     telemetry.start_drain(os.path.join(save_dir, "spans_serve.jsonl"))
     stats = ServingStats()
+    tracing = tracing_on(cfg)
+    if tracing:
+        stats.trace = ServeTrace()
     endpoint = InprocEndpoint()
     server = PolicyServer(cfg, net, module, endpoint=endpoint, stats=stats,
                           quant_stats=quant_stats, telemetry=telemetry)
@@ -108,23 +117,32 @@ def main(argv=None) -> int:
         shm_t = ShmServeTransport(
             endpoint.submit, (cfg.env.frame_height, cfg.env.frame_width),
             action_dim, cfg.network.hidden_dim,
-            request_slots=cfg.serve.request_ring_slots)
+            request_slots=cfg.serve.request_ring_slots, tracing=tracing)
         transports.append(shm_t)
         print(f"shm request ring: {shm_t.request_ring.name}", flush=True)
 
     os.makedirs(save_dir, exist_ok=True)
     metrics_path = os.path.join(save_dir, "serve_metrics.jsonl")
     open(metrics_path, "w").close()
+    engine = None
+    if cfg.telemetry.enabled and cfg.telemetry.alerts_enabled:
+        engine = AlertEngine(default_rules(cfg.telemetry),
+                             jsonl_path=os.path.join(save_dir,
+                                                     "serve_alerts.jsonl"))
+    # stamped once, when the listener is live, and carried on every row
+    proc = proc_header("serve")
 
     def record(t0: float, **extra) -> dict:
         out = {"t": round(time.time() - t0, 1),
-               "batches": server.batches_dispatched, **extra}
+               "batches": server.batches_dispatched, "proc": proc, **extra}
         block = stats.interval_block(deadline_ms=cfg.serve.deadline_ms,
                                      max_batch=cfg.serve.max_batch)
         if block is not None:       # left out when the interval saw none
             out["serving"] = block
         if quant_stats is not None:
             out["quant"] = quant_stats.interval_block()
+        if engine is not None:
+            out["alerts"] = engine.evaluate(out)
         with open(metrics_path, "a") as f:
             f.write(json.dumps(out) + "\n")
         return out

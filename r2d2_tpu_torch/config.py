@@ -13,10 +13,13 @@ switch ``enabled``, the learning diagnostics (``learning_enabled``,
 ``learning_interval``, ``learning_dq_batch``, ``nan_policy``), the replay
 diagnostics (``replay_diag_enabled``, ``replay_diag_interval``) and
 ``quant_probe_interval``, the stage timers' and spans' fields
-(``ring_size``, ``flush_interval_s``, ``spans``) and the cost model's
-switch (``costmodel_enabled``); its other fields in the JAX package
-(resources, compile telemetry, alerts, the fleet plane, tracing) are
-refused as unknown fields naming ROADMAP A.7, which ports them.
+(``ring_size``, ``flush_interval_s``, ``spans``), the cost model's switch
+(``costmodel_enabled``), the resource, compile and alert planes
+(``resources_*``, ``compile_enabled``, ``alerts_enabled`` and every
+``alerts_*`` bound) and tracing (``tracing_enabled``,
+``trace_sample_every``); its fleet-plane and replay-tier fields are
+refused as unknown fields naming ROADMAP A.6, its quality and tower
+fields naming A.7.
 
 The tri-state knobs ("on"/"off"/"auto") resolve for the device the port
 runs on, never for a TPU:
@@ -298,12 +301,16 @@ class TelemetryConfig:
     (telemetry/core.py, telemetry/spans.py), the cost model's block, the
     learning diagnostics (telemetry/learning.py), the replay diagnostics
     (telemetry/replaydiag.py) and the quantized forward's probe.
-    ``enabled`` gates all of them: off, no stage is observed, no span is
-    recorded or written, no board is made, and the record carries no
-    ``stages``, ``costs``, ``learning`` or ``replay_diag`` block. The JAX
-    package's other telemetry fields (resources, compile telemetry,
-    alerts, the fleet plane, tracing) are refused as unknown fields:
-    ROADMAP A.7 ports them."""
+    The resource sampler, the compile telemetry and the alert engine
+    (telemetry/resources.py, compile.py, alerts.py) and the cross-plane
+    tracing (telemetry/tracing.py) follow, with every ``alerts_*`` field
+    the JAX package's ``default_rules`` reads. ``enabled`` gates all of
+    them: off, no stage is observed, no span is recorded or written, no
+    board is made, and the record carries no ``stages``, ``costs``,
+    ``learning``, ``replay_diag``, ``resources`` or ``alerts`` block. The
+    JAX package's fleet-plane and replay-tier fields are refused as
+    unknown fields naming ROADMAP A.6, its policy-quality and tower
+    fields naming A.7."""
 
     # master switch: false turns the stage timers, the spans, the costs
     # block and both diagnostic pillars off (the step, its graph and the
@@ -342,6 +349,68 @@ class TelemetryConfig:
     # rows (max |dQ| and greedy agreement into the record's "quant"
     # block); 0 = no probe
     quant_probe_interval: int = 256
+    # -- resources, compile telemetry, alerts --
+    # the periodic record's resources block (device memory, host RSS/CPU,
+    # buffer owners, the compile sub-block) and, with alerts_enabled, its
+    # alerts block; off, neither block exists
+    resources_enabled: bool = True
+    # seconds between resource samples (riding the supervision cadence)
+    resources_interval_s: float = 10.0
+    # the first sample with a device's headroom (free / total) below this
+    # writes resource_dump_player{p}.json once; 0 = no dump
+    resources_headroom_warn_frac: float = 0.05
+    # CUDA-graph captures and kernel builds counted with their wall time,
+    # retraces after warm-up, the serving buckets' pre-capture coverage
+    compile_enabled: bool = True
+    # the rule engine over each record (alerts_player{p}.jsonl)
+    alerts_enabled: bool = True
+    # drop/growth rules: the rolling-median window, in records
+    alerts_window: int = 8
+    alerts_throughput_drop_frac: float = 0.5
+    alerts_heartbeat_age_s: float = 120.0
+    alerts_staleness_growth_factor: float = 4.0
+    alerts_hbm_headroom_frac: float = 0.05
+    alerts_retrace_storm: int = 3
+    alerts_shard_imbalance: float = 1.5
+    alerts_replay_ess_frac: float = 0.05
+    alerts_priority_saturation: float = 0.5
+    alerts_never_sampled_growth: float = 2.0
+    alerts_lane_starved_frac: float = 0.5
+    # the fleet block's rules (inactive: the port emits no fleet block)
+    alerts_rank_straggler: float = 2.0
+    alerts_lockstep_wait_frac: float = 0.75
+    alerts_fleet_desync: float = 4.0
+    alerts_missing_rank_age_s: float = 120.0
+    # the serving block's rules
+    alerts_serve_p99_ms: float = 1000.0
+    alerts_serve_starved_frac: float = 0.95
+    alerts_serve_churn: float = 3.0
+    alerts_serve_shed_frac: float = 0.2
+    alerts_quant_agreement: float = 0.95
+    # the replay service's rules (inactive: no replay_service block yet)
+    alerts_spill_thrash_frac: float = 0.5
+    alerts_fanout_lag: float = 8.0
+    alerts_orphaned_slots: float = 1.0
+    alerts_ingest_backlog: float = 64.0
+    alerts_spill_promotion_ms: float = 60_000.0
+    # the trace block's rule (inactive until the experience trace has its
+    # consumer, the replay service)
+    alerts_e2e_latency_growth: float = 4.0
+    # the recovery block's rules
+    alerts_snapshot_stale_s: float = 600.0
+    alerts_recovery_loop: float = 2.0
+    # the quality block's rules (inactive: no quality block)
+    alerts_quality_regression: float = 0.5
+    alerts_canary_divergence: float = 0.25
+    alerts_promotion_stall_s: float = 600.0
+    # -- cross-plane tracing (telemetry/tracing.py) --
+    # served requests carry a trace dict (the serving block's trace
+    # sub-block), emitted blocks a trace_ms stamp (the ring accountant's
+    # slot mirrors); off, records, requests, ring layouts and blocks are
+    # what they are without it
+    tracing_enabled: bool = False
+    # every N-th block / serve exchange is traced (1 = all)
+    trace_sample_every: int = 16
 
 
 @dataclass(frozen=True)
@@ -583,6 +652,12 @@ class Config:
                              ">= 16")
         if t.flush_interval_s <= 0:
             raise ValueError("telemetry.flush_interval_s must be > 0")
+        # the JAX package's bounds on the ported fields, in its words
+        for name, ok, bound in _TELEMETRY_BOUNDS:
+            value = getattr(t, name)
+            if not ok(value):
+                raise ValueError(f"telemetry.{name} ({value}) must be "
+                                 f"{bound}")
 
     def _check_inference(self) -> None:
         """The quantized plane's and the policy server's rules, the JAX
@@ -868,18 +943,55 @@ def check_decode_layout(optim: OptimConfig) -> None:
                          f"'nhwc'; got {optim.pallas_decode_layout!r}")
 
 
-# the JAX package's telemetry fields that ROADMAP A.7 ports later
-_TELEMETRY_NOT_PORTED = (
-    "resources_enabled",
-    "resources_interval_s", "resources_headroom_warn_frac",
-    "compile_enabled", "alerts_enabled", "alerts_window",
-    "alerts_throughput_drop_frac", "alerts_heartbeat_age_s",
-    "alerts_staleness_growth_factor", "alerts_hbm_headroom_frac",
-    "alerts_retrace_storm", "alerts_shard_imbalance",
-    "alerts_replay_ess_frac", "alerts_priority_saturation",
-    "alerts_never_sampled_growth", "alerts_lane_starved_frac",
-    "fleet_enabled", "tracing_enabled", "trace_sample_every",
-    "replay_tiers_enabled")
+# the JAX package's telemetry fields the port refuses, with the ROADMAP
+# item that brings them
+_TELEMETRY_NOT_PORTED = {
+    **{name: "A.6, the fleet and replay-service planes"
+       for name in ("fleet_enabled", "fleet_host_row_max_bytes",
+                    "replay_tiers_enabled")},
+    **{name: "A.7, the telemetry remainder (quality, tower)"
+       for name in ("quality_enabled", "quality_eval_interval_s",
+                    "quality_eval_rounds", "quality_eval_clients",
+                    "quality_calib_sample_every", "tower_enabled")},
+}
+
+# (field, check, the bound in the JAX package's words)
+_TELEMETRY_BOUNDS = (
+    ("resources_interval_s", lambda v: v > 0, "> 0"),
+    ("resources_headroom_warn_frac", lambda v: 0 <= v < 1, "in [0, 1)"),
+    ("alerts_window", lambda v: v >= 2, ">= 2"),
+    ("alerts_throughput_drop_frac", lambda v: 0 < v <= 1, "in (0, 1]"),
+    ("alerts_heartbeat_age_s", lambda v: v >= 0, ">= 0"),
+    ("alerts_staleness_growth_factor", lambda v: v > 1, "> 1"),
+    ("alerts_hbm_headroom_frac", lambda v: 0 <= v < 1, "in [0, 1)"),
+    ("alerts_retrace_storm", lambda v: v >= 1, ">= 1"),
+    ("alerts_shard_imbalance", lambda v: v > 1, "> 1"),
+    ("alerts_replay_ess_frac", lambda v: 0 < v < 1, "in (0, 1)"),
+    ("alerts_priority_saturation", lambda v: 0 < v <= 1, "in (0, 1]"),
+    ("alerts_never_sampled_growth", lambda v: v > 1, "> 1"),
+    ("alerts_lane_starved_frac", lambda v: 0 < v <= 1, "in (0, 1]"),
+    ("alerts_rank_straggler", lambda v: v > 1, "> 1"),
+    ("alerts_lockstep_wait_frac", lambda v: 0 < v <= 1, "in (0, 1]"),
+    ("alerts_fleet_desync", lambda v: v > 1, "> 1"),
+    ("alerts_missing_rank_age_s", lambda v: v > 0, "> 0"),
+    ("alerts_serve_p99_ms", lambda v: v > 0, "> 0"),
+    ("alerts_serve_starved_frac", lambda v: 0 < v <= 1, "in (0, 1]"),
+    ("alerts_serve_churn", lambda v: v >= 1, ">= 1"),
+    ("alerts_serve_shed_frac", lambda v: 0 < v <= 1, "in (0, 1]"),
+    ("alerts_quant_agreement", lambda v: 0 < v <= 1, "in (0, 1]"),
+    ("alerts_spill_thrash_frac", lambda v: 0 < v <= 1, "in (0, 1]"),
+    ("alerts_fanout_lag", lambda v: v >= 1, ">= 1"),
+    ("alerts_orphaned_slots", lambda v: v >= 1, ">= 1"),
+    ("alerts_ingest_backlog", lambda v: v >= 1, ">= 1"),
+    ("alerts_spill_promotion_ms", lambda v: v > 0, "> 0"),
+    ("alerts_e2e_latency_growth", lambda v: v > 1, "> 1"),
+    ("alerts_snapshot_stale_s", lambda v: v > 0, "> 0"),
+    ("alerts_recovery_loop", lambda v: v >= 1, ">= 1"),
+    ("alerts_quality_regression", lambda v: 0 < v < 1, "in (0, 1)"),
+    ("alerts_canary_divergence", lambda v: 0 < v <= 1, "in (0, 1]"),
+    ("alerts_promotion_stall_s", lambda v: v > 0, "> 0"),
+    ("trace_sample_every", lambda v: v >= 1, ">= 1"),
+)
 
 _SCALARS = {"bool": bool, "int": int, "float": float, "str": str,
             "Optional[str]": str}
@@ -940,7 +1052,7 @@ def parse_overrides(cfg: Config, argv: List[str]) -> Config:
             hint = ""
             if section == "telemetry" and fname in _TELEMETRY_NOT_PORTED:
                 hint = (": the JAX package's field, not ported yet (ROADMAP "
-                        "A.7, the telemetry remainder)")
+                        f"{_TELEMETRY_NOT_PORTED[fname]})")
             raise SystemExit(f"unknown field {fname!r} in section "
                              f"{section!r}{hint}")
         dotted[key] = _coerce(key, raw, matching[fname].type)

@@ -64,6 +64,8 @@ from r2d2_tpu_torch.ops.value import inverse_value_rescale, value_rescale
 from r2d2_tpu_torch.replay.device_replay import replay_sample
 from r2d2_tpu_torch.replay.structs import (ReplaySpec, ReplayState,
                                            SampleBatch, batch_fields)
+from r2d2_tpu_torch.telemetry import scopes
+from r2d2_tpu_torch.telemetry.compile import compile_event
 from r2d2_tpu_torch.utils.device import gc_paused
 
 
@@ -138,14 +140,16 @@ def _decode_inputs(net: NetworkApply, spec: ReplaySpec, batch: SampleBatch
     decode kernel on CUDA, which strips any storage pad), last-action
     indices -> one-hot, where -1 (no action) becomes a zero row as
     jax.nn.one_hot gives."""
-    stacked = stack_frames(batch.obs, spec.seq_window, spec.frame_stack,
-                           out_dtype=net.compute_dtype,
-                           out_height=spec.frame_height,
-                           out_width=spec.frame_width,
-                           space_to_depth=net.input_layout == SPACE_TO_DEPTH)
-    la = batch.last_action.long()
-    one_hot = F.one_hot(la.clamp(min=0), net.action_dim).float()
-    return stacked, one_hot * (la >= 0).unsqueeze(-1).float()
+    with scopes.scope("obs_decode"):
+        stacked = stack_frames(batch.obs, spec.seq_window, spec.frame_stack,
+                               out_dtype=net.compute_dtype,
+                               out_height=spec.frame_height,
+                               out_width=spec.frame_width,
+                               space_to_depth=(net.input_layout
+                                               == SPACE_TO_DEPTH))
+        la = batch.last_action.long()
+        one_hot = F.one_hot(la.clamp(min=0), net.action_dim).float()
+        return stacked, one_hot * (la >= 0).unsqueeze(-1).float()
 
 
 def make_loss_fn(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
@@ -161,6 +165,10 @@ def make_loss_fn(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
 
     def loss_fn(online: R2D2Network, target: R2D2Network,
                 batch: SampleBatch):
+        with scopes.scope("loss"):
+            return _loss(online, target, batch)
+
+    def _loss(online: R2D2Network, target: R2D2Network, batch: SampleBatch):
         stacked, last_action = _decode_inputs(net, spec, batch)
         if use_double:
             q_online, q_target_all = dual_sequence_q(
@@ -319,22 +327,23 @@ def _make_train_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
                     aux["valid_steps"])
         if with_ld:
             ld.update(grad_diagnostics(ts.params, grads, group_sq))
-        grad_norm = clip_by_global_norm_(grads, optim.grad_norm, sq_norm)
+        with scopes.scope("optimizer"):
+            grad_norm = clip_by_global_norm_(grads, optim.grad_norm, sq_norm)
         if with_ld:
             ld["ld/grad_norm"] = grad_norm
             ld["ld/nonfinite"] = torch.logical_not(
                 torch.isfinite(loss) & torch.isfinite(grad_norm)).to(
                     torch.int32)
-        ts.opt.step()
-
-        # hard target sync on the 1-based step counter, on the device
-        ts.step_count += 1
-        if use_double:
-            sync = ts.step_count % interval == 0
-            with torch.no_grad():
-                for t, p in zip(ts.target_params.parameters(),
-                                ts.params.parameters()):
-                    torch.where(sync, p, t, out=t)
+        with scopes.scope("optimizer"):
+            ts.opt.step()
+            # hard target sync on the 1-based step counter, on the device
+            ts.step_count += 1
+            if use_double:
+                sync = ts.step_count % interval == 0
+                with torch.no_grad():
+                    for t, p in zip(ts.target_params.parameters(),
+                                    ts.params.parameters()):
+                        torch.where(sync, p, t, out=t)
         metrics = {"loss": loss, "mean_abs_td": aux["mean_abs_td"],
                    "mean_q": aux["mean_q"], "grad_norm": grad_norm,
                    "priorities": aux["priorities"]}
@@ -370,8 +379,9 @@ def _make_step_body(net: NetworkApply, spec: ReplaySpec, optim: OptimConfig,
     def body(ts: TrainState, rs: ReplayState,
              uniform: Optional[torch.Tensor], dq_on: bool = False,
              rd_on: bool = False) -> Dict[str, torch.Tensor]:
-        batch = replay_sample(spec, rs, generator=ts.generator,
-                              uniform=uniform)
+        with scopes.scope("replay_sample"):
+            batch = replay_sample(spec, rs, generator=ts.generator,
+                                  uniform=uniform)
         metrics = train(ts, batch, rs, dq_on)
         tree_update(spec.tree_layers, rs.tree, spec.prio_exponent,
                     metrics.pop("priorities"), batch.idxes)
@@ -597,6 +607,9 @@ class GraphedSteps:
         self.out: Optional[Dict[str, torch.Tensor]] = None   # (K, ...) static
         self.addresses: Dict[str, int] = {}
         self.launches: Dict[str, int] = {}              # per replay
+        # what the allocator's reserve grew by across the captures (the
+        # graphs' memory, as the resources block attributes it)
+        self.pool_bytes = 0
 
     def flags(self, step: int) -> Tuple[Tuple[bool, bool], ...]:
         """(dq_on, rd_on) of each of the K steps from host step
@@ -700,6 +713,20 @@ class GraphedSteps:
             return ts, {name: t[0].clone() for name, t in out.items()}
         return ts, rs, {name: t.clone() for name, t in out.items()}
 
+    def _event_name(self, flags) -> str:
+        """The capture's name for the compile telemetry: one name a
+        pattern of interval steps."""
+        pattern = "".join(f"{int(dq)}{int(rd)}" for dq, rd in flags)
+        kind = "batch_step" if self.batch_input else "learner_step"
+        return f"{kind}/K{self.steps}/{pattern}"
+
+    def _signature(self, ts: TrainState, rs: Optional[ReplayState]) -> str:
+        """The shapes a capture is made at."""
+        shapes = [(n, tuple(t.shape)) for n, t in self._inputs()]
+        if rs is not None:
+            shapes.append(("obs", tuple(rs.obs.shape)))
+        return repr(shapes)
+
     def _capture(self, ts: TrainState, rs: Optional[ReplayState],
                  flags) -> None:
         graph = torch.cuda.CUDAGraph()
@@ -712,10 +739,13 @@ class GraphedSteps:
         # and launch on their own streams while this thread captures; the
         # capture counts only the launches on its own stream
         stream = torch.cuda.Stream()
-        with gc_paused(), captured_launches(stream) as counted, \
+        reserved = torch.cuda.memory_reserved()
+        with compile_event(self._event_name(flags), self._signature(ts, rs)), \
+                gc_paused(), captured_launches(stream) as counted, \
                 torch.cuda.graph(graph, pool=self.pool, stream=stream,
                                  capture_error_mode="thread_local"):
             out = self._run(ts, rs, flags)
+        self.pool_bytes += max(torch.cuda.memory_reserved() - reserved, 0)
         launches = {name: counted.get(name, 0) for name in launch_counts()}
         add_launch_counts({name: -n for name, n in launches.items()})
         self.variants[flags] = (graph, out, launches)

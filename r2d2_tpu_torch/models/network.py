@@ -45,6 +45,7 @@ from r2d2_tpu_torch.config import (INFERENCE_DTYPES, NetworkConfig,
 from r2d2_tpu_torch.ops.indexing import space_to_depth_2x2
 from r2d2_tpu_torch.ops.lstm_kernels import lstm_scan
 from r2d2_tpu_torch.ops.quant_kernels import int8_linear, pad_int8_weight
+from r2d2_tpu_torch.telemetry import scopes
 
 STANDARD, SPACE_TO_DEPTH = "standard", "space_to_depth"
 
@@ -291,12 +292,16 @@ class R2D2Network(nn.Module):
         final packed hidden in f32."""
         dtype = self.compute_dtype
         batch, seq = obs_seq.shape[:2]
-        latent = self.torso(obs_seq.reshape(batch * seq, *obs_seq.shape[2:]),
-                            dtype, layout).reshape(batch, seq, -1)
-        rnn_in = torch.cat([latent, last_action_seq.to(dtype)], dim=-1)
-        carry, outputs = self.lstm(unpack_hidden(hidden.to(dtype)), rnn_in,
-                                   dtype)
-        q = self.head(outputs.reshape(batch * seq, -1), dtype)
+        with scopes.scope("torso"):
+            latent = self.torso(
+                obs_seq.reshape(batch * seq, *obs_seq.shape[2:]), dtype,
+                layout).reshape(batch, seq, -1)
+        with scopes.scope("lstm"):
+            rnn_in = torch.cat([latent, last_action_seq.to(dtype)], dim=-1)
+            carry, outputs = self.lstm(unpack_hidden(hidden.to(dtype)),
+                                       rnn_in, dtype)
+        with scopes.scope("head"):
+            q = self.head(outputs.reshape(batch * seq, -1), dtype)
         return q.reshape(batch, seq, -1), pack_hidden(carry).float()
 
 
@@ -791,31 +796,34 @@ def quantized_inference_apply(net: "NetworkApply", qparams, obs_seq,
     s2d = qi.input_layout == SPACE_TO_DEPTH
     if layout == SPACE_TO_DEPTH and not s2d:
         raise ValueError("this torso's first conv takes the standard layout")
-    if s2d and layout == STANDARD:
-        x = space_to_depth_2x2(x)
-    x = x.permute(0, 3, 1, 2)
-    for w, b, stride in zip(qi.conv_w, qi.conv_b, qi.strides):
-        x = F.relu(F.conv2d(x.to(dtype), w, b, stride))
-    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)           # (h, w, c)
-    latent = qi.dense["torso.dense"](x.contiguous())
-    rnn_in = torch.cat([latent.reshape(batch, seq, cfg.cnn_out_dim),
-                        last_action_seq.to(dtype)], dim=-1)
-    xp = qi.dense["lstm.input_proj"](
-        rnn_in.reshape(batch * seq, -1)).float().reshape(batch, seq, -1)
-    c, h = unpack_hidden(hidden.float())
-    outputs = []
-    for t in range(seq):
-        gates = xp[:, t] + qi.recurrent(h, torch.float32) + qi.lstm_bias
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        outputs.append(h)
-    hs = torch.stack(outputs, dim=1).reshape(batch * seq, -1).to(dtype)
+    with scopes.scope("torso"):
+        if s2d and layout == STANDARD:
+            x = space_to_depth_2x2(x)
+        x = x.permute(0, 3, 1, 2)
+        for w, b, stride in zip(qi.conv_w, qi.conv_b, qi.strides):
+            x = F.relu(F.conv2d(x.to(dtype), w, b, stride))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)       # (h, w, c)
+        latent = qi.dense["torso.dense"](x.contiguous())
+    with scopes.scope("lstm"):
+        rnn_in = torch.cat([latent.reshape(batch, seq, cfg.cnn_out_dim),
+                            last_action_seq.to(dtype)], dim=-1)
+        xp = qi.dense["lstm.input_proj"](
+            rnn_in.reshape(batch * seq, -1)).float().reshape(batch, seq, -1)
+        c, h = unpack_hidden(hidden.float())
+        outputs = []
+        for t in range(seq):
+            gates = xp[:, t] + qi.recurrent(h, torch.float32) + qi.lstm_bias
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            outputs.append(h)
+        hs = torch.stack(outputs, dim=1).reshape(batch * seq, -1).to(dtype)
     dense = qi.dense
-    adv = dense["head.adv_out"](F.relu(dense["head.adv_hidden"](hs)))
-    if cfg.use_dueling:
-        val = dense["head.val_out"](F.relu(dense["head.val_hidden"](hs)))
-        q = (val + adv - adv.mean(dim=-1, keepdim=True)).float()
-    else:
-        q = adv.float()
+    with scopes.scope("head"):
+        adv = dense["head.adv_out"](F.relu(dense["head.adv_hidden"](hs)))
+        if cfg.use_dueling:
+            val = dense["head.val_out"](F.relu(dense["head.val_hidden"](hs)))
+            q = (val + adv - adv.mean(dim=-1, keepdim=True)).float()
+        else:
+            q = adv.float()
     return q.reshape(batch, seq, -1), pack_hidden((c, h)).float()

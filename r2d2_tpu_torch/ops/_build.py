@@ -7,7 +7,9 @@ of the source so an edit rebuilds, and loads with ``ctypes``. A host C++
 source (``native/sum_tree.cc``) builds the same way with ``g++``. A source
 that does not build raises; nothing falls back. What ptxas reports about
 each kernel of a source built in this process (registers, shared memory,
-spills; ``-Xptxas -v``) is kept in ``PTXAS_REPORT``.
+spills; ``-Xptxas -v``) is kept in ``PTXAS_REPORT``. A library's first
+build-and-load in a process is a compile event of the compile telemetry
+(telemetry/compile.py), named ``kernel/<source>``.
 """
 
 import ctypes
@@ -18,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
+
+from r2d2_tpu_torch.telemetry.compile import compile_event
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -93,11 +97,19 @@ def _load(lib: Path) -> ctypes.CDLL:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _lock:
-        return _load(build(name))
+        lib = _library_path(CSRC / f"{name}.cu", NVCC_FLAGS)
+        if lib in _loaded:
+            return _loaded[lib]
+        with compile_event(f"kernel/{name}", lib.name):
+            return _load(build(name))
 
 
 def load_host(source: Path) -> ctypes.CDLL:
     """The loaded library for a host C++ source, built with g++ on first
     use."""
     with _lock:
-        return _load(_compile(_cxx(), CXX_FLAGS, source, False)[0])
+        lib = _library_path(source, CXX_FLAGS)
+        if lib in _loaded:
+            return _loaded[lib]
+        with compile_event(f"kernel/{source.stem}", lib.name):
+            return _load(_compile(_cxx(), CXX_FLAGS, source, False)[0])

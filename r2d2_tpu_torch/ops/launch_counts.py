@@ -7,23 +7,37 @@ per replay (``add_launch_counts``). A capture reads its own launches with
 ``captured_launches``, by the stream it captures on: other threads (the
 policy server beside the learner) may launch kernels on their streams
 meanwhile, and a captured backward runs in autograd's own thread, on the
-capture stream."""
+capture stream.
+
+A launch also carries its FLOPs, from the wrapper's formula over the
+launch's shapes (``torch.utils.flop_counter`` does not see a kernel
+launched through ctypes): ``counted_flops`` collects them, by kernel, for
+``telemetry/costmodel.py program_cost``. Each formula counts what
+``FlopCounterMode`` counts for the kernel's plain version (its matrix
+products; copies and elementwise work count 0)."""
 
 import threading
 from contextlib import contextmanager
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 from r2d2_tpu_torch.utils.device import stream_handle
 
 _lock = threading.Lock()
 _captures: Dict[int, Dict[str, int]] = {}    # capture stream -> launches
+_flop_sinks: List[Dict[str, float]] = []      # open counted_flops records
 
 
-def count_launch(table: Dict[str, int], name: str, device) -> None:
+def count_launch(table: Dict[str, int], name: str, device,
+                 flops: float = 0.0) -> None:
     """One launch of kernel ``name`` on ``device``'s current stream: into
     its module's table and, when that stream is capturing under
-    ``captured_launches``, into the capture's record."""
+    ``captured_launches``, into the capture's record; its ``flops`` into
+    every open ``counted_flops`` record."""
     table[name] += 1
+    if _flop_sinks:
+        with _lock:
+            for sink in _flop_sinks:
+                sink[name] = sink.get(name, 0.0) + float(flops)
     if _captures:
         record = _captures.get(stream_handle(device))
         if record is not None:
@@ -44,6 +58,19 @@ def captured_launches(stream) -> Iterator[Dict[str, int]]:
     finally:
         with _lock:
             del _captures[key]
+
+
+@contextmanager
+def counted_flops() -> Iterator[Dict[str, float]]:
+    """The FLOPs of the kernel launches inside the block, by kernel."""
+    record: Dict[str, float] = {}
+    with _lock:
+        _flop_sinks.append(record)
+    try:
+        yield record
+    finally:
+        with _lock:
+            _flop_sinks.remove(record)
 
 
 def _tables():

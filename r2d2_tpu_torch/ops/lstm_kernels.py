@@ -211,6 +211,17 @@ def lstm_fwd_plain(xpb: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
     return torch.stack(hseq), c.to(out)
 
 
+def lstm_fwd_flops(steps: int, batch: int, hidden: int) -> float:
+    """The forward's FLOPs as the flop counter counts its plain version:
+    one (B, H) x (H, 4H) product a step."""
+    return 2.0 * steps * batch * hidden * 4 * hidden
+
+
+def lstm_bwd_flops(steps: int, batch: int, hidden: int) -> float:
+    """The backward's: dh = dgates . Wh^T and dWh += h^T . dgates a step."""
+    return 2.0 * lstm_fwd_flops(steps, batch, hidden)
+
+
 def lstm_bwd_plain(wh, c0, h0, hseq, cseq, acts, dhseq, dcfin, dhfin):
     """The backward kernel's arithmetic step by step, t = T-1 .. 0. Returns
     dxpb (dhseq's type), dWh, dc0, dh0 (f32)."""
@@ -306,10 +317,11 @@ def lstm_fwd_cuda(xpb: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
         geo.slots, geo.smem, int(dtype == torch.bfloat16),
         int(save_residuals),
         stream_handle(dev)), "lstm_fwd")
+    flops = lstm_fwd_flops(steps, batch, hidden)
     if save_residuals:
-        count_launch(LAUNCHES, "lstm_fwd", dev)
+        count_launch(LAUNCHES, "lstm_fwd", dev, flops)
         return hseq, cseq, acts
-    count_launch(LAUNCHES, "lstm_fwd_lean", dev)
+    count_launch(LAUNCHES, "lstm_fwd_lean", dev, flops)
     return hseq, cfin
 
 
@@ -339,7 +351,8 @@ def lstm_bwd_cuda(wh, c0, h0, hseq, cseq, acts, dhseq, dcfin, dhfin):
         dh0.data_ptr(), barrier.data_ptr(), steps, batch, hidden, geo.slots,
         geo.smem, int(dtype == torch.bfloat16),
         stream_handle(dev)), "lstm_bwd")
-    count_launch(LAUNCHES, "lstm_bwd", dev)
+    count_launch(LAUNCHES, "lstm_bwd", dev,
+                 lstm_bwd_flops(steps, batch, hidden))
     return dxpb, dwh, dc0, dh0
 
 

@@ -163,6 +163,12 @@ def split_bf16x3(x: torch.Tensor
     return hi, mid, lo
 
 
+def int8_linear_flops(m: int, n: int, k: int) -> float:
+    """FLOPs of one launch as the flop counter counts the plain version:
+    the (m, k) x (k, n) product."""
+    return 2.0 * m * n * k
+
+
 def int8_linear_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                       bias: Optional[torch.Tensor] = None,
                       out_dtype: Optional[torch.dtype] = None
@@ -240,7 +246,8 @@ def int8_linear_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"int8_linear launch failed with CUDA error "
                                f"{err}")
-        count_launch(LAUNCHES, "int8_linear", x.device)
+        count_launch(LAUNCHES, "int8_linear", x.device,
+                     int8_linear_flops(rows, n, k))
     return y
 
 

@@ -195,7 +195,8 @@ def gather_windows_cuda(ring: torch.Tensor, block_idx: torch.Tensor,
         int(start.dtype == torch.int64), out.data_ptr(), batch, num_rows,
         row_len, frame_bytes, window, plan.chunk, plan.per_cta, plan.grid,
         stream_handle(device)), "gather_windows")
-    count_launch(LAUNCHES, "gather_windows", device)
+    # a copy: 0 FLOPs, as the flop counter counts the plain version
+    count_launch(LAUNCHES, "gather_windows", device, flops=0.0)
     return out
 
 
@@ -272,7 +273,9 @@ def stack_frames_cuda(obs: torch.Tensor, seq_window: int, frame_stack: int,
         int(space_to_depth), batch, seq_window, frame_stack, row_len,
         stored_h, stored_w, out_height, out_width, stream_handle(obs.device)),
         "stack_frames")
-    count_launch(LAUNCHES, "stack_frames", obs.device)
+    # an elementwise decode: 0 FLOPs, as the flop counter counts the
+    # plain version
+    count_launch(LAUNCHES, "stack_frames", obs.device, flops=0.0)
     return out
 
 

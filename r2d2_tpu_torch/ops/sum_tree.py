@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from r2d2_tpu_torch.telemetry import scopes
+
 
 def tree_num_layers(capacity: int) -> int:
     """Smallest L with 2**(L-1) >= capacity leaves."""
@@ -32,16 +34,17 @@ def tree_update(num_layers: int, tree: torch.Tensor, prio_exponent: float,
     """Write p = |td|**alpha at the given leaves (p = 0 for td = 0, so
     alpha = 0 still leaves empty slots unsamplable) and rebuild ancestor
     sums. Updates ``tree`` in place and returns it."""
-    td_errors = td_errors.to(tree.dtype)
-    priorities = torch.where(td_errors != 0.0,
-                             td_errors.abs() ** prio_exponent,
-                             torch.zeros_like(td_errors))
-    node = idxes.long() + (2 ** (num_layers - 1) - 1)
-    tree[node] = priorities
-    for _ in range(num_layers - 1):
-        node = (node - 1) // 2
-        tree[node] = tree[2 * node + 1] + tree[2 * node + 2]
-    return tree
+    with scopes.scope("sum_tree_update"):
+        td_errors = td_errors.to(tree.dtype)
+        priorities = torch.where(td_errors != 0.0,
+                                 td_errors.abs() ** prio_exponent,
+                                 torch.zeros_like(td_errors))
+        node = idxes.long() + (2 ** (num_layers - 1) - 1)
+        tree[node] = priorities
+        for _ in range(num_layers - 1):
+            node = (node - 1) // 2
+            tree[node] = tree[2 * node + 1] + tree[2 * node + 2]
+        return tree
 
 
 def tree_sample(num_layers: int, tree: torch.Tensor, is_exponent: float,
@@ -53,30 +56,31 @@ def tree_sample(num_layers: int, tree: torch.Tensor, is_exponent: float,
 
     ``uniform``: the (num_samples,) jitter draws in [0, 1); drawn from
     ``generator`` when None (tests inject the JAX package's draws)."""
-    if uniform is None:
-        uniform = torch.rand(num_samples, generator=generator,
-                             device=tree.device, dtype=tree.dtype)
-    p_sum = tree[0]
-    interval = p_sum / num_samples
-    prefixsums = (torch.arange(num_samples, device=tree.device,
-                               dtype=tree.dtype)
-                  + uniform.to(tree.dtype)) * interval
-    # f32 rounding can push the top stratum to p_sum (or past a subtree
-    # total mid-descent) and walk into a zero-priority padding leaf: clamp
-    # below the total, and never enter a zero-mass right subtree
-    prefixsums = torch.minimum(prefixsums, p_sum * (1.0 - 1e-6))
-    node = torch.zeros(num_samples, dtype=torch.int64, device=tree.device)
-    for _ in range(num_layers - 1):
-        left_sum = tree[node * 2 + 1]
-        right_sum = tree[node * 2 + 2]
-        go_left = (prefixsums < left_sum) | (right_sum <= 0.0)
-        node = torch.where(go_left, node * 2 + 1, node * 2 + 2)
-        prefixsums = torch.where(
-            go_left, torch.minimum(prefixsums, left_sum * (1.0 - 1e-6)),
-            prefixsums - left_sum)
-    priorities = tree[node]
-    is_weights = torch.pow(priorities / priorities.min(), -is_exponent)
-    return node - (2 ** (num_layers - 1) - 1), is_weights
+    with scopes.scope("sum_tree_sample"):
+        if uniform is None:
+            uniform = torch.rand(num_samples, generator=generator,
+                                 device=tree.device, dtype=tree.dtype)
+        p_sum = tree[0]
+        interval = p_sum / num_samples
+        prefixsums = (torch.arange(num_samples, device=tree.device,
+                                   dtype=tree.dtype)
+                      + uniform.to(tree.dtype)) * interval
+        # f32 rounding can push the top stratum to p_sum (or past a subtree
+        # total mid-descent) and walk into a zero-priority padding leaf: clamp
+        # below the total, and never enter a zero-mass right subtree
+        prefixsums = torch.minimum(prefixsums, p_sum * (1.0 - 1e-6))
+        node = torch.zeros(num_samples, dtype=torch.int64, device=tree.device)
+        for _ in range(num_layers - 1):
+            left_sum = tree[node * 2 + 1]
+            right_sum = tree[node * 2 + 2]
+            go_left = (prefixsums < left_sum) | (right_sum <= 0.0)
+            node = torch.where(go_left, node * 2 + 1, node * 2 + 2)
+            prefixsums = torch.where(
+                go_left, torch.minimum(prefixsums, left_sum * (1.0 - 1e-6)),
+                prefixsums - left_sum)
+        priorities = tree[node]
+        is_weights = torch.pow(priorities / priorities.min(), -is_exponent)
+        return node - (2 ** (num_layers - 1) - 1), is_weights
 
 
 # ---------------------------------------------------------------------------

@@ -97,6 +97,10 @@ from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, RingAccountant,
 from r2d2_tpu_torch.runtime.learner_loop import MAX_AHEAD, TIMINGS_KEPT
 from r2d2_tpu_torch.runtime.orchestrator import ActorPool, start_span_drain
 from r2d2_tpu_torch.telemetry.core import NULL_TELEMETRY, Telemetry
+from r2d2_tpu_torch.telemetry.resources import (HealthPlane,
+                                                clear_player_buffers,
+                                                pytree_nbytes,
+                                                register_buffer)
 
 # the stop flag's local reasons, for the summary
 STOP_NONE, STOP_SIGNAL, STOP_DEADLINE = "", "signal", "deadline"
@@ -368,13 +372,18 @@ def host_row_path(save_dir: str, rank: int) -> str:
     return os.path.join(save_dir or ".", f"telemetry_host{rank}.jsonl")
 
 
-def write_host_row(path: str, rank: int, tele, t_start: float) -> None:
+def write_host_row(path: str, rank: int, tele, t_start: float,
+                   health=None) -> None:
     """A rank > 0's row of a log interval, the JAX package's host row
-    without its fleet, resources and alerts parts."""
+    without its fleet part; with the resources plane (``health``) its
+    ``resources`` block and the rank's own alert pass (firings to
+    ``alerts_host{rank}.jsonl``)."""
     import json
     row = {"t": round(time.time() - t_start, 3), "rank": rank,
            "stages": tele.interval_summary(),
            "telemetry_dropped_spans": tele.spans.dropped}
+    if health is not None:
+        health.annotate(row)
     with open(path, "a") as f:
         f.write(json.dumps(row) + "\n")
 
@@ -562,6 +571,7 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
     stop_reason = STOP_NONE
     t_start = time.time()
     host_rows = None
+    health = None
     try:
         start_span_drain(tele, rt.save_dir, f"spans_host{rank}.jsonl",
                          [f"spans_p0_a{rank * n_local + i}.jsonl"
@@ -589,6 +599,17 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
                 learn_agg = LearningAggregator(0, rt.save_dir,
                                                cfg.telemetry.nan_policy,
                                                cfg.optim.lr)
+        # this controller's resources and alerts (host-local): rank 0's
+        # ride its record, a rank > 0's its host rows
+        if cfg.telemetry.enabled and cfg.telemetry.resources_enabled:
+            clear_player_buffers(0)
+            register_buffer("p0/train_state", pytree_nbytes(core.ts))
+            if not host_mode:
+                register_buffer("p0/replay_ring", pytree_nbytes(core.rs))
+            health = HealthPlane(
+                cfg, metrics, 0, board=fleet.tele_board, devices=[device],
+                alerts_name=(None if rank == 0
+                             else f"alerts_host{rank}.jsonl"))
 
         max_steps = max_training_steps or cfg.optim.training_steps
         deadline = time.time() + max_seconds if max_seconds else None
@@ -700,6 +721,10 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
             if now - last_supervise >= rt.supervise_interval_s:
                 fleet.supervise()
                 last_supervise = now
+                if health is not None:
+                    # the optimizer's state exists after the first step
+                    register_buffer("p0/train_state", pytree_nbytes(core.ts))
+                    health.tick(dispatches >= 2)
             if now - last_log >= rt.log_interval and metrics is not None:
                 flush_losses()
                 metrics.env_steps = resumed_env + core.info["env_steps"]
@@ -711,14 +736,14 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
                 last_log = now
             elif now - last_log >= rt.log_interval and host_rows:
                 # a rank without the metrics: one stage row an interval
-                write_host_row(host_rows, rank, tele, t_start)
+                write_host_row(host_rows, rank, tele, t_start, health)
                 last_log = now
             tele.observe("lockstep/step", time.perf_counter() - t_iter)
         if metrics is not None:
             flush_losses()
         if host_rows:
             # the last interval's row, however short the run
-            write_host_row(host_rows, rank, tele, t_start)
+            write_host_row(host_rows, rank, tele, t_start, health)
         # the final checkpoint of a clean stop (every controller left the
         # loop on the same iteration, so the gather below is entered by all)
         if rt.save_interval and core.ts.step > last_ckpt_step:
@@ -742,6 +767,8 @@ def _train_controller(cfg: Config, mesh, max_training_steps, max_seconds,
             snapshots.close()
         fleet.close()
         tele.close()
+        if health is not None:
+            health.close()
         if metrics is not None:
             metrics.close()
 

@@ -18,6 +18,7 @@ from r2d2_tpu_torch.ops.sum_tree import tree_sample, tree_update
 from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, ReplayState,
                                            SampleBatch, stack_blocks)
 from r2d2_tpu_torch.telemetry.histogram import value_counts
+from r2d2_tpu_torch.telemetry import scopes
 
 
 def _gib(b: float) -> str:
@@ -26,17 +27,22 @@ def _gib(b: float) -> str:
 
 def _guard_device_capacity(spec: ReplaySpec, device: torch.device) -> None:
     """Refuse a ring that cannot fit in free device memory, with numbers,
-    instead of failing mid-allocation."""
-    if device.type != "cuda":
-        return
-    free, _total = torch.cuda.mem_get_info(device)
+    instead of failing mid-allocation. The card's free memory is read
+    through the one device-memory reader (telemetry/resources.py)."""
+    from r2d2_tpu_torch.telemetry.resources import device_memory_stats
+    free = device_memory_stats(device).get("bytes_free")
     ring = spec.device_ring_bytes
-    if ring > 0.9 * free:
+    if free is not None and ring > 0.9 * free:
+        hint = ""
+        if spec.exact_gather:
+            unpadded = dataclasses.replace(spec, exact_gather=False)
+            hint = ("; replay.pallas_exact_gather='off' shrinks storage "
+                    f"to ~{_gib(unpadded.device_ring_bytes)} (row-gather "
+                    "reads instead of exact-window copies)")
         raise ValueError(
             f"device replay ring needs ~{_gib(ring)} but the device has "
             f"{_gib(free)} free. Reduce replay.capacity or "
-            "replay.block_length, or set replay.pallas_exact_gather='off' "
-            "if the storage is padded.")
+            f"replay.block_length, use replay.placement='host'{hint}.")
 
 
 def replay_init(spec: ReplaySpec, device) -> ReplayState:
@@ -92,24 +98,26 @@ def write_rows(spec: ReplaySpec, state: ReplayState, rows: torch.Tensor,
     device-side pointer. ``state.block_ptr`` is the caller's to advance.
     With the replay diagnostics on, the overwritten rows' lifetimes go
     into the eviction ledger first (``_account_evictions``)."""
-    idxes = (rows[:, None] * spec.seqs_per_block
-             + torch.arange(spec.seqs_per_block, device=rows.device)[None, :]
-             ).reshape(-1)
-    if state.sample_count is not None:
-        _account_evictions(spec, state, rows, idxes)
-    tree_update(spec.tree_layers, state.tree, spec.prio_exponent,
-                blocks.priority.reshape(-1), idxes)
-    # the stored frame may be tile-padded (exact_gather): write the true
-    # frame into its corner; the pad stays zero from replay_init
-    state.obs[rows, :, :spec.frame_height, :spec.frame_width] = \
-        blocks.obs_row.to(torch.uint8)
-    for name in ("last_action", "hidden", "action", "reward", "gamma",
-                 "burn_in_steps", "learning_steps", "forward_steps",
-                 "seq_start", "weight_version", "lane"):
-        src = getattr(blocks, "last_action_row" if name == "last_action"
-                      else name)
-        dst = getattr(state, name)
-        dst[rows] = src.to(dst.dtype)
+    with scopes.scope("replay_add"):
+        idxes = (rows[:, None] * spec.seqs_per_block
+                 + torch.arange(spec.seqs_per_block,
+                                device=rows.device)[None, :]
+                 ).reshape(-1)
+        if state.sample_count is not None:
+            _account_evictions(spec, state, rows, idxes)
+        tree_update(spec.tree_layers, state.tree, spec.prio_exponent,
+                    blocks.priority.reshape(-1), idxes)
+        # the stored frame may be tile-padded (exact_gather): write the true
+        # frame into its corner; the pad stays zero from replay_init
+        state.obs[rows, :, :spec.frame_height, :spec.frame_width] = \
+            blocks.obs_row.to(torch.uint8)
+        for name in ("last_action", "hidden", "action", "reward", "gamma",
+                     "burn_in_steps", "learning_steps", "forward_steps",
+                     "seq_start", "weight_version", "lane"):
+            src = getattr(blocks, "last_action_row" if name == "last_action"
+                          else name)
+            dst = getattr(state, name)
+            dst[rows] = src.to(dst.dtype)
 
 
 def _account_evictions(spec: ReplaySpec, state: ReplayState,

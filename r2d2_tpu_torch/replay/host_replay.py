@@ -116,14 +116,18 @@ class HostReplay:
         return tree_sample_np(self.tree_layers, self.tree,
                               self.spec.is_exponent, batch, self.rng)
 
-    def add(self, block: Block) -> None:
+    def add(self, block: Block, trace_ms: int = -1,
+            ingest_ms: int = -1) -> None:
+        """One block; ``trace_ms``/``ingest_ms``: its lineage stamps for
+        the ring accountant's mirrors (-1 untraced)."""
         spec = self.spec
         with self.lock:
             wv = int(np.asarray(block.weight_version))
             if self._diag:
                 self._account_eviction(self.ring.ptr)
             ptr = self.ring.advance(
-                int(np.asarray(block.learning_steps).sum()), wv)
+                int(np.asarray(block.learning_steps).sum()), wv,
+                trace_ms, ingest_ms)
             self.weight_version[ptr] = wv
             self.lane[ptr] = int(np.asarray(block.lane))
             idxes = ptr * spec.seqs_per_block + np.arange(

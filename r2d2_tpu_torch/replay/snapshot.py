@@ -115,13 +115,20 @@ def _state_to_host(state) -> dict:
 
 
 def _capture_ring(ring) -> dict:
-    return {
+    cap = {
         "ptr": int(ring.ptr),
         "total_adds": int(ring.total_adds),
         "buffer_steps": int(ring.buffer_steps),
         "slot_steps": [int(s) for s in ring.slot_steps],
         "slot_versions": [int(v) for v in ring.slot_versions],
     }
+    # the lineage mirrors ride only when something is traced: an
+    # untraced run's snapshot is what it is without tracing, and one
+    # without them restores as untraced
+    if any(t >= 0 for t in ring.slot_trace):
+        cap["slot_trace"] = [int(t) for t in ring.slot_trace]
+        cap["slot_ingest"] = [int(t) for t in ring.slot_ingest_ms]
+    return cap
 
 
 def capture_plain(spec, state, ring, step: int,
@@ -195,6 +202,9 @@ def _restore_ring(ring, cap: dict) -> None:
     ring.buffer_steps = int(cap["buffer_steps"])
     ring.slot_steps = [int(s) for s in cap["slot_steps"]]
     ring.slot_versions = [int(v) for v in cap["slot_versions"]]
+    n = len(ring.slot_steps)
+    ring.slot_trace = [int(t) for t in cap.get("slot_trace", [-1] * n)]
+    ring.slot_ingest_ms = [int(t) for t in cap.get("slot_ingest", [-1] * n)]
 
 
 def restore_plain(spec, state, ring, snap: dict,
@@ -251,6 +261,10 @@ def _flatten_payload(snap: dict) -> dict:
             shard["ring"]["slot_steps"], np.int64)
         arrays[p + "ring.slot_versions"] = np.asarray(
             shard["ring"]["slot_versions"], np.int64)
+        for name in ("slot_trace", "slot_ingest"):
+            if name in shard["ring"]:
+                arrays[p + "ring." + name] = np.asarray(shard["ring"][name],
+                                                        np.int64)
     return arrays
 
 
@@ -341,6 +355,9 @@ def load_snapshot(save_dir: str, player_idx: int) -> Optional[dict]:
                     "slot_steps": data[p + "ring.slot_steps"].tolist(),
                     "slot_versions":
                         data[p + "ring.slot_versions"].tolist(),
+                    **{name: data[p + "ring." + name].tolist()
+                       for name in ("slot_trace", "slot_ingest")
+                       if p + "ring." + name in data.files},
                 },
             })
     return snap

@@ -148,6 +148,22 @@ class Block:
         default_factory=lambda: np.full((), -1, np.int32))
 
 
+def block_trace(block: Block):
+    """A block's lineage stamp, or None: every block of a traced run
+    carries ``trace_ms``, an int32 attribute (telemetry/tracing.py: wall
+    ms mod 2**31, -1 untraced; (K,) on a stacked drain). It is not a field:
+    it never reaches the device, and an untraced run's blocks are what
+    they are without tracing."""
+    return getattr(block, "trace_ms", None)
+
+
+def with_trace(block: Block, trace_ms) -> Block:
+    """``block`` carrying ``trace_ms`` (None: nothing attached)."""
+    if trace_ms is not None:
+        block.trace_ms = trace_ms
+    return block
+
+
 def stack_blocks(blocks) -> Block:
     """K blocks -> one Block with a leading K axis on every field."""
     return Block(**{f.name: np.stack([np.asarray(getattr(b, f.name))
@@ -235,14 +251,21 @@ class RingAccountant:
         self.buffer_steps = 0
         # the landed block's weight_version; -1 = empty or unstamped
         self.slot_versions = [-1] * num_blocks
+        # lineage mirrors (telemetry/tracing.py): the landed block's
+        # emission stamp and the wall ms it was committed; -1 untraced
+        self.slot_trace = [-1] * num_blocks
+        self.slot_ingest_ms = [-1] * num_blocks
 
-    def advance(self, learning_steps: int, weight_version: int = -1) -> int:
+    def advance(self, learning_steps: int, weight_version: int = -1,
+                trace_ms: int = -1, ingest_ms: int = -1) -> int:
         """Account one block write: returns the slot it lands in and rolls
         the pointer, replacing the overwritten slot's step count."""
         slot = self.ptr
         self.buffer_steps += learning_steps - self.slot_steps[slot]
         self.slot_steps[slot] = learning_steps
         self.slot_versions[slot] = int(weight_version)
+        self.slot_trace[slot] = int(trace_ms)
+        self.slot_ingest_ms[slot] = int(ingest_ms)
         self.ptr = (slot + 1) % self.num_blocks
         self.total_adds += 1
         return slot

@@ -24,8 +24,9 @@ from r2d2_tpu_torch.actor.local_buffer import LocalBuffer
 from r2d2_tpu_torch.actor.policy import ActorPolicy, BatchedActorPolicy
 from r2d2_tpu_torch.config import (Config, apex_epsilon,
                                    vector_lane_epsilons)
-from r2d2_tpu_torch.replay.structs import ReplaySpec
+from r2d2_tpu_torch.replay.structs import ReplaySpec, with_trace
 from r2d2_tpu_torch.telemetry.core import NULL_TELEMETRY
+from r2d2_tpu_torch.telemetry.tracing import tracing_on
 
 
 def _with(block, **fields):
@@ -86,7 +87,9 @@ def make_actor_policy(cfg: Config, net, params, actor_idx: int, seed: int,
                   max_retry_s=cfg.serve.max_retry_s,
                   should_stop=should_stop,
                   backoff_base_s=cfg.runtime.restart_backoff_base_s,
-                  backoff_max_s=cfg.runtime.restart_backoff_max_s)
+                  backoff_max_s=cfg.runtime.restart_backoff_max_s,
+                  trace_every=(cfg.telemetry.trace_sample_every
+                               if tracing_on(cfg) else 0))
     qkw = {}
     if not serve and cfg.network.inference_dtype != "f32":
         qkw = dict(quant_stats=quant_stats,
@@ -123,15 +126,27 @@ def make_actor_policy(cfg: Config, net, params, actor_idx: int, seed: int,
 def instrument_block_sink(sink: Callable, slot: int, board=None,
                           weight_version: Optional[Callable[[], int]] = None,
                           lane_base: Optional[int] = None,
-                          telemetry=None) -> Callable:
+                          telemetry=None,
+                          trace_every: int = 0) -> Callable:
     """Health, telemetry and provenance around a block sink, one wrapping
     point for every spawner: ``actor/block_emit`` (outermost, the whole
     call with the queue wait), the heartbeat ("reached the sink alive"),
     then the stamps: ``weight_version()``, the publication the actor acts
     with, and the lane, the loop's lane-relative index offset by
     ``lane_base`` to the fleet's epsilon-ladder position (an unstamped
-    -1 stays -1)."""
+    -1 stays -1). ``trace_every`` > 0 (tracing on): every block carries
+    ``trace_ms``, every trace_every-th one its emission stamp, the rest
+    -1; 0 leaves blocks without it."""
     wrapped = sink
+    if trace_every > 0:
+        from r2d2_tpu_torch.telemetry.tracing import UNTRACED, now_ms
+        emitted = [0]
+
+        def sink_with_trace(block, _wrapped=wrapped):
+            emitted[0] += 1
+            stamp = now_ms() if emitted[0] % trace_every == 0 else UNTRACED
+            return _wrapped(with_trace(block, np.int32(stamp)))
+        wrapped = sink_with_trace
     if lane_base is not None:
         def sink_with_lane(block, _wrapped=wrapped, _base=int(lane_base)):
             rel = int(np.asarray(block.lane))

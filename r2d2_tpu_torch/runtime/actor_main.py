@@ -41,6 +41,7 @@ def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
     from r2d2_tpu_torch.runtime.actor_loop import (instrument_block_sink,
                                                    make_actor_env,
                                                    make_actor_policy)
+    from r2d2_tpu_torch.telemetry.tracing import tracing_on
     from r2d2_tpu_torch.runtime.feeder import put_patient
     from r2d2_tpu_torch.runtime.weights import WeightSubscriber
     from r2d2_tpu_torch.telemetry.core import Telemetry
@@ -99,7 +100,9 @@ def actor_process_main(cfg_dict: dict, player_idx: int, actor_idx: int,
         # server's riding each reply
         weight_version=((lambda: policy.weight_version) if sub is None
                         else (lambda: sub.publish_count)),
-        lane_base=actor_idx * cfg.actor.envs_per_actor)
+        lane_base=actor_idx * cfg.actor.envs_per_actor,
+        trace_every=(cfg.telemetry.trace_sample_every
+                     if tracing_on(cfg) else 0))
     try:
         run_loop(cfg, env, policy, block_sink=sink,
                  weight_poll=sub.poll if sub is not None else (lambda: None),

@@ -73,6 +73,8 @@ from r2d2_tpu_torch.parallel.sharded import (gather_objects,
 from r2d2_tpu_torch.telemetry.core import Telemetry
 from r2d2_tpu_torch.telemetry.profiler import CaptureTriggers
 from r2d2_tpu_torch.telemetry.quant import QuantStats
+from r2d2_tpu_torch.telemetry.resources import (HealthPlane, pytree_nbytes,
+                                                register_buffer)
 from r2d2_tpu_torch.runtime.data_parallel import data_parallel
 from r2d2_tpu_torch.runtime.learner_loop import OP_USER, Learner
 from r2d2_tpu_torch.runtime.metrics import TrainMetrics
@@ -255,6 +257,11 @@ def _lead(cfg: Config, device: torch.device, mesh: Optional[Mesh],
         metrics.set_quant(quant_stats.interval_block)
     stack = AnakinStack(cfg, learner, metrics, segment)
     stack.quant_stats = quant_stats
+    # the resources block and the alert engine; the lane carry is this
+    # loop's own device buffer (no actor fleet, so no board gauges)
+    health = HealthPlane.from_config(cfg, metrics, 0, devices=[device])
+    if health is not None:
+        register_buffer("p0/anakin_carry", pytree_nbytes(segment.carry))
     stack.twin_ms = parts.twin_ms
     segments_since_flush = 0
     segments = 0
@@ -343,6 +350,8 @@ def _lead(cfg: Config, device: torch.device, mesh: Optional[Mesh],
                     dispatch_hook(stack)
             now = time.time()
             triggers.poll(now, learner.training_steps)
+            if health is not None:
+                health.tick(learner.warm)
             if now - last_log >= cfg.runtime.log_interval:
                 learner.flush_metrics()
                 flush_stats()
@@ -361,6 +370,8 @@ def _lead(cfg: Config, device: torch.device, mesh: Optional[Mesh],
             logging.getLogger(__name__).exception("final checkpoint failed")
             final_error = e
         stack.close()
+        if health is not None:
+            health.close()
     if final_error is not None:
         raise RuntimeError("the final checkpoint or replay snapshot failed"
                            ) from final_error

@@ -25,7 +25,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from r2d2_tpu_torch.replay.structs import Block, stack_blocks
+from r2d2_tpu_torch.replay.structs import Block, stack_blocks, with_trace
 
 
 def put_patient(q, block: Block, should_stop, poll: float = 0.5,
@@ -394,10 +394,10 @@ class BlockQueue:
 
     def __init__(self, maxsize: int = 64, use_mp: bool = True,
                  ctx: Optional[mp.context.BaseContext] = None,
-                 shm_spec=None):
+                 shm_spec=None, tracing: bool = False):
         if use_mp and shm_spec is not None:
             from r2d2_tpu_torch.runtime.shm_feeder import ShmBlockRing
-            self._q = ShmBlockRing(shm_spec, maxsize)
+            self._q = ShmBlockRing(shm_spec, maxsize, tracing=tracing)
         elif use_mp:
             self._q = (ctx or mp.get_context("spawn")).Queue(maxsize=maxsize)
         else:
@@ -441,8 +441,12 @@ class BlockQueue:
         k = len(blocks)
         for name, arr in out.items():
             for i, blk in enumerate(blocks):
-                arr[i] = getattr(blk, name)
-        return Block(**{name: arr[:k] for name, arr in out.items()}), k
+                value = getattr(blk, name, None)
+                # an unstamped block in a traced batch: untraced
+                arr[i] = -1 if value is None else value
+        fields = {name: arr[:k] for name, arr in out.items()}
+        trace = fields.pop("trace_ms", None)
+        return with_trace(Block(**fields), trace), k
 
     def drain_groups(self, group: int, max_groups: int = 4):
         """Non-blocking drain as a list of stacked groups of up to

@@ -137,7 +137,8 @@ from r2d2_tpu_torch.replay.snapshot import (SnapshotWriter, capture_plain,
                                             restore_plain, shard_leaves)
 from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, RingAccountant,
                                            SampleBatch, batch_fields,
-                                           empty_block_np, stack_blocks,
+                                           block_trace, empty_block_np,
+                                           stack_blocks,
                                            torch_dtype)
 from r2d2_tpu_torch.runtime.checkpoint import (apply_restore,
                                                prune_checkpoints,
@@ -148,6 +149,10 @@ from r2d2_tpu_torch.telemetry.costmodel import costs_block
 from r2d2_tpu_torch.telemetry.learning import LearningAggregator, LearningDiag
 from r2d2_tpu_torch.telemetry.replaydiag import (ReplayDiag,
                                                  ReplayDiagAggregator)
+from r2d2_tpu_torch.telemetry.resources import (clear_player_buffers,
+                                                pytree_nbytes,
+                                                register_buffer)
+from r2d2_tpu_torch.telemetry.tracing import now_ms, tracing_on
 from r2d2_tpu_torch.utils.device import configure_numerics
 
 WRITEBACK_QUEUE = 64        # steps of priorities waiting for the host tree
@@ -211,6 +216,11 @@ class _BatchPlacer:
         return device_batch, idxes, snapshot, end
 
 
+def _ingest_stamp(trace_ms: int) -> int:
+    """The commit's wall ms for a traced block (-1 for an untraced one)."""
+    return now_ms() if trace_ms >= 0 else -1
+
+
 class _IngestStaging:
     """The stager's slots: INGEST_QUEUE + 1 of them (the queue's batches
     and the one being filled), each K blocks of host buffers (pinned on
@@ -219,27 +229,36 @@ class _IngestStaging:
     ``stream`` after the event of its last commit, and its host buffers
     refilled only after its last copy has read them."""
 
-    def __init__(self, spec: ReplaySpec, k: int, device: torch.device):
+    def __init__(self, spec: ReplaySpec, k: int, device: torch.device,
+                 tracing: bool = False):
         self.cuda = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.free: queue.Queue = queue.Queue()
         proto = empty_block_np(spec)
+        self.device_bytes = 0
         for _ in range(INGEST_QUEUE + 1):
             host = {name: torch.empty((k,) + a.shape,
                                       dtype=torch_dtype(a.dtype),
                                       pin_memory=self.cuda)
                     for name, a in proto.items()}
-            self.free.put(_Slot(
-                arrays={name: t.numpy() for name, t in host.items()},
-                host=host,
+            arrays = {name: t.numpy() for name, t in host.items()}
+            if tracing:
+                # the blocks' lineage stamps: host-side, never copied
+                arrays["trace_ms"] = np.full((k,), -1, np.int32)
+            slot = _Slot(
+                arrays=arrays, host=host,
                 dev=({name: torch.empty_like(host[name], device=device)
-                      for name in WRITTEN} if self.cuda else None)))
+                      for name in WRITTEN} if self.cuda else None))
+            if slot.dev is not None:
+                self.device_bytes += sum(t.nbytes for t in slot.dev.values())
+            self.free.put(slot)
 
     def blocks(self, slot: "_Slot", k: int) -> Block:
         """The slot's first ``k`` blocks as the commit reads them: device
         tensors for the written fields (on the CPU, the host buffers)."""
         src = slot.dev if self.cuda else slot.host
-        fields = {name: a[:k] for name, a in slot.arrays.items()}
+        fields = {name: a[:k] for name, a in slot.arrays.items()
+                  if name != "trace_ms"}
         fields.update({name: src[name][:k] for name in WRITTEN})
         return Block(**fields)
 
@@ -434,6 +453,17 @@ class Learner:
         # host milliseconds of the newest publish calls and saves
         self.publish_ms: deque = deque(maxlen=TIMINGS_KEPT)
         self.save_ms: deque = deque(maxlen=TIMINGS_KEPT)
+        # buffer attribution for the resources block (names re-registered
+        # by a rebuilt Learner; the previous incarnation's cleared first)
+        self._resources_on = (cfg.telemetry.enabled
+                              and cfg.telemetry.resources_enabled)
+        if self._resources_on:
+            clear_player_buffers(player_idx)
+            register_buffer(f"p{player_idx}/train_state",
+                            pytree_nbytes(self.train_state))
+            if self.replay_state is not None:
+                register_buffer(f"p{player_idx}/replay_ring",
+                                pytree_nbytes(self.replay_state))
 
     def _restore_replay_snapshot(self) -> None:
         """Load the newest committed replay snapshot beside the
@@ -492,16 +522,23 @@ class Learner:
     # -- ingestion --
 
     def ingest(self, block: Block) -> None:
-        """Ring-write one actor block."""
+        """Ring-write one actor block. Its lineage stamp (``trace_ms``,
+        tracing on) goes into the ring accountant's mirrors with the
+        commit's wall ms, never to the device."""
         learning = int(np.asarray(block.learning_steps).sum())
+        stamp = block_trace(block)
+        trace = -1 if stamp is None else int(np.asarray(stamp))
         if self.host_replay is not None:
-            self.host_replay.add(block)     # advances the shared accountant
+            self.host_replay.add(block, trace_ms=trace,
+                                 ingest_ms=_ingest_stamp(trace))
         elif self.mesh is not None:
             self._add_to_shards(stack_blocks([block]), 1)
-            self.ring.advance(learning, int(np.asarray(block.weight_version)))
+            self.ring.advance(learning, int(np.asarray(block.weight_version)),
+                              trace, _ingest_stamp(trace))
         else:
             replay_add(self.spec, self.replay_state, block)
-            self.ring.advance(learning, int(np.asarray(block.weight_version)))
+            self.ring.advance(learning, int(np.asarray(block.weight_version)),
+                              trace, _ingest_stamp(trace))
         self.env_steps += learning
         ret = float(np.asarray(block.sum_reward))
         self.metrics.on_block(learning, None if np.isnan(ret) else ret)
@@ -606,8 +643,8 @@ class Learner:
             slot.consumed.record(current)
         staging.free.put(slot)
         total = 0
-        for learning, ret, wv in metas:
-            self.ring.advance(learning, wv)
+        for learning, ret, wv, trace in metas:
+            self.ring.advance(learning, wv, trace, _ingest_stamp(trace))
             self.metrics.on_block(learning, ret)
             total += learning
         self.env_steps += total
@@ -648,9 +685,11 @@ class Learner:
         learning = stacked.learning_steps.sum(axis=1).astype(np.int64)
         rets = stacked.sum_reward
         wvs = stacked.weight_version
+        traces = block_trace(stacked)
         metas = [(int(learning[i]),
                   None if np.isnan(rets[i]) else float(rets[i]),
-                  int(wvs[i])) for i in range(k)]
+                  int(wvs[i]), -1 if traces is None else int(traces[i]))
+                 for i in range(k)]
         with self._staged_lock:
             self._staged_env_steps += int(learning.sum())
             self._staged_blocks += k
@@ -681,7 +720,11 @@ class Learner:
     def _start_stager(self, feeder) -> None:
         if self._staging is None:
             self._staging = _IngestStaging(self.spec, self._ingest_k,
-                                           self.device)
+                                           self.device,
+                                           tracing=tracing_on(self.cfg))
+            if self._resources_on:
+                register_buffer(f"p{self.player_idx}/ingest_staging",
+                                self._staging.device_bytes)
         self._ingest_stop.clear()
         self._stager_may_put = True
 
@@ -757,6 +800,14 @@ class Learner:
         under a data-parallel mesh also a block in every shard (sampling
         an empty shard's tree gives NaN importance weights)."""
         return self._gate_open()
+
+    @property
+    def warm(self) -> bool:
+        """Two dispatches taken in this process: the eager warm-up and
+        the one that captures the step's graph (the compile telemetry's
+        end of warm-up)."""
+        return (self.train_state.step - self._ratio_step_base
+                >= 2 * self.steps_per_dispatch)
 
     # -- data parallel: rank 0's commands and the followers' loop --
 
@@ -1046,6 +1097,15 @@ class Learner:
                 act_bytes=2 if self.net.config.bf16 else 4,
                 device=self.device))
         self._flush_losses()
+        if self._resources_on:
+            # the optimizer's state exists after the first step
+            register_buffer(f"p{self.player_idx}/train_state",
+                            pytree_nbytes(self.train_state))
+            graphs = getattr(self._step_fn, "multi", self._step_fn)
+            pool = getattr(graphs, "pool_bytes", 0)
+            if pool:
+                register_buffer(f"p{self.player_idx}/train_step_graphs",
+                                pool)
         if self._learning_agg is not None:
             pub = (int(self.weight_version_fn())
                    if self.weight_version_fn is not None else None)

@@ -18,8 +18,13 @@ schema. With telemetry on (``telemetry.enabled``, the default) every
 record carries ``stages`` ({stage: {count, p50_ms, p95_ms, p99_ms}} for
 each stage observed in the interval, process actors' through the board;
 telemetry/core.py) and ``telemetry_dropped_spans``, and the first one the
-one-shot ``costs`` block (telemetry/costmodel.py). Without them the
-record is what it was.
+one-shot ``costs`` block (telemetry/costmodel.py). With
+``telemetry.resources_enabled`` (on by default) every record carries a
+``resources`` block (devices, host, buffer owners, the compile sub-block;
+telemetry/resources.py) and, with ``telemetry.alerts_enabled``, an
+``alerts`` block, the rule engine's pass over the assembled record
+(telemetry/alerts.py; firings to ``alerts_player{p}.jsonl``). Without
+them the record is what it was.
 
 ``log_dir=None`` keeps everything in memory: no file is written (what a
 bare ``Learner`` gets).
@@ -87,6 +92,8 @@ class TrainMetrics:
         self._quant: Optional[Callable[[], dict]] = None
         self._recovery: Optional[Callable[[], Optional[dict]]] = None
         self._costs: Optional[dict] = None
+        self._resources: Optional[Callable[[], dict]] = None
+        self._sentinel = None
         # the process's Telemetry (set_telemetry): its interval summary is
         # the record's stages block; NULL keeps a bare construction
         # working with no branch at the call sites
@@ -158,6 +165,17 @@ class TrainMetrics:
         """The crash-recovery block provider (``Learner.recovery_block``;
         a None block is left out of the record)."""
         self._recovery = provider
+
+    def set_resources(self, provider: Callable[[], dict]) -> None:
+        """The ResourceMonitor's ``block`` (consumes the compile
+        interval): every record then carries a ``resources`` block."""
+        self._resources = provider
+
+    def set_sentinel(self, engine) -> None:
+        """The alert engine: log() evaluates its rules on the assembled
+        record, after every other block, and the record carries the
+        ``alerts`` block; firings append to the engine's jsonl."""
+        self._sentinel = engine
 
     def set_ingest_batching(self, k: int) -> None:
         """The stager's batch size: K > 1 adds the ``ingest`` block."""
@@ -321,6 +339,10 @@ class TrainMetrics:
             block = self._recovery()
             if block is not None:
                 record["recovery"] = block
+        if self._resources is not None:
+            record["resources"] = self._resources()
+        if self._sentinel is not None:
+            record["alerts"] = self._sentinel.evaluate(record)
         if self._jsonl_path:
             with open(self._jsonl_path, "a") as f:
                 f.write(json.dumps(record) + "\n")

@@ -74,6 +74,8 @@ from r2d2_tpu_torch.runtime.metrics import TrainMetrics
 from r2d2_tpu_torch.telemetry.board import TelemetryBoard
 from r2d2_tpu_torch.telemetry.core import NULL_TELEMETRY, Telemetry
 from r2d2_tpu_torch.telemetry.profiler import CaptureTriggers
+from r2d2_tpu_torch.telemetry.resources import HealthPlane
+from r2d2_tpu_torch.telemetry.tracing import tracing_on
 from r2d2_tpu_torch.runtime.weights import (InProcWeightStore,
                                             SnapshotPublisher,
                                             WeightPublisher,
@@ -129,6 +131,9 @@ class ActorPool:
         # in-process endpoint, process actors' rung to it
         self.serve_endpoint = self.serve_stats = None
         self._serve_spec = None
+        # the resources/compile/alerts plane (PlayerStack's; a multi-host
+        # controller's pool has its own)
+        self.health_plane: Optional[HealthPlane] = None
 
     def open_threads(self, stop: threading.Event, initial) -> None:
         """Thread actors' weight store, ``initial`` its first publication,
@@ -146,13 +151,16 @@ class ActorPool:
         self.segment_names.append(self.publisher.name)
         self.queue = BlockQueue(
             use_mp=True, ctx=self._ctx,
-            shm_spec=shm_spec if cfg.runtime.shm_transport else None)
+            shm_spec=shm_spec if cfg.runtime.shm_transport else None,
+            tracing=tracing_on(cfg))
         if cfg.runtime.shm_transport:
             self.segment_names.append(self.queue._q.name)
         if self.telemetry.enabled:
             self.tele_board = TelemetryBoard(self.n_slots)
             self.segment_names.append(self.tele_board.name)
             self.telemetry.attach_board(self.tele_board)
+            if self.health_plane is not None:
+                self.health_plane.resources.attach_board(self.tele_board)
         self._stop = stop_event
 
     def publication(self):
@@ -204,7 +212,9 @@ class ActorPool:
             # served: the server's publication, riding each reply
             weight_version=((lambda: policy.weight_version) if served
                             else (lambda: self.store.reader_version(i))),
-            lane_base=gidx * cfg.actor.envs_per_actor)
+            lane_base=gidx * cfg.actor.envs_per_actor,
+            trace_every=(cfg.telemetry.trace_sample_every
+                         if tracing_on(cfg) else 0))
 
         def loop():
             try:
@@ -361,6 +371,9 @@ class PlayerStack(ActorPool):
         if cfg.actor.inference == "server":
             from r2d2_tpu_torch.serve import InprocEndpoint, ServingStats
             self.serve_stats = ServingStats()
+            if tracing_on(cfg):
+                from r2d2_tpu_torch.telemetry.tracing import ServeTrace
+                self.serve_stats.trace = ServeTrace()
             self.serve_endpoint = InprocEndpoint()
             self.metrics.set_serving(lambda: self.serve_stats.interval_block(
                 deadline_ms=cfg.serve.deadline_ms,
@@ -369,6 +382,14 @@ class PlayerStack(ActorPool):
                          f"spans_player{player_idx}.jsonl",
                          [f"spans_p{player_idx}_a*.jsonl"],
                          bool(cfg.runtime.resume))
+        # the resources block and the alert engine, wired last (the alert
+        # stream's truncation is file I/O); the server's buckets are its
+        # pre-capture coverage
+        self.health_plane = HealthPlane.from_config(
+            cfg, self.metrics, player_idx, devices=[device],
+            aot_coverage_fn=lambda: (self.serve_server.aot_coverage()
+                                     if self.serve_server is not None
+                                     else None))
 
     def _initial_payload(self):
         """The weight service's first publication: the learner's module,
@@ -438,7 +459,7 @@ class PlayerStack(ActorPool):
                     (cfg.env.frame_height, cfg.env.frame_width),
                     self.net.action_dim, cfg.network.hidden_dim,
                     request_slots=cfg.serve.request_ring_slots,
-                    clients_are_children=True)
+                    clients_are_children=True, tracing=tracing_on(cfg))
                 self._serve_spec = {
                     "transport": "shm",
                     "request_ring": self._serve_transport.request_ring,
@@ -481,6 +502,8 @@ class PlayerStack(ActorPool):
         self.metrics.set_actor_health(
             {**self.health.snapshot(),
              "ingest_stall_dumps": self._stall.dumps})
+        if self.health_plane is not None:
+            self.health_plane.tick(self.learner.warm)
         return restarted
 
     def _stall_diagnostics(self) -> dict:
@@ -509,6 +532,8 @@ class PlayerStack(ActorPool):
         if self._serve_sub is not None:
             self._serve_sub.close()
         self.telemetry.close()      # the drain thread, the final flush
+        if self.health_plane is not None:
+            self.health_plane.close()
         self.metrics.close()
 
 
@@ -584,12 +609,19 @@ def _lead(cfg: Config, device, mesh, action_dim: int, max_training_steps,
         # SIGUSR2's flag handler (main thread only; restored in finally)
         triggers.install()
 
+        t_stack = time.time()
         st = PlayerStack(cfg, 0, action_dim, device, mesh=mesh)
+        t_actors = time.time()
         if actor_mode == "thread":
             st.start_actors_threads(stop)
         else:
             st.start_actors_processes(stop)
         learner = st.learner
+        # where a start-up's seconds go: the stack (the Learner, its
+        # replay and kernels), the actors, then the fill below
+        t_fill = time.time()
+        st.telemetry.record_span("startup/stack", t_stack, t_actors)
+        st.telemetry.record_span("startup/actors", t_actors, t_fill)
 
         start = time.time()
         deadline = start + max_seconds if max_seconds else None
@@ -611,6 +643,7 @@ def _lead(cfg: Config, device, mesh, action_dim: int, max_training_steps,
             learner.drain(st.queue)
             supervise_if_due()
             time.sleep(0.02)
+        st.telemetry.record_span("startup/fill", t_fill, time.time())
 
         def on_dispatch() -> None:
             nonlocal last_log

@@ -21,13 +21,20 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from r2d2_tpu_torch.replay.structs import Block, ReplaySpec, empty_block_np
+from r2d2_tpu_torch.replay.structs import (Block, ReplaySpec, empty_block_np,
+                                           with_trace)
 
 
-def block_layout(spec: ReplaySpec) -> List[Tuple[str, tuple, np.dtype]]:
+def block_layout(spec: ReplaySpec, tracing: bool = False
+                 ) -> List[Tuple[str, tuple, np.dtype]]:
     """(field, shape, dtype) in serialization order, from the one record
-    definition (empty_block_np)."""
-    return [(k, v.shape, v.dtype) for k, v in empty_block_np(spec).items()]
+    definition (empty_block_np). ``tracing`` appends the blocks' int32
+    ``trace_ms`` stamp (telemetry/tracing.py); off, a slot's bytes are an
+    untraced ring's."""
+    fields = [(k, v.shape, v.dtype) for k, v in empty_block_np(spec).items()]
+    if tracing:
+        fields.append(("trace_ms", (), np.dtype(np.int32)))
+    return fields
 
 
 @dataclass
@@ -45,12 +52,13 @@ class ShmBlockRing:
     first use and only close their mapping."""
 
     def __init__(self, spec: ReplaySpec, maxsize: int = 64,
-                 _attach_name: Optional[str] = None):
+                 _attach_name: Optional[str] = None, tracing: bool = False):
         self.spec = spec
         self.capacity = maxsize
+        self.tracing = tracing
         self._fields: List[_Field] = []
         off = 0
-        for name, shape, dtype in block_layout(spec):
+        for name, shape, dtype in block_layout(spec, tracing):
             nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
             self._fields.append(_Field(name, shape, dtype, off, nbytes))
             off += nbytes
@@ -71,11 +79,11 @@ class ShmBlockRing:
 
     def __getstate__(self):
         return {"spec": self.spec, "capacity": self.capacity,
-                "name": self.name}
+                "name": self.name, "tracing": self.tracing}
 
     def __setstate__(self, state):
         self.__init__(state["spec"], state["capacity"],
-                      _attach_name=state["name"])
+                      _attach_name=state["name"], tracing=state["tracing"])
 
     @property
     def name(self) -> str:
@@ -111,7 +119,10 @@ class ShmBlockRing:
             time.sleep(0.001)
         slot = self._slot_view(lib, pos)
         for f in self._fields:
-            src = np.ascontiguousarray(getattr(block, f.name), f.dtype)
+            value = getattr(block, f.name, None)
+            if value is None:           # an unstamped block, traced ring
+                value = -1
+            src = np.ascontiguousarray(value, f.dtype)
             slot[f.offset:f.offset + f.nbytes] = src.view(np.uint8).reshape(-1)
         lib.ring_commit_push(self._base, pos)
 
@@ -126,7 +137,8 @@ class ShmBlockRing:
             raw = slot[f.offset:f.offset + f.nbytes]
             out[f.name] = raw.view(f.dtype).reshape(f.shape).copy()
         lib.ring_commit_pop(self._base, pos)
-        return Block(**out)
+        trace = out.pop("trace_ms", None)
+        return with_trace(Block(**out), trace)
 
     def drain_stacked(self, max_items: int = 16, out=None
                       ) -> Tuple[Optional[Block], int]:
@@ -154,7 +166,9 @@ class ShmBlockRing:
             k += 1
         if k == 0:
             return None, 0
-        return Block(**{name: arr[:k] for name, arr in out.items()}), k
+        fields = {name: arr[:k] for name, arr in out.items()}
+        trace = fields.pop("trace_ms", None)
+        return with_trace(Block(**fields), trace), k
 
     def get(self, timeout: Optional[float] = None) -> Block:
         deadline = None if timeout is None else time.monotonic() + timeout

@@ -61,17 +61,17 @@ def supervise_train(cfg, *, actor_mode: str = "process",
     breaker trips (which raises). ``device``: the child's (None = CUDA)."""
     import multiprocessing as mp
 
-    from r2d2_tpu_torch.runtime.checkpoint import latest_checkpoint
-    from r2d2_tpu_torch.runtime.feeder import WorkerHealth
-
     if cfg.mesh.multihost and cfg.mesh.num_processes > 1:
         raise NotImplementedError(
             "runtime.auto_resume supervises the single-host train() child; "
             "multihost jobs are supervised by their cluster scheduler — "
             "rely on runtime.resume + the rank-0 snapshot twin instead")
     ctx = mp.get_context("spawn")
-    # one slot and no heartbeat board: the child's liveness is its process
-    health = WorkerHealth.from_runtime(1, None, cfg.runtime)
+    # the breaker (one slot and no heartbeat board: the child's liveness is
+    # its process), made once the first child is started: its module
+    # imports torch, which this process needs for nothing else, so the
+    # first child's start-up does not wait for that import
+    health = None
     save_dir = cfg.runtime.save_dir or "."
     deadline = time.time() + max_seconds if max_seconds else None
     state = {"child": None, "stopping": False}
@@ -114,6 +114,9 @@ def supervise_train(cfg, *, actor_mode: str = "process",
             os.makedirs(save_dir, exist_ok=True)
             with open(pid_file, "w") as f:
                 f.write(str(child.pid))
+            if health is None:
+                from r2d2_tpu_torch.runtime.feeder import WorkerHealth
+                health = WorkerHealth.from_runtime(1, None, cfg.runtime)
             while child.is_alive():
                 child.join(timeout=0.25)
             code = child.exitcode
@@ -142,6 +145,7 @@ def supervise_train(cfg, *, actor_mode: str = "process",
             restarts += 1
             # the newest checkpoint, and with it the replay snapshot; none
             # yet (a death during warm-up) is a fresh start
+            from r2d2_tpu_torch.runtime.checkpoint import latest_checkpoint
             ckpt = latest_checkpoint(save_dir, cfg.env.game_name, 0)
             cfg_dict = cfg.to_dict()
             cfg_dict["runtime"]["resume"] = ckpt or ""

@@ -112,8 +112,14 @@ class _RemoteBase:
     def __init__(self, channel, action_dim: int, *, stats=None,
                  timeout_s: float = 5.0, max_retry_s: float = 60.0,
                  backoff_base_s: float = 0.25, backoff_max_s: float = 5.0,
-                 should_stop: Optional[Callable[[], bool]] = None):
+                 should_stop: Optional[Callable[[], bool]] = None,
+                 trace_every: int = 0):
         self.channel = channel
+        # every trace_every-th exchange attaches a trace dict to its
+        # requests (telemetry/tracing.py); 0 = never, and requests are
+        # what they are without tracing
+        self._trace_every = max(int(trace_every), 0)
+        self._exchanges = 0
         self.action_dim = int(action_dim)
         self.stats = stats
         self.timeout_s = timeout_s
@@ -142,11 +148,26 @@ class _RemoteBase:
         for lane in lanes:
             lane.begin_op()
         reqs = {lane.client_id: lane.build(kind) for lane in lanes}
+        traced = (self._trace_every
+                  and self._exchanges % self._trace_every == 0)
+        self._exchanges += 1
+        if traced:
+            from r2d2_tpu_torch.telemetry.tracing import new_request_trace
+            for req in reqs.values():
+                req.trace = new_request_trace(req.req_id)
         out: dict = {}
         while True:
             pending = [lane for lane in lanes if lane.client_id not in out]
             if not pending:
                 break
+            if traced:
+                # the route hop ends at the send (a rebuilt request of a
+                # retry carries no trace)
+                now_wall = time.time()
+                for lane in pending:
+                    tr = getattr(reqs[lane.client_id], "trace", None)
+                    if tr is not None:
+                        tr["t_send_wall"] = now_wall
             got = self.channel.request_many(
                 [reqs[lane.client_id] for lane in pending],
                 timeout=self.timeout_s)

@@ -65,6 +65,7 @@ from r2d2_tpu_torch.serve.transport import (KIND_DISCONNECT, KIND_STEP, Reply,
 from r2d2_tpu_torch.telemetry.histogram import (NBUCKETS, bucket_index,
                                                 summarize, value_counts_np,
                                                 value_summary)
+from r2d2_tpu_torch.telemetry.compile import compile_event
 from r2d2_tpu_torch.utils.device import gc_paused
 
 
@@ -140,6 +141,9 @@ class ServingStats:
         self.admission_enabled = False
         self._shed = 0
         self._adm_lat = np.zeros(NBUCKETS, np.int64)
+        # a ServeTrace with telemetry.tracing_enabled: the block then has
+        # a trace sub-block; None keeps it what it is without tracing
+        self.trace = None
 
     def on_request_latency(self, seconds: float) -> None:
         """One client-visible completion (or timed-out attempt)."""
@@ -243,6 +247,10 @@ class ServingStats:
                     "misrouted": 0,
                     "admitted_latency": summarize(self._adm_lat),
                 }
+            if self.trace is not None:
+                tr = self.trace.interval_block()
+                if tr is not None:
+                    block["trace"] = tr
             self._lat[:] = 0
             self._fill[:] = 0
             self._fill_sum = 0
@@ -299,10 +307,17 @@ class _BucketGraph:
             server._eager(self.obs, self.last_action, self.hidden)
         server.stream.synchronize()
         self.graph = torch.cuda.CUDAGraph()
-        with gc_paused(), captured_launches(server.stream) as counted, \
+        reserved = torch.cuda.memory_reserved(dev)
+        with compile_event("serve_forward",
+                           f"bucket={bucket} quant={server._quant}"), \
+                gc_paused(), captured_launches(server.stream) as counted, \
                 torch.cuda.graph(self.graph, stream=server.stream,
                                  capture_error_mode="thread_local"):
             self.out = server._eager(self.obs, self.last_action, self.hidden)
+        # the static buffers and what the capture reserved
+        self.nbytes = (sum(t.nbytes for t in (self.obs, self.last_action,
+                                              self.hidden, *self.out))
+                       + max(torch.cuda.memory_reserved(dev) - reserved, 0))
         self.launches = {name: counted.get(name, 0)
                          for name in launch_counts()}
         # a capture launches nothing: its counts come back once a replay
@@ -386,6 +401,7 @@ class PolicyServer:
                                                 self.action_dim))
         self.buckets = serve_buckets(self.max_batch)
         self._graphs: Dict[int, _BucketGraph] = {}
+        self.warmed_buckets: List[int] = []
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._last_weight_poll = 0.0
@@ -467,6 +483,19 @@ class PolicyServer:
                 self._eager(np.zeros((b, h, w, s), np.float32),
                             np.full(b, -1, np.int64),
                             np.zeros((b, 2, hd), np.float32))
+            self.warmed_buckets.append(b)
+        if (self._graphs and self.cfg.telemetry.enabled
+                and self.cfg.telemetry.resources_enabled):
+            from r2d2_tpu_torch.telemetry.resources import register_buffer
+            register_buffer("serve/graphs",
+                            sum(g.nbytes for g in self._graphs.values()))
+
+    def aot_coverage(self) -> dict:
+        """The buckets made at start (captured on CUDA, run once on the
+        CPU) against the buckets a dispatch can take: a missing one would
+        be made mid-run."""
+        from r2d2_tpu_torch.telemetry.compile import aot_coverage
+        return aot_coverage(self.buckets, self.warmed_buckets)
 
     def graph_forward(self, bucket: int, obs, last_action, hidden):
         """One replay of ``bucket``'s graph on these inputs (host arrays,
@@ -711,6 +740,17 @@ class PolicyServer:
         self.stats.active_clients = cache.active_clients
         if not live:
             return
+        # tracing: each traced request's route/transit hops and its
+        # micro-batch wait (the server's own monotonic clock); the batch's
+        # forward and reply hops follow below if any request was traced
+        trace = self.stats.trace
+        traced_any = False
+        if trace is not None:
+            for req, _cb, _slot in live:
+                tr = getattr(req, "trace", None)
+                if tr is not None:
+                    traced_any = True
+                    trace.on_request(tr, max(now - req.t_recv, 0.0))
         fill = len(live)
         bucket = next(b for b in self.buckets if b >= fill)
         t0 = time.perf_counter()
@@ -740,6 +780,8 @@ class PolicyServer:
         if tele.spans.enabled:
             wall = time.time()
             tele.record_span("serve/reply", wall - reply_s, wall)
+        if traced_any:
+            trace.on_batch(t1 - t0, reply_s)
         self.stats.on_replies(fill)
         self.rows_served += fill
         self.stats.on_batch(

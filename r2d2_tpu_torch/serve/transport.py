@@ -117,6 +117,9 @@ class InprocEndpoint:
 
     def submit(self, req: Request, reply_cb: Callable[[Reply], None]) -> None:
         req.t_recv = time.monotonic()
+        trace = getattr(req, "trace", None)
+        if trace is not None:
+            trace["t_recv_wall"] = time.time()
         self.inbox.put((req, reply_cb))
 
     def submit_many(self, items) -> None:
@@ -124,8 +127,14 @@ class InprocEndpoint:
         in the inbox together, so the server's fill loop sees the whole
         tick at once."""
         now = time.monotonic()
+        wall = None
         for req, _cb in items:
             req.t_recv = now
+            trace = getattr(req, "trace", None)
+            if trace is not None:
+                if wall is None:
+                    wall = time.time()
+                trace["t_recv_wall"] = wall
         with self.inbox.mutex:
             self.inbox.queue.extend(items)
             self.inbox.not_empty.notify()
@@ -380,10 +389,14 @@ class SocketChannel:
 # Shm rung: the native ring over fixed-layout request and reply records.
 
 
-def request_layout(h: int, w: int) -> List[Tuple[str, tuple, np.dtype]]:
+def request_layout(h: int, w: int,
+                   tracing: bool = False) -> List[Tuple[str, tuple, np.dtype]]:
     """(field, shape, dtype) of one request slot; client and server build
-    it from the same frame size."""
-    return [("client_id", (), np.dtype(np.int64)),
+    it from the same frame size. ``tracing`` appends the two wall stamps
+    a traced request's hops need (0.0 = this request untraced); off, the
+    layout and the slot's bytes are those of an untraced ring. Clients do
+    not choose: the ring's handle carries its layout."""
+    fields = [("client_id", (), np.dtype(np.int64)),
             ("req_id", (), np.dtype(np.int64)),
             ("kind", (), np.dtype(np.int64)),
             ("op_seq", (), np.dtype(np.int64)),
@@ -393,6 +406,10 @@ def request_layout(h: int, w: int) -> List[Tuple[str, tuple, np.dtype]]:
             ("reply_to", (_REPLY_NAME_BYTES,), np.dtype(np.uint8)),
             ("reset_obs", (h, w), np.dtype(np.uint8)),
             ("obs", (h, w), np.dtype(np.uint8))]
+    if tracing:
+        fields += [("t_submit_wall", (), np.dtype(np.float64)),
+                   ("t_send_wall", (), np.dtype(np.float64))]
+    return fields
 
 
 def reply_layout(action_dim: int,
@@ -554,9 +571,9 @@ class ShmServeTransport:
     def __init__(self, submit: Callable[[Request, Callable], None],
                  frame_hw: Tuple[int, int], action_dim: int,
                  hidden_dim: int, request_slots: int = 256,
-                 clients_are_children: bool = False):
+                 clients_are_children: bool = False, tracing: bool = False):
         h, w = frame_hw
-        self.request_ring = ShmRecordRing(request_layout(h, w),
+        self.request_ring = ShmRecordRing(request_layout(h, w, tracing),
                                           maxsize=request_slots)
         self._reply_layout = reply_layout(action_dim, hidden_dim)
         self._untrack = not clients_are_children
@@ -616,6 +633,12 @@ class ShmServeTransport:
                 reset_obs=rec["reset_obs"] if flags & 1 else None,
                 obs=rec["obs"] if flags & 2 else None,
                 reply_to=_decode_name(rec["reply_to"]))
+            if "t_submit_wall" in rec and float(rec["t_submit_wall"]) > 0:
+                trace = {"id": req.req_id,
+                         "t_submit_wall": float(rec["t_submit_wall"])}
+                if float(rec["t_send_wall"]) > 0:
+                    trace["t_send_wall"] = float(rec["t_send_wall"])
+                req.trace = trace
             self._submit(req, self._reply_cb_for(req.reply_to))
 
     def close(self) -> None:
@@ -642,6 +665,9 @@ class ShmServeChannel:
         self._stash: Dict[int, Reply] = {}
         self._frame_hw = next(shape for name, shape, _ in
                               self._req_ring.layout if name == "obs")
+        # a traced server's ring layout has the wall-stamp fields
+        self._traced_ring = any(name == "t_submit_wall"
+                                for name, _, _ in self._req_ring.layout)
 
     def _push(self, req: Request) -> None:
         zeros = None
@@ -662,6 +688,11 @@ class ShmServeChannel:
                           else zeros),
             "obs": req.obs if req.obs is not None else zeros,
         }
+        if self._traced_ring:
+            trace = getattr(req, "trace", None) or {}
+            record["t_submit_wall"] = np.float64(
+                trace.get("t_submit_wall", 0.0))
+            record["t_send_wall"] = np.float64(trace.get("t_send_wall", 0.0))
         try:
             self._req_ring.put(record, timeout=1.0)
         except queue.Full:

@@ -104,7 +104,8 @@ class Telemetry:
 
     def __init__(self, enabled: bool = True, ring_size: int = 4096,
                  flush_interval_s: float = 5.0, spans: bool = True,
-                 name: str = "main", board=None, slot: Optional[int] = None):
+                 name: str = "main", board=None, slot: Optional[int] = None,
+                 resource_gauges: bool = False):
         self.enabled = enabled
         self.name = name
         self.flush_interval_s = flush_interval_s
@@ -112,6 +113,9 @@ class Telemetry:
         self.spans = SpanTracer(ring_size, enabled=enabled and spans)
         self._board = board
         self._slot = slot
+        # worker side, with the resources plane: this process's RSS and
+        # cumulative CPU into the board's gauge columns at each flush
+        self._resource_gauges = resource_gauges
         self._agg_board = None
         self._spans_path: Optional[str] = None
         self._drain_stop: Optional[threading.Event] = None
@@ -123,7 +127,8 @@ class Telemetry:
         t = cfg.telemetry
         return cls(enabled=t.enabled, ring_size=t.ring_size,
                    flush_interval_s=t.flush_interval_s, spans=t.spans,
-                   name=name, board=board, slot=slot)
+                   name=name, board=board, slot=slot,
+                   resource_gauges=t.resources_enabled)
 
     # -- the hot entries --
 
@@ -152,6 +157,12 @@ class Telemetry:
             return
         if self._board is not None and self._slot is not None:
             self._board.publish(self._slot, self.timers.cumulative())
+            if self._resource_gauges:
+                from r2d2_tpu_torch.telemetry.resources import host_usage
+                usage = host_usage()
+                self._board.publish_gauges(self._slot,
+                                           usage["rss_bytes"] or 0,
+                                           int(usage["cpu_s"] * 1e3))
         if self._spans_path:
             events = self.spans.drain()
             if events:

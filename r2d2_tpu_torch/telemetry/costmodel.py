@@ -1,11 +1,14 @@
-"""The analytic cost model, the JAX package's ``telemetry/costmodel.py``
-without its XLA half: per-component (torso / lstm / head / sum_tree /
-replay) FLOPs and bytes of one learner step and the serial-chain model,
-from the config alone (no compile, no device work). The periodic record's
-one-shot ``costs`` block is built from it (runtime/learner_loop.py), and
-``chip_smoke.py`` and ``tools/profile_step.py`` divide
-``model_flops_per_step`` by a measured step time for the share of the
-card's peak.
+"""The cost model, the JAX package's ``telemetry/costmodel.py``. Its
+analytic half: per-component (torso / lstm / head / sum_tree / replay)
+FLOPs and bytes of one learner step and the serial-chain model, from the
+config alone (no device work). The periodic record's one-shot ``costs``
+block is built from it (runtime/learner_loop.py), and ``chip_smoke.py``
+and ``tools/profile_step.py`` divide ``model_flops_per_step`` by a
+measured step time for the share of the card's peak. Its measured half,
+in place of XLA's program costs: ``program_cost`` and
+``collect_cost_table`` count the FLOPs one call of each program executes
+(``torch.utils.flop_counter`` plus the hand kernels' formulas;
+``tools/roofline.py`` joins them).
 
 ``peak_spec`` reads the card's peak rates from ``PEAK_SPECS``, a table of
 NVIDIA cards keyed by a substring of ``torch.cuda.get_device_name``. Each
@@ -17,6 +20,7 @@ name and its limit as ``nvidia-smi`` reports it. An unknown card, or the
 CPU, gets a nominal placeholder marked ``nominal=True``, never quoted.
 """
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 # (device-name marker, spec); the first marker found in the name wins, so
@@ -220,3 +224,177 @@ def costs_block(cfg, action_dim: int, act_bytes: int,
         "serial_chain": costs["serial_chain"],
     }
 
+
+
+# ---------------------------------------------------------------------------
+# The measured half: the FLOPs the port's programs execute, counted by
+# ``torch.utils.flop_counter.FlopCounterMode`` (aten's matrix products and
+# convolutions, backward included) plus the hand kernels' formulas
+# (ops/launch_counts.py ``counted_flops``: a kernel launched through ctypes
+# is invisible to the flop counter). On the CPU the plain versions run as
+# aten operators and are counted directly; on the card the formulas stand
+# in for them, so the two devices count the same program alike.
+
+# the pinned small configuration the cost tables and the roofline's CPU
+# preset build at (the JAX package's)
+GATE_OVERRIDES = {
+    "env.game_name": "Fake",
+    "env.frame_height": 24, "env.frame_width": 24, "env.frame_stack": 2,
+    "env.episode_len": 40,
+    "network.conv_layers": ((8, 4, 2), (16, 3, 1)),
+    "network.hidden_dim": 32, "network.cnn_out_dim": 64,
+    "network.use_double": True,
+    "sequence.burn_in_steps": 6, "sequence.learning_steps": 5,
+    "sequence.forward_steps": 3,
+    "replay.capacity": 800, "replay.block_length": 20,
+    "replay.batch_size": 8, "replay.learning_starts": 100,
+    "actor.anakin_lanes": 4,
+    "runtime.steps_per_dispatch": 3,
+}
+
+
+def gate_config():
+    from r2d2_tpu_torch.config import Config
+    return Config().replace(**GATE_OVERRIDES)
+
+
+# the JAX package's GATE_VARIANTS the port has: the sharded and tensor-
+# parallel steps need ranks of a mesh (``tools/dp_check.py``), not one
+# process, and are left out
+GATE_VARIANTS = ("learner_step", "learner_step_multi", "replay_add_many",
+                 "replay_sample", "anakin_act", "serve_forward",
+                 "quant_forward")
+
+
+def program_cost(fn, *args, **kwargs) -> Dict[str, Any]:
+    """Run ``fn(*args, **kwargs)`` once under the flop counter: ``flops``
+    (all of it), ``aten_flops`` (what the counter saw) and
+    ``kernel_flops`` (the hand kernels' formulas, by kernel)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from r2d2_tpu_torch.ops.launch_counts import counted_flops
+    with counted_flops() as kernels, FlopCounterMode(display=False) as mode:
+        fn(*args, **kwargs)
+    aten = float(mode.get_total_flops())
+    return {"flops": aten + sum(kernels.values()), "aten_flops": aten,
+            "kernel_flops": {k: v for k, v in kernels.items() if v}}
+
+
+def collect_cost_table(cfg, variants=GATE_VARIANTS, device=None,
+                       action_dim: Optional[int] = None) -> Dict[str, Any]:
+    """Build each requested program at ``cfg``'s shapes on ``device``
+    (CUDA by default; the CPU runs the plain versions) and count one call
+    of it (telemetry off: the programs without the diagnostics, as the
+    JAX package's table builds them). ``action_dim``: the env's (default:
+    probed from ``cfg.env``)."""
+    import numpy as np
+    import torch
+
+    from r2d2_tpu_torch.learner.train_step import (_make_step_body,
+                                                   create_train_state,
+                                                   eager_steps,
+                                                   make_learner_step)
+    from r2d2_tpu_torch.models.network import NetworkApply
+    from r2d2_tpu_torch.replay.device_replay import (replay_add_many,
+                                                     replay_init,
+                                                     replay_sample)
+    from r2d2_tpu_torch.replay.structs import ReplaySpec, stack_blocks
+    from r2d2_tpu_torch.replay.synthetic import make_synthetic_block
+    from r2d2_tpu_torch.utils.device import resolve_device
+
+    variants = tuple(variants)
+    unknown = set(variants) - set(GATE_VARIANTS)
+    if unknown:
+        raise ValueError(f"unknown cost variants {sorted(unknown)}; the "
+                         f"port has {GATE_VARIANTS}")
+    device = resolve_device(device)
+    cfg = cfg.replace(**{"telemetry.enabled": False})
+    if action_dim is None:
+        from r2d2_tpu_torch.envs.factory import create_env
+        probe = create_env(cfg.env, seed=cfg.runtime.seed)
+        action_dim = probe.action_space.n
+        probe.close()
+    net = NetworkApply(action_dim, cfg.network, cfg.env.frame_stack,
+                       cfg.env.frame_height, cfg.env.frame_width, device)
+    spec = ReplaySpec.from_config(cfg, device)
+    use_double = cfg.network.use_double
+    rng = np.random.default_rng(0)
+    programs: Dict[str, Dict[str, Any]] = {}
+
+    def block():
+        # the synthetic block's actions, in this env's range
+        blk = make_synthetic_block(spec, rng)
+        return dataclasses.replace(
+            blk, action=blk.action % action_dim,
+            last_action_row=blk.last_action_row % action_dim)
+
+    def filled():
+        rs = replay_init(spec, device)
+        k = min(8, spec.num_blocks)
+        replay_add_many(spec, rs, stack_blocks([block() for _ in range(k)]))
+        return rs, k
+
+    if {"learner_step", "learner_step_multi", "replay_add_many",
+            "replay_sample"} & set(variants):
+        rs, k_add = filled()
+        ts = create_train_state(net, cfg.optim, cfg.runtime.seed,
+                                use_double)
+    if "learner_step" in variants:
+        step = make_learner_step(net, spec, cfg.optim, use_double)
+        programs["learner_step"] = program_cost(step, ts, rs)
+    if "learner_step_multi" in variants:
+        k = max(cfg.runtime.resolved_steps_per_dispatch(device), 2)
+        multi = eager_steps(_make_step_body(net, spec, cfg.optim,
+                                            use_double), k)
+        programs["learner_step_multi"] = dict(program_cost(multi, ts, rs),
+                                              steps_per_dispatch=k)
+    if "replay_add_many" in variants:
+        blocks = stack_blocks([block() for _ in range(k_add)])
+        programs["replay_add_many"] = dict(
+            program_cost(replay_add_many, spec, rs, blocks), blocks=k_add)
+    if "replay_sample" in variants:
+        programs["replay_sample"] = program_cost(
+            replay_sample, spec, rs, generator=ts.generator)
+    if "anakin_act" in variants:
+        from r2d2_tpu_torch.runtime.anakin_loop import _FusedParts
+        parts = _FusedParts(cfg.replace(**{"actor.on_device": True}),
+                            device, None, None)
+        programs["anakin_act"] = dict(
+            program_cost(parts.segment.run, 1, eager=True),
+            lanes=cfg.actor.anakin_lanes)
+    if "serve_forward" in variants or "quant_forward" in variants:
+        from r2d2_tpu_torch.actor.policy import (InferenceTwin,
+                                                 make_forward_fn)
+        from r2d2_tpu_torch.models.network import make_inference_bundle
+        b = cfg.serve.max_batch
+        h, w, s = net.obs_hw
+        obs = torch.zeros((b, h, w, s), device=device)
+        last_action = torch.full((b,), -1, dtype=torch.int64, device=device)
+        hidden = torch.zeros((b, 2, cfg.network.hidden_dim), device=device)
+        module = net.init(cfg.runtime.seed)
+        if "serve_forward" in variants:
+            fwd = make_forward_fn(net, "f32")
+            programs["serve_forward"] = dict(
+                program_cost(fwd, module, obs, last_action, hidden),
+                batch=b)
+        if "quant_forward" in variants:
+            dtype = (cfg.network.inference_dtype
+                     if cfg.network.inference_dtype != "f32" else "int8")
+            qnet = NetworkApply(
+                action_dim, dataclasses.replace(cfg.network,
+                                                inference_dtype=dtype),
+                cfg.env.frame_stack, cfg.env.frame_height,
+                cfg.env.frame_width, device)
+            twin = InferenceTwin(qnet, make_inference_bundle(qnet, module, 1))
+            fwd = make_forward_fn(qnet)
+            programs["quant_forward"] = dict(
+                program_cost(fwd, twin, obs, last_action, hidden, 1, b),
+                batch=b, inference_dtype=dtype)
+    return {"device": str(device),
+            "shape": {"batch": spec.batch_size, "seq_len": spec.seq_window,
+                      "frame": [cfg.env.frame_height, cfg.env.frame_width,
+                                cfg.env.frame_stack],
+                      "hidden": cfg.network.hidden_dim,
+                      "cnn_out": cfg.network.cnn_out_dim},
+            "action_dim": action_dim,
+            "programs": programs}

@@ -241,7 +241,11 @@ def rank_tp_external(mesh: Mesh, case: dict) -> dict:
     partial input gradients left unsummed over the row (``_CopyToMP``'s
     backward without its all-reduce), a negative control that a parity
     check of the backward must fail; their final full params are
-    ``control_params`` (rank 0), their launches not counted."""
+    ``control_params`` (rank 0), their launches not counted.
+    ``case["f32_network"]``: then the same steps again from the same
+    weights with that network config (f32 compute) and no diagnostics:
+    their losses are ``f32_losses`` and their final full params
+    ``f32_params`` (rank 0), their launches not counted."""
     configure_numerics()
     batches = case.get("batches")
     if batches is None:
@@ -264,6 +268,14 @@ def rank_tp_external(mesh: Mesh, case: dict) -> dict:
         finally:
             tensor_parallel._CopyToMP.backward = saved
         out["control_params"] = control[-1].get("params")
+    if case.get("f32_network"):
+        f32_case = {k: v for k, v in case.items()
+                    if k not in ("diag", "rdiag")}
+        f32, _ = _tp_external_run(mesh, {**f32_case, "light": True,
+                                         "network": case["f32_network"]},
+                                  batches)
+        out["f32_losses"] = [rec["loss"] for rec in f32]
+        out["f32_params"] = f32[-1].get("params")
     return out
 
 

@@ -49,11 +49,14 @@ SYNTHETIC_BLOCKS = 16          # distinct blocks, repeated to fill the ring
 
 
 def capture_step_trace(cfg, steps: int, out_dir: str, warmup: int = 3,
-                       device=None) -> str:
+                       device=None, eager: bool = False) -> str:
     """Run ``steps`` learner steps (whole dispatches: at least ``steps``)
     of ``cfg`` on ``device`` (CUDA by default) under a profiler capture
     into ``out_dir``, after ``warmup`` dispatches outside it (on the card:
-    the eager warm-up, the capture, a replay). Returns ``out_dir``."""
+    the eager warm-up, the capture, a replay). ``eager``: the eager single
+    step of the same factory instead, one step a dispatch (its kernels
+    launch inside the component scopes: telemetry/traceparse.py's map of a
+    graph replay's kernels). Returns ``out_dir``."""
     import torch
     from r2d2_tpu_torch.ops.launch_counts import launch_counts
     from r2d2_tpu_torch.telemetry.profiler import trace
@@ -66,8 +69,8 @@ def capture_step_trace(cfg, steps: int, out_dir: str, warmup: int = 3,
                                                SYNTHETIC_BLOCKS))
     blocks = [distinct[i % len(distinct)] for i in range(cfg.num_blocks)]
     spec, rs = bench.filled_replay(cfg, device, blocks)
-    k = cfg.runtime.resolved_steps_per_dispatch(device)
-    ts, step = bench.build_learner_step(cfg, device, spec, k)
+    k = 1 if eager else cfg.runtime.resolved_steps_per_dispatch(device)
+    ts, step = bench.build_learner_step(cfg, device, spec, k, eager=eager)
     cuda = device.type == "cuda"
 
     def dispatch():

@@ -482,9 +482,11 @@ def test_learning_config_fields_checks_and_gating():
                              ("nan_policy", "stop", "nan_policy")):
         with pytest.raises(ValueError, match=word):
             cfg.replace(**{f"telemetry.{key}": value})
-    for name in ("alerts_enabled", "fleet_enabled", "resources_enabled",
-                 "tracing_enabled", "compile_enabled"):
-        with pytest.raises(SystemExit, match="A.7"):
+    for name in ("alerts_enabled", "resources_enabled", "tracing_enabled",
+                 "compile_enabled"):
+        assert parse_overrides(cfg, [f"--telemetry.{name}=1"])
+    for name in ("fleet_enabled", "replay_tiers_enabled"):
+        with pytest.raises(SystemExit, match="A.6"):
             parse_overrides(cfg, [f"--telemetry.{name}=1"])
 
 

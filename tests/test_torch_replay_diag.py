@@ -410,8 +410,10 @@ def test_replay_diag_config_fields_and_gating():
         assert not ReplaySpec.from_config(off, "cpu").replay_diag
     with pytest.raises(ValueError, match="replay_diag_interval"):
         cfg.replace(**{"telemetry.replay_diag_interval": 0})
-    with pytest.raises(SystemExit, match="A.7"):
-        parse_overrides(cfg, ["--telemetry.alerts_enabled=false"])
+    assert not parse_overrides(
+        cfg, ["--telemetry.alerts_enabled=false"]).telemetry.alerts_enabled
+    with pytest.raises(SystemExit, match="A.6"):
+        parse_overrides(cfg, ["--telemetry.replay_tiers_enabled=true"])
 
 
 # -- the tensor-parallel steps ------------------------------------------------
