@@ -344,8 +344,34 @@ Phases, each of which asserts or raises (any failure exits nonzero):
      component scopes' cost on the eager step. Phase 10(b) splits its
      launch-to-first-snapshot seconds by part from the killed child's
      spans (``startup/*``, the dispatches) and the snapshot's manifest;
-     phase 13(a) runs again in f32 beside the bf16 one, its distances
-     printed, not held (ROADMAP C.5).
+     phase 13(a) takes its first step again in f32, its gradients before
+     the clip held per leaf to C5_GRAD_REL (relative L2) against the
+     unsharded f32 step's (ROADMAP C.5).
+ 17. the replay service (fleet/replay_service.py, fleet/service_main.py,
+     replay/snapshot.py's service cut): (a) card = CPU at the tiny shape,
+     two shards, both routes at priority exponent 1 and round robin at the
+     configuration's (trees and importance weights within
+     SERVICE_POW_RTOL there), a tier that turns: grouped adds at
+     SERVICE_K on the card, on the CPU and sequential adds on the card,
+     samples with injected draws, write-backs through the staleness
+     guard (a stale add between one sample and its write-back): shards,
+     spill pages (order, stored priorities), batches and the guard's
+     counts equal; one shard with a cold tier samples exactly
+     ``replay_sample``; (b) ``cli.train`` at the reference shape under the
+     service (tools/service_probe.py's settings, SERVICE_SECONDS, the
+     counts set to 0 just
+     before): demotions and promotions, two ring turnovers, every record's
+     ``replay_service`` block with its tiers and ingest, a ``trace`` block
+     with all three hops, no crit alert, K1, K3, K4 and K5 launched
+     (the ``kernels`` line's ``service_launches``); seq-updates/s beside
+     bench default K=1 of this call, the hit rate, the write-backs'
+     counts, blocks per commit, the hops' p50 and the service's host
+     timings (lock waits and holds by operation) printed; (c) the
+     standalone service's kill drill on the card (``run_kill_drill``),
+     its children started while (a) runs: the producer survives, adds
+     monotone, the loss within DRILL_INTERVAL and a window of groups,
+     the restart's cut bit-equal to the snapshot's; the restore's
+     seconds and the reconnects printed.
      The script's total time is printed beside its budget, BUDGET_S.
 
 TF32 is off throughout, as in training (utils/device.configure_numerics).
@@ -477,6 +503,16 @@ def check(cond, what="") -> None:
     """Fail the phase (an assert would vanish under python -O)."""
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def _timed(label: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds printed as ``timing LABEL S s``
+    (PERF.md's phase table)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        print(f"timing {label} {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _import_port():
@@ -1199,14 +1235,16 @@ def _profile(dispatch, dispatches: int, steps: int) -> float:
     return bench.device_busy_ms(prof) / steps
 
 
-def phase_reference_replay(dev):
+def phase_reference_replay(dev, blocks=None):
     """The reference configuration's replay, filled by replay_add_many
-    with synthetic blocks (capacity cut from 500,000 to 100,000 steps)."""
+    with synthetic blocks (capacity cut from 500,000 to 100,000 steps),
+    ``blocks`` when given (a refill of the same replay)."""
     import torch
     from r2d2_tpu_torch.tools import bench
     base = bench.reference_config()
     t0 = time.perf_counter()
-    blocks = bench.synthetic_blocks(base, base.num_blocks)
+    if blocks is None:
+        blocks = bench.synthetic_blocks(base, base.num_blocks)
     spec, rs = bench.filled_replay(base, dev, blocks)
     torch.cuda.synchronize()
     print(f"reference replay: {spec.num_blocks} blocks, capacity "
@@ -3274,11 +3312,12 @@ def phase_served_train(dev, k, bench_default: float) -> dict:
 def phase_serving(dev, k, bench_default: float) -> dict:
     """Phase 9 (see the module docstring); returns the int8 kernel's
     timings and the serving paths' launch counts."""
-    result = phase_quant_kernel(dev)
-    phase_quant_forward(dev)
-    serve = phase_serve_graphs(dev)
-    _add_counts(serve, phase_serve_cli(dev))
-    _add_counts(serve, phase_served_train(dev, k, bench_default))
+    result = _timed("9a", phase_quant_kernel, dev)
+    _timed("9b", phase_quant_forward, dev)
+    serve = _timed("9c", phase_serve_graphs, dev)
+    _add_counts(serve, _timed("9d", phase_serve_cli, dev))
+    _add_counts(serve, _timed("9e", phase_served_train, dev, k,
+                              bench_default))
     result["serve_launches"] = serve
     return result
 
@@ -3731,11 +3770,11 @@ def phase_ingest_recovery_quant(dev, k: int, bench_default: float,
                                 ) -> dict:
     """Phase 10 (see the module docstring). Returns the int8 fused run's
     launch counts."""
-    phase_ingest(dev, k, bench_default)
-    phase_recovery_learner(dev)
-    phase_supervised_kill(dev)
-    phase_quant_segment_vs_cpu(dev)
-    int8_ms, _ = phase_anakin_graph(dev, "int8")
+    _timed("10a", phase_ingest, dev, k, bench_default)
+    _timed("10b twin", phase_recovery_learner, dev)
+    _timed("10b drill", phase_supervised_kill, dev)
+    _timed("10c vs CPU", phase_quant_segment_vs_cpu, dev)
+    int8_ms, _ = _timed("10c graph", phase_anakin_graph, dev, "int8")
     print(f"acting segment ms at the reference widths, this call: f32 "
           f"{f32_segment_ms:.3f} (phase 8), int8 {int8_ms:.3f} "
           f"({int8_ms / f32_segment_ms:.3f}x)", flush=True)
@@ -4104,23 +4143,31 @@ def phase_dp_loop(dev, label: str, args) -> dict:
     return total
 
 
-def phase_data_parallel(dev) -> dict:
-    """Phase 11 (see the module docstring). Returns the launch counts of
-    the sharded paths: "nccl" (11a's graphed step), "loop" (11c's runs,
-    every rank)."""
+def phase_data_parallel(dev, ref_blocks) -> dict:
+    """Phase 11 (see the module docstring), with 12(b)'s worlds run beside
+    11(b)'s (both card = CPU checks of gloo ranks, no timing held): the
+    reference replay refilled from the first phases' blocks
+    (``ref_blocks``). Returns the launch counts of the sharded paths:
+    "nccl" (11a's graphed step), "loop" (11c's runs, every rank), and
+    12(b)'s card ranks' ("mh_card")."""
     import torch
-    base, spec, rs, _ = phase_reference_replay(dev)
-    nccl = phase_dp_nccl(dev, base, spec, rs)
+    base, spec, rs, _ = phase_reference_replay(dev, ref_blocks)
+    nccl = _timed("11a", phase_dp_nccl, dev, base, spec, rs)
     del rs
     torch.cuda.empty_cache()
-    phase_dp_gloo_card_vs_cpu(dev)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        gloo = pool.submit(_timed, "11b", phase_dp_gloo_card_vs_cpu, dev)
+        mh_card = pool.submit(_timed, "12b", phase_mh_card_vs_cpu, dev)
+        gloo.result()
+        mh_card = mh_card.result()
     loop = dict.fromkeys(nccl, 0)
     for label, args in (("thread actors, pallas_lstm on, double DQN",
                          FUSED_ARGS),
                         ("on-device acting", ANAKIN_ARGS)):
-        for k, n in phase_dp_loop(dev, label, args).items():
+        for k, n in _timed(f"11c {label}", phase_dp_loop, dev, label,
+                           args).items():
             loop[k] += n
-    return {"nccl": nccl, "loop": loop}
+    return {"nccl": nccl, "loop": loop, "mh_card": mh_card}
 
 
 MH_K = 4                           # 12(a)'s steps a dispatch
@@ -4572,9 +4619,10 @@ def phase_mh_loop(label: str, placement: str, overrides) -> dict:
             for n in recs[0]["launches"]}
 
 
-def phase_multihost(dev, bench_fused: float) -> dict:
-    """Phase 12 (see the module docstring). Returns the launch counts of
-    every part, every controller."""
+def phase_multihost(dev, bench_fused: float, mh_card: dict) -> dict:
+    """Phase 12 (see the module docstring; 12(b) ran beside 11(b), its
+    card ranks' launches ``mh_card``). Returns the launch counts of every
+    part, every controller."""
     total = dict.fromkeys(_counts(), 0)
 
     def add(counts):
@@ -4582,16 +4630,17 @@ def phase_multihost(dev, bench_fused: float) -> dict:
             total[name] += n
 
     _reset_counts()
-    phase_mh_core_graph(dev)
+    _timed("12a core graph", phase_mh_core_graph, dev)
     add(_counts())
-    add(phase_mh_host_graph(dev))
-    add(phase_mh_one_controller(dev, bench_fused))
-    add(phase_mh_card_vs_cpu(dev))
-    add(phase_mh_loop("device placement, fused_double", "device",
-                      ["--network.use_double=true",
-                       "--network.pallas_lstm=on"]))
-    add(phase_mh_loop("host placement, pallas_lstm on", "host",
-                      ["--network.pallas_lstm=on"]))
+    add(_timed("12a host graph", phase_mh_host_graph, dev))
+    add(_timed("12a one controller", phase_mh_one_controller, dev,
+               bench_fused))
+    add(mh_card)
+    add(_timed("12c device", phase_mh_loop,
+               "device placement, fused_double", "device",
+               ["--network.use_double=true", "--network.pallas_lstm=on"]))
+    add(_timed("12c host", phase_mh_loop, "host placement, pallas_lstm on",
+               "host", ["--network.pallas_lstm=on"]))
     return total
 
 
@@ -4618,6 +4667,9 @@ DPMP_BLOCKS = 4                    # 13(c): blocks a shard (reduced depth)
 SP_SHAPE = (5, 4, 55, 128, 512)    # 13(d): stages, microbatches, T, B, H
 SP_ATOL = 2e-6                     # 13(d): f32, the fused scan's bound
 SNAP_CAPACITY = 4000               # 13(e): 10 reference blocks a shard
+# 13(a), ROADMAP C.5: the TP step's f32 gradients before the clip against
+# the unsharded step's, each leaf's relative L2 distance
+C5_GRAD_REL = 1e-5
 PHASE13_TIMEOUT_S = 400.0          # a world's deadline
 
 
@@ -4674,10 +4726,12 @@ def _update_rel(final, init, want) -> tuple:
     return worst, leaf
 
 
-def _tp_f32_distances(dev, cfg32, out: dict, init) -> dict:
-    """13a's f32 repeat: the unsharded f32 step on the card over the same
-    batches from the same weights against the ranks' ``f32_params`` and
-    ``f32_losses``: the same distances as the bf16 comparison's."""
+def _tp_f32_gradients(dev, cfg32, out: dict) -> dict:
+    """13a's C.5 check (ROADMAP C.5): the unsharded f32 external step on
+    the card from the same weights (seed 0) on the first of the same host
+    batches, its gradients before the clip (``dp_check.pre_clip_gradients``)
+    against the ranks' ``f32_grads`` (the TP step's, gathered over the
+    row): each leaf's relative L2 distance held to C5_GRAD_REL."""
     import numpy as np
     import torch
     from r2d2_tpu_torch.learner.train_step import (create_train_state,
@@ -4692,20 +4746,25 @@ def _tp_f32_distances(dev, cfg32, out: dict, init) -> dict:
     step = make_external_batch_step(net, ReplaySpec.from_config(cfg32, dev),
                                     cfg32.optim, True, graphed=False)
     spec = ReplaySpec.from_config(cfg32, torch.device("cpu"))
-    losses = []
-    for fields in dp_check.host_batches(spec, TP_HOST_BLOCKS, TP_STEPS, 13):
+    fields = dp_check.host_batches(spec, TP_HOST_BLOCKS, TP_STEPS, 13)[0]
+    taps: list = []
+    with dp_check.pre_clip_gradients(taps):
         ts, m = step(ts, SampleBatch(**{n: torch.from_numpy(a).to(dev)
                                         for n, a in fields.items()}))
-        losses.append(float(m["loss"]))
-    want = {n: p.float().cpu().numpy()
-            for n, p in ts.params.state_dict().items()}
-    got = out["f32_params"]
-    report = {"loss_rel": max(abs(float(a) - b) / abs(b) for a, b in
-                              zip(out["f32_losses"], losses)),
-              "params_abs": max(float(np.max(np.abs(got[n] - want[n])))
-                                for n in want)}
-    report["update_rel"], report["update_rel_leaf"] = _update_rel(
-        got, init, want)
+    want = {name: g.double().cpu().numpy() for (name, _), g in
+            zip(ts.params.named_parameters(), taps[0])}
+    got = out["f32_grads"]
+    rel = {name: float(np.linalg.norm(got[name] - w))
+           / max(float(np.linalg.norm(w)), 1e-30) for name, w in want.items()}
+    worst = max(rel, key=rel.get)
+    loss = float(m["loss"])
+    report = {"loss_rel": abs(float(out["f32_grad_loss"]) - loss) / abs(loss),
+              "grad_rel_max": rel[worst], "grad_rel_leaf": worst,
+              "grad_rel_recurrent_kernel": rel["lstm.recurrent_kernel"],
+              "grad_rel": rel, "bound": C5_GRAD_REL}
+    check(rel[worst] <= C5_GRAD_REL,
+          f"13a C.5: the TP step's f32 gradient of {worst} is {rel[worst]} "
+          f"(relative L2) off the unsharded step's, bound {C5_GRAD_REL}")
     return report
 
 
@@ -4721,11 +4780,12 @@ def phase_tp_reference(dev) -> dict:
     its steps (K3, K4, K4 lean, K5; no gather: the host samples). The
     same ranks then repeat the steps with the row's partial input
     gradients unsummed (the negative control): its update distance must
-    exceed the bound. Then the same ranks repeat the steps in f32
-    (network.bf16 off, no diagnostics) against the unsharded f32 step, the
-    same distances printed, not held to TP_REF_TOL: ROADMAP C.5's
-    question, whether bf16 rounding is what separates the two steps.
-    Returns the ranks' launches (the bf16 steps')."""
+    exceed the bound. Then the same ranks take the first step again in
+    f32 (network.bf16 off, no diagnostics), their gradients before the
+    clip gathered over the row and held per leaf to C5_GRAD_REL against
+    the unsharded f32 step's (ROADMAP C.5: whether anything but rounding
+    separates the two steps). Returns the ranks' launches (the bf16
+    steps')."""
     import numpy as np
     import torch
     from r2d2_tpu_torch.learner.train_step import (create_train_state,
@@ -4740,7 +4800,7 @@ def phase_tp_reference(dev) -> dict:
     cfg32 = cfg.replace(**{"network.bf16": "off"})
     case = _tp_case(cfg, 32, light=True, control=True,
                     host_batches=(TP_HOST_BLOCKS, TP_STEPS, 13),
-                    f32_network=dataclasses.asdict(cfg32.network),
+                    f32_grads=dataclasses.asdict(cfg32.network),
                     **TP_DIAG)
     t0 = time.perf_counter()
     outs = _ranks(dp_check.rank_tp_external, 1, case,
@@ -4762,7 +4822,7 @@ def phase_tp_reference(dev) -> dict:
         ts, m = step(ts, batch)
         ref.append({k: v.float().cpu().numpy() for k, v in m.items()})
         ref_s.append(time.perf_counter() - t1)
-    f32 = _tp_f32_distances(dev, cfg32, outs[0], init)
+    f32 = _tp_f32_gradients(dev, cfg32, outs[0])
     worst = {"loss_rel": 0.0, "priorities_abs": 0.0, "params_abs": 0.0}
     check(outs[0]["trace"][-1]["params_sha"]
           == outs[1]["trace"][-1]["params_sha"],
@@ -4828,7 +4888,7 @@ def phase_tp_reference(dev) -> dict:
               "losses_unsharded": [float(m["loss"]) for m in ref],
               "max_diff": worst, "tolerance": TP_REF_TOL,
               "control_unsummed_input_grads": control,
-              "f32_repeat_printed_not_held": f32,
+              "f32_gradients_c5": f32,
               "largest_sharded_leaf": largest,
               "launches_per_rank": outs[0]["launches"],
               "world_s": world_s}), flush=True)
@@ -5182,17 +5242,21 @@ def phase_parallel_remainder(dev) -> dict:
     t0 = time.perf_counter()
     cfg, case = _dpmp_case()
     with concurrent.futures.ThreadPoolExecutor(9) as pool:
-        jobs = {"a": pool.submit(phase_tp_reference, dev),
-                "c2": pool.submit(_ranks, dp_check.rank_steps, 2, case,
+        jobs = {"a": pool.submit(_timed, "13a", phase_tp_reference, dev),
+                "c2": pool.submit(_timed, "13c mp=2", _ranks,
+                                  dp_check.rank_steps, 2, case,
                                   devices=[str(dev)] * 4, mp=2),
-                "c": pool.submit(_ranks, dp_check.rank_steps, 2, case,
+                "c": pool.submit(_timed, "13c mp=1", _ranks,
+                                 dp_check.rank_steps, 2, case,
                                  devices=[str(dev)] * 2),
-                "b": pool.submit(phase_tp_card_vs_cpu, dev),
-                "d": pool.submit(phase_sp, dev),
-                "e": pool.submit(phase_dp_snapshot, dev),
-                "f": pool.submit(phase_dryruns, dev),
-                "g_device": pool.submit(phase_tp_learner, dev, "device"),
-                "g_host": pool.submit(phase_tp_learner, dev, "host")}
+                "b": pool.submit(_timed, "13b", phase_tp_card_vs_cpu, dev),
+                "d": pool.submit(_timed, "13d", phase_sp, dev),
+                "e": pool.submit(_timed, "13e", phase_dp_snapshot, dev),
+                "f": pool.submit(_timed, "13f", phase_dryruns, dev),
+                "g_device": pool.submit(_timed, "13g device",
+                                        phase_tp_learner, dev, "device"),
+                "g_host": pool.submit(_timed, "13g host", phase_tp_learner,
+                                      dev, "host")}
         done = {k: j.result() for k, j in jobs.items()}
     tp, mp2 = done["a"], done["c2"]
     net = NetworkApply(bench.ACTION_DIM, cfg.network, cfg.env.frame_stack,
@@ -6032,6 +6096,324 @@ def phase_scope_cost(dev) -> dict:
     return report
 
 
+# -- phase 17: the replay service ---------------------------------------------
+
+SERVICE_SECONDS = 20.0             # 17b: the service-routed cli.train run
+# 17b's ring (r2d2_tpu_torch/tools/service_probe.py service_args: two
+# shards, training from 400 steps): a shard's rows sized from phase 6's
+# blocks/s (its env steps/s over its env steps a block: the Fake env's
+# episodes end blocks short) for SERVICE_TURNS turnovers in
+# SERVICE_SECONDS at SERVICE_RATE_SHARE of that rate (start-up, the first
+# blocks' 400 steps and the learner's share of the host: 17b's actors
+# delivered 0.39-0.43 of phase 6's blocks/s in its window), held to >= 2
+SERVICE_TURNS = 4
+SERVICE_RATE_SHARE = 0.4
+SERVICE_MAX_SHARD_BLOCKS = 16
+SERVICE_SPILL = 3                  # 17a: a shard's tier (4-row rings turn)
+SERVICE_K = 8                      # 17a: the grouped add's chunk
+# 17a at the configuration's priority exponent: the card's f32 pow and the
+# CPU's may round an ulp apart, in the trees and the importance weights
+SERVICE_POW_RTOL = 1e-6
+# 17c: the standalone service's drill at two shards (the tiny geometry of
+# the JAX package's drill), snapshots every DRILL_INTERVAL adds, a window
+# of 4 frames of 2 blocks
+DRILL_OVERRIDES = {
+    "env.frame_height": 24, "env.frame_width": 24, "env.frame_stack": 2,
+    "network.hidden_dim": 16, "sequence.burn_in_steps": 4,
+    "sequence.learning_steps": 5, "sequence.forward_steps": 3,
+    "replay.capacity": 800, "replay.block_length": 20,
+    "replay.batch_size": 8, "fleet.replay_shards": 2,
+    "fleet.ingest_batch_blocks": 2, "fleet.spill_blocks": 4}
+DRILL_INTERVAL = 8
+
+
+def _service_equal(a, b, label: str, tree_rtol: float = 0.0) -> None:
+    """Two services' shards equal: every state leaf (across devices; the
+    sum tree within ``tree_rtol``, exactly at 0), the ring accountants,
+    the spill pages (ids in LRU order, stored priorities, fields), the
+    demotion tables, the guard's counters."""
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.replay.snapshot import _LEAVES
+    for name in ("stale_writebacks", "spilled_writebacks",
+                 "stale_rows_dropped", "_rr_add", "_rr_sample"):
+        check(getattr(a, name) == getattr(b, name),
+              f"{label}: {name} {getattr(a, name)} vs {getattr(b, name)}")
+    for i, (x, y) in enumerate(zip(a.shards, b.shards)):
+        for name in _LEAVES:
+            u, v = getattr(x.state, name), getattr(y.state, name)
+            if name == "tree" and tree_rtol:
+                same = torch.allclose(u.cpu(), v.cpu(), rtol=tree_rtol,
+                                      atol=0)
+            elif torch.is_tensor(u):
+                same = torch.equal(u.cpu(), v.cpu())
+            else:
+                same = u == v
+            check(same, f"{label}: shard {i} {name} differs")
+        for name in ("ptr", "total_adds", "buffer_steps", "slot_steps",
+                     "slot_versions"):
+            check(getattr(x.ring, name) == getattr(y.ring, name),
+                  f"{label}: shard {i} ring.{name} differs")
+        check(list(x.spill._pages) == list(y.spill._pages)
+              and x.spill._prio == y.spill._prio
+              and x._demote_ids == y._demote_ids,
+              f"{label}: shard {i} spill pages or demotion table differ")
+        for pid, (pb, pl, pv) in x.spill._pages.items():
+            qb, ql, qv = y.spill._pages[pid]
+            check((pl, pv) == (ql, qv) and all(
+                np.array_equal(np.asarray(getattr(pb, f)),
+                               np.asarray(getattr(qb, f)))
+                for f in ("obs_row", "priority", "hidden", "action")),
+                f"{label}: shard {i} page {pid} differs")
+
+
+def _batch_equal(got, want, label: str) -> None:
+    import torch
+    from r2d2_tpu_torch.replay.structs import batch_fields
+    for name, g in batch_fields(got).items():
+        w = getattr(want, name)
+        if name == "is_weights":
+            # the importance weights' f32 pow: the card's powf and the
+            # CPU's may round an ulp apart
+            ok = torch.allclose(g.cpu(), w.cpu(), rtol=SERVICE_POW_RTOL,
+                                atol=0)
+        else:
+            ok = torch.equal(g.cpu(), w.cpu())
+        check(ok, f"{label}: sampled {name} differs")
+
+
+def phase_service_vs_cpu(dev) -> dict:
+    """17(a): card = CPU for the replay service (the tiny shape, 4-row
+    shards), two shards, a tier of SERVICE_SPILL pages a shard, both
+    routes at priority exponent 1 (the trees exact), then round robin at
+    the configuration's exponent (the card's pow: the trees and the
+    importance weights within SERVICE_POW_RTOL, the rest exact): 24
+    stamped blocks in
+    groups of SERVICE_K through ``add_blocks`` on the card, on the CPU, and
+    block by block through ``add_block`` on the card; after each group
+    three samples with the same injected draws (promotions inside), a
+    group's first block added again between one sample and its write-back
+    (the staleness guard, spilled rows), the write-backs (a leaf's
+    priority a function of the leaf); the shards
+    (rings, trees, spill pages in order with their stored priorities,
+    demotion tables), the batches and the guard's counts equal. Then one
+    shard with a cold tier samples exactly the plain ``replay_sample`` on
+    the card. Returns the counts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from r2d2_tpu_torch.fleet.replay_service import ReplayService
+    from r2d2_tpu_torch.replay import device_replay as tdr
+    from r2d2_tpu_torch.replay.structs import ReplaySpec
+    from r2d2_tpu_torch.replay.synthetic import make_synthetic_block
+    cpu = torch.device("cpu")
+    base = dataclasses.replace(
+        ReplaySpec.from_config(_tiny_config(), cpu), num_blocks=4,
+        replay_diag=False)
+    spec = dataclasses.replace(base, prio_exponent=1.0)
+    rng = np.random.default_rng(17)
+    blocks = []
+    for k in range(24):
+        blk = make_synthetic_block(spec, rng)
+        blocks.append(dataclasses.replace(
+            blk, lane=np.asarray(k % 3 if k % 4 != 3 else -1, np.int32),
+            weight_version=np.asarray(k, np.int32)))
+    report = {}
+    runs = (("round_robin", spec, 0.0), ("lane", spec, 0.0),
+            ("round_robin", base, SERVICE_POW_RTOL))
+    for route, rspec, rtol in runs:
+        label = (route if rspec is spec
+                 else f"{route} exponent {rspec.prio_exponent}")
+        kw = dict(spill_blocks=SERVICE_SPILL, route=route,
+                  promote_per_sample=1)
+        card = ReplayService(rspec, 2, dev, ingest_batch_blocks=SERVICE_K,
+                             **kw)
+        host = ReplayService(rspec, 2, cpu, ingest_batch_blocks=SERVICE_K,
+                             **kw)
+        seq = ReplayService(rspec, 2, dev, **kw)
+        for i in range(0, len(blocks), SERVICE_K):
+            group = blocks[i:i + SERVICE_K]
+            routed = card.add_blocks(group)
+            check(routed == host.add_blocks(group)
+                  == [seq.add_block(b) for b in group],
+                  f"17a {label}: routing differs")
+            for s in range(3):
+                u = torch.from_numpy(rng.random(spec.batch_size,
+                                                dtype=np.float32))
+                got = [svc.sample(uniform=u.to(svc.device))
+                       for svc in (card, host, seq)]
+                check(got[0][1:] == got[1][1:] == got[2][1:],
+                      f"17a {label}: shard or token differs")
+                _batch_equal(got[0][0], got[1][0], f"17a {label} card/CPU")
+                _batch_equal(got[0][0], got[2][0],
+                             f"17a {label} grouped/sequential")
+                if s == 1:
+                    for svc in (card, host, seq):
+                        svc.add_block(group[0])
+                # a leaf's new priority a function of the leaf: a batch's
+                # repeated leaves write one value (which duplicate of a
+                # scatter wins is unspecified on the card)
+                td = 0.1 + 0.03 * (got[1][0].idxes % 97).float()
+                for svc, (batch, shard, snap) in zip((card, host, seq), got):
+                    svc.update_priorities(shard, batch.idxes,
+                                          td.to(svc.device),
+                                          adds_snapshot=snap)
+            _service_equal(card, host, f"17a {label} card/CPU", rtol)
+            _service_equal(card, seq, f"17a {label} grouped/sequential")
+        check(sum(sh.spill.promotions for sh in card.shards) > 0
+              and sum(sh.spill.demotions for sh in card.shards) > 0,
+              f"17a {label}: the tier never turned")
+        report[label] = {
+            "adds": card.total_adds,
+            "demotions": sum(sh.spill.demotions for sh in card.shards),
+            "promotions": sum(sh.spill.promotions for sh in card.shards),
+            "spilled_writebacks": card.spilled_writebacks,
+            "stale_writebacks": card.stale_writebacks,
+            "stale_rows_dropped": card.stale_rows_dropped,
+            "ingest": card.interval_block()["ingest"]}
+    cold = ReplayService(spec, 1, dev, spill_blocks=8, promote_per_sample=2)
+    plain = tdr.replay_init(spec, dev)
+    for blk in blocks[:3]:
+        cold.add_block(blk)
+        tdr.replay_add(spec, plain, blk)
+    u = torch.from_numpy(rng.random(spec.batch_size, dtype=np.float32)).to(dev)
+    batch, _, _ = cold.sample(uniform=u)
+    check(cold.shards[0].spill.occupancy == 0, "17a: the cold tier spilled")
+    want = tdr.replay_sample(spec, plain, uniform=u)
+    for f in dataclasses.fields(batch):
+        check(torch.equal(getattr(batch, f.name), getattr(want, f.name)),
+              f"17a: the cold-tier sample's {f.name} is not replay_sample's")
+    torch.cuda.synchronize()
+    print(f"17a the replay service card = CPU ({_card()}): "
+          + json.dumps(report), flush=True)
+    return report
+
+
+def phase_service_train(dev, bench_default_k1: float,
+                        phase6: dict) -> tuple:
+    """17(b): ``cli.train`` at the reference shape under the replay service
+    (tools/service_probe.py ``train_under_service``: 2 shards, their rows
+    sized from phase 6's thread run ``phase6`` (its report: blocks/s,
+    SERVICE_TURNS), a tier of a shard's rows, grouped ingest at 8, spill
+    prefetch, sample staging, every block traced, the tier stats; thread
+    actors) for SERVICE_SECONDS, the counts set to 0 just before: the tier
+    demotes and promotes, the ring turns over at least twice (blocks
+    ingested over its rows), every record carries ``replay_service``
+    (shards, spill with tiers and promotion latency, ingest) and a
+    ``trace`` block has seen all three hops, no crit alert, and K1, K3, K4
+    and K5 launched. Printed, not held: seq-updates/s over the run after
+    the tool's WARM dispatches beside bench default K=1 of this call, the
+    hit rate, stale and spilled write-backs, blocks
+    per commit, the hops' p50, the service's host timings over the window
+    (lock waits and holds by operation). Returns (launches, report)."""
+    import tempfile
+    import torch
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.telemetry.tracing import EXPERIENCE_HOPS
+    from r2d2_tpu_torch.tools import service_probe as probe
+    blocks_per_s = (phase6["env_steps_per_s_training"]
+                    * phase6["blocks_ingested"] / phase6["env_steps"])
+    shard_blocks = int(min(SERVICE_MAX_SHARD_BLOCKS, max(2, (
+        SERVICE_RATE_SHARE * blocks_per_s * SERVICE_SECONDS
+        / (SERVICE_TURNS * probe.SHARDS)))))
+    ring_rows = probe.SHARDS * shard_blocks
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_service_") as d:
+        torch.cuda.empty_cache()
+        _reset_counts()
+        summary, service, marks, timings, records = \
+            probe.train_under_service(shard_blocks, SERVICE_SECONDS, d)
+        launches = _counts()
+    check(service is not None, "17b: no dispatch reached the hook")
+    check(summary["device"].startswith("cuda") and summary["steps"] > 0
+          and all(math.isfinite(x) for x in summary["losses"]),
+          f"17b: {summary['device']}, {summary['steps']} steps")
+    demotions = sum(s.spill.demotions for s in service.shards)
+    promotions = sum(s.spill.promotions for s in service.shards)
+    check(demotions > 0 and promotions > 0,
+          f"17b: demotions {demotions}, promotions {promotions}")
+    turnovers = summary["blocks_ingested"] / ring_rows
+    check(turnovers >= 2, f"17b: the ring turned over {turnovers} times")
+    check(records and all(
+        {"shards", "spill", "ingest"} <= set(r.get("replay_service", {}))
+        and {"tiers", "promotion_latency"} <= set(
+            r["replay_service"]["spill"]) for r in records),
+        "17b: a record without its replay_service block")
+    traces = [r["trace"] for r in records if "trace" in r]
+    hops = {name: sum(t.get("hops", {}).get(name, {}).get("count", 0)
+                      for t in traces) for name in EXPERIENCE_HOPS}
+    check(traces and all(n > 0 for n in hops.values()),
+          f"17b: trace hops {hops}")
+    crit = [a for r in records for a in r["alerts"]["fired"]
+            if a["severity"] == "crit"]
+    check(not crit, f"17b: crit alerts {crit}")
+    check(all(launches[n] > 0 for n in ("gather_windows", "stack_frames",
+                                         "lstm_fwd", "lstm_bwd")),
+          f"17b: launches {launches}")
+    rate = probe.window_rate(marks, Config().replay.batch_size)
+    check(rate is not None, f"17b: {len(marks)} dispatches")
+    last = records[-1]["replay_service"]
+    ingest = [r["replay_service"]["ingest"] for r in records]
+    blocks = sum(i["blocks"] for i in ingest)
+    commits = sum(i["dispatches"] for i in ingest)
+    report = {
+        "steps": summary["steps"], "env_steps": summary["env_steps"],
+        "seq_updates_per_s": rate,
+        "share_of_bench_default_k1": rate / bench_default_k1,
+        "bench_default_k1": bench_default_k1,
+        "shard_blocks": shard_blocks, "ring_turnovers": turnovers,
+        "phase6_blocks_per_s": blocks_per_s,
+        "turnover_s_at_phase6_rate": ring_rows / blocks_per_s,
+        "demotions": demotions, "promotions": promotions,
+        "hit_rate": last["spill"]["hit_rate"],
+        "stale_writebacks": service.stale_writebacks,
+        "spilled_writebacks": service.spilled_writebacks,
+        "stale_rows_dropped": service.stale_rows_dropped,
+        "blocks_per_commit": blocks / commits if commits else None,
+        "hop_p50_ms": {name: traces[-1].get("hops", {}).get(name, {})
+                       .get("p50_ms") for name in EXPERIENCE_HOPS},
+        "e2e_p50_ms": traces[-1].get("e2e_experience_latency", {})
+        .get("p50_ms"),
+        "promotion_latency": last["spill"]["promotion_latency"],
+        "tiers": last["spill"]["tiers"], "host_timings": timings,
+        "launches": launches}
+    print(f"17b service-routed cli.train, reference shape ({_card()}): "
+          + json.dumps(report), flush=True)
+    return launches, report
+
+
+def phase_service_drill(dev) -> dict:
+    """17(c): ``python -m r2d2_tpu_torch.fleet.service_main`` on the card
+    at two shards (fleet/service_main.py ``run_kill_drill``): SIGKILLed
+    mid-ingest and restarted; held: the producer survives (reconnects,
+    replays its tail, every sent block acked), committed adds are
+    monotone, the loss within DRILL_INTERVAL + window x group, the
+    restart's cut bit-equal to the snapshot's. Printed: the restore's
+    seconds and the reconnects."""
+    from r2d2_tpu_torch.fleet.service_main import run_kill_drill
+    report = run_kill_drill(DRILL_OVERRIDES, device=str(dev),
+                            interval=DRILL_INTERVAL, timeout_s=90.0)
+    check(all(report["verdict"].values()), f"17c: drill {report}")
+    print(f"17c the standalone replay service's kill drill ({_card()}): "
+          + json.dumps(report), flush=True)
+    return report
+
+
+def phase_replay_service(dev, bench_default_k1: float,
+                         phase6: dict) -> dict:
+    """Phase 17: (c)'s children start while (a) runs, then (b) alone.
+    Returns (b)'s launches."""
+    import concurrent.futures
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        drill = pool.submit(_timed, "17c", phase_service_drill, dev)
+        _timed("17a", phase_service_vs_cpu, dev)
+        drill.result()
+    launches, _ = _timed("17b", phase_service_train, dev, bench_default_k1,
+                         phase6)
+    print(f"phase 17 {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6085,6 +6467,7 @@ def main(argv) -> int:
     del rs
     torch.cuda.empty_cache()
     host_launches = phase_host_learner(dev, base, blocks)
+    ref_blocks = blocks             # phase 11 refills its replay with them
     del blocks
     done("host path")
     launches = phase_cli(dev, [], "default", resolved_k)
@@ -6095,10 +6478,12 @@ def main(argv) -> int:
     launches["gather_windows_padded"] = phase_cli(
         dev, PADDED_ARGS, "padded storage", resolved_k)["gather_windows"]
     done("sync_train")
-    orchestrated = {}
+    orchestrated, orch_reports = {}, []
     for i, (mode, extra, label) in enumerate(ORCH_RUNS):
-        counted, _ = phase_orchestrated(dev, mode, extra, label, resolved_k,
-                                        evaluate=i == len(ORCH_RUNS) - 1)
+        counted, orch_report = phase_orchestrated(
+            dev, mode, extra, label, resolved_k,
+            evaluate=i == len(ORCH_RUNS) - 1)
+        orch_reports.append(orch_report)
         for name, n in counted.items():
             orchestrated[name] = max(orchestrated.get(name, 0), n)
     done("cli.train")
@@ -6124,10 +6509,12 @@ def main(argv) -> int:
         reference["fused", resolved_k]["median_seq_updates_per_s"],
         segment_ms)
     done("ingest, recovery, quantized on-device acting")
-    sharded = phase_data_parallel(dev)
+    sharded = phase_data_parallel(dev, ref_blocks)
+    del ref_blocks
     done("data parallel")
     multihost = phase_multihost(
-        dev, reference["fused", resolved_k]["median_seq_updates_per_s"])
+        dev, reference["fused", resolved_k]["median_seq_updates_per_s"],
+        sharded["mh_card"])
     done("multi-host")
     parallel = phase_parallel_remainder(dev)
     done("tensor, dp x mp and sequence parallel")
@@ -6140,6 +6527,10 @@ def main(argv) -> int:
         done("telemetry")
         phase_planes(dev, bench_fused, prof)
     done("resources, compile, alerts, tracing, roofline")
+    service = phase_replay_service(
+        dev, reference["default", 1]["median_seq_updates_per_s"],
+        orch_reports[0])
+    done("replay service")
 
     source = {name: KERNEL_SOURCES["lstm_kernels" if name.startswith("lstm")
                                    else "replay_kernels"] for name in timings}
@@ -6172,7 +6563,9 @@ def main(argv) -> int:
                     sp_launches=(0 if name.endswith("_padded")
                                  else parallel["sp"][name]),
                     dq_launches_per_interval_step=(
-                        0 if name.endswith("_padded") else dq.get(name, 0)))
+                        0 if name.endswith("_padded") else dq.get(name, 0)),
+                    service_launches=(0 if name.endswith("_padded")
+                                      else service[name]))
                for name, r in timings.items()]
     kernels.append(dict(
         name="int8_linear", route="cuda", source=KERNEL_SOURCES["quant_kernels"],
@@ -6193,7 +6586,8 @@ def main(argv) -> int:
         tp_launches=parallel["tp"]["int8_linear"],
         dpmp_launches=parallel["dpmp"]["int8_linear"],
         sp_launches=parallel["sp"]["int8_linear"],
-        dq_launches_per_interval_step=0))
+        dq_launches_per_interval_step=0,
+        service_launches=service["int8_linear"]))
     check(all(multihost[name] > 0 for name in (
         "gather_windows", "stack_frames", "lstm_fwd", "lstm_bwd")),
         f"phase 12 launched {multihost}")
@@ -6202,6 +6596,9 @@ def main(argv) -> int:
           and all(parallel["dpmp"][n] > 0 for n in scan + ("gather_windows",))
           and parallel["sp"]["lstm_fwd_lean"] > 0,
           f"phase 13 launched {parallel}")
+    check(all(service[name] > 0 for name in (
+        "gather_windows", "stack_frames", "lstm_fwd", "lstm_bwd")),
+        f"phase 17 launched {service}")
     print(json.dumps({"kernels": kernels}), flush=True)
     total = time.perf_counter() - t0
     print(f"chip_smoke total {total:.1f} s (budget {BUDGET_S:.0f} s: "

@@ -3,7 +3,7 @@ optim, actor, runtime and mesh sections of the JAX package's config, with
 the same field names and defaults, so a ``--section.field=value`` override
 means the same thing in both packages. Only the fields the port reads are
 here: a setting of a part the port does not have yet
-(``--fleet.replay_shards=2``, ``--multiplayer.player_id=0``, ...) is
+(``--fleet.fanout_degree=2``, ``--multiplayer.player_id=0``, ...) is
 refused as an unknown field instead of being ignored, and a value the port
 cannot honour yet is refused naming the item that brings it: ``mesh.mp >
 1`` under ``mesh.multihost`` (ROADMAP A.4) and ``serve.servers > 1``
@@ -17,9 +17,14 @@ diagnostics (``replay_diag_enabled``, ``replay_diag_interval``) and
 (``costmodel_enabled``), the resource, compile and alert planes
 (``resources_*``, ``compile_enabled``, ``alerts_enabled`` and every
 ``alerts_*`` bound) and tracing (``tracing_enabled``,
-``trace_sample_every``); its fleet-plane and replay-tier fields are
-refused as unknown fields naming ROADMAP A.6, its quality and tower
-fields naming A.7.
+``trace_sample_every``) and the replay service's tiers
+(``replay_tiers_enabled``); its fleet-plane fields (``fleet_enabled``,
+``fleet_host_row_max_bytes``) and its quality and tower fields are
+refused as unknown fields naming A.7. The fleet section holds the replay
+plane's fields (``fleet.replay_shards`` and the service's spill tier,
+routing, socket rung, grouped ingest and staging, ``FleetConfig``); its
+membership, fan-out and promotion fields are refused naming ROADMAP
+A.6's second part.
 
 The tri-state knobs ("on"/"off"/"auto") resolve for the device the port
 runs on, never for a TPU:
@@ -308,9 +313,8 @@ class TelemetryConfig:
     them: off, no stage is observed, no span is recorded or written, no
     board is made, and the record carries no ``stages``, ``costs``,
     ``learning``, ``replay_diag``, ``resources`` or ``alerts`` block. The
-    JAX package's fleet-plane and replay-tier fields are refused as
-    unknown fields naming ROADMAP A.6, its policy-quality and tower
-    fields naming A.7."""
+    JAX package's fleet-plane, policy-quality and tower fields are
+    refused as unknown fields naming ROADMAP A.7."""
 
     # master switch: false turns the stage timers, the spans, the costs
     # block and both diagnostic pillars off (the step, its graph and the
@@ -387,14 +391,14 @@ class TelemetryConfig:
     alerts_serve_churn: float = 3.0
     alerts_serve_shed_frac: float = 0.2
     alerts_quant_agreement: float = 0.95
-    # the replay service's rules (inactive: no replay_service block yet)
+    # the replay service's rules (fleet.replay_shards >= 1; fanout_lag and
+    # orphaned_slot stay inactive: no fan-out or membership sub-block)
     alerts_spill_thrash_frac: float = 0.5
     alerts_fanout_lag: float = 8.0
     alerts_orphaned_slots: float = 1.0
     alerts_ingest_backlog: float = 64.0
     alerts_spill_promotion_ms: float = 60_000.0
-    # the trace block's rule (inactive until the experience trace has its
-    # consumer, the replay service)
+    # the trace block's rule (the service-routed learner's trace block)
     alerts_e2e_latency_growth: float = 4.0
     # the recovery block's rules
     alerts_snapshot_stale_s: float = 600.0
@@ -411,6 +415,56 @@ class TelemetryConfig:
     tracing_enabled: bool = False
     # every N-th block / serve exchange is traced (1 = all)
     trace_sample_every: int = 16
+    # the replay service's per-tier sub-blocks in replay_service.spill:
+    # the promoted pages' time in the tier and the bytes a tier holds;
+    # off, the block is what it is without them
+    replay_tiers_enabled: bool = False
+
+
+@dataclass(frozen=True)
+class FleetConfig:
+    """The fleet's replay plane (fleet/replay_service.py), the JAX
+    package's ``FleetConfig`` without its membership, fan-out and
+    promotion fields (ROADMAP A.6, second part: refused as unknown
+    fields naming it). Every default leaves the learner's replay what it
+    is without the service."""
+
+    # 0 = the learner's own replay (one ring, or dp-sharded); >= 1 = a
+    # ReplayService of this many shards, each num_blocks / replay_shards
+    # rows on the learner's device, trained through the external-batch
+    # step on the service's sampled batches
+    replay_shards: int = 0
+    # a shard's host spill tier, in blocks: a ring write over a live
+    # block demotes that block's host page into an LRU page store
+    # instead of destroying it; 0 = no tier (overwrites as without it)
+    spill_blocks: int = 0
+    # spilled pages rotated back into the ring per sample (0: none)
+    spill_promote_per_sample: int = 1
+    # block -> shard: "round_robin" (the dp path's feeding order) or
+    # "lane" (the block's lane stamp mod the shards; -1 round robin)
+    replay_route: str = "round_robin"
+    # "" = in-process producers only; "socket" = the service also listens
+    # on service_host:service_port for remote producers
+    service_transport: str = ""
+    service_host: str = "127.0.0.1"
+    service_port: int = 0           # 0 = ephemeral
+    # blocks a grouped commit takes (replay_add_many in pow2 chunks);
+    # 1 = one replay_add a block
+    ingest_batch_blocks: int = 1
+    # a remote producer's unacked frames in flight (1 = lockstep)
+    socket_window: int = 1
+    # promote by a page's stored priority on a background thread kicked
+    # at write-back time, instead of LRU pages inside the sample
+    spill_prefetch: bool = False
+    # a prefetch thread samples the next batch while the step runs and a
+    # write-back thread applies the priorities grouped by shard
+    sample_staging: bool = False
+
+    @property
+    def active(self) -> bool:
+        """A fleet plane is on: the record carries a replay_service
+        block."""
+        return self.replay_shards > 0
 
 
 @dataclass(frozen=True)
@@ -535,6 +589,7 @@ class Config:
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
 
     def __post_init__(self):
         if self.replay.block_length % self.sequence.learning_steps != 0:
@@ -588,6 +643,119 @@ class Config:
         self._check_envs_and_acting()
         self._check_inference()
         self._check_mesh()
+        self._check_fleet()
+
+    def _check_fleet(self) -> None:
+        """The replay plane's rules, in the JAX package's words."""
+        fl = self.fleet
+        if fl.replay_shards < 0:
+            raise ValueError(
+                f"fleet.replay_shards ({fl.replay_shards}) must be >= 0 "
+                "(0 = legacy in-mesh replay)")
+        if fl.replay_shards > 0:
+            if self.replay.placement != "device":
+                raise ValueError(
+                    "fleet.replay_shards requires replay.placement="
+                    "'device': the service's shards are the "
+                    "device-resident rings (host placement already has its "
+                    "own CPU tree — disaggregate the device plane)")
+            if self.mesh.dp != 1 or self.mesh.mp != 1:
+                raise ValueError(
+                    "fleet.replay_shards composes with a 1x1 mesh only: "
+                    "the service IS the replay sharding layer (it "
+                    "generalizes the dp-sharded rings into addressable "
+                    "shards) — set mesh.dp=1/mesh.mp=1 or use the "
+                    "in-mesh dp sharding without the service")
+            if self.actor.on_device:
+                raise ValueError(
+                    "fleet.replay_shards requires the host actor fleet: "
+                    "the fused on-device loop ring-writes straight into "
+                    "its colocated replay (actor.on_device) — the "
+                    "service exists for producers that do NOT share the "
+                    "learner's program")
+            if self.mesh.multihost:
+                raise ValueError(
+                    "fleet.replay_shards is single-controller for now — "
+                    "the lockstep multihost trainer keeps its per-rank "
+                    "in-mesh shards (routing its ranks through the "
+                    "service is the ROADMAP item-1 composition)")
+            if self.num_blocks % fl.replay_shards != 0:
+                raise ValueError(
+                    f"fleet.replay_shards ({fl.replay_shards}) must "
+                    f"divide num_blocks ({self.num_blocks}): shards are "
+                    "equal device-ring slices — adjust replay.capacity "
+                    "or the shard count")
+            if fl.replay_route == "lane":
+                lanes = self.actor.num_actors * self.actor.envs_per_actor
+                if lanes < fl.replay_shards:
+                    raise ValueError(
+                        f"fleet.replay_route='lane' with "
+                        f"{fl.replay_shards} shards needs at least that "
+                        f"many ε-ladder lanes (fleet has {lanes}): shard "
+                        "s only receives lanes with lane % shards == s, "
+                        "so an uncovered shard would hold the training "
+                        "gate closed forever — grow the fleet or use "
+                        "replay_route='round_robin'")
+        if fl.spill_blocks < 0:
+            raise ValueError(
+                f"fleet.spill_blocks ({fl.spill_blocks}) must be >= 0")
+        if fl.spill_blocks > 0 and fl.replay_shards < 1:
+            raise ValueError(
+                "fleet.spill_blocks requires fleet.replay_shards >= 1: "
+                "the spill tier is the replay service's demotion target "
+                "(the in-mesh rings overwrite in place)")
+        if fl.spill_promote_per_sample < 0:
+            raise ValueError(
+                f"fleet.spill_promote_per_sample "
+                f"({fl.spill_promote_per_sample}) must be >= 0")
+        if fl.replay_route not in ("round_robin", "lane"):
+            raise ValueError(
+                f"fleet.replay_route ({fl.replay_route!r}) must be "
+                "'round_robin' or 'lane'")
+        if fl.service_transport not in ("", "socket"):
+            raise ValueError(
+                f"fleet.service_transport ({fl.service_transport!r}) "
+                "must be '' (in-proc producers only) or 'socket'")
+        if fl.service_transport and fl.replay_shards < 1:
+            raise ValueError(
+                "fleet.service_transport requires fleet.replay_shards "
+                ">= 1 (there is no service to listen for)")
+        if fl.service_port < 0:
+            raise ValueError(
+                f"fleet.service_port ({fl.service_port}) must be >= 0 "
+                "(0 = ephemeral)")
+        if fl.ingest_batch_blocks < 1:
+            raise ValueError(
+                f"fleet.ingest_batch_blocks ({fl.ingest_batch_blocks}) "
+                "must be >= 1 (1 = the per-block replay_add path)")
+        if fl.ingest_batch_blocks > 1 and fl.replay_shards < 1:
+            raise ValueError(
+                "fleet.ingest_batch_blocks > 1 requires "
+                "fleet.replay_shards >= 1: grouped ingest is the "
+                "service's commit plane (the in-mesh path already has "
+                "replay.ingest_batch_blocks) — a run without the "
+                "service would silently ignore the knob")
+        if fl.socket_window < 1:
+            raise ValueError(
+                f"fleet.socket_window ({fl.socket_window}) must be >= 1 "
+                "(1 = one-frame-one-ack lockstep)")
+        if fl.socket_window > 1 and fl.service_transport != "socket":
+            raise ValueError(
+                "fleet.socket_window > 1 requires "
+                "fleet.service_transport='socket': the in-flight window "
+                "is the socket rung's ack pipeline — in-proc producers "
+                "have no frames to window")
+        if fl.spill_prefetch and fl.spill_blocks < 1:
+            raise ValueError(
+                "fleet.spill_prefetch requires fleet.spill_blocks >= 1: "
+                "priority-aware prefetch promotes from the spill tier — "
+                "with no tier the knob would be silently ignored")
+        if fl.sample_staging and fl.replay_shards < 1:
+            raise ValueError(
+                "fleet.sample_staging requires fleet.replay_shards >= 1:"
+                " the stager pipelines the SERVICE sample path (the "
+                "in-mesh learner already pipelines via the ingest "
+                "stager)")
 
     def _check_mesh(self) -> None:
         """The mesh's rules: the multi-controller trainer's under
@@ -822,6 +990,10 @@ class Config:
             section, _, fname = key.partition(".")
             if not fname or "." in fname:
                 raise KeyError(f"override key must be section.field: {key!r}")
+            hint = not_ported_hint(section, fname)
+            if hint:
+                raise ValueError(f"{key}: the JAX package's field, not "
+                                 f"ported yet (ROADMAP {hint})")
             updates.setdefault(section, {})[fname] = value
         return dataclasses.replace(self, **{
             section: dataclasses.replace(getattr(self, section), **fields)
@@ -856,7 +1028,8 @@ _SECTION_TYPES = {"env": EnvConfig, "network": NetworkConfig,
                   "sequence": SequenceConfig, "replay": ReplayConfig,
                   "optim": OptimConfig, "actor": ActorConfig,
                   "runtime": RuntimeConfig, "telemetry": TelemetryConfig,
-                  "serve": ServeConfig, "mesh": MeshConfig}
+                  "serve": ServeConfig, "mesh": MeshConfig,
+                  "fleet": FleetConfig}
 
 def _parse_setting(setting, field_name: str):
     """"on" -> True, "off" -> False, "auto" -> None (legacy bools and their
@@ -943,17 +1116,34 @@ def check_decode_layout(optim: OptimConfig) -> None:
                          f"'nhwc'; got {optim.pallas_decode_layout!r}")
 
 
-# the JAX package's telemetry fields the port refuses, with the ROADMAP
-# item that brings them
-_TELEMETRY_NOT_PORTED = {
-    **{name: "A.6, the fleet and replay-service planes"
-       for name in ("fleet_enabled", "fleet_host_row_max_bytes",
-                    "replay_tiers_enabled")},
-    **{name: "A.7, the telemetry remainder (quality, tower)"
-       for name in ("quality_enabled", "quality_eval_interval_s",
-                    "quality_eval_rounds", "quality_eval_clients",
-                    "quality_calib_sample_every", "tower_enabled")},
+# the JAX package's telemetry and fleet fields the port refuses, with the
+# ROADMAP item that brings them
+_NOT_PORTED = {
+    "telemetry": {
+        **{name: ("A.7, the fleet telemetry (telemetry/fleet.py), with "
+                 "A.6's second part")
+           for name in ("fleet_enabled", "fleet_host_row_max_bytes")},
+        **{name: "A.7, the telemetry remainder (quality, tower)"
+           for name in ("quality_enabled", "quality_eval_interval_s",
+                        "quality_eval_rounds", "quality_eval_clients",
+                        "quality_calib_sample_every", "tower_enabled")},
+    },
+    "fleet": {
+        name: "A.6, second part: membership, leases, fan-out, promotion"
+        for name in ("fanout_degree", "fanout_pull_interval_s",
+                     "max_slots", "elastic", "lease_transport",
+                     "lease_host", "lease_port",
+                     "promotion_return_tolerance",
+                     "promotion_calibration_bound",
+                     "promotion_divergence_bound", "promotion_min_shadow",
+                     "promotion_canary_frac")},
 }
+
+
+def not_ported_hint(section: str, fname: str) -> str:
+    """The ROADMAP item that brings a JAX field the port refuses ("" for
+    any other name)."""
+    return _NOT_PORTED.get(section, {}).get(fname, "")
 
 # (field, check, the bound in the JAX package's words)
 _TELEMETRY_BOUNDS = (
@@ -1049,10 +1239,10 @@ def parse_overrides(cfg: Config, argv: List[str]) -> Config:
             raise SystemExit(f"unknown config section {section!r}")
         matching = {f.name: f for f in dataclasses.fields(getattr(cfg, section))}
         if fname not in matching:
-            hint = ""
-            if section == "telemetry" and fname in _TELEMETRY_NOT_PORTED:
+            hint = not_ported_hint(section, fname)
+            if hint:
                 hint = (": the JAX package's field, not ported yet (ROADMAP "
-                        f"{_TELEMETRY_NOT_PORTED[fname]})")
+                        f"{hint})")
             raise SystemExit(f"unknown field {fname!r} in section "
                              f"{section!r}{hint}")
         dotted[key] = _coerce(key, raw, matching[fname].type)

@@ -36,15 +36,23 @@ the shards' on a leading dp axis, in dp order (``block_ptr`` becomes a
 (``capture_sharded``); each rank restores its own index
 (``restore_plain(..., shard=)``).
 
-The replay service's shards, their spill pages and cursors
-(``capture_service`` and ``restore_service`` in the JAX package) wait for
-the port of the fleet.
+The replay service (fleet/replay_service.py) is cut whole under its lock
+(``capture_service``): per shard its state's leaves (copied on the
+service's stream), its RingAccountant, its spill tier's pages in LRU
+order with their stored priorities (the heap is rebuilt from them on
+restore), its resident pages and demotion table, and the service's route
+and round-robin cursors, in the JAX package's layout; ``restore_service``
+loads it bit for bit into a freshly built service of the same
+configuration. The caller's extras carry the learner's service sampling
+generator's state where the JAX package carries its ``service_key``.
 """
 
+import heapq
 import json
 import os
 import threading
 import time
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -154,6 +162,94 @@ def capture_plain(spec, state, ring, step: int,
     }
 
 
+def _capture_shard(shard) -> dict:
+    """One service shard's cut (``capture_service``): its state's leaves
+    (still copying on the card), ring, spill pages in LRU order, resident
+    pages and demotion table. A page's arrays are never written in place
+    (a write-back replaces its priority array), so the cut holds them."""
+    from r2d2_tpu_torch.fleet.replay_service import _block_fields
+    spill = shard.spill
+    pages = [(int(pid), _block_fields(block), int(learning), int(wv))
+             for pid, (block, learning, wv) in spill._pages.items()]
+    resident = [(slot, _block_fields(blk), int(learning), int(wv))
+                for slot, page in enumerate(shard._resident)
+                if page is not None
+                for blk, learning, wv in [page]]
+    return {
+        "state": _state_to_host(shard.state),
+        "ring": _capture_ring(shard.ring),
+        "spill": {
+            "next_id": int(spill._next_id),
+            "demotions": int(spill.demotions),
+            "promotions": int(spill.promotions),
+            "evictions": int(spill.evictions),
+            "writebacks": int(spill.writebacks),
+            "pages": pages,
+        },
+        "resident": resident,
+        "demote_ids": [(-1 if d is None else int(d))
+                       for d in shard._demote_ids],
+    }
+
+
+def capture_service(service, step: int, extra: Optional[dict] = None) -> dict:
+    """A cut of a whole ReplayService under its lock, taken between
+    commits. On the card the leaves copy on the service's stream and
+    ``wait_ready`` waits for them. ``extra``: JSON-serializable caller
+    state (the learner's service generator state)."""
+    with service._lock, service.on_stream():
+        shards = [_capture_shard(s) for s in service.shards]
+        ready = None
+        if service.stream is not None:
+            ready = torch.cuda.Event()
+            ready.record(service.stream)
+        return {
+            "version": SNAPSHOT_VERSION,
+            "kind": "service",
+            "step": int(step),
+            "spec": _spec_fingerprint(service.spec),
+            "route": service.route,
+            "rr_add": int(service._rr_add),
+            "rr_sample": int(service._rr_sample),
+            "extra": dict(extra or {}),
+            "shards": shards,
+            "ready": ready,
+        }
+
+
+def cut_digest(snap: dict) -> str:
+    """sha256 of a service cut whose leaves are host arrays
+    (``wait_ready``'s or ``load_snapshot``'s): every shard's state
+    leaves, ring, spill pages (ids, order, fields) and demotion table,
+    and the cursors; equal digests, equal cuts."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def put(x) -> None:
+        a = np.ascontiguousarray(np.asarray(x))
+        h.update(str((a.dtype.str, a.shape)).encode())
+        h.update(a.tobytes())
+
+    for key in ("route", "rr_add", "rr_sample"):
+        h.update(repr(snap.get(key)).encode())
+    for shard in snap["shards"]:
+        for name in sorted(shard["state"]):
+            put(shard["state"][name])
+        ring = shard["ring"]
+        for key in ("ptr", "total_adds", "buffer_steps", "slot_steps",
+                    "slot_versions"):
+            put(ring[key])
+        for key in ("pages", "resident"):
+            pages = (shard["spill"]["pages"] if key == "pages"
+                     else shard[key])
+            for pid, fields, learning, wv in pages:
+                put([pid, learning, wv])
+                for name in sorted(fields):
+                    put(fields[name])
+        put(shard["demote_ids"])
+    return h.hexdigest()
+
+
 def shard_leaves(state) -> dict:
     """One replay shard's leaves as host numpy arrays, its copies waited
     for: a data-parallel rank's part of ``capture_sharded``."""
@@ -207,6 +303,82 @@ def _restore_ring(ring, cap: dict) -> None:
     ring.slot_ingest_ms = [int(t) for t in cap.get("slot_ingest", [-1] * n)]
 
 
+def _restore_spill(spill, cap: dict) -> None:
+    from r2d2_tpu_torch.fleet.replay_service import block_from_fields
+    spill._pages = OrderedDict()
+    spill._prio = {}
+    spill._heap = []
+    spill._demoted_at = {}
+    for pid, fields, learning, wv in cap["pages"]:
+        block = block_from_fields(fields)
+        spill._pages[int(pid)] = (block, int(learning), int(wv))
+        prio = float(np.max(np.asarray(block.priority)))
+        spill._prio[int(pid)] = prio
+        spill._heap.append((-prio, int(pid)))
+    heapq.heapify(spill._heap)
+    spill._next_id = int(cap["next_id"])
+    spill.demotions = int(cap["demotions"])
+    spill.promotions = int(cap["promotions"])
+    spill.evictions = int(cap["evictions"])
+    spill.writebacks = int(cap["writebacks"])
+
+
+def _copy_leaves(state, leaves: dict) -> None:
+    """Copy a cut's leaves into ``state``'s tensors (their addresses
+    stay); ``block_ptr`` is set from its leaf."""
+    names = _present(state)
+    if set(leaves) != set(names):
+        raise ValueError(f"replay snapshot leaf set {sorted(leaves)} != "
+                         f"expected {sorted(names)}")
+    with torch.no_grad():
+        for name in names:
+            if name == "block_ptr":
+                continue
+            dst = getattr(state, name)
+            src = torch.as_tensor(np.asarray(leaves[name]))
+            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"replay snapshot leaf {name}: {tuple(src.shape)} "
+                    f"{src.dtype}, the replay holds {tuple(dst.shape)} "
+                    f"{dst.dtype}")
+            dst.copy_(src)
+    state.block_ptr = int(np.asarray(leaves["block_ptr"]))
+
+
+def restore_service(service, snap: dict) -> None:
+    """Load a service cut into a freshly built ReplayService of the same
+    configuration: the shards' tensors copied in place on the service's
+    stream, the accountants, spill tiers, resident pages, demotion tables
+    and cursors overwritten."""
+    from r2d2_tpu_torch.fleet.replay_service import block_from_fields
+    if snap.get("kind") != "service":
+        raise ValueError(f"snapshot kind {snap.get('kind')!r} is not a "
+                         "service snapshot")
+    _check_spec(snap, service.spec)
+    if len(snap["shards"]) != service.num_shards:
+        raise ValueError(
+            f"snapshot has {len(snap['shards'])} shards, service has "
+            f"{service.num_shards} — shard count must match to restore")
+    if snap["route"] != service.route:
+        raise ValueError(
+            f"snapshot route {snap['route']!r} != service route "
+            f"{service.route!r}")
+    wait_ready(snap)
+    with service._lock, service.on_stream():
+        for shard, cap in zip(service.shards, snap["shards"]):
+            _copy_leaves(shard.state, cap["state"])
+            _restore_ring(shard.ring, cap["ring"])
+            _restore_spill(shard.spill, cap["spill"])
+            shard._resident = [None] * shard.spec.num_blocks
+            for slot, fields, learning, wv in cap["resident"]:
+                shard._resident[int(slot)] = (
+                    block_from_fields(fields), int(learning), int(wv))
+            shard._demote_ids = [(None if d < 0 else int(d))
+                                 for d in cap["demote_ids"]]
+        service._rr_add = int(snap["rr_add"])
+        service._rr_sample = int(snap["rr_sample"])
+
+
 def restore_plain(spec, state, ring, snap: dict,
                   shard: Optional[int] = None, dp: Optional[int] = None):
     """Load a plain cut into ``state`` (copied into its tensors, whose
@@ -232,19 +404,7 @@ def restore_plain(spec, state, ring, snap: dict,
     if shard is not None:
         leaves = {name: np.asarray(leaf)[shard]
                   for name, leaf in leaves.items()}
-    with torch.no_grad():
-        for name in names:
-            if name == "block_ptr":
-                continue
-            dst = getattr(state, name)
-            src = torch.as_tensor(np.asarray(leaves[name]))
-            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
-                raise ValueError(
-                    f"replay snapshot leaf {name}: {tuple(src.shape)} "
-                    f"{src.dtype}, the replay holds {tuple(dst.shape)} "
-                    f"{dst.dtype}")
-            dst.copy_(src)
-    state.block_ptr = int(np.asarray(leaves["block_ptr"]))
+    _copy_leaves(state, leaves)
     _restore_ring(ring, snap["shards"][0]["ring"])
     return state
 
@@ -265,12 +425,54 @@ def _flatten_payload(snap: dict) -> dict:
             if name in shard["ring"]:
                 arrays[p + "ring." + name] = np.asarray(shard["ring"][name],
                                                         np.int64)
+        if "spill" in shard:
+            _flatten_pages(arrays, p + "spill.", "ids",
+                           shard["spill"]["pages"])
+            _flatten_pages(arrays, p + "res.", "slots", shard["resident"])
+            arrays[p + "demote_ids"] = np.asarray(shard["demote_ids"],
+                                                  np.int64)
     return arrays
+
+
+def _common_fields(pages) -> list:
+    """The page fields present on every page, in the first page's order
+    (a page without a lineage stamp among stamped ones: the stamp is
+    dropped, the page restores untraced)."""
+    if not pages:
+        return []
+    common = set(pages[0][1])
+    for _, fields, _, _ in pages[1:]:
+        common &= set(fields)
+    return [f for f in pages[0][1] if f in common]
+
+
+def _flatten_pages(arrays: dict, prefix: str, ids_key: str, pages) -> None:
+    """(id, fields, learning, version) pages as stacked arrays: the JAX
+    package's spill-page layout."""
+    arrays[prefix + ids_key] = np.asarray([i for i, _, _, _ in pages],
+                                          np.int64)
+    arrays[prefix + "learning"] = np.asarray([lg for _, _, lg, _ in pages],
+                                             np.int64)
+    arrays[prefix + "wv"] = np.asarray([wv for _, _, _, wv in pages],
+                                       np.int64)
+    for field in _common_fields(pages):
+        arrays[prefix + "f." + field] = np.stack(
+            [fields[field] for _, fields, _, _ in pages])
+
+
+def _unstack_pages(data, prefix: str, ids_key: str) -> list:
+    ids = data[prefix + ids_key]
+    learning = data[prefix + "learning"]
+    wv = data[prefix + "wv"]
+    fields = {k[len(prefix) + 2:]: data[k] for k in data.files
+              if k.startswith(prefix + "f.")}
+    return [(int(ids[i]), {f: arr[i] for f, arr in fields.items()},
+             int(learning[i]), int(wv[i])) for i in range(ids.shape[0])]
 
 
 def _manifest_meta(snap: dict, payload_name: str, payload_bytes: int,
                    duration_s: float) -> dict:
-    return {
+    meta = {
         "version": snap["version"],
         "kind": snap["kind"],
         "step": snap["step"],
@@ -281,12 +483,24 @@ def _manifest_meta(snap: dict, payload_name: str, payload_bytes: int,
         "written_at": time.time(),
         "write_s": round(duration_s, 6),
         "total_adds": sum(s["ring"]["total_adds"] for s in snap["shards"]),
-        "shards": [{
-            "state_leaves": sorted(shard["state"]),
-            "ring": {k: shard["ring"][k]
-                     for k in ("ptr", "total_adds", "buffer_steps")},
-        } for shard in snap["shards"]],
+        "shards": [],
     }
+    if snap["kind"] == "service":
+        meta.update(route=snap["route"], rr_add=snap["rr_add"],
+                    rr_sample=snap["rr_sample"])
+    for shard in snap["shards"]:
+        entry = {"state_leaves": sorted(shard["state"]),
+                 "ring": {k: shard["ring"][k]
+                          for k in ("ptr", "total_adds", "buffer_steps")}}
+        if "spill" in shard:
+            entry["spill"] = {k: shard["spill"][k] for k in _SPILL_COUNTS}
+            entry["spill"]["occupancy"] = len(shard["spill"]["pages"])
+        meta["shards"].append(entry)
+    return meta
+
+
+_SPILL_COUNTS = ("next_id", "demotions", "promotions", "evictions",
+                 "writebacks")
 
 
 def write_snapshot(snap: dict, save_dir: str, player_idx: int) -> dict:
@@ -344,10 +558,13 @@ def load_snapshot(save_dir: str, player_idx: int) -> Optional[dict]:
     snap = {key: meta[key] for key in ("version", "kind", "step", "spec")}
     snap["extra"] = meta.get("extra", {})
     snap["shards"] = []
+    if meta["kind"] == "service":
+        snap.update(route=meta["route"], rr_add=meta["rr_add"],
+                    rr_sample=meta["rr_sample"])
     with np.load(payload_path) as data:
         for j, entry in enumerate(meta["shards"]):
             p = f"s{j}."
-            snap["shards"].append({
+            shard = {
                 "state": {name: data[p + "state." + name]
                           for name in entry["state_leaves"]},
                 "ring": {
@@ -359,7 +576,14 @@ def load_snapshot(save_dir: str, player_idx: int) -> Optional[dict]:
                        for name in ("slot_trace", "slot_ingest")
                        if p + "ring." + name in data.files},
                 },
-            })
+            }
+            if "spill" in entry:
+                shard["spill"] = {
+                    **{k: entry["spill"][k] for k in _SPILL_COUNTS},
+                    "pages": _unstack_pages(data, p + "spill.", "ids")}
+                shard["resident"] = _unstack_pages(data, p + "res.", "slots")
+                shard["demote_ids"] = data[p + "demote_ids"].tolist()
+            snap["shards"].append(shard)
     return snap
 
 

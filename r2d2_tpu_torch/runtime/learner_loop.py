@@ -1,8 +1,7 @@
 """The learner: the train state, the replay, block ingestion with its rate
 limiter, the training gate, one dispatch of learner steps per call, weight
 publication, checkpoints and replay snapshots at interval boundaries, and
-the metrics flush, the JAX package's ``Learner`` without its replay
-service.
+the metrics flush: the JAX package's ``Learner``.
 
 Stage timers and spans (telemetry/core.py; on by default, off with
 ``telemetry.enabled=false``) are observed at the JAX package's points:
@@ -89,6 +88,25 @@ priorities come back whole to rank 0. Publication and checkpoints gather
 the full state over dp row 0 (``full_params``, ``save``), its followers
 joining on rank 0's command.
 
+The replay service (``fleet.replay_shards`` >= 1, device placement, no
+mesh; fleet/replay_service.py): the blocks go to a ``ReplayService`` of
+that many shards on the learner's device (per block, or with
+``fleet.ingest_batch_blocks`` > 1 the drain's blocks as one grouped
+``add_blocks``), the gate waits for a block in every shard, and a
+dispatch is one external-batch step (one CUDA graph of one step on the
+card) on a batch the service samples from its next shard with the
+learner's service generator, its priorities written back to that shard
+through the staleness guard. ``runtime.steps_per_dispatch`` is ignored
+with the JAX package's warning. With ``fleet.sample_staging`` a prefetch
+thread samples the next batch (its ready event ordering the gather before
+the step's input copy; it alone reads the indices to the host) and a
+write-back thread applies the priorities grouped by shard; both start
+after the step's graph is captured (the third dispatch), the first two
+dispatches taking the synchronous path, so no sample runs on another
+thread during a capture. With ``telemetry.tracing_enabled`` the sampled
+slots' lineage stamps feed an ``ExperienceTrace`` and the record's
+``trace`` block. ``sample_jitter`` (tests) injects the descent's draws.
+
 Crash recovery (``runtime.snapshot_interval`` > 0, device placement): at
 each interval boundary the learner captures the replay between dispatches
 (replay/snapshot.py: copies into pinned memory on the learner's stream,
@@ -100,9 +118,12 @@ JAX package's layout with the round-robin ``next_shard`` and every row's
 generator state. A learner built with ``runtime.resume`` and
 ``runtime.restore_replay`` loads the newest committed snapshot before its
 first dispatch (each rank its own shard), so it samples what its
-uninterrupted twin would.
+uninterrupted twin would. Under the replay service the cut is the
+service's (every shard, its spill pages and cursors) with the service
+generator's state.
 """
 
+import contextlib
 import logging
 import os
 import queue
@@ -152,7 +173,8 @@ from r2d2_tpu_torch.telemetry.replaydiag import (ReplayDiag,
 from r2d2_tpu_torch.telemetry.resources import (clear_player_buffers,
                                                 pytree_nbytes,
                                                 register_buffer)
-from r2d2_tpu_torch.telemetry.tracing import now_ms, tracing_on
+from r2d2_tpu_torch.telemetry.tracing import (ExperienceTrace, now_ms,
+                                              tracing_on)
 from r2d2_tpu_torch.utils.device import configure_numerics
 
 WRITEBACK_QUEUE = 64        # steps of priorities waiting for the host tree
@@ -339,6 +361,8 @@ class Learner:
         # placement) and the full network publication gathers into
         self._place_batch: Optional[Callable] = None
         self._full_view: Optional[torch.nn.Module] = None
+        self.service = None
+        self._exp_trace: Optional[ExperienceTrace] = None
         if host:
             if cfg.runtime.steps_per_dispatch > 1:
                 logging.getLogger(__name__).warning(
@@ -374,6 +398,8 @@ class Learner:
             # (on CUDA) its copy's device ms
             self.timings = {"sample_ms": deque(maxlen=TIMINGS_KEPT),
                             "h2d_ms": deque(maxlen=TIMINGS_KEPT)}
+        elif cfg.fleet.replay_shards >= 1:
+            self._init_service(cfg, net, seed, diag, rdiag)
         elif mesh is not None:
             if self._tp:
                 self.train_state = place_train_state(
@@ -407,7 +433,8 @@ class Learner:
         self._followers_released = False
         # pipelined ingestion (device placement, K > 1): the stager thread,
         # its slots and queue, and what it has popped but not committed
-        self._ingest_k = (1 if host else min(
+        # (the service commits its own groups: fleet.ingest_batch_blocks)
+        self._ingest_k = (1 if host or self.service is not None else min(
             cfg.replay.resolved_ingest_batch_blocks(self.device),
             self.spec.num_blocks))
         self.metrics.set_ingest_batching(self._ingest_k)
@@ -464,6 +491,42 @@ class Learner:
             if self.replay_state is not None:
                 register_buffer(f"p{player_idx}/replay_ring",
                                 pytree_nbytes(self.replay_state))
+            if self.service is not None:
+                register_buffer(f"p{player_idx}/replay_service",
+                                self.service.device_bytes)
+
+    def _init_service(self, cfg: Config, net: NetworkApply, seed: int,
+                      diag, rdiag) -> None:
+        """The replay service's learner (the module docstring): the
+        service, its generator (seeded ``seed`` + 777), the external step
+        over a shard's spec, the trace and the staging threads' state."""
+        from r2d2_tpu_torch.fleet.replay_service import build_service
+        if cfg.runtime.steps_per_dispatch > 1:
+            logging.getLogger(__name__).warning(
+                "fleet.replay_shards: ignoring runtime.steps_per_dispatch=%d"
+                " (the service-routed learner trains one service-sampled "
+                "batch per step)", cfg.runtime.steps_per_dispatch)
+        self.service = build_service(cfg, self.device)
+        self.ring = self.service
+        self.replay_state = None
+        self.steps_per_dispatch = 1
+        self._step_fn = make_external_batch_step(
+            net, self.service.spec, cfg.optim, cfg.network.use_double,
+            diag=diag, rdiag=rdiag)
+        self._service_gen = torch.Generator(
+            device=self.device).manual_seed(seed + 777)
+        # tests: () -> the next sample's (B,) jitter, in sample order
+        self.sample_jitter: Optional[Callable[[], torch.Tensor]] = None
+        if tracing_on(cfg):
+            self._exp_trace = ExperienceTrace(cfg.telemetry.trace_sample_every)
+            self.metrics.set_tracing(self._exp_trace.interval_block)
+        self._svc_staging = cfg.fleet.sample_staging
+        self._svc_prefetch_q: queue.Queue = queue.Queue(maxsize=2)
+        self._svc_writeback_q: queue.Queue = queue.Queue(
+            maxsize=WRITEBACK_QUEUE)
+        self._svc_stop = threading.Event()
+        self._svc_threads: List[threading.Thread] = []
+        self._svc_error: Optional[BaseException] = None
 
     def _restore_replay_snapshot(self) -> None:
         """Load the newest committed replay snapshot beside the
@@ -475,7 +538,12 @@ class Learner:
         snap = load_snapshot(self.cfg.runtime.save_dir, self.player_idx)
         if snap is None:
             return
-        if self.mesh is None:
+        gen = self.train_state.generator
+        if self.service is not None:
+            self.service.restore_state(snap)
+            gen = self._service_gen
+            state = snap["extra"].get("service_generator_state")
+        elif self.mesh is None:
             restore_plain(self.spec, self.replay_state, self.ring, snap)
             state = snap["extra"].get("generator_state")
         else:
@@ -485,7 +553,6 @@ class Learner:
             states = snap["extra"].get("generator_states")
             state = None if states is None else states[self.mesh.dp_rank]
         if state is not None:
-            gen = self.train_state.generator
             state = torch.tensor(state, dtype=torch.uint8)
             if state.numel() == gen.get_state().numel():
                 gen.set_state(state)
@@ -531,6 +598,10 @@ class Learner:
         if self.host_replay is not None:
             self.host_replay.add(block, trace_ms=trace,
                                  ingest_ms=_ingest_stamp(trace))
+        elif self.service is not None:
+            # routed; the shard's accountant and the spill tier's demotion
+            # of what the write overwrote advance inside the service
+            self.service.add_block(block)
         elif self.mesh is not None:
             self._add_to_shards(stack_blocks([block]), 1)
             self.ring.advance(learning, int(np.asarray(block.weight_version)),
@@ -590,8 +661,15 @@ class Learner:
         t0 = time.time()
         blocks = queue.drain(max_items)
         t_get = time.time()
-        for blk in blocks:
-            self.ingest(blk)
+        grouped = (self.service is not None and self.service.ingest_k > 1)
+        if grouped and len(blocks) > 1:
+            self._ingest_group(blocks)
+        else:
+            for blk in blocks:
+                self.ingest(blk)
+        if grouped:
+            # the producer-side depth this drain left (ingest_backlog)
+            self.service.note_backlog(queue.qsize())
         if blocks:
             t1 = time.time()
             self.metrics.on_ingest_drain(len(blocks), t1 - t0)
@@ -601,6 +679,17 @@ class Learner:
             tele.record_span("ingest/commit", t0, t1,
                              {"blocks": len(blocks)})
         return len(blocks)
+
+    def _ingest_group(self, blocks: List[Block]) -> None:
+        """The drain's blocks as one grouped service commit, with the
+        per-block accounting ``ingest`` does."""
+        self.service.add_blocks(blocks)
+        for block in blocks:
+            learning = int(np.asarray(block.learning_steps).sum())
+            self.env_steps += learning
+            ret = float(np.asarray(block.sum_reward))
+            self.metrics.on_block(learning, None if np.isnan(ret) else ret)
+        self.metrics.set_buffer_size(self.ring.buffer_steps)
 
     # -- pipelined ingestion: the stager thread and the commit --
 
@@ -791,6 +880,9 @@ class Learner:
         if (self.mesh is not None and not self.host_mode
                 and self.ring.total_adds + extra_blocks < self.mesh.dp):
             return False
+        if self.service is not None and not self.service.all_shards_nonempty:
+            # a block in every shard first (an empty tree's weights are NaN)
+            return False
         return (self.ring.buffer_steps + extra_steps
                 >= self.cfg.replay.learning_starts)
 
@@ -968,6 +1060,8 @@ class Learner:
             else:       # a tensor-parallel follower: rank 0's rows
                 self.train_state, metrics = self._step_fn(
                     self.train_state, self._place_batch(None))
+        elif self.service is not None:
+            metrics = self._service_step_once(uniform)
         else:
             try:
                 self.train_state, self.replay_state, metrics = \
@@ -997,6 +1091,11 @@ class Learner:
         checkpoint's generator state is older: the cut's is what the next
         dispatch draws from). Under a mesh (rank 0): every dp row's shard
         and generator, and the round-robin ``next_shard``."""
+        if self.service is not None:
+            extra = {"env_steps": int(self.env_steps),
+                     "service_generator_state":
+                         self._service_gen.get_state().tolist()}
+            return self.service.snapshot_state(self.train_state.step, extra)
         if self.mesh is None:
             extra = {"env_steps": int(self.env_steps),
                      "generator_state":
@@ -1265,6 +1364,8 @@ class Learner:
             self._snap_writer.stop(join_timeout)
         stuck += self._stop_stager(join_timeout)
         self.release_followers()
+        if self.service is not None:
+            stuck += self._stop_service_threads(join_timeout)
         if self.host_replay is None:       # no prefetch or write-back
             if stuck:
                 logging.getLogger(__name__).warning(
@@ -1330,3 +1431,171 @@ class Learner:
         except queue.Full:
             self.metrics.on_dropped_priority_update()
         return metrics
+
+    # -- the replay service: the synchronous and the staged step --
+
+    def _service_sample(self, uniform: Optional[torch.Tensor] = None):
+        """One sample of the service with this learner's generator (or the
+        injected jitter): (batch, shard, adds snapshot, host idxes or
+        None, trace token). The indices are read to the host only for the
+        trace (and by the staged path's prefetch thread, its caller)."""
+        if uniform is None and self.sample_jitter is not None:
+            uniform = self.sample_jitter()
+        t0 = time.perf_counter()
+        batch, shard, snapshot = self.service.sample(self._service_gen,
+                                                     uniform)
+        self.tele.observe("learner/sample", time.perf_counter() - t0)
+        idxes, token = None, None
+        if self._exp_trace is not None:
+            idxes = batch.idxes.cpu().numpy()
+            token = self._exp_trace.on_sample(
+                self.service.trace_lookup(shard, idxes))
+        return batch, shard, snapshot, idxes, token
+
+    def _service_step_once(self, uniform: Optional[torch.Tensor] = None
+                           ) -> dict:
+        """Sample the service's next shard, train the external step on the
+        batch, write its priorities back to that shard through the
+        staleness guard (on the device, no host read while no add came
+        between). Staged once the step's graph is captured."""
+        if self._svc_staging and self.warm:
+            if uniform is not None:
+                raise ValueError("the staged service step samples on its "
+                                 "prefetch thread: inject draws through "
+                                 "sample_jitter")
+            return self._service_step_staged()
+        batch, shard, snapshot, _, token = self._service_sample(uniform)
+        self.train_state, metrics = self._step_fn(self.train_state, batch)
+        if self._exp_trace is not None:
+            self._exp_trace.on_train(token)
+        t0 = time.perf_counter()
+        self.service.update_priorities(shard, batch.idxes,
+                                       metrics.pop("priorities"),
+                                       adds_snapshot=snapshot)
+        self.tele.observe("learner/priority_writeback",
+                          time.perf_counter() - t0)
+        return metrics
+
+    def _svc_prefetch(self) -> None:
+        """The staged path's prefetch thread: samples, marks the sample's
+        end with an event on the service's stream, reads the indices to
+        the host here, and queues the batch."""
+        try:
+            cuda = self.device.type == "cuda"
+            while not self._svc_stop.is_set():
+                with (torch.cuda.device(self.device) if cuda
+                      else contextlib.nullcontext()):
+                    batch, shard, snapshot, idxes, token = \
+                        self._service_sample()
+                    ready = None
+                    if cuda:
+                        ready = torch.cuda.Event()
+                        ready.record(self.service.stream)
+                    if idxes is None:
+                        idxes = batch.idxes.cpu().numpy()
+                item = (batch, shard, snapshot, idxes, token, ready)
+                while not self._svc_stop.is_set():
+                    try:
+                        self._svc_prefetch_q.put(item, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+        except BaseException as e:      # raised by _service_step_staged
+            self._svc_error = e
+
+    def _svc_writeback(self) -> None:
+        """The staged path's write-back thread: whatever is queued, grouped
+        by shard, one ``update_priorities_group`` a shard, each entry with
+        its own staleness guard."""
+        try:
+            while not self._svc_stop.is_set():
+                try:
+                    entries = [self._svc_writeback_q.get(timeout=0.5)]
+                except queue.Empty:
+                    continue
+                while True:
+                    try:
+                        entries.append(self._svc_writeback_q.get_nowait())
+                    except queue.Empty:
+                        break
+                groups: dict = {}
+                for shard, idxes, prios, done, snapshot in entries:
+                    if done is not None:
+                        done.synchronize()
+                    groups.setdefault(shard, []).append(
+                        (idxes, prios.numpy(), snapshot))
+                t0 = time.perf_counter()
+                for shard, group in groups.items():
+                    self.service.update_priorities_group(shard, group)
+                self.tele.observe("learner/priority_writeback",
+                                  time.perf_counter() - t0)
+                for _ in entries:
+                    self._svc_writeback_q.task_done()
+        except BaseException as e:      # raised by _service_step_staged
+            self._svc_error = e
+
+    def _service_step_staged(self) -> dict:
+        if not self._svc_threads:
+            self._svc_stop.clear()
+            for fn, name in ((self._svc_prefetch, "svc-prefetch"),
+                             (self._svc_writeback, "svc-writeback")):
+                t = threading.Thread(
+                    target=fn, daemon=True,
+                    name=f"learner-{name}-p{self.player_idx}")
+                t.start()
+                self._svc_threads.append(t)
+        while True:
+            if self._svc_error is not None:
+                raise RuntimeError("service stager thread died"
+                                   ) from self._svc_error
+            try:
+                batch, shard, snapshot, idxes, token, ready = \
+                    self._svc_prefetch_q.get(timeout=2.0)
+                break
+            except queue.Empty:
+                if not all(t.is_alive() for t in self._svc_threads):
+                    raise RuntimeError(
+                        "service stager threads exited without error")
+        cuda = self.device.type == "cuda"
+        if cuda:
+            # the gather before the step's input copy, without a host sync
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(ready)
+            if current != self.service.stream:
+                for t in batch_fields(batch).values():
+                    t.record_stream(current)
+        self.train_state, metrics = self._step_fn(self.train_state, batch)
+        if self._exp_trace is not None:
+            self._exp_trace.on_train(token)
+        priorities = metrics.pop("priorities")
+        done = None
+        if cuda:
+            priorities = priorities.to("cpu", non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        try:
+            self._svc_writeback_q.put_nowait((shard, idxes, priorities,
+                                              done, snapshot))
+        except queue.Full:
+            self.metrics.on_dropped_priority_update()
+        return metrics
+
+    def _stop_service_threads(self, join_timeout: float) -> List[str]:
+        """Stop the staged path's threads (draining the prefetch queue so
+        a parked put sees the stop) and the service's prefetch thread;
+        the names of threads still running."""
+        stuck = []
+        self._svc_stop.set()
+        for t in self._svc_threads:
+            deadline = time.monotonic() + join_timeout
+            while t.is_alive() and time.monotonic() < deadline:
+                try:
+                    self._svc_prefetch_q.get_nowait()
+                except queue.Empty:
+                    pass
+                t.join(timeout=0.1)
+            if t.is_alive():
+                stuck.append(t.name)
+        self._svc_threads = [t for t in self._svc_threads if t.is_alive()]
+        self.service.close()
+        return stuck

@@ -91,6 +91,8 @@ class TrainMetrics:
         self._serving: Optional[Callable[[], Optional[dict]]] = None
         self._quant: Optional[Callable[[], dict]] = None
         self._recovery: Optional[Callable[[], Optional[dict]]] = None
+        self._replay_service: Optional[Callable[[], Optional[dict]]] = None
+        self._tracing: Optional[Callable[[], Optional[dict]]] = None
         self._costs: Optional[dict] = None
         self._resources: Optional[Callable[[], dict]] = None
         self._sentinel = None
@@ -165,6 +167,19 @@ class TrainMetrics:
         """The crash-recovery block provider (``Learner.recovery_block``;
         a None block is left out of the record)."""
         self._recovery = provider
+
+    def set_replay_service(self, provider: Callable[[], Optional[dict]]
+                           ) -> None:
+        """The replay service's ``replay_service`` block provider (its
+        shards, spill tier, grouped ingest and socket rung; consumes the
+        interval; a None block is left out)."""
+        self._replay_service = provider
+
+    def set_tracing(self, provider: Callable[[], Optional[dict]]) -> None:
+        """The experience trace's ``trace`` block provider
+        (``ExperienceTrace.interval_block``; an interval that traced
+        nothing gives None, left out)."""
+        self._tracing = provider
 
     def set_resources(self, provider: Callable[[], dict]) -> None:
         """The ResourceMonitor's ``block`` (consumes the compile
@@ -335,10 +350,18 @@ class TrainMetrics:
                 record["serving"] = block
         if self._quant is not None:
             record["quant"] = self._quant()
+        if self._replay_service is not None:
+            block = self._replay_service()
+            if block is not None:
+                record["replay_service"] = block
         if self._recovery is not None:
             block = self._recovery()
             if block is not None:
                 record["recovery"] = block
+        if self._tracing is not None:
+            block = self._tracing()
+            if block is not None:
+                record["trace"] = block
         if self._resources is not None:
             record["resources"] = self._resources()
         if self._sentinel is not None:

@@ -348,6 +348,18 @@ class PlayerStack(ActorPool):
                                metrics=self.metrics, mesh=mesh)
         if cfg.runtime.snapshot_interval > 0:
             self.metrics.set_recovery(self.learner.recovery_block)
+        # the replay service's socket rung (remote producers route blocks
+        # in) and the record's replay_service block
+        self.service_server = None
+        if (cfg.fleet.service_transport == "socket"
+                and self.learner.service is not None):
+            from r2d2_tpu_torch.fleet.replay_service import (
+                ReplayServiceServer)
+            self.service_server = ReplayServiceServer(
+                self.learner.service, cfg.fleet.service_host,
+                cfg.fleet.service_port)
+        if cfg.fleet.active and cfg.telemetry.enabled:
+            self.metrics.set_replay_service(self._replay_service_block)
         # the quantized plane: the probe's aggregator, shared by thread
         # actors and the server
         quant_stats = None
@@ -390,6 +402,17 @@ class PlayerStack(ActorPool):
             aot_coverage_fn=lambda: (self.serve_server.aot_coverage()
                                      if self.serve_server is not None
                                      else None))
+
+    def _replay_service_block(self) -> Optional[dict]:
+        """The record's ``replay_service`` block: the service's shards,
+        spill tier and grouped ingest, and the socket rung's interval
+        stats (membership and fan-out are ROADMAP A.6's second part)."""
+        if self.learner.service is None:
+            return None
+        block = self.learner.service.interval_block()
+        if self.service_server is not None:
+            block["socket"] = self.service_server.interval_stats()
+        return block
 
     def _initial_payload(self):
         """The weight service's first publication: the learner's module,
@@ -521,6 +544,8 @@ class PlayerStack(ActorPool):
         the pool's close (actors reaped, segments unlinked); the server
         last, so an actor still in an exchange gets its reply. Set the
         stop event first."""
+        if self.service_server is not None:
+            self.service_server.close()
         self.learner.stop_background()
         if self.snapshots is not None:
             self.snapshots.close()

@@ -24,8 +24,10 @@ and a bound. Four kinds:
 Level-triggered kinds (threshold/drop/growth) fire on the
 inactive->active edge and stay silently active until the condition
 clears; recovery re-arms the rule. Rules whose block a record lacks
-(the fleet, spill, promotion, quality and tower blocks the port does not
-emit yet) stay inactive on it.
+stay inactive on it: the replay service's ``replay_service`` block
+(spill, promotion latency, ingest) and the ``trace`` block exist under
+``fleet.replay_shards`` and ``telemetry.tracing_enabled``; the fan-out,
+membership, promotion, quality and tower blocks are not emitted yet.
 """
 
 import json

@@ -14,6 +14,7 @@ numpy results. ``case["diag"]`` / ``case["rdiag"]`` (the fields of
 ``rd/`` values are then in its record's ``diag``.
 """
 
+import contextlib
 import hashlib
 import time
 import types
@@ -36,7 +37,7 @@ from r2d2_tpu_torch.parallel.sharded import (gather_objects,
                                              sharded_replay_init,
                                              state_digest)
 from r2d2_tpu_torch.parallel.tensor_parallel import (
-    make_tp_external_batch_step, place_train_state)
+    all_gather_features, make_tp_external_batch_step, place_train_state)
 from r2d2_tpu_torch.replay.structs import (DIAG_LEAVES, ReplaySpec,
                                            SampleBatch, stack_blocks)
 from r2d2_tpu_torch.telemetry.learning import LearningDiag
@@ -204,6 +205,26 @@ def rank_steps(mesh: Mesh, case: dict) -> dict:
                        for n, p in ts.params.named_parameters()}}
 
 
+@contextlib.contextmanager
+def pre_clip_gradients(out: list):
+    """While it is open, every train body's step appends its gradients as
+    they reach the clip (after the data- and tensor-parallel reductions),
+    cloned, to ``out``: what clip and Adam start from. The body looks
+    the clip up at each step, so it is wrapped for the duration."""
+    from r2d2_tpu_torch.learner import train_step
+    clip = train_step.clip_by_global_norm_
+
+    def tap(grads, max_norm, sq_norm=None):
+        out.append([g.detach().clone() for g in grads])
+        return clip(grads, max_norm, sq_norm)
+
+    train_step.clip_by_global_norm_ = tap
+    try:
+        yield out
+    finally:
+        train_step.clip_by_global_norm_ = clip
+
+
 def _tp_external_run(mesh: Mesh, case: dict, batches) -> tuple:
     """``rank_tp_external``'s steps over ``batches``: (trace, train
     state)."""
@@ -242,10 +263,11 @@ def rank_tp_external(mesh: Mesh, case: dict) -> dict:
     backward without its all-reduce), a negative control that a parity
     check of the backward must fail; their final full params are
     ``control_params`` (rank 0), their launches not counted.
-    ``case["f32_network"]``: then the same steps again from the same
-    weights with that network config (f32 compute) and no diagnostics:
-    their losses are ``f32_losses`` and their final full params
-    ``f32_params`` (rank 0), their launches not counted."""
+    ``case["f32_grads"]``: then the first step again from the same
+    weights with that network config (f32 compute) and no diagnostics,
+    its gradients taken before the clip (``pre_clip_gradients``) and
+    gathered over the row: ``f32_grads`` (full, by name) and
+    ``f32_grad_loss`` (rank 0), its launches not counted."""
     configure_numerics()
     batches = case.get("batches")
     if batches is None:
@@ -268,14 +290,22 @@ def rank_tp_external(mesh: Mesh, case: dict) -> dict:
         finally:
             tensor_parallel._CopyToMP.backward = saved
         out["control_params"] = control[-1].get("params")
-    if case.get("f32_network"):
+    if case.get("f32_grads"):
         f32_case = {k: v for k, v in case.items()
                     if k not in ("diag", "rdiag")}
-        f32, _ = _tp_external_run(mesh, {**f32_case, "light": True,
-                                         "network": case["f32_network"]},
-                                  batches)
-        out["f32_losses"] = [rec["loss"] for rec in f32]
-        out["f32_params"] = f32[-1].get("params")
+        taps: list = []
+        with pre_clip_gradients(taps):
+            f32, ts32 = _tp_external_run(
+                mesh, {**f32_case, "light": True,
+                       "network": case["f32_grads"]}, batches[:1])
+        dims = ts32.params.shard_dims
+        full = {name: (g if dims[name] is None
+                       else all_gather_features(g, dims[name], mesh))
+                for (name, _), g in zip(ts32.params.named_parameters(),
+                                        taps[0])}
+        if mesh.leader:
+            out["f32_grads"] = {name: _np(g) for name, g in full.items()}
+            out["f32_grad_loss"] = f32[0]["loss"]
     return out
 
 

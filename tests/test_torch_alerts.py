@@ -8,6 +8,7 @@ config's ``alerts_*`` fields carry JAX's defaults and bounds, and
 import json
 
 import numpy as np
+import torch
 import pytest
 
 from r2d2_tpu_torch.config import Config, parse_overrides
@@ -42,8 +43,9 @@ def test_default_rules_match_jax(overrides):
 
 def test_alert_fields_defaults_and_bounds_match_jax():
     """Every ``alerts_*`` field the rules read, with JAX's default; each
-    bound refused with JAX's message; the fleet and replay-tier fields
-    refused naming ROADMAP A.6."""
+    bound refused with JAX's message; the fleet telemetry's fields
+    refused naming ROADMAP A.6 and A.7, the replay tiers' switch taken
+    with JAX's default."""
     from r2d2_tpu.config import Config as JConfig
     ours, theirs = Config(), JConfig()
     assert set(ALERT_FIELDS) == {f for f in theirs.telemetry
@@ -65,9 +67,13 @@ def test_alert_fields_defaults_and_bounds_match_jax():
             ours.replace(**{f"telemetry.{name}": bad})
         with pytest.raises(ValueError, match=name):
             theirs.replace(**{f"telemetry.{name}": bad})
-    for name in ("fleet_enabled", "replay_tiers_enabled"):
-        with pytest.raises(SystemExit, match="A.6"):
+    for name in ("fleet_enabled", "fleet_host_row_max_bytes"):
+        with pytest.raises(SystemExit, match="A.6.*second part"):
             parse_overrides(ours, [f"--telemetry.{name}=true"])
+    assert (ours.telemetry.replay_tiers_enabled
+            == theirs.telemetry.replay_tiers_enabled)
+    assert parse_overrides(ours, ["--telemetry.replay_tiers_enabled=true"]
+                           ).telemetry.replay_tiers_enabled
 
 
 @pytest.mark.parametrize("path, want", [
@@ -182,3 +188,51 @@ def test_cli_serve_writes_alerts_and_the_process_header(tmp_path):
                    for r in records)
         assert all(("alerts" in r) == alerts for r in records)
         assert (d / "serve_alerts.jsonl").exists() == alerts
+
+
+def test_replay_plane_rules_are_live_on_the_services_blocks():
+    """The replay plane's rules read blocks the port now emits: records
+    carrying a port ReplayService's ``replay_service`` block (a one-page
+    tier that thrashes, promotions with the tier stats on, grouped adds
+    with a backlog noted at the drain) and an
+    ExperienceTrace ``trace`` block (the service's lineage lookups, the
+    emit stamps aging after ten records) fire spill_thrash,
+    ingest_backlog, spill_promotion_latency and e2e_latency_growth, the
+    two engines alike; fanout_lag and orphaned_slot find no block."""
+    from r2d2_tpu.config import Config as JConfig
+    from r2d2_tpu.telemetry.alerts import AlertEngine as JEngine
+    from r2d2_tpu.telemetry.alerts import default_rules as j_rules
+    from r2d2_tpu_torch.fleet.replay_service import ReplayService
+    from r2d2_tpu_torch.replay.structs import with_trace
+    from r2d2_tpu_torch.telemetry.tracing import ExperienceTrace, now_ms
+    from tests.test_torch_replay import specs, synthetic_blocks
+    bounds = {"alerts_spill_promotion_ms": 1e-6, "alerts_ingest_backlog": 4,
+              "alerts_window": 4}
+    ours = AlertEngine(default_rules(Config().replace(**{
+        f"telemetry.{k}": v for k, v in bounds.items()}).telemetry))
+    theirs = JEngine(j_rules(JConfig().replace(**{
+        f"telemetry.{k}": v for k, v in bounds.items()}).telemetry))
+    _, spec = specs(num_blocks=2, prio_exponent=1.0)
+    svc = ReplayService(spec, 1, "cpu", spill_blocks=1, promote_per_sample=1,
+                        ingest_batch_blocks=2, tier_stats=True)
+    trace = ExperienceTrace()
+    gen = torch.Generator().manual_seed(0)
+    fired, rules = [], [r for r in default_rules(Config().telemetry)
+                        if r.name in ("fanout_lag", "orphaned_slot")]
+    blocks = synthetic_blocks(spec, 48, seed=3)
+    for i in range(24):
+        age = 50 if i < 10 else 5000
+        svc.add_blocks([with_trace(blk, np.int32(now_ms() - age))
+                        for blk in blocks[2 * i:2 * i + 2]])
+        svc.note_backlog(8 if i % 5 == 4 else 0)
+        batch, shard, _ = svc.sample(gen)
+        trace.on_train(trace.on_sample(
+            svc.trace_lookup(shard, batch.idxes.numpy())))
+        rec = {"t": float(i), "replay_service": svc.interval_block(),
+               "trace": trace.interval_block()}
+        assert all(record_value(rec, r.path) is None for r in rules)
+        a, b = ours.evaluate(dict(rec)), theirs.evaluate(dict(rec))
+        assert a == b
+        fired += [f["rule"] for f in a["fired"]]
+    assert {"spill_thrash", "ingest_backlog", "spill_promotion_latency",
+            "e2e_latency_growth"} <= set(fired), fired

@@ -483,9 +483,9 @@ def test_learning_config_fields_checks_and_gating():
         with pytest.raises(ValueError, match=word):
             cfg.replace(**{f"telemetry.{key}": value})
     for name in ("alerts_enabled", "resources_enabled", "tracing_enabled",
-                 "compile_enabled"):
+                 "compile_enabled", "replay_tiers_enabled"):
         assert parse_overrides(cfg, [f"--telemetry.{name}=1"])
-    for name in ("fleet_enabled", "replay_tiers_enabled"):
+    for name in ("fleet_enabled", "fleet_host_row_max_bytes"):
         with pytest.raises(SystemExit, match="A.6"):
             parse_overrides(cfg, [f"--telemetry.{name}=1"])
 

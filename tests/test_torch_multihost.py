@@ -431,11 +431,16 @@ def test_multihost_config_fields_and_refusals():
             (["--actor.inference=server"], "server.*A.6")):
         with pytest.raises(ValueError, match=match):
             parse_overrides(Config(), args + extra)
-    for arg in ("--fleet.fanout_degree=2", "--fleet.replay_shards=2",
+    for arg in ("--fleet.fanout_degree=2",
                 "--telemetry.fleet_enabled=true",
                 "--multiplayer.player_id=0"):
         with pytest.raises(SystemExit, match="unknown"):
             parse_overrides(Config(), args + [arg])
+    # the replay service is refused under multihost in JAX's words (its
+    # 1x1-mesh check comes before the single-controller one)
+    with pytest.raises(ValueError, match="1x1 mesh only"):
+        parse_overrides(Config(), args + ["--fleet.replay_shards=2",
+                                          "--replay.capacity=100000"])
 
 
 def test_init_distributed_refusals():

@@ -412,8 +412,12 @@ def test_replay_diag_config_fields_and_gating():
         cfg.replace(**{"telemetry.replay_diag_interval": 0})
     assert not parse_overrides(
         cfg, ["--telemetry.alerts_enabled=false"]).telemetry.alerts_enabled
+    # the replay service's tier stats are taken; the fleet plane's
+    # telemetry waits for A.6's second part
+    assert parse_overrides(cfg, ["--telemetry.replay_tiers_enabled=true"]
+                           ).telemetry.replay_tiers_enabled
     with pytest.raises(SystemExit, match="A.6"):
-        parse_overrides(cfg, ["--telemetry.replay_tiers_enabled=true"])
+        parse_overrides(cfg, ["--telemetry.fleet_enabled=true"])
 
 
 # -- the tensor-parallel steps ------------------------------------------------

@@ -285,3 +285,48 @@ def test_dpmp_device_step_matches_jax(tmp_path):
                                        rtol=1e-5)
     assert out[0]["replay_digest"] != out[MP]["replay_digest"]
     assert out[0]["shapes"]["lstm.recurrent_kernel"] == (16, 32)
+
+
+def test_tp_gradients_before_the_clip_equal_the_unsharded_steps(tmp_path):
+    """ROADMAP C.5 on the CPU: the TP host-batch step at dp=1 x mp=2 (two
+    gloo ranks), its f32 gradients taken before the clip and gathered
+    over the row (``rank_tp_external``'s ``f32_grads``), against the
+    unsharded external step's from the same weights on the same batch:
+    each leaf within relative L2 1e-5, the loss at rtol 1e-5."""
+    from r2d2_tpu_torch.config import OptimConfig
+    from r2d2_tpu_torch.learner.train_step import make_external_batch_step
+    from r2d2_tpu_torch.replay.host_replay import HostReplay
+    from r2d2_tpu_torch.replay.structs import batch_fields
+    import types
+    _, spec = specs(num_blocks=10, batch_size=8)
+    host = HostReplay(spec, seed=11)
+    for block in synthetic_blocks(spec, 10, seed=5):
+        host.add(block)
+    fields = {n: np.array(a) for n, a in
+              batch_fields(host.sample()[0]).items()}
+    net = NetworkApply(A, NetworkConfig(use_double=True, **TINY),
+                       spec.frame_stack, spec.frame_height,
+                       spec.frame_width, "cpu")
+    init = {n: p.detach().numpy() for n, p in net.init(3).state_dict()
+            .items()}
+    case = _case(spec, init, batches=[fields],
+                 f32_grads={"use_double": True, **TINY})
+    out = run_ranks(dp_check.rank_tp_external, 1, case, mp=2,
+                    rendezvous_dir=str(tmp_path))
+    got = out[0]["f32_grads"]
+    rank = types.SimpleNamespace(device=torch.device("cpu"), dp_rank=0)
+    _, net, optim, ts = dp_check._network(case, rank)
+    step = make_external_batch_step(net, spec, OptimConfig(**OPTIM), True,
+                                    graphed=False)
+    taps: list = []
+    with dp_check.pre_clip_gradients(taps):
+        ts, m = step(ts, SampleBatch(**{n: torch.from_numpy(a)
+                                        for n, a in fields.items()}))
+    assert len(taps) == 1
+    np.testing.assert_allclose(out[0]["f32_grad_loss"], float(m["loss"]),
+                               rtol=1e-5)
+    for (name, _), g in zip(ts.params.named_parameters(), taps[0]):
+        want = g.double().numpy()
+        rel = (np.linalg.norm(got[name] - want)
+               / max(np.linalg.norm(want), 1e-30))
+        assert rel <= 1e-5, (name, rel)

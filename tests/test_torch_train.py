@@ -103,7 +103,8 @@ def test_port_imports_nothing_of_jax():
         "             'telemetry.histogram', 'ops.quant_kernels',\n"
         "             'replay.snapshot', 'runtime.supervisor',\n"
         "             'runtime.learner_loop', 'runtime.feeder',\n"
-        "             'parallel.multihost', 'tools.mh_check'):\n"
+        "             'parallel.multihost', 'tools.mh_check',\n"
+        "             'fleet.replay_service', 'fleet.service_main'):\n"
         "    assert 'r2d2_tpu_torch.' + name in sys.modules, name\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
